@@ -1,0 +1,21 @@
+"""istvt_tpu_torch — the PyTorch / CUDA port of istvt_tpu for NVIDIA Hopper.
+
+The JAX package `istvt_tpu` is the reference; this package mirrors its
+layout (the counterpart of `istvt_tpu/x/y.py` is `istvt_tpu_torch/x/y.py`)
+and is held against it by the tests. It imports `torch` and never `jax`.
+
+Ported so far: the int8 W8A8 serving forward of ISTVT
+(`ISTVTConfig(use_pallas=True, quantize='int8')`, q8_ff='full',
+q8_attn='ingest', stem_store='f8'):
+
+  core/      ISTVTConfig copy, device selection, TF32 control, dtype cast
+  nn/        the layers the Xception stem and the ST layers use
+  kernels/   the three per-layer int8 kernels, hand-written CUDA for sm_90a
+             (csrc/), each with a plain PyTorch version beside it
+  models/    Xception stem, ISTVT, the `istvt` registry key
+  compat/    JAX params -> port state_dict
+  serve.py   bucketed Predictor; serve_daemon.py the HTTP batch server
+  cli/       `python -m istvt_tpu_torch.cli.serve --int8`
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,74 @@
+// Shared helpers for the int8 serving kernels (q8_rows_gemm.cu, q8_attention.cu).
+//
+// Activations are float32 or bfloat16 (dtype code 0 / 1, see kernels/_lib.py);
+// every kernel computes in float32 and rounds to the activation dtype exactly
+// where the JAX reference (istvt_tpu/kernels/quant.py) casts.
+//
+// Build without --use_fast_math: the row quantization divides (y / rs) and
+// rounds half to even (rintf), as jnp.round does, and expf/tanhf stay the
+// accurate versions.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace istvt {
+
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The value a tensor of dtype T holds after storing v (round to nearest even).
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// jnp.clip(jnp.round(y / rs), -127, 127).astype(int8): true division, half to even.
+__device__ __forceinline__ int8_t quant_code(float y, float rs) {
+  float v = rintf(__fdiv_rn(y, rs));
+  v = fminf(fmaxf(v, -127.0f), 127.0f);
+  return static_cast<int8_t>(static_cast<int>(v));
+}
+
+// Row scale of _quant_rows: max(amax, 1e-6) / 127.
+__device__ __forceinline__ float row_scale(float amax) {
+  return __fdiv_rn(fmaxf(amax, 1e-6f), 127.0f);
+}
+
+// jax.nn.gelu(x, approximate=True): x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3))).
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k = 0.7978845608028654f;
+  float x3 = __fmul_rn(__fmul_rn(x, x), x);
+  float inner = __fmul_rn(k, __fadd_rn(x, __fmul_rn(0.044715f, x3)));
+  float cdf = __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner)));
+  return __fmul_rn(x, cdf);
+}
+
+}  // namespace istvt

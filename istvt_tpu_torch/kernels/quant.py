@@ -1,0 +1,357 @@
+"""Int8 W8A8 serving kernels (counterpart of istvt_tpu/kernels/quant.py).
+
+Scheme (identical to the JAX package, so the ports agree bit for bit on
+the quantization points):
+  * weights - per-OUTPUT-column symmetric int8, scale = max|w[:, j]| / 127
+    (floored at 1e-12), quantized once at load time (quantize_weight);
+  * activations - per-ROW symmetric int8, scale = max(amax, 1e-6) / 127,
+    computed on the fly; values round half to even and clip to +-127;
+  * GEMM - int8 x int8 -> int32, epilogue acc * row_scale * col_scale
+    (+ bias, + residual) in f32.
+
+Three kernels run per ST layer on the serving path
+(istvt_tpu/models/istvt.py:284-318); each has a wrapper here that, for a
+CUDA tensor, launches the hand-written CUDA kernels in csrc/ (built at
+first use, kernels/_lib.py) and, for a CPU tensor, runs the plain PyTorch
+version beside it. There is no fallback from one to the other: a CUDA
+tensor that the kernel cannot take raises.
+
+The plain versions do the int8 x int8 products in float64, which is exact
+(float32 is not: a K=2912 dot of int8 codes can exceed 2**24).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from istvt_tpu_torch.kernels import _lib
+
+_EPS = 1e-5
+
+# Launches of each wrapper's CUDA kernel (the plain path never counts).
+launch_counts: Dict[str, int] = {
+    "ln_qkv_q8_temporal_attention": 0,
+    "mm_q8_ln_qkv_q8_spatial_attention": 0,
+    "matmul_q8_res_ln_ff_q8_full": 0,
+}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain helpers (kernels/linear._ln, kernels/quant.quantize_weight,
+# _quant_rows, _q8_dot, kernels/attention._mh_attention_vmem)
+
+
+def _ln(xf, scale, bias):
+    """f32 LayerNorm, two-pass variance, eps 1e-5 (kernels/linear._ln).
+
+    The two statistics are summed in float64 and rounded to f32, and the
+    reciprocal is 1 / sqrt (both IEEE), so this version and the CUDA kernel
+    (csrc/q8_rows_gemm.cu) get the same f32 values whatever their summation
+    order: a last-ulp difference here would flip int8 codes downstream."""
+    mean = xf.double().mean(dim=-1, keepdim=True).float()
+    xc = xf - mean
+    var = (xc * xc).double().mean(dim=-1, keepdim=True).float()
+    return xc * (1.0 / torch.sqrt(var + _EPS)) * scale + bias
+
+
+def quantize_weight(w):
+    """(D, K) float -> (int8 (D, K), f32 scales (K,)) per output column."""
+    w = w.to(torch.float32).contiguous()
+    scale = w.abs().amax(dim=0) / 127.0
+    scale = scale.clamp_min(1e-12)
+    q = torch.clamp(torch.round(w / scale[None, :]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _quant_rows(yf):
+    """f32 (R, D) -> (int8 (R, D), f32 row scales (R, 1))."""
+    amax = yf.abs().amax(dim=-1, keepdim=True)
+    rs = amax.clamp_min(1e-6) / 127.0
+    q = torch.clamp(torch.round(yf / rs), -127, 127)
+    return q.to(torch.int8), rs
+
+
+def _q8_dot(q, wq):
+    """int8 codes (R, D) x int8 (D, K) -> f32 (R, K) raw accumulator
+    (exact in float64, then rounded to f32 as int32 -> f32 rounds)."""
+    return (q.to(torch.float64) @ wq.to(torch.float64)).to(torch.float32)
+
+
+def _gelu_tanh(x):
+    """jax.nn.gelu(x, approximate=True), term for term."""
+    c = 0.7978845608028654
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
+def _mh_attention(q, k, v, heads: int, scale: float, n_valid: int):
+    """Masked multi-head softmax attention per frame.
+
+    q, k, v: (G, S, H*dh) in the activation dtype -> (G, S, H*dh) in it.
+    f32 scores, additive -1e30 for keys >= n_valid, exact softmax, the
+    probabilities cast to the activation dtype before the PV product
+    (kernels/attention._mh_attention_vmem)."""
+    g, s_len, hd = q.shape
+    dh = hd // heads
+
+    def split(t):
+        return t.reshape(g, s_len, heads, dh).permute(0, 2, 1, 3).float()
+
+    sc = split(q) @ split(k).transpose(-1, -2) * scale      # (G, H, S, S)
+    if n_valid < s_len:
+        cols = torch.arange(s_len, device=q.device)
+        sc = sc + torch.where(cols < n_valid, 0.0, -1e30).to(sc.dtype)
+    e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    pr = e / e.sum(dim=-1, keepdim=True)
+    o = pr.to(q.dtype).float() @ split(v)
+    return o.to(q.dtype).permute(0, 2, 1, 3).reshape(g, s_len, hd)
+
+
+# ---------------------------------------------------------------------------
+# kernel A: LN -> int8 QKV -> self-subtract temporal attention
+
+
+def ln_qkv_q8_temporal_plain(x, s, b, wq, ws, heads: int):
+    """Plain version of kernel A (quant._ln_qkv_q8_temporal_impl):
+    x (B, T1, S, D) -> (B, T1, S, I) in x.dtype."""
+    bsz, t1, s_len, d = x.shape
+    inner = wq.shape[1] // 3
+    dh = inner // heads
+    scale = dh ** -0.5
+    y = _ln(x.reshape(-1, d).float(), s.float(), b.float())
+    q, rs = _quant_rows(y)
+    acc = _q8_dot(q, wq) * rs * ws.float()
+    qkv = acc.reshape(bsz, t1, s_len, 3 * inner).to(x.dtype)
+    qq, kk, vv = qkv.split(inner, dim=-1)
+    # the self-subtract is taken in the activation dtype (quant.py:512-517)
+    qs = torch.cat([qq[:, :2], qq[:, 2:] - qq[:, 1:-1]], dim=1)
+    ks = torch.cat([kk[:, :2], kk[:, 2:] - kk[:, 1:-1]], dim=1)
+
+    def heads_of(t):
+        return t.float().reshape(bsz, t1, s_len, heads, dh)
+
+    lg = torch.einsum("bisnd,bjsnd->bsnij", heads_of(qs), heads_of(ks)) * scale
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    den = e.sum(dim=-1)                                      # (B, S, H, T1)
+    acc_o = torch.einsum("bsnij,bjsnd->bisnd", e, heads_of(vv))
+    out = acc_o / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(bsz, t1, s_len, inner).to(x.dtype)
+
+
+def ln_qkv_q8_temporal_attention(x, s, b, wq, ws, heads: int):
+    """Fused LN -> int8 QKV -> self-subtract temporal attention:
+    x (B, T1, S, D) -> (B, T1, S, I). CPU tensors take the plain version."""
+    if not x.is_cuda:
+        return ln_qkv_q8_temporal_plain(x, s, b, wq, ws, heads)
+    bsz, t1, s_len, d = x.shape
+    i3 = wq.shape[1]
+    inner = i3 // 3
+    _check_act(x, "x")
+    _check_q8(wq, ws, d, i3)
+    if t1 > 8 or inner % heads or inner // heads > 128:
+        raise NotImplementedError(
+            f"temporal kernel takes T1 <= 8 and dim_head <= 128 "
+            f"(got T1={t1}, inner={inner}, heads={heads})")
+    lib, st, dt = _lib.load(), _lib.stream(), _lib.DTYPE_CODE[x.dtype]
+    rows = bsz * t1 * s_len
+    q = torch.empty((rows, d), dtype=torch.int8, device=x.device)
+    rs = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    s32, b32, ws32 = _f32(s), _f32(b), _f32(ws)
+    _lib.check(lib.istvt_ln_quant_rows(x.data_ptr(), dt, s32.data_ptr(),
+                                       b32.data_ptr(), q.data_ptr(),
+                                       rs.data_ptr(), rows, d, st),
+               "ln_quant_rows")
+    qkv = torch.empty((rows, i3), dtype=x.dtype, device=x.device)
+    _gemm(lib, st, q, wq, rs, ws32, None, None, qkv, gelu=False)
+    out = torch.empty((bsz, t1, s_len, inner), dtype=x.dtype, device=x.device)
+    _lib.check(lib.istvt_temporal_attn(qkv.data_ptr(), out.data_ptr(), dt,
+                                       bsz, t1, s_len, heads, inner,
+                                       (inner // heads) ** -0.5, st),
+               "temporal_attn")
+    launch_counts["ln_qkv_q8_temporal_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel B: t-out-proj (W8A8) + bias -> LN -> int8 QKV -> spatial attention
+
+
+def mm_q8_ln_qkv_q8_spatial_plain(a, woq, wos, bo, s, b, wq, ws,
+                                  heads: int, n_valid: int = -1):
+    """Plain version of kernel B (quant._mm_q8_ln_qkv_q8_spatial_impl):
+    a (G, S, I_in) -> (G, S, I) in a.dtype."""
+    g, s_len, d_in = a.shape
+    if n_valid < 0:
+        n_valid = s_len
+    inner = wq.shape[1] // 3
+    qa, rsa = _quant_rows(a.reshape(-1, d_in).float())
+    y = _q8_dot(qa, woq) * rsa * wos.float() + bo.float()   # stays f32
+    hn = _ln(y, s.float(), b.float())
+    qh, rsh = _quant_rows(hn)
+    x = (_q8_dot(qh, wq) * rsh * ws.float()).to(a.dtype)
+    x = x.reshape(g, s_len, 3 * inner)
+    return _mh_attention(x[..., :inner], x[..., inner:2 * inner],
+                         x[..., 2 * inner:], heads, (inner // heads) ** -0.5,
+                         n_valid)
+
+
+def mm_q8_ln_qkv_q8_spatial_attention(a, woq, wos, bo, s, b, wq, ws,
+                                      heads: int, n_valid: int = -1):
+    """Fused t-out-proj (W8A8) -> LN -> int8 QKV -> spatial attention:
+    a (G, S, I_in) -> (G, S, I). CPU tensors take the plain version."""
+    if not a.is_cuda:
+        return mm_q8_ln_qkv_q8_spatial_plain(a, woq, wos, bo, s, b, wq, ws,
+                                             heads, n_valid)
+    g, s_len, d_in = a.shape
+    if n_valid < 0:
+        n_valid = s_len
+    d_mid, i3 = woq.shape[1], wq.shape[1]
+    inner = i3 // 3
+    _check_act(a, "a")
+    _check_q8(woq, wos, d_in, d_mid)
+    _check_q8(wq, ws, d_mid, i3)
+    if s_len > 384 or inner % heads or inner // heads not in (16, 32, 64, 128):
+        raise NotImplementedError(
+            f"spatial kernel takes S <= 384 and dim_head in 16/32/64/128 "
+            f"(got S={s_len}, inner={inner}, heads={heads})")
+    lib, st, dt = _lib.load(), _lib.stream(), _lib.DTYPE_CODE[a.dtype]
+    rows = g * s_len
+    dev = a.device
+    qa = torch.empty((rows, d_in), dtype=torch.int8, device=dev)
+    rsa = torch.empty((rows,), dtype=torch.float32, device=dev)
+    _lib.check(lib.istvt_quant_rows(a.data_ptr(), dt, qa.data_ptr(),
+                                    rsa.data_ptr(), rows, d_in, st),
+               "quant_rows")
+    y = torch.empty((rows, d_mid), dtype=torch.float32, device=dev)
+    _gemm(lib, st, qa, woq, rsa, _f32(wos), _f32(bo), None, y, gelu=False)
+    qh = torch.empty((rows, d_mid), dtype=torch.int8, device=dev)
+    rsh = torch.empty((rows,), dtype=torch.float32, device=dev)
+    s32, b32 = _f32(s), _f32(b)
+    _lib.check(lib.istvt_ln_quant_rows(y.data_ptr(), 0, s32.data_ptr(),
+                                       b32.data_ptr(), qh.data_ptr(),
+                                       rsh.data_ptr(), rows, d_mid, st),
+               "ln_quant_rows")
+    qkv = torch.empty((rows, i3), dtype=a.dtype, device=dev)
+    _gemm(lib, st, qh, wq, rsh, _f32(ws), None, None, qkv, gelu=False)
+    out = torch.empty((g, s_len, inner), dtype=a.dtype, device=dev)
+    _lib.check(lib.istvt_spatial_attn(qkv.data_ptr(), out.data_ptr(), dt, g,
+                                      s_len, heads, inner, n_valid,
+                                      (inner // heads) ** -0.5, st),
+               "spatial_attn")
+    launch_counts["mm_q8_ln_qkv_q8_spatial_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel C: s-out-proj (W8A8) + bias + residual -> PreNorm fully-int8 FF
+
+
+def matmul_q8_res_ln_ff_q8_full_plain(a, r, wqo, wso, bo, s, b, w1q, w1s,
+                                      b1, w2q, w2s, b2):
+    """Plain version of kernel C (quant._mm_q8_res_ln_ff_q8_impl):
+    y = a @ dq(wqo) + bo + r;  y + fc2_q8(gelu_tanh(fc1_q8(LN(y))))."""
+    d = wqo.shape[1]
+    lead = a.shape[:-1]
+    q, rs = _quant_rows(a.reshape(-1, a.shape[-1]).float())
+    y = _q8_dot(q, wqo) * rs * wso.float() + bo.float() \
+        + r.reshape(-1, d).float()
+    h = _ln(y, s.float(), b.float())
+    q1, rs1 = _quant_rows(h)
+    hid = _gelu_tanh(_q8_dot(q1, w1q) * rs1 * w1s.float() + b1.float())
+    q2, rs2 = _quant_rows(hid)
+    o = _q8_dot(q2, w2q) * rs2 * w2s.float() + b2.float()
+    return (o + y).to(a.dtype).reshape(*lead, d)
+
+
+def matmul_q8_res_ln_ff_q8_full(a, r, wqo, wso, bo, s, b, w1q, w1s, b1,
+                                w2q, w2s, b2):
+    """y = a @ dq(wqo) + bo + r;  return y + FF_int8(LN(y)):
+    a (..., N, I_in), r (..., N, D) -> (..., N, D). CPU tensors take the
+    plain version."""
+    if not a.is_cuda:
+        return matmul_q8_res_ln_ff_q8_full_plain(a, r, wqo, wso, bo, s, b,
+                                                 w1q, w1s, b1, w2q, w2s, b2)
+    d_in, d, hdim = a.shape[-1], wqo.shape[1], w1q.shape[1]
+    _check_act(a, "a")
+    _check_act(r, "r")
+    if r.dtype != a.dtype or r.shape[:-1] != a.shape[:-1] or r.shape[-1] != d:
+        raise ValueError(f"residual {tuple(r.shape)} {r.dtype} does not "
+                         f"match a {tuple(a.shape)} {a.dtype}, D={d}")
+    _check_q8(wqo, wso, d_in, d)
+    _check_q8(w1q, w1s, d, hdim)
+    _check_q8(w2q, w2s, hdim, d)
+    lib, st, dt = _lib.load(), _lib.stream(), _lib.DTYPE_CODE[a.dtype]
+    rows = a.numel() // d_in
+    dev = a.device
+    q = torch.empty((rows, d_in), dtype=torch.int8, device=dev)
+    rs = torch.empty((rows,), dtype=torch.float32, device=dev)
+    _lib.check(lib.istvt_quant_rows(a.data_ptr(), dt, q.data_ptr(),
+                                    rs.data_ptr(), rows, d_in, st),
+               "quant_rows")
+    y = torch.empty((rows, d), dtype=torch.float32, device=dev)
+    _gemm(lib, st, q, wqo, rs, _f32(wso), _f32(bo), r, y, gelu=False)
+    q1 = torch.empty((rows, d), dtype=torch.int8, device=dev)
+    rs1 = torch.empty((rows,), dtype=torch.float32, device=dev)
+    s32, b32 = _f32(s), _f32(b)
+    _lib.check(lib.istvt_ln_quant_rows(y.data_ptr(), 0, s32.data_ptr(),
+                                       b32.data_ptr(), q1.data_ptr(),
+                                       rs1.data_ptr(), rows, d, st),
+               "ln_quant_rows")
+    hid = torch.empty((rows, hdim), dtype=torch.float32, device=dev)
+    _gemm(lib, st, q1, w1q, rs1, _f32(w1s), _f32(b1), None, hid, gelu=True)
+    q2 = torch.empty((rows, hdim), dtype=torch.int8, device=dev)
+    rs2 = torch.empty((rows,), dtype=torch.float32, device=dev)
+    _lib.check(lib.istvt_quant_rows(hid.data_ptr(), 0, q2.data_ptr(),
+                                    rs2.data_ptr(), rows, hdim, st),
+               "quant_rows")
+    out = torch.empty(a.shape[:-1] + (d,), dtype=a.dtype, device=dev)
+    _gemm(lib, st, q2, w2q, rs2, _f32(w2s), _f32(b2), y, out, gelu=False)
+    launch_counts["matmul_q8_res_ln_ff_q8_full"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# launch plumbing
+
+
+def _f32(t):
+    return t.to(torch.float32).contiguous()
+
+
+def _check_act(t, name):
+    if t.dtype not in _lib.DTYPE_CODE:
+        raise TypeError(f"{name}: activation dtype {t.dtype} (kernels take "
+                        f"float32 or bfloat16)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernels take contiguous tensors")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def _check_q8(wq, ws, d_in, d_out):
+    if wq.dtype != torch.int8 or tuple(wq.shape) != (d_in, d_out):
+        raise ValueError(f"int8 weight {tuple(wq.shape)} {wq.dtype}, "
+                         f"expected ({d_in}, {d_out}) int8")
+    if tuple(ws.shape) != (d_out,):
+        raise ValueError(f"column scales {tuple(ws.shape)}, expected "
+                         f"({d_out},)")
+    if not wq.is_cuda or not wq.is_contiguous() or d_in % 4 or d_out % 4:
+        raise ValueError("int8 weights must be contiguous CUDA tensors with "
+                         "both dims divisible by 4")
+
+
+def _gemm(lib, st, q, wq, rs, ws32, bias, res, out, gelu: bool):
+    m, k = q.shape
+    n = wq.shape[1]
+    res_dt = _lib.DTYPE_CODE[res.dtype] if res is not None else 0
+    _lib.check(lib.istvt_gemm_q8(q.data_ptr(), wq.data_ptr(), rs.data_ptr(),
+                                 ws32.data_ptr(), _lib.ptr(bias),
+                                 _lib.ptr(res), res_dt, out.data_ptr(),
+                                 _lib.DTYPE_CODE[out.dtype], int(gelu),
+                                 m, n, k, st),
+               "gemm_q8")

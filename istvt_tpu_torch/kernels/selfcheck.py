@@ -1,0 +1,94 @@
+"""Kernel-vs-plain check cases at the serving slice's shapes.
+
+Used by chip_smoke.py (phase 3) and tests/test_torch_kernels_gpu.py: the
+same seeded inputs go through each kernel's wrapper (CUDA) and its plain
+PyTorch version on the card.
+
+SLICE: 2 clips, T+1 = 7 frames, S = 368 tokens (362 valid, pad rows all
+zero), D = 728, I = 512 (8 heads x 64), FF hidden 2912. The weights are
+drawn like the model's own init, U(+-1/sqrt(fan_in)), then quantized.
+
+Kernel and plain version take the same int8 decisions (identical
+LayerNorm statistics, quantization and epilogue order), so in f32 they
+differ only by the attention's summation order, far inside atol = rtol =
+2e-3. That margin matters: one flipped activation code would move its
+row's outputs by up to amax * max|w| / 127, about 1e-3 at these scales.
+"""
+from __future__ import annotations
+
+import torch
+
+from istvt_tpu_torch.kernels import quant
+
+# the serving slice at the paper geometry, and the small geometry of the
+# JAX package's kernel tests (tests/test_quant.py:207; dim_head 16)
+SLICE = dict(b=2, t1=7, s=368, n_valid=362, d=728, inner=512, heads=8,
+             hid=2912)
+SMALL = dict(b=2, t1=4, s=32, n_valid=26, d=128, inner=64, heads=4, hid=256)
+F32_TOL = 2e-3
+
+
+def slice_cases(device, geometry=SLICE, seed: int = 0):
+    """{kernel name: (wrapper, plain, make_args(dtype))}."""
+    g = torch.Generator().manual_seed(seed)
+    b, t1, s, n_valid = (geometry[k] for k in ("b", "t1", "s", "n_valid"))
+    d, inner, heads, hid = (geometry[k] for k in ("d", "inner", "heads",
+                                                   "hid"))
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    def q8(d_in, d_out):
+        bound = d_in ** -0.5
+        w = (torch.rand(d_in, d_out, generator=g) * 2 - 1) * bound
+        wq, ws = quant.quantize_weight(w)
+        return wq.to(device), ws.to(device)
+
+    ln_s, ln_b = rn(d, scale=0.1) + 1.0, rn(d, scale=0.02)
+    bo, b1, b2 = rn(d, scale=0.02), rn(hid, scale=0.02), rn(d, scale=0.02)
+    wqt, wst = q8(d, 3 * inner)
+    woq, wos = q8(inner, d)
+    wqs, wss = q8(d, 3 * inner)
+    w1q, w1s = q8(d, hid)
+    w2q, w2s = q8(hid, d)
+    x = rn(b, t1, s, d)
+    x[:, :, n_valid:] = 0.0                  # pad tokens are all-zero rows
+    a_t = rn(b * t1, s, inner, scale=0.5)
+    a_s = rn(b, t1 * s, inner, scale=0.5)
+
+    def on(dt, *ts):
+        return [t.to(device, dt) for t in ts]
+
+    return {
+        "ln_qkv_q8_temporal_attention": (
+            quant.ln_qkv_q8_temporal_attention, quant.ln_qkv_q8_temporal_plain,
+            lambda dt: [*on(dt, x, ln_s, ln_b), wqt, wst, heads]),
+        "mm_q8_ln_qkv_q8_spatial_attention": (
+            quant.mm_q8_ln_qkv_q8_spatial_attention,
+            quant.mm_q8_ln_qkv_q8_spatial_plain,
+            lambda dt: [*on(dt, a_t), woq, wos, *on(dt, bo, ln_s, ln_b),
+                        wqs, wss, heads, n_valid]),
+        "matmul_q8_res_ln_ff_q8_full": (
+            quant.matmul_q8_res_ln_ff_q8_full,
+            quant.matmul_q8_res_ln_ff_q8_full_plain,
+            lambda dt: [*on(dt, a_s, x.reshape(b, t1 * s, d)), woq, wos,
+                        *on(dt, bo, ln_s, ln_b), w1q, w1s, *on(dt, b1),
+                        w2q, w2s, *on(dt, b2)]),
+    }
+
+
+def f32_close(got, want) -> tuple:
+    """(ok, max|diff|) at atol = rtol = 2e-3."""
+    err = (got - want).abs().max().item()
+    return torch.allclose(got, want, atol=F32_TOL, rtol=F32_TOL), err
+
+
+def bf16_close(got, want, rel_l2: float = 1e-2, max_frac: float = 0.02):
+    """(ok, rel-L2, max|diff|, max|want|): the criterion of
+    tests/test_tpu_smoke._assert_close_bf16 — small relative L2 error AND
+    a max deviation bounded by a fraction of the tensor's scale, since two
+    valid bf16 accumulation orders round a few entries differently."""
+    g, w = got.float(), want.float()
+    rel = ((g - w).norm() / w.norm().clamp_min(1e-9)).item()
+    mx, scale = (g - w).abs().max().item(), w.abs().max().item()
+    return rel < rel_l2 and mx < max_frac * scale, rel, mx, scale

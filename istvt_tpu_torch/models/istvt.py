@@ -1,0 +1,299 @@
+"""ISTVT (counterpart of istvt_tpu/models/istvt.py): Xception stem + DSTTr.
+
+  clips (B, T, H, W, 3) NHWC
+    -> Xception low_level_features per frame -> (B, T, 19, 19, 728)
+    -> tokens: spatial CLS per frame, learned pos-embedding, a temporal-CLS
+       frame -> (B, T+1, 362, 728), padded to S = 368 (n_valid = 362)
+    -> 12 ST layers, each three int8 kernels (kernels/quant.py):
+         a_t = ln_qkv_q8_temporal_attention(x)
+         a_s = mm_q8_ln_qkv_q8_spatial_attention(a_t)
+         x   = matmul_q8_res_ln_ff_q8_full(a_s, x)
+    -> LayerNorm, mlp_head (LayerNorm + Linear) on the (temporal-CLS,
+       spatial-CLS) token -> logits.
+
+Ported: the int8 W8A8 serving forward (`ISTVTConfig(use_pallas=True,
+quantize='int8')`, q8_ff='full', q8_attn='ingest'; stem_store 'f8' or
+'bf16'). Every other configuration raises NotImplementedError naming its
+ROADMAP.md item; none falls back silently.
+
+Module and state_dict names are the reference's (network/vivit/vivit.py,
+module.py), so `istvt_tpu.compat.torch_import.istvt_from_torch` loads a
+port state_dict; the int8 copies are extra buffers (`qkv_wq`, ...) that
+`quantize_params` attaches.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from istvt_tpu_torch.core.config import ISTVTConfig
+from istvt_tpu_torch.kernels import quant
+from istvt_tpu_torch.models import xception
+from istvt_tpu_torch.nn.layers import layernorm, linear
+
+_ROADMAP = "ROADMAP.md queue 1"
+
+
+class _Q8Buffers(nn.Module):
+    """Optional int8 serving copies held as buffers (None until
+    quantize_params or a state_dict that carries them fills them)."""
+
+    q8_names: tuple = ()
+
+    def _register_q8(self):
+        for n in self.q8_names:
+            self.register_buffer(n, None)
+
+    def has_q8(self) -> bool:
+        return all(getattr(self, n) is not None for n in self.q8_names)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        dev = next(self.parameters()).device
+        for n in self.q8_names:
+            v = state_dict.get(prefix + n)
+            if v is not None and getattr(self, n) is None:
+                setattr(self, n, torch.empty_like(v, device=dev))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class TemporalAttention(_Q8Buffers):
+    """Self-subtract temporal attention (reference module.py:174-208)."""
+
+    q8_names = ("qkv_wq", "qkv_ws", "out_wq", "out_ws")
+
+    def __init__(self, dim, inner, device=None):
+        super().__init__()
+        self.to_qk = nn.Linear(dim, inner * 2, bias=False, device=device)
+        self.to_v = nn.Linear(dim, inner, bias=False, device=device)
+        self.to_out = nn.Sequential(nn.Linear(inner, dim, device=device),
+                                    nn.Dropout(0.0))
+        self._register_q8()
+
+
+class SpatialAttention(_Q8Buffers):
+    """Per-frame spatial attention (reference module.py:66-93)."""
+
+    q8_names = ("qkv_wq", "qkv_ws", "out_wq", "out_ws")
+
+    def __init__(self, dim, inner, device=None):
+        super().__init__()
+        self.to_qkv = nn.Linear(dim, inner * 3, bias=False, device=device)
+        self.to_out = nn.Sequential(nn.Linear(inner, dim, device=device),
+                                    nn.Dropout(0.0))
+        self._register_q8()
+
+
+class FeedForward(_Q8Buffers):
+    """GELU MLP dim -> hidden -> dim (reference module.py:23-34)."""
+
+    q8_names = ("w1q", "w1s", "w2q", "w2s")
+
+    def __init__(self, dim, hidden, device=None):
+        super().__init__()
+        self.net = nn.Sequential(nn.Linear(dim, hidden, device=device),
+                                 nn.GELU(), nn.Dropout(0.0),
+                                 nn.Linear(hidden, dim, device=device),
+                                 nn.Dropout(0.0))
+        self._register_q8()
+
+
+class PreNorm(nn.Module):
+    def __init__(self, dim, fn, device=None):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, device=device)
+        self.fn = fn
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ISTVTConfig, device=None):
+        super().__init__()
+        d, inner = cfg.dim, cfg.inner_dim
+        self.layers = nn.ModuleList([
+            nn.ModuleList([
+                PreNorm(d, TemporalAttention(d, inner, device), device),
+                PreNorm(d, SpatialAttention(d, inner, device), device),
+                PreNorm(d, FeedForward(d, d * cfg.mlp_ratio, device), device),
+            ]) for _ in range(cfg.depth)])
+        self.norm = nn.LayerNorm(d, device=device)
+
+
+class DSTTr(nn.Module):
+    """Decomposed spatial-temporal transformer (reference vivit.py:103-148)."""
+
+    def __init__(self, cfg: ISTVTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, n1 = cfg.dim, cfg.tokens_per_frame
+        self.pos_embedding = nn.Parameter(
+            torch.empty(1, cfg.num_frames, n1, d, device=device))
+        self.space_token = nn.Parameter(torch.empty(1, 1, d, device=device))
+        self.temporal_token = nn.Parameter(torch.empty(1, 1, d, device=device))
+        self.transformer = Transformer(cfg, device)
+        self.mlp_head = nn.Sequential(
+            nn.LayerNorm(d, device=device),
+            nn.Linear(d, cfg.num_classes, device=device))
+
+    def tokens(self, feats):
+        """(B, T, h, w, D) -> stream (B, (T+1) * S, D), S, n_valid.
+
+        S is the token count per frame padded to a multiple of 8; the pad
+        tokens are zeros, masked out of the spatial-attention keys and
+        isolated everywhere else (per-token LN/FF, per-location temporal
+        attention), as models/istvt.py:220-254 pads for its kernels."""
+        b, t, hh, ww, d = feats.shape
+        s = hh * ww + 1
+        x = feats.reshape(b, t, hh * ww, d)
+        cls_space = self.space_token.to(x.dtype).expand(b, t, 1, d)
+        x = torch.cat([cls_space, x], dim=2)
+        x = x + self.pos_embedding[:, :t, :s].to(x.dtype)
+        cls_t = self.temporal_token.to(x.dtype)[:, :, None, :]
+        x = torch.cat([cls_t.expand(b, 1, s, d), x], dim=1)
+        pad = (-s) % 8
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+        return x.reshape(b, (t + 1) * (s + pad), d), s + pad, s
+
+    def run_layer(self, layer, x, s: int, n_valid: int):
+        """One int8 ST layer: x = attn_s(attn_t(x)) + x; x = ff(x) + x."""
+        pt, ps, pf = layer
+        at, asp, ff = pt.fn, ps.fn, pf.fn
+        bq, nq, d = x.shape
+        t1 = nq // s
+        inner = at.qkv_wq.shape[1] // 3
+        a_t = quant.ln_qkv_q8_temporal_attention(
+            x.reshape(bq, t1, s, d), pt.norm.weight, pt.norm.bias,
+            at.qkv_wq, at.qkv_ws, self.cfg.heads)
+        a_s = quant.mm_q8_ln_qkv_q8_spatial_attention(
+            a_t.reshape(bq * t1, s, inner), at.out_wq, at.out_ws,
+            at.to_out[0].bias, ps.norm.weight, ps.norm.bias,
+            asp.qkv_wq, asp.qkv_ws, self.cfg.heads, n_valid)
+        return quant.matmul_q8_res_ln_ff_q8_full(
+            a_s.reshape(bq, nq, inner), x, asp.out_wq, asp.out_ws,
+            asp.to_out[0].bias, pf.norm.weight, pf.norm.bias,
+            ff.w1q, ff.w1s, ff.net[0].bias, ff.w2q, ff.w2s, ff.net[3].bias)
+
+    def head(self, x):
+        """Stream -> logits from the (temporal-CLS, spatial-CLS) token; LN is
+        per token, so normalising that token alone equals the reference's
+        LN over the whole stream."""
+        tr, (hn, fc) = self.transformer, self.mlp_head
+        cls = layernorm(x[:, 0], tr.norm.weight, tr.norm.bias)
+        return linear(layernorm(cls, hn.weight, hn.bias), fc.weight, fc.bias)
+
+    def forward(self, feats):
+        x, s, n_valid = self.tokens(feats)
+        for layer in self.transformer.layers:
+            x = self.run_layer(layer, x, s, n_valid)
+        return self.head(x)
+
+
+class ISTVT(nn.Module):
+    """XceptionVidTr (reference vivit.py:193-208), int8 serving forward."""
+
+    name = "istvt"
+
+    def __init__(self, cfg: ISTVTConfig = ISTVTConfig(), device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.xcep = xception.TransferModel(device=device)
+        self.vit = DSTTr(cfg, device=device)
+
+    def _check_path(self):
+        cfg = self.cfg
+        if self.training:
+            raise NotImplementedError(f"training is not ported yet "
+                                      f"({_ROADMAP}, 'Training')")
+        if not cfg.use_pallas:
+            raise NotImplementedError(
+                f"use_pallas=False (XLA-math forward) is not ported yet "
+                f"({_ROADMAP}, 'Float XLA-math forward')")
+        if cfg.quantize != "int8":
+            raise NotImplementedError(
+                f"the float fused forward is not ported yet "
+                f"({_ROADMAP}, 'Float fused forward')")
+        if cfg.q8_ff != "full" or cfg.q8_attn != "ingest":
+            raise NotImplementedError(
+                f"q8_ff={cfg.q8_ff!r} / q8_attn={cfg.q8_attn!r}: only "
+                f"'full' / 'ingest' is ported ({_ROADMAP}, "
+                f"'Int8 A/B modes')")
+        if cfg.stem_store not in ("f8", "bf16"):
+            raise ValueError(f"stem_store={cfg.stem_store!r}")
+        layer = self.vit.transformer.layers[0]
+        if not all(m.fn.has_q8() for m in layer):
+            raise RuntimeError("cfg.quantize='int8' but the model carries no "
+                               "int8 weights: run quantize_params(model)")
+
+    def forward(self, clips, return_attn: bool = False, attn_bias=None):
+        """clips (B, T, H, W, 3) NHWC -> logits (B, num_classes)."""
+        if return_attn or attn_bias is not None:
+            raise NotImplementedError(
+                f"attention maps / attn_bias are not ported yet "
+                f"({_ROADMAP}, 'Attention-map path')")
+        self._check_path()
+        return self.vit(self.features(clips))
+
+    def features(self, clips):
+        """Per-frame stem: (B, T, H, W, 3) -> (B, T, h, w, 728)."""
+        b, t, hh, ww, c = clips.shape
+        # int8 serving stores inter-conv stem tensors as f8 e4m3
+        # (models/istvt.py:549-557)
+        store = (torch.float8_e4m3fn if self.cfg.quantize == "int8"
+                 and self.cfg.stem_store == "f8" else None)
+        feats = self.xcep.model.low_level_features(
+            clips.reshape(b * t, hh, ww, c), store_dtype=store)
+        fh, fw = feats.shape[1], feats.shape[2]
+        return feats.reshape(b, t, fh, fw, feats.shape[-1])
+
+
+@torch.no_grad()
+def init(cfg: ISTVTConfig, generator: torch.Generator,
+         device=None) -> ISTVT:
+    """A randomly initialised ISTVT with the JAX package's distributions
+    (models/istvt.dsttr_init, models/xception.init): Linear/Conv
+    U(+-1/sqrt(fan_in)), LayerNorm/BN identity, tokens and pos-embedding
+    N(0, 1). Draws from `generator` on the CPU, then moves to `device`."""
+    model = ISTVT(cfg, device="meta").to_empty(device="cpu")
+    xception.init_(model, generator)
+    for m in model.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    for p in (model.vit.pos_embedding, model.vit.space_token,
+              model.vit.temporal_token):
+        p.normal_(generator=generator)
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def quantize_params(model: ISTVT) -> ISTVT:
+    """Attach the int8 serving weights in place (models/istvt.quantize_params):
+    per-output-column int8 copies of every ST layer's projection and FF
+    weights, in the JAX (in, out) layout; the temporal q|k and v weights
+    are packed into one (D, 3I) matrix. Float weights stay."""
+    for pt, ps, pf in model.vit.transformer.layers:
+        at, asp, ff = pt.fn, ps.fn, pf.fn
+        packed = torch.cat([at.to_qk.weight.t(), at.to_v.weight.t()], dim=1)
+        at.qkv_wq, at.qkv_ws = quant.quantize_weight(packed)
+        at.out_wq, at.out_ws = quant.quantize_weight(at.to_out[0].weight.t())
+        asp.qkv_wq, asp.qkv_ws = quant.quantize_weight(asp.to_qkv.weight.t())
+        asp.out_wq, asp.out_ws = quant.quantize_weight(
+            asp.to_out[0].weight.t())
+        ff.w1q, ff.w1s = quant.quantize_weight(ff.net[0].weight.t())
+        ff.w2q, ff.w2s = quant.quantize_weight(ff.net[3].weight.t())
+    return model
+
+
+# feature-grid side per input size (models/istvt._FEAT_HW); other sizes
+# run a shape-only pass through the stem on the meta device
+_FEAT_HW = {300: 19, 299: 19, 256: 16, 224: 14, 75: 5, 72: 5, 56: 4, 48: 3}
+
+
+def infer_feat_hw(image_size: int) -> int:
+    hw = _FEAT_HW.get(image_size)
+    if hw is None:
+        stem = xception.Xception(xception.XceptionConfig(num_classes=2),
+                                 device="meta").eval()
+        x = torch.empty(1, image_size, image_size, 3, device="meta")
+        hw = _FEAT_HW[image_size] = int(stem.low_level_features(x).shape[1])
+    return hw

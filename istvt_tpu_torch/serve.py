@@ -1,0 +1,67 @@
+"""Serving: a bucketed batch predictor (counterpart of istvt_tpu/serve.py).
+
+`Predictor` wraps a port model (an nn.Module mapping clips to logits):
+  * fixed bucket sizes, so the card sees a few batch shapes only;
+  * partial batches padded with zeros and the pad sliced off;
+  * probability outputs (sigmoid over the BCE logit) and threshold-at-0
+    `preds` (reference train_CNN.py:527);
+  * `input_dtype` casts ONLY the inputs: int8 serving keeps the deployed
+    dtypes of the weights (bf16 floats, int8 q8 copies, f32 scales).
+Every forward runs under torch.inference_mode on the given device.
+The JAX package's data-parallel mesh mode is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+class Predictor:
+    def __init__(self, model, device: torch.device,
+                 batch_sizes: Sequence[int] = (1, 8, 16),
+                 input_dtype: Optional[torch.dtype] = None):
+        self.model = model
+        self.device = torch.device(device)
+        self.batch_sizes = sorted(batch_sizes)
+        self.input_dtype = input_dtype
+        self.n_forwards = 0   # model calls made by predict()
+
+    def _forward(self, x: np.ndarray) -> np.ndarray:
+        t = torch.from_numpy(x).to(self.device)
+        if self.input_dtype is not None:
+            t = t.to(self.input_dtype)
+        with torch.inference_mode():
+            logits = self.model(t)
+        self.n_forwards += 1
+        return logits.reshape(x.shape[0], -1)[:, 0].float().cpu().numpy()
+
+    def _bucket(self, n: int) -> int:
+        for b in self.batch_sizes:
+            if n <= b:
+                return b
+        return self.batch_sizes[-1]
+
+    def predict(self, clips: np.ndarray) -> Dict[str, np.ndarray]:
+        """clips: (N, ...) normalized inputs -> {'logits', 'probs',
+        'preds'} of length N, batched over the bucket sizes."""
+        n = clips.shape[0]
+        logits: List[np.ndarray] = []
+        i = 0
+        while i < n:
+            take = min(self._bucket(n - i), n - i)
+            bucket = self._bucket(take)
+            chunk = np.ascontiguousarray(clips[i:i + take])
+            if take < bucket:
+                pad = np.zeros((bucket - take,) + chunk.shape[1:],
+                               chunk.dtype)
+                chunk = np.concatenate([chunk, pad])
+            logits.append(self._forward(chunk)[:take])
+            i += take
+        logits = np.concatenate(logits)
+        return {
+            "logits": logits,
+            "probs": 1.0 / (1.0 + np.exp(-logits)),
+            "preds": (logits > 0).astype(np.int32),
+        }

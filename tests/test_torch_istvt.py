@@ -1,0 +1,241 @@
+"""The port's int8 ISTVT serving slice vs the JAX package at toy geometry.
+
+One set of weights runs through both packages: JAX `istvt.init` +
+`quantize_params`, carried into the port by `compat.from_jax`. The JAX side
+runs `istvt.apply(cfg(use_pallas=True, quantize='int8'))` with its Pallas
+kernels in interpret mode under HIGHEST precision; the port runs its plain
+kernel versions in f32 on the CPU with TF32 off.
+
+Every kernel of every layer, fed JAX's own input to that kernel, agrees
+with JAX to rel-L2 <= 1e-3, and so does the stream after every layer
+(measured 4e-8 to 1.3e-7, and 1.2e-5 for layer 1's last kernel, where one
+int8 code flips inside it).
+
+Run free from the clips, the two chains drift further apart, so there the
+stream after every layer is held at rel-L2 <= 1e-2 beside the logits
+(atol = rtol = 1e-2; random-init logits are nearly constant across clips,
+which is why the stream is checked too). The chain rounds to f8 between
+the stem's convs and to int8 at every kernel boundary, so an ulp-level
+difference (a conv or softmax summation order) that lands on a rounding
+boundary flips one code, and the next attention spreads it over the whole
+frame: one flipped code at the input of layer 0's second kernel moves the
+stream after layer 0 by 9.6e-4, and the stems differ in 967 of 72800 f8
+features (rel-L2 9.6e-3). Measured at this geometry: 2.6e-3 and 4.6e-3
+after layers 0 and 1 for these clips; 1e-5 for clips where no code flips.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from istvt_tpu.compat.torch_import import istvt_from_torch
+from istvt_tpu.core import precision as jprecision
+from istvt_tpu.core.config import ISTVTConfig as JaxConfig
+from istvt_tpu.core.tree import flatten_with_paths
+from istvt_tpu.kernels import quant as jq
+from istvt_tpu.models import istvt as jistvt
+from istvt_tpu.models import xception as jxception
+from istvt_tpu.nn.layers import layernorm, linear
+from istvt_tpu_torch.compat.from_jax import params_from_jax
+from istvt_tpu_torch.core import precision as tprecision
+from istvt_tpu_torch.core.config import ISTVTConfig
+from istvt_tpu_torch.kernels import quant as tq
+from istvt_tpu_torch.models import istvt as tistvt
+
+TINY = dict(num_frames=2, image_size=72, feat_hw=5, depth=2, num_classes=1,
+            use_pallas=True, quantize="int8")
+TINY_HEADS = ISTVTConfig(**TINY).heads
+
+
+@pytest.fixture(scope="module")
+def weights():
+    params, state = jistvt.init(jax.random.PRNGKey(0), JaxConfig(**TINY))
+    qparams = jistvt.quantize_params(params)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    return to_np(params), to_np(qparams), to_np(state)
+
+
+def _port(params, state) -> tistvt.ISTVT:
+    model = tistvt.init(ISTVTConfig(**TINY), torch.Generator().manual_seed(0))
+    model.load_state_dict(params_from_jax(params, state))
+    return model
+
+
+def test_params_from_jax_and_quantize_params_bitwise(weights):
+    params, qparams, state = weights
+    loaded = _port(qparams, state)            # strict load, q8 included
+    requant = tistvt.quantize_params(_port(params, state))
+    for i, (pt, ps, pf) in enumerate(requant.vit.transformer.layers):
+        jl = qparams["vit"]["layers"][i]
+        lt, ls, lf = loaded.vit.transformer.layers[i]
+        for mod, lmod, key in ((pt.fn, lt.fn, "attn_t"), (ps.fn, ls.fn, "attn_s"),
+                               (pf.fn, lf.fn, "ff")):
+            for name, leaf in jl[key]["q8"].items():
+                mine = getattr(mod, name)
+                assert mine.dtype == torch.from_numpy(np.array(leaf)).dtype
+                np.testing.assert_array_equal(mine.numpy(), leaf, err_msg=name)
+                np.testing.assert_array_equal(getattr(lmod, name).numpy(), leaf)
+
+
+def test_port_state_dict_loads_back_into_jax(weights):
+    """The port's state_dict uses the reference torch names: the JAX
+    package's own converter reads it back to the same float leaves."""
+    params, _, state = weights
+    model = _port(params, state)
+    back_p, back_s = istvt_from_torch(model.state_dict(), depth=TINY["depth"])
+    for tree, back in ((params, back_p), (state, back_s)):
+        want, got = flatten_with_paths(tree), flatten_with_paths(back)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]), want[k],
+                                          err_msg=k)
+
+
+def _jax_streams(qparams, state, clips, cfg):
+    """JAX int8 chain layer by layer (the calls of models/istvt.py:201-254,
+    :284-318, :478-482): per layer the input x and the outputs a_t, a_s
+    and x of its three kernels, then the logits."""
+    vp = qparams["vit"]
+    b, t = clips.shape[:2]
+    x = clips.reshape(b * t, *clips.shape[2:])
+    feats, _ = jxception.low_level_features(
+        qparams["xcep"], state["xcep"], x, False, use_pallas=True,
+        store_dtype=jnp.float8_e4m3fn)
+    fh, d = feats.shape[1], feats.shape[-1]
+    x = feats.reshape(b, t, fh * fh, d)
+    s = fh * fh + 1
+    cls = jnp.broadcast_to(vp["space_token"].astype(x.dtype), (b, t, 1, d))
+    x = jnp.concatenate([cls, x], axis=2) + vp["pos_embedding"][:, :t, :s]
+    ct = jnp.broadcast_to(vp["temporal_token"][:, :, None, :], (b, 1, s, d))
+    x = jnp.concatenate([ct, x], axis=1)
+    s_valid, s = s, s + (-s) % 8
+    x = jnp.pad(x, ((0, 0), (0, 0), (0, s - s_valid), (0, 0)))
+    x = x.reshape(b, (t + 1) * s, d)
+    per_layer = []
+    for layer in vp["layers"]:
+        x_in = x
+        at, asp, pf = layer["attn_t"], layer["attn_s"], layer["ff"]
+        q_t, q_s, q_f = at["q8"], asp["q8"], pf["q8"]
+        inner = q_t["qkv_wq"].shape[1] // 3
+        a_t = jq.ln_qkv_q8_temporal_attention(
+            x.reshape(b, t + 1, s, d), at["norm"]["scale"],
+            at["norm"]["bias"], q_t["qkv_wq"], q_t["qkv_ws"], cfg.heads)
+        a_s = jq.mm_q8_ln_qkv_q8_spatial_attention(
+            a_t.reshape(b * (t + 1), s, inner), q_t["out_wq"],
+            q_t["out_ws"], at["to_out"]["b"], asp["norm"]["scale"],
+            asp["norm"]["bias"], q_s["qkv_wq"], q_s["qkv_ws"], cfg.heads,
+            s_valid)
+        x = jq.matmul_q8_res_ln_ff_q8_full(
+            a_s.reshape(b, (t + 1) * s, inner), x, q_s["out_wq"],
+            q_s["out_ws"], asp["to_out"]["b"], pf["norm"]["scale"],
+            pf["norm"]["bias"], q_f["w1q"], q_f["w1s"], pf["fc1"]["b"],
+            q_f["w2q"], q_f["w2s"], pf["fc2"]["b"])
+        per_layer.append(tuple(np.asarray(v) for v in (x_in, a_t, a_s, x)))
+    cls = layernorm(vp["norm"], x).reshape(b, t + 1, s, d)[:, 0, 0]
+    logits = linear(vp["mlp_head"]["fc"], layernorm(vp["mlp_head"]["norm"],
+                                                    cls))
+    return per_layer, np.asarray(logits)
+
+
+def _rel_l2(got, want):
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@pytest.fixture(scope="module")
+def jax_run(weights):
+    """clips, JAX's per-layer kernel inputs/outputs, istvt.apply's logits."""
+    _, qparams, state = weights
+    cfg = JaxConfig(**TINY)
+    clips = np.random.RandomState(3).randn(2, 2, 72, 72, 3).astype(np.float32)
+    with jprecision.highest():
+        want_logits, _ = jistvt.apply(qparams, state, jnp.asarray(clips), cfg)
+        per_layer, chain_logits = _jax_streams(qparams, state,
+                                               jnp.asarray(clips), cfg)
+    want_logits = np.asarray(want_logits)
+    np.testing.assert_allclose(chain_logits, want_logits, atol=1e-6)
+    return clips, per_layer, want_logits
+
+
+def test_int8_kernels_match_jax_on_the_models_own_activations(weights,
+                                                              jax_run):
+    """Every kernel of every layer, fed JAX's own input to that kernel: its
+    output, and so the stream after every layer, within rel-L2 1e-3."""
+    _, qparams, state = weights
+    _, per_layer, _ = jax_run
+    model = _port(qparams, state)
+    heads, n_valid = TINY_HEADS, 26
+    tq.reset_launch_counts()
+    with tprecision.highest(), torch.inference_mode():
+        for i, (pt, ps, pf) in enumerate(model.vit.transformer.layers):
+            at, asp, ff = pt.fn, ps.fn, pf.fn
+            x, a_t, a_s, want = (torch.tensor(v) for v in per_layer[i])
+            b, nq, d = x.shape
+            got = {
+                "a_t": tq.ln_qkv_q8_temporal_attention(
+                    x.reshape(a_t.shape[:3] + (d,)), pt.norm.weight,
+                    pt.norm.bias, at.qkv_wq, at.qkv_ws, heads),
+                "a_s": tq.mm_q8_ln_qkv_q8_spatial_attention(
+                    a_t.reshape(a_s.shape[0], -1, a_t.shape[-1]), at.out_wq,
+                    at.out_ws, at.to_out[0].bias, ps.norm.weight,
+                    ps.norm.bias, asp.qkv_wq, asp.qkv_ws, heads, n_valid),
+                "x": tq.matmul_q8_res_ln_ff_q8_full(
+                    a_s.reshape(b, nq, -1), x, asp.out_wq, asp.out_ws,
+                    asp.to_out[0].bias, pf.norm.weight, pf.norm.bias, ff.w1q,
+                    ff.w1s, ff.net[0].bias, ff.w2q, ff.w2s, ff.net[3].bias),
+            }
+            for name, ref in (("a_t", a_t), ("a_s", a_s), ("x", want)):
+                rel = _rel_l2(got[name].reshape(ref.shape).numpy(),
+                              ref.numpy())
+                assert rel <= 1e-3, (i, name, rel)
+    assert all(v == 0 for v in tq.launch_counts.values())
+
+
+def test_int8_slice_matches_jax_per_layer_and_logits(weights, jax_run):
+    _, qparams, state = weights
+    clips, per_layer, want_logits = jax_run
+    want_streams = [v[-1] for v in per_layer]
+    model = _port(qparams, state)
+    tq.reset_launch_counts()
+    with tprecision.highest(), torch.inference_mode():
+        ct = torch.from_numpy(clips)
+        x, s, n_valid = model.vit.tokens(model.features(ct))
+        assert (s, n_valid) == (32, 26)
+        streams = []
+        for layer in model.vit.transformer.layers:
+            x = model.vit.run_layer(layer, x, s, n_valid)
+            streams.append(x.numpy())
+        logits = model.vit.head(x).numpy()
+        np.testing.assert_array_equal(model(ct).numpy(), logits)
+    assert all(v == 0 for v in tq.launch_counts.values())
+    for i, (got, want) in enumerate(zip(streams, want_streams)):
+        rel = _rel_l2(got, want)
+        assert rel <= 1e-2, (i, rel)
+    assert np.isfinite(logits).all() and logits.shape == (2, 1)
+    np.testing.assert_allclose(logits, want_logits, atol=1e-2, rtol=1e-2)
+
+
+def test_unported_paths_raise(weights):
+    params, qparams, state = weights
+    model = _port(qparams, state)
+    clips = torch.zeros(1, 2, 72, 72, 3)
+    for kw in (dict(use_pallas=False), dict(quantize="none"),
+               dict(q8_attn="boundary"), dict(q8_ff="mixed")):
+        model.cfg = ISTVTConfig(**{**TINY, **kw})
+        with pytest.raises(NotImplementedError):
+            model(clips)
+    model.cfg = ISTVTConfig(**TINY)
+    with pytest.raises(NotImplementedError):
+        model(clips, return_attn=True)
+    with pytest.raises(NotImplementedError):
+        model.train()(clips)
+    with pytest.raises(RuntimeError, match="quantize_params"):
+        _port(params, state)(clips)
+
+
+def test_infer_feat_hw_matches_table():
+    assert tistvt.infer_feat_hw(300) == 19
+    tistvt._FEAT_HW.pop(75, None)
+    assert tistvt.infer_feat_hw(75) == jistvt.infer_feat_hw(75) == 5
+    assert tistvt.infer_feat_hw(100) == 6
