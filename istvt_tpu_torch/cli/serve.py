@@ -1,10 +1,11 @@
-"""Serving daemon CLI — `python -m istvt_tpu_torch.cli.serve --int8`
+"""Serving daemon CLI — `python -m istvt_tpu_torch.cli.serve --bf16`
 (counterpart of istvt_tpu/cli/serve.py, same flag spellings).
 
 Stands up the HTTP batch-scoring daemon (serve_daemon.ServeDaemon) on the
-port's int8 ISTVT on the GPU. Ported: the random-init int8 serving path.
-Not yet ported (each exits with a message): the float serving path,
-checkpoint restore and AOT artifacts.
+port's ISTVT on the GPU, with random-init weights: the int8 W8A8 serving
+path with --int8, else the float fused path (bf16 with --bf16, f32
+otherwise). Not yet ported (each exits with a message): checkpoint
+restore and AOT artifacts.
 """
 from __future__ import annotations
 
@@ -41,8 +42,10 @@ def build_parser():
 
 
 def build_predictor(args, device=None):
-    """Model + bf16 cast + quantize_params + Predictor on `device` (the GPU
-    when None; there is no CPU fallback)."""
+    """Model + Predictor on `device` (the GPU when None; there is no CPU
+    fallback): with --int8, bf16 parameters + quantize_params and bf16
+    inputs; else the float fused model in bf16 (--bf16) or f32, its
+    weights packed (pack_params) after the cast."""
     import torch
 
     from istvt_tpu_torch.core import tree
@@ -55,21 +58,25 @@ def build_predictor(args, device=None):
     if args.artifact or args.checkpoint_dir:
         raise SystemExit("--artifact / --checkpoint_dir: not ported yet "
                          "(ROADMAP.md queue 1, 'Serving extras')")
-    if not args.int8:
-        raise SystemExit("float serving path not ported yet: run with "
-                         "--int8 (ROADMAP.md queue 1, 'Float fused forward')")
     device = require_cuda() if device is None else torch.device(device)
     cfg = ISTVTConfig(num_frames=args.seq_len, image_size=args.input_size,
                       feat_hw=istvt.infer_feat_hw(args.input_size),
-                      depth=args.depth, use_pallas=True, quantize="int8")
+                      depth=args.depth, use_pallas=True,
+                      quantize="int8" if args.int8 else "none")
     model = model_selection(args.model_name, num_out_classes=1, cfg=cfg,
                             device=device)
-    tree.cast(model, torch.bfloat16)
-    istvt.quantize_params(model)
     buckets = args.buckets or sorted({1, max(args.max_batch // 2, 1),
                                       args.max_batch})
-    return Predictor(model, device, batch_sizes=buckets,
-                     input_dtype=torch.bfloat16)
+    if args.int8:
+        tree.cast(model, torch.bfloat16)
+        istvt.quantize_params(model)
+        return Predictor(model, device, batch_sizes=buckets,
+                         input_dtype=torch.bfloat16)
+    dtype = torch.bfloat16 if args.bf16 else None
+    if dtype is not None:
+        tree.cast(model, dtype)
+    istvt.pack_params(model)
+    return Predictor(model, device, batch_sizes=buckets, compute_dtype=dtype)
 
 
 def main(argv=None):

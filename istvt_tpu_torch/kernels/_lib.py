@@ -14,20 +14,46 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-LIB_PATH = BUILD_DIR / "libistvt_q8.so"
+LIB_PATH = BUILD_DIR / "libistvt_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# Launches of each wrapper's CUDA kernels, by wrapper name (and variant);
+# the wrapper adds one where it launches and nowhere else (the plain path
+# never counts).
+LAUNCHES: Dict[str, int] = dict.fromkeys([
+    "ln_qkv_q8_temporal_attention",        # kernels/quant.py
+    "mm_q8_ln_qkv_q8_spatial_attention",
+    "matmul_q8_res_ln_ff_q8_full",
+    "temporal_attention_packed",           # kernels/attention.py
+    "spatial_attention_packed",
+    "ln_matmul",                           # kernels/linear.py
+    "matmul_bias_residual",                # with a residual
+    "matmul_bias_residual/no_r",           # r=None
+    "ln_ff_residual",                      # kernels/mlp.py
+], 0)
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
+    # x, x_dt, s, b, y, R, D, stream
+    "istvt_ln_rows": [_P, _I, _P, _P, _P, _I, _I, _P],
+    # a, w, dt, bias, res, out, gelu, M, N, K, stream
+    "istvt_gemm": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, x_dt, s, b, q, rs, R, D, stream
     "istvt_ln_quant_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
     # x, x_dt, q, rs, R, D, stream
@@ -74,7 +100,7 @@ def build(force: bool = False) -> Path:
     if not force and not _stale():
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libistvt_q8.{os.getpid()}.so"
+    tmp = BUILD_DIR / f".{LIB_PATH.stem}.{os.getpid()}.so"
     cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
            "-o", str(tmp), *map(str, _sources())]
@@ -115,3 +141,19 @@ def ptr(t) -> int:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def f32(t):
+    return t.to(torch.float32).contiguous()
+
+
+def check_act(t, name):
+    """Raise unless `t` is an activation the kernels take: float32 or
+    bfloat16, contiguous, 16-byte aligned."""
+    if t.dtype not in DTYPE_CODE:
+        raise TypeError(f"{name}: activation dtype {t.dtype} (kernels take "
+                        f"float32 or bfloat16)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernels take contiguous tensors")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")

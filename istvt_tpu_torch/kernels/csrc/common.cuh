@@ -1,8 +1,9 @@
-// Shared helpers for the int8 serving kernels (q8_rows_gemm.cu, q8_attention.cu).
+// Shared helpers for the serving kernels (q8_rows_gemm.cu, q8_attention.cu,
+// float_gemm.cu).
 //
 // Activations are float32 or bfloat16 (dtype code 0 / 1, see kernels/_lib.py);
 // every kernel computes in float32 and rounds to the activation dtype exactly
-// where the JAX reference (istvt_tpu/kernels/quant.py) casts.
+// where the JAX reference (istvt_tpu/kernels/) casts.
 //
 // Build without --use_fast_math: the row quantization divides (y / rs) and
 // rounds half to even (rintf), as jnp.round does, and expf/tanhf stay the
@@ -48,6 +49,31 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// LayerNorm statistics of one row, one warp per row (kernels/linear._ln: two-pass
+// variance, eps 1e-5): mean and 1 / sqrt(var + eps). Both sums run in double and
+// round once to f32, so the f32 results do not depend on the summation order and
+// the plain version (which does the same) gets the same values; 1 / sqrt with
+// IEEE operations, not rsqrtf.
+template <typename T>
+__device__ __forceinline__ void row_ln_stats(const T* __restrict__ xr, int D, int lane,
+                                             float& mean, float& rstd) {
+  double sum = 0.0;
+  for (int d = lane; d < D; d += 32) sum += static_cast<double>(to_f(xr[d]));
+  mean = static_cast<float>(warp_sum(sum) / D);
+  double ss = 0.0;
+  for (int d = lane; d < D; d += 32) {
+    float c = to_f(xr[d]) - mean;
+    ss += static_cast<double>(__fmul_rn(c, c));
+  }
+  const float var = static_cast<float>(warp_sum(ss) / D);
+  rstd = __fdiv_rn(1.0f, __fsqrt_rn(var + 1e-5f));
+}
+
+// (x - mean) * rstd * s + b, in that order, without FMA contraction.
+__device__ __forceinline__ float ln_affine(float x, float mean, float rstd, float s, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(x - mean, rstd), s), b);
 }
 
 // jnp.clip(jnp.round(y / rs), -127, 127).astype(int8): true division, half to even.

@@ -1,9 +1,13 @@
-// The attention cores of the int8 ingest kernels: (iv) self-subtract temporal
-// attention and (v) masked per-frame spatial attention, on the packed
-// [q | k | v] activations that the W8A8 QKV GEMM (q8_rows_gemm.cu) writes.
+// The attention cores of both serving paths: (iv) self-subtract temporal
+// attention and (v) masked per-frame spatial attention, on packed [q | k | v]
+// activations in the activation dtype, written by the W8A8 QKV GEMM
+// (q8_rows_gemm.cu, int8 path) or the float GEMM (float_gemm.cu, float path).
 //
-// Replaces the attention halves of two TPU kernels in
-// istvt_tpu/kernels/quant.py:
+// Replaces two TPU kernels of the float fused path whole
+// (istvt_tpu/kernels/attention.py fused_temporal_attention_packed and
+// fused_frame_attention_packed, wrapped in kernels/attention.py), and the
+// attention halves of two TPU kernels in istvt_tpu/kernels/quant.py, which
+// compute the same math:
 //   * _ln_qkv_q8_temporal_kernel (the fori_loop over query frames): softmax
 //     over the T+1 = 7 frames for every (clip, location, head), after the
 //     self-subtract cat(x[:2], x[2:] - x[1:-1]) on q and k, taken in the

@@ -33,30 +33,16 @@ __global__ void __launch_bounds__(256) ln_quant_rows_kernel(
   const int row = blockIdx.x * 8 + warp;
   if (row >= R) return;
   const T* xr = x + static_cast<size_t>(row) * D;
-  // statistics summed in double and rounded once to f32: the f32 result
-  // does not depend on the summation order, so the plain version (which
-  // does the same) yields the same int8 codes
-  double sum = 0.0;
-  for (int d = lane; d < D; d += 32) sum += static_cast<double>(to_f(xr[d]));
-  const float mean = static_cast<float>(warp_sum(sum) / D);
-  double ss = 0.0;
-  for (int d = lane; d < D; d += 32) {
-    float c = to_f(xr[d]) - mean;
-    ss += static_cast<double>(__fmul_rn(c, c));
-  }
-  const float var = static_cast<float>(warp_sum(ss) / D);
-  const float r = __fdiv_rn(1.0f, __fsqrt_rn(var + 1e-5f));
+  // order-independent statistics, so the plain version yields the same int8 codes
+  float mean, r;
+  row_ln_stats(xr, D, lane, mean, r);
   float amax = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    float y = __fadd_rn(__fmul_rn(__fmul_rn(to_f(xr[d]) - mean, r), s[d]), b[d]);
-    amax = fmaxf(amax, fabsf(y));
-  }
+  for (int d = lane; d < D; d += 32)
+    amax = fmaxf(amax, fabsf(ln_affine(to_f(xr[d]), mean, r, s[d], b[d])));
   const float rsv = row_scale(warp_max(amax));
   int8_t* qr = q + static_cast<size_t>(row) * D;
-  for (int d = lane; d < D; d += 32) {
-    float y = __fadd_rn(__fmul_rn(__fmul_rn(to_f(xr[d]) - mean, r), s[d]), b[d]);
-    qr[d] = quant_code(y, rsv);
-  }
+  for (int d = lane; d < D; d += 32)
+    qr[d] = quant_code(ln_affine(to_f(xr[d]), mean, r, s[d], b[d]), rsv);
   if (lane == 0) rs[row] = rsv;
 }
 

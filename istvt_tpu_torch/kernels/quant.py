@@ -21,43 +21,20 @@ The plain versions do the int8 x int8 products in float64, which is exact
 """
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
 
 from istvt_tpu_torch.kernels import _lib
-
-_EPS = 1e-5
-
-# Launches of each wrapper's CUDA kernel (the plain path never counts).
-launch_counts: Dict[str, int] = {
-    "ln_qkv_q8_temporal_attention": 0,
-    "mm_q8_ln_qkv_q8_spatial_attention": 0,
-    "matmul_q8_res_ln_ff_q8_full": 0,
-}
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+from istvt_tpu_torch.kernels.attention import (check_spatial, check_temporal,
+                                               spatial_core,
+                                               spatial_packed_plain,
+                                               temporal_core,
+                                               temporal_packed_plain)
+from istvt_tpu_torch.kernels.linear import _ln
+from istvt_tpu_torch.kernels.mlp import _gelu_tanh
 
 
 # ---------------------------------------------------------------------------
-# plain helpers (kernels/linear._ln, kernels/quant.quantize_weight,
-# _quant_rows, _q8_dot, kernels/attention._mh_attention_vmem)
-
-
-def _ln(xf, scale, bias):
-    """f32 LayerNorm, two-pass variance, eps 1e-5 (kernels/linear._ln).
-
-    The two statistics are summed in float64 and rounded to f32, and the
-    reciprocal is 1 / sqrt (both IEEE), so this version and the CUDA kernel
-    (csrc/q8_rows_gemm.cu) get the same f32 values whatever their summation
-    order: a last-ulp difference here would flip int8 codes downstream."""
-    mean = xf.double().mean(dim=-1, keepdim=True).float()
-    xc = xf - mean
-    var = (xc * xc).double().mean(dim=-1, keepdim=True).float()
-    return xc * (1.0 / torch.sqrt(var + _EPS)) * scale + bias
+# plain helpers (kernels/quant.quantize_weight, _quant_rows, _q8_dot)
 
 
 def quantize_weight(w):
@@ -83,35 +60,6 @@ def _q8_dot(q, wq):
     return (q.to(torch.float64) @ wq.to(torch.float64)).to(torch.float32)
 
 
-def _gelu_tanh(x):
-    """jax.nn.gelu(x, approximate=True), term for term."""
-    c = 0.7978845608028654
-    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
-
-
-def _mh_attention(q, k, v, heads: int, scale: float, n_valid: int):
-    """Masked multi-head softmax attention per frame.
-
-    q, k, v: (G, S, H*dh) in the activation dtype -> (G, S, H*dh) in it.
-    f32 scores, additive -1e30 for keys >= n_valid, exact softmax, the
-    probabilities cast to the activation dtype before the PV product
-    (kernels/attention._mh_attention_vmem)."""
-    g, s_len, hd = q.shape
-    dh = hd // heads
-
-    def split(t):
-        return t.reshape(g, s_len, heads, dh).permute(0, 2, 1, 3).float()
-
-    sc = split(q) @ split(k).transpose(-1, -2) * scale      # (G, H, S, S)
-    if n_valid < s_len:
-        cols = torch.arange(s_len, device=q.device)
-        sc = sc + torch.where(cols < n_valid, 0.0, -1e30).to(sc.dtype)
-    e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    pr = e / e.sum(dim=-1, keepdim=True)
-    o = pr.to(q.dtype).float() @ split(v)
-    return o.to(q.dtype).permute(0, 2, 1, 3).reshape(g, s_len, hd)
-
-
 # ---------------------------------------------------------------------------
 # kernel A: LN -> int8 QKV -> self-subtract temporal attention
 
@@ -120,27 +68,12 @@ def ln_qkv_q8_temporal_plain(x, s, b, wq, ws, heads: int):
     """Plain version of kernel A (quant._ln_qkv_q8_temporal_impl):
     x (B, T1, S, D) -> (B, T1, S, I) in x.dtype."""
     bsz, t1, s_len, d = x.shape
-    inner = wq.shape[1] // 3
-    dh = inner // heads
-    scale = dh ** -0.5
     y = _ln(x.reshape(-1, d).float(), s.float(), b.float())
     q, rs = _quant_rows(y)
     acc = _q8_dot(q, wq) * rs * ws.float()
-    qkv = acc.reshape(bsz, t1, s_len, 3 * inner).to(x.dtype)
-    qq, kk, vv = qkv.split(inner, dim=-1)
-    # the self-subtract is taken in the activation dtype (quant.py:512-517)
-    qs = torch.cat([qq[:, :2], qq[:, 2:] - qq[:, 1:-1]], dim=1)
-    ks = torch.cat([kk[:, :2], kk[:, 2:] - kk[:, 1:-1]], dim=1)
-
-    def heads_of(t):
-        return t.float().reshape(bsz, t1, s_len, heads, dh)
-
-    lg = torch.einsum("bisnd,bjsnd->bsnij", heads_of(qs), heads_of(ks)) * scale
-    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
-    den = e.sum(dim=-1)                                      # (B, S, H, T1)
-    acc_o = torch.einsum("bsnij,bjsnd->bisnd", e, heads_of(vv))
-    out = acc_o / den.permute(0, 3, 1, 2)[..., None]
-    return out.reshape(bsz, t1, s_len, inner).to(x.dtype)
+    # qkv in the activation dtype before the self-subtract (quant.py:512-517)
+    qkv = acc.reshape(bsz, t1, s_len, wq.shape[1]).to(x.dtype)
+    return temporal_packed_plain(qkv, heads)
 
 
 def ln_qkv_q8_temporal_attention(x, s, b, wq, ws, heads: int):
@@ -151,29 +84,22 @@ def ln_qkv_q8_temporal_attention(x, s, b, wq, ws, heads: int):
     bsz, t1, s_len, d = x.shape
     i3 = wq.shape[1]
     inner = i3 // 3
-    _check_act(x, "x")
+    _lib.check_act(x, "x")
     _check_q8(wq, ws, d, i3)
-    if t1 > 8 or inner % heads or inner // heads > 128:
-        raise NotImplementedError(
-            f"temporal kernel takes T1 <= 8 and dim_head <= 128 "
-            f"(got T1={t1}, inner={inner}, heads={heads})")
+    check_temporal(t1, inner, heads)
     lib, st, dt = _lib.load(), _lib.stream(), _lib.DTYPE_CODE[x.dtype]
     rows = bsz * t1 * s_len
     q = torch.empty((rows, d), dtype=torch.int8, device=x.device)
     rs = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    s32, b32, ws32 = _f32(s), _f32(b), _f32(ws)
+    s32, b32, ws32 = _lib.f32(s), _lib.f32(b), _lib.f32(ws)
     _lib.check(lib.istvt_ln_quant_rows(x.data_ptr(), dt, s32.data_ptr(),
                                        b32.data_ptr(), q.data_ptr(),
                                        rs.data_ptr(), rows, d, st),
                "ln_quant_rows")
-    qkv = torch.empty((rows, i3), dtype=x.dtype, device=x.device)
+    qkv = torch.empty((bsz, t1, s_len, i3), dtype=x.dtype, device=x.device)
     _gemm(lib, st, q, wq, rs, ws32, None, None, qkv, gelu=False)
-    out = torch.empty((bsz, t1, s_len, inner), dtype=x.dtype, device=x.device)
-    _lib.check(lib.istvt_temporal_attn(qkv.data_ptr(), out.data_ptr(), dt,
-                                       bsz, t1, s_len, heads, inner,
-                                       (inner // heads) ** -0.5, st),
-               "temporal_attn")
-    launch_counts["ln_qkv_q8_temporal_attention"] += 1
+    out = temporal_core(qkv, heads)
+    _lib.LAUNCHES["ln_qkv_q8_temporal_attention"] += 1
     return out
 
 
@@ -194,10 +120,8 @@ def mm_q8_ln_qkv_q8_spatial_plain(a, woq, wos, bo, s, b, wq, ws,
     hn = _ln(y, s.float(), b.float())
     qh, rsh = _quant_rows(hn)
     x = (_q8_dot(qh, wq) * rsh * ws.float()).to(a.dtype)
-    x = x.reshape(g, s_len, 3 * inner)
-    return _mh_attention(x[..., :inner], x[..., inner:2 * inner],
-                         x[..., 2 * inner:], heads, (inner // heads) ** -0.5,
-                         n_valid)
+    return spatial_packed_plain(x.reshape(g, s_len, 3 * inner), heads,
+                                n_valid)
 
 
 def mm_q8_ln_qkv_q8_spatial_attention(a, woq, wos, bo, s, b, wq, ws,
@@ -212,13 +136,10 @@ def mm_q8_ln_qkv_q8_spatial_attention(a, woq, wos, bo, s, b, wq, ws,
         n_valid = s_len
     d_mid, i3 = woq.shape[1], wq.shape[1]
     inner = i3 // 3
-    _check_act(a, "a")
+    _lib.check_act(a, "a")
     _check_q8(woq, wos, d_in, d_mid)
     _check_q8(wq, ws, d_mid, i3)
-    if s_len > 384 or inner % heads or inner // heads not in (16, 32, 64, 128):
-        raise NotImplementedError(
-            f"spatial kernel takes S <= 384 and dim_head in 16/32/64/128 "
-            f"(got S={s_len}, inner={inner}, heads={heads})")
+    check_spatial(s_len, inner, heads)
     lib, st, dt = _lib.load(), _lib.stream(), _lib.DTYPE_CODE[a.dtype]
     rows = g * s_len
     dev = a.device
@@ -228,22 +149,19 @@ def mm_q8_ln_qkv_q8_spatial_attention(a, woq, wos, bo, s, b, wq, ws,
                                     rsa.data_ptr(), rows, d_in, st),
                "quant_rows")
     y = torch.empty((rows, d_mid), dtype=torch.float32, device=dev)
-    _gemm(lib, st, qa, woq, rsa, _f32(wos), _f32(bo), None, y, gelu=False)
+    _gemm(lib, st, qa, woq, rsa, _lib.f32(wos), _lib.f32(bo), None, y,
+          gelu=False)
     qh = torch.empty((rows, d_mid), dtype=torch.int8, device=dev)
     rsh = torch.empty((rows,), dtype=torch.float32, device=dev)
-    s32, b32 = _f32(s), _f32(b)
+    s32, b32 = _lib.f32(s), _lib.f32(b)
     _lib.check(lib.istvt_ln_quant_rows(y.data_ptr(), 0, s32.data_ptr(),
                                        b32.data_ptr(), qh.data_ptr(),
                                        rsh.data_ptr(), rows, d_mid, st),
                "ln_quant_rows")
-    qkv = torch.empty((rows, i3), dtype=a.dtype, device=dev)
-    _gemm(lib, st, qh, wq, rsh, _f32(ws), None, None, qkv, gelu=False)
-    out = torch.empty((g, s_len, inner), dtype=a.dtype, device=dev)
-    _lib.check(lib.istvt_spatial_attn(qkv.data_ptr(), out.data_ptr(), dt, g,
-                                      s_len, heads, inner, n_valid,
-                                      (inner // heads) ** -0.5, st),
-               "spatial_attn")
-    launch_counts["mm_q8_ln_qkv_q8_spatial_attention"] += 1
+    qkv = torch.empty((g, s_len, i3), dtype=a.dtype, device=dev)
+    _gemm(lib, st, qh, wq, rsh, _lib.f32(ws), None, None, qkv, gelu=False)
+    out = spatial_core(qkv, heads, n_valid)
+    _lib.LAUNCHES["mm_q8_ln_qkv_q8_spatial_attention"] += 1
     return out
 
 
@@ -277,8 +195,8 @@ def matmul_q8_res_ln_ff_q8_full(a, r, wqo, wso, bo, s, b, w1q, w1s, b1,
         return matmul_q8_res_ln_ff_q8_full_plain(a, r, wqo, wso, bo, s, b,
                                                  w1q, w1s, b1, w2q, w2s, b2)
     d_in, d, hdim = a.shape[-1], wqo.shape[1], w1q.shape[1]
-    _check_act(a, "a")
-    _check_act(r, "r")
+    _lib.check_act(a, "a")
+    _lib.check_act(r, "r")
     if r.dtype != a.dtype or r.shape[:-1] != a.shape[:-1] or r.shape[-1] != d:
         raise ValueError(f"residual {tuple(r.shape)} {r.dtype} does not "
                          f"match a {tuple(a.shape)} {a.dtype}, D={d}")
@@ -294,43 +212,31 @@ def matmul_q8_res_ln_ff_q8_full(a, r, wqo, wso, bo, s, b, w1q, w1s, b1,
                                     rs.data_ptr(), rows, d_in, st),
                "quant_rows")
     y = torch.empty((rows, d), dtype=torch.float32, device=dev)
-    _gemm(lib, st, q, wqo, rs, _f32(wso), _f32(bo), r, y, gelu=False)
+    _gemm(lib, st, q, wqo, rs, _lib.f32(wso), _lib.f32(bo), r, y, gelu=False)
     q1 = torch.empty((rows, d), dtype=torch.int8, device=dev)
     rs1 = torch.empty((rows,), dtype=torch.float32, device=dev)
-    s32, b32 = _f32(s), _f32(b)
+    s32, b32 = _lib.f32(s), _lib.f32(b)
     _lib.check(lib.istvt_ln_quant_rows(y.data_ptr(), 0, s32.data_ptr(),
                                        b32.data_ptr(), q1.data_ptr(),
                                        rs1.data_ptr(), rows, d, st),
                "ln_quant_rows")
     hid = torch.empty((rows, hdim), dtype=torch.float32, device=dev)
-    _gemm(lib, st, q1, w1q, rs1, _f32(w1s), _f32(b1), None, hid, gelu=True)
+    _gemm(lib, st, q1, w1q, rs1, _lib.f32(w1s), _lib.f32(b1), None, hid,
+          gelu=True)
     q2 = torch.empty((rows, hdim), dtype=torch.int8, device=dev)
     rs2 = torch.empty((rows,), dtype=torch.float32, device=dev)
     _lib.check(lib.istvt_quant_rows(hid.data_ptr(), 0, q2.data_ptr(),
                                     rs2.data_ptr(), rows, hdim, st),
                "quant_rows")
     out = torch.empty(a.shape[:-1] + (d,), dtype=a.dtype, device=dev)
-    _gemm(lib, st, q2, w2q, rs2, _f32(w2s), _f32(b2), y, out, gelu=False)
-    launch_counts["matmul_q8_res_ln_ff_q8_full"] += 1
+    _gemm(lib, st, q2, w2q, rs2, _lib.f32(w2s), _lib.f32(b2), y, out,
+          gelu=False)
+    _lib.LAUNCHES["matmul_q8_res_ln_ff_q8_full"] += 1
     return out
 
 
 # ---------------------------------------------------------------------------
 # launch plumbing
-
-
-def _f32(t):
-    return t.to(torch.float32).contiguous()
-
-
-def _check_act(t, name):
-    if t.dtype not in _lib.DTYPE_CODE:
-        raise TypeError(f"{name}: activation dtype {t.dtype} (kernels take "
-                        f"float32 or bfloat16)")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: kernels take contiguous tensors")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
 
 def _check_q8(wq, ws, d_in, d_out):

@@ -5,27 +5,36 @@ same seeded inputs go through each kernel's wrapper (CUDA) and its plain
 PyTorch version on the card.
 
 SLICE: 2 clips, T+1 = 7 frames, S = 368 tokens (362 valid, pad rows all
-zero), D = 728, I = 512 (8 heads x 64), FF hidden 2912. The weights are
-drawn like the model's own init, U(+-1/sqrt(fan_in)), then quantized.
+zero), D = 728, I = 512 (8 heads x 64), FF hidden 2912. The weights and
+biases are drawn like the model's own init, U(+-1/sqrt(fan_in)); the int8
+cases quantize them.
 
-Kernel and plain version take the same int8 decisions (identical
-LayerNorm statistics, quantization and epilogue order), so in f32 they
-differ only by the attention's summation order, far inside atol = rtol =
-2e-3. That margin matters: one flipped activation code would move its
-row's outputs by up to amax * max|w| / 127, about 1e-3 at these scales.
+Int8 kernels and their plain versions take the same int8 decisions
+(identical LayerNorm statistics, quantization and epilogue order), so in
+f32 they differ only by the attention's summation order, far inside
+atol = rtol = 2e-3. That margin matters: one flipped activation code would
+move its row's outputs by up to amax * max|w| / 127, about 1e-3 at these
+scales. The float kernels differ from theirs only by summation order, and
+are held in f32 at atol = rtol = 1e-5: a GEMM that rounded its f32 inputs
+to TF32 or bf16 would be off by about 1e-3 here.
+
+Case names are the wrappers' launch-count names (kernels/_lib.LAUNCHES).
 """
 from __future__ import annotations
 
 import torch
 
-from istvt_tpu_torch.kernels import quant
+from istvt_tpu_torch.kernels import attention, linear, mlp, quant
 
 # the serving slice at the paper geometry, and the small geometry of the
 # JAX package's kernel tests (tests/test_quant.py:207; dim_head 16)
 SLICE = dict(b=2, t1=7, s=368, n_valid=362, d=728, inner=512, heads=8,
              hid=2912)
 SMALL = dict(b=2, t1=4, s=32, n_valid=26, d=128, inner=64, heads=4, hid=256)
-F32_TOL = 2e-3
+INT8_CASES = ("ln_qkv_q8_temporal_attention",
+              "mm_q8_ln_qkv_q8_spatial_attention",
+              "matmul_q8_res_ln_ff_q8_full")
+F32_TOL_INT8, F32_TOL_FLOAT = 2e-3, 1e-5
 
 
 def slice_cases(device, geometry=SLICE, seed: int = 0):
@@ -38,10 +47,12 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g) * scale
 
+    def init(d_in, *shape):
+        """U(+-1/sqrt(d_in)), the init of a layer with fan-in d_in."""
+        return (torch.rand(*shape, generator=g) * 2 - 1) * d_in ** -0.5
+
     def q8(d_in, d_out):
-        bound = d_in ** -0.5
-        w = (torch.rand(d_in, d_out, generator=g) * 2 - 1) * bound
-        wq, ws = quant.quantize_weight(w)
+        wq, ws = quant.quantize_weight(init(d_in, d_in, d_out))
         return wq.to(device), ws.to(device)
 
     ln_s, ln_b = rn(d, scale=0.1) + 1.0, rn(d, scale=0.02)
@@ -55,6 +66,14 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
     x[:, :, n_valid:] = 0.0                  # pad tokens are all-zero rows
     a_t = rn(b * t1, s, inner, scale=0.5)
     a_s = rn(b, t1 * s, inner, scale=0.5)
+    # float cases: packed qkv activations, (in, out) weights, biases
+    qkv_t = rn(b, t1, s, 3 * inner)
+    qkv_s = rn(b * t1, s, 3 * inner)
+    w_qkv, w_out = init(d, d, 3 * inner), init(inner, inner, d)
+    b_out = init(inner, d)
+    w1, b1f, w2, b2f = init(d, d, hid), init(d, hid), init(hid, hid, d), \
+        init(hid, d)
+    stream = x.reshape(b, t1 * s, d)
 
     def on(dt, *ts):
         return [t.to(device, dt) for t in ts]
@@ -74,13 +93,39 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
             lambda dt: [*on(dt, a_s, x.reshape(b, t1 * s, d)), woq, wos,
                         *on(dt, bo, ln_s, ln_b), w1q, w1s, *on(dt, b1),
                         w2q, w2s, *on(dt, b2)]),
+        "temporal_attention_packed": (
+            attention.temporal_attention_packed,
+            attention.temporal_packed_plain,
+            lambda dt: [*on(dt, qkv_t), heads]),
+        "spatial_attention_packed": (
+            attention.spatial_attention_packed,
+            attention.spatial_packed_plain,
+            lambda dt: [*on(dt, qkv_s), heads, n_valid]),
+        "ln_matmul": (
+            linear.ln_matmul, linear.ln_matmul_plain,
+            lambda dt: on(dt, stream, ln_s, ln_b, w_qkv)),
+        "matmul_bias_residual": (
+            linear.matmul_bias_residual, linear.matmul_bias_residual_plain,
+            lambda dt: on(dt, a_s, w_out, b_out, stream)),
+        "matmul_bias_residual/no_r": (
+            linear.matmul_bias_residual, linear.matmul_bias_residual_plain,
+            lambda dt: on(dt, a_s, w_out, b_out)),
+        "ln_ff_residual": (
+            mlp.ln_ff_residual, mlp.ln_ff_residual_plain,
+            lambda dt: on(dt, stream, ln_s, ln_b, w1, b1f, w2, b2f)),
     }
 
 
-def f32_close(got, want) -> tuple:
-    """(ok, max|diff|) at atol = rtol = 2e-3."""
+def f32_tol(case: str) -> float:
+    """The f32 criterion of a case, atol = rtol."""
+    return F32_TOL_INT8 if case in INT8_CASES else F32_TOL_FLOAT
+
+
+def f32_close(case: str, got, want) -> tuple:
+    """(ok, max|diff|) at atol = rtol = f32_tol(case)."""
     err = (got - want).abs().max().item()
-    return torch.allclose(got, want, atol=F32_TOL, rtol=F32_TOL), err
+    tol = f32_tol(case)
+    return torch.allclose(got, want, atol=tol, rtol=tol), err
 
 
 def bf16_close(got, want, rel_l2: float = 1e-2, max_frac: float = 0.02):

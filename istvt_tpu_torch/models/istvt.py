@@ -4,22 +4,32 @@
     -> Xception low_level_features per frame -> (B, T, 19, 19, 728)
     -> tokens: spatial CLS per frame, learned pos-embedding, a temporal-CLS
        frame -> (B, T+1, 362, 728), padded to S = 368 (n_valid = 362)
-    -> 12 ST layers, each three int8 kernels (kernels/quant.py):
+    -> 12 ST layers, either
+       int8 serving (quantize='int8'), three kernels (kernels/quant.py):
          a_t = ln_qkv_q8_temporal_attention(x)
          a_s = mm_q8_ln_qkv_q8_spatial_attention(a_t)
          x   = matmul_q8_res_ln_ff_q8_full(a_s, x)
+       or float fused (quantize='none'), five kernels (nn/attention.py,
+       kernels/mlp.py):
+         o_t = ln_matmul -> temporal_attention_packed -> matmul_bias_residual
+         x   = ln_matmul -> spatial_attention_packed -> matmul_bias_residual
+               (+ x)
+         x   = ln_ff_residual(x)
     -> LayerNorm, mlp_head (LayerNorm + Linear) on the (temporal-CLS,
        spatial-CLS) token -> logits.
 
-Ported: the int8 W8A8 serving forward (`ISTVTConfig(use_pallas=True,
-quantize='int8')`, q8_ff='full', q8_attn='ingest'; stem_store 'f8' or
-'bf16'). Every other configuration raises NotImplementedError naming its
-ROADMAP.md item; none falls back silently.
+Ported: the eval forward with `use_pallas=True`, in two forms: int8 W8A8
+serving (`quantize='int8'`, q8_ff='full', q8_attn='ingest'; stem_store
+'f8' or 'bf16') and float fused (`quantize='none'`, in the parameters'
+dtype, f32 or bf16; the stem stores nothing in f8). Every other
+configuration raises NotImplementedError naming its ROADMAP.md item; none
+falls back silently.
 
 Module and state_dict names are the reference's (network/vivit/vivit.py,
 module.py), so `istvt_tpu.compat.torch_import.istvt_from_torch` loads a
 port state_dict; the int8 copies are extra buffers (`qkv_wq`, ...) that
-`quantize_params` attaches.
+`quantize_params` attaches, and the float path's (in, out) weight copies
+are non-persistent buffers (`qkv_w`, ...) that `pack_params` attaches.
 """
 from __future__ import annotations
 
@@ -29,24 +39,35 @@ from torch import nn
 
 from istvt_tpu_torch.core.config import ISTVTConfig
 from istvt_tpu_torch.kernels import quant
+from istvt_tpu_torch.kernels.mlp import ln_ff_residual
 from istvt_tpu_torch.models import xception
+from istvt_tpu_torch.nn.attention import (spatial_block_fused,
+                                          temporal_block_fused)
 from istvt_tpu_torch.nn.layers import layernorm, linear
 
 _ROADMAP = "ROADMAP.md queue 1"
 
 
-class _Q8Buffers(nn.Module):
-    """Optional int8 serving copies held as buffers (None until
-    quantize_params or a state_dict that carries them fills them)."""
+class _ServingBuffers(nn.Module):
+    """Optional serving copies of the weights, held as buffers (None until
+    filled): the int8 copies, which quantize_params or a state_dict that
+    carries them fills, and the float path's (in, out) copies, which
+    pack_params fills and no state_dict holds."""
 
     q8_names: tuple = ()
+    packed_names: tuple = ()
 
-    def _register_q8(self):
+    def _register_copies(self):
         for n in self.q8_names:
             self.register_buffer(n, None)
+        for n in self.packed_names:
+            self.register_buffer(n, None, persistent=False)
 
     def has_q8(self) -> bool:
         return all(getattr(self, n) is not None for n in self.q8_names)
+
+    def has_packed(self) -> bool:
+        return all(getattr(self, n) is not None for n in self.packed_names)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         dev = next(self.parameters()).device
@@ -57,10 +78,11 @@ class _Q8Buffers(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
-class TemporalAttention(_Q8Buffers):
+class TemporalAttention(_ServingBuffers):
     """Self-subtract temporal attention (reference module.py:174-208)."""
 
     q8_names = ("qkv_wq", "qkv_ws", "out_wq", "out_ws")
+    packed_names = ("qkv_w", "out_w")
 
     def __init__(self, dim, inner, device=None):
         super().__init__()
@@ -68,26 +90,28 @@ class TemporalAttention(_Q8Buffers):
         self.to_v = nn.Linear(dim, inner, bias=False, device=device)
         self.to_out = nn.Sequential(nn.Linear(inner, dim, device=device),
                                     nn.Dropout(0.0))
-        self._register_q8()
+        self._register_copies()
 
 
-class SpatialAttention(_Q8Buffers):
+class SpatialAttention(_ServingBuffers):
     """Per-frame spatial attention (reference module.py:66-93)."""
 
     q8_names = ("qkv_wq", "qkv_ws", "out_wq", "out_ws")
+    packed_names = ("qkv_w", "out_w")
 
     def __init__(self, dim, inner, device=None):
         super().__init__()
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False, device=device)
         self.to_out = nn.Sequential(nn.Linear(inner, dim, device=device),
                                     nn.Dropout(0.0))
-        self._register_q8()
+        self._register_copies()
 
 
-class FeedForward(_Q8Buffers):
+class FeedForward(_ServingBuffers):
     """GELU MLP dim -> hidden -> dim (reference module.py:23-34)."""
 
     q8_names = ("w1q", "w1s", "w2q", "w2s")
+    packed_names = ("w1", "w2")
 
     def __init__(self, dim, hidden, device=None):
         super().__init__()
@@ -95,7 +119,7 @@ class FeedForward(_Q8Buffers):
                                  nn.GELU(), nn.Dropout(0.0),
                                  nn.Linear(hidden, dim, device=device),
                                  nn.Dropout(0.0))
-        self._register_q8()
+        self._register_copies()
 
 
 class PreNorm(nn.Module):
@@ -155,19 +179,28 @@ class DSTTr(nn.Module):
         return x.reshape(b, (t + 1) * (s + pad), d), s + pad, s
 
     def run_layer(self, layer, x, s: int, n_valid: int):
-        """One int8 ST layer: x = attn_s(attn_t(x)) + x; x = ff(x) + x."""
+        """One ST layer: x = attn_s(attn_t(x)) + x; x = ff(x) + x, as the
+        int8 chain (models/istvt.py:284-318) or the float fused one
+        (:357-373)."""
         pt, ps, pf = layer
         at, asp, ff = pt.fn, ps.fn, pf.fn
+        heads = self.cfg.heads
+        if self.cfg.quantize != "int8":
+            out_t = temporal_block_fused(pt, x, heads, s)
+            x = spatial_block_fused(ps, out_t, heads, s, residual=x,
+                                    n_valid=n_valid)
+            return ln_ff_residual(x, pf.norm.weight, pf.norm.bias, ff.w1,
+                                  ff.net[0].bias, ff.w2, ff.net[3].bias)
         bq, nq, d = x.shape
         t1 = nq // s
         inner = at.qkv_wq.shape[1] // 3
         a_t = quant.ln_qkv_q8_temporal_attention(
             x.reshape(bq, t1, s, d), pt.norm.weight, pt.norm.bias,
-            at.qkv_wq, at.qkv_ws, self.cfg.heads)
+            at.qkv_wq, at.qkv_ws, heads)
         a_s = quant.mm_q8_ln_qkv_q8_spatial_attention(
             a_t.reshape(bq * t1, s, inner), at.out_wq, at.out_ws,
             at.to_out[0].bias, ps.norm.weight, ps.norm.bias,
-            asp.qkv_wq, asp.qkv_ws, self.cfg.heads, n_valid)
+            asp.qkv_wq, asp.qkv_ws, heads, n_valid)
         return quant.matmul_q8_res_ln_ff_q8_full(
             a_s.reshape(bq, nq, inner), x, asp.out_wq, asp.out_ws,
             asp.to_out[0].bias, pf.norm.weight, pf.norm.bias,
@@ -189,7 +222,7 @@ class DSTTr(nn.Module):
 
 
 class ISTVT(nn.Module):
-    """XceptionVidTr (reference vivit.py:193-208), int8 serving forward."""
+    """XceptionVidTr (reference vivit.py:193-208), eval forward."""
 
     name = "istvt"
 
@@ -208,10 +241,14 @@ class ISTVT(nn.Module):
             raise NotImplementedError(
                 f"use_pallas=False (XLA-math forward) is not ported yet "
                 f"({_ROADMAP}, 'Float XLA-math forward')")
-        if cfg.quantize != "int8":
-            raise NotImplementedError(
-                f"the float fused forward is not ported yet "
-                f"({_ROADMAP}, 'Float fused forward')")
+        if cfg.quantize not in ("int8", "none"):
+            raise ValueError(f"quantize={cfg.quantize!r}")
+        layer = self.vit.transformer.layers[0]
+        if cfg.quantize == "none":
+            if not all(m.fn.has_packed() for m in layer):
+                raise RuntimeError("the float fused path needs the (in, out) "
+                                   "weight copies: run pack_params(model)")
+            return
         if cfg.q8_ff != "full" or cfg.q8_attn != "ingest":
             raise NotImplementedError(
                 f"q8_ff={cfg.q8_ff!r} / q8_attn={cfg.q8_attn!r}: only "
@@ -219,7 +256,6 @@ class ISTVT(nn.Module):
                 f"'Int8 A/B modes')")
         if cfg.stem_store not in ("f8", "bf16"):
             raise ValueError(f"stem_store={cfg.stem_store!r}")
-        layer = self.vit.transformer.layers[0]
         if not all(m.fn.has_q8() for m in layer):
             raise RuntimeError("cfg.quantize='int8' but the model carries no "
                                "int8 weights: run quantize_params(model)")
@@ -281,6 +317,24 @@ def quantize_params(model: ISTVT) -> ISTVT:
             asp.to_out[0].weight.t())
         ff.w1q, ff.w1s = quant.quantize_weight(ff.net[0].weight.t())
         ff.w2q, ff.w2s = quant.quantize_weight(ff.net[3].weight.t())
+    return model
+
+
+@torch.no_grad()
+def pack_params(model: ISTVT) -> ISTVT:
+    """Attach the float fused path's weights in place: every ST layer's
+    projection and FF weight in the JAX (in, out) layout the kernels take,
+    contiguous, in the parameters' dtype; the temporal q|k and v weights
+    packed into one (D, 3I) matrix. Run it after any cast or load of the
+    parameters: the copies do not follow them."""
+    def io(*linears):
+        return torch.cat([m.weight.t() for m in linears], dim=1).contiguous()
+
+    for pt, ps, pf in model.vit.transformer.layers:
+        at, asp, ff = pt.fn, ps.fn, pf.fn
+        at.qkv_w, at.out_w = io(at.to_qk, at.to_v), io(at.to_out[0])
+        asp.qkv_w, asp.out_w = io(asp.to_qkv), io(asp.to_out[0])
+        ff.w1, ff.w2 = io(ff.net[0]), io(ff.net[3])
     return model
 
 

@@ -14,7 +14,8 @@ Serving stores the inter-conv activations as float8_e4m3fn (the JAX
 package's stem_store='f8'): eval BN folds into the conv weights in f32
 before the cast to the compute dtype, the following ReLU moves into the
 producing epilogue, and every tensor between two convolutions is rounded
-to e4m3 (models/xception.block_apply :124-181, _entry :228-242).
+to e4m3 (models/xception.block_apply :124-181, _entry :228-242), past the
++-464 tie to NaN as jnp.astype(float8_e4m3fn) rounds (see `to_store`).
 """
 from __future__ import annotations
 
@@ -43,6 +44,24 @@ class XceptionConfig:
     num_classes: int = 1000
     in_channels: int = 3
     low_level_through: int = 3
+
+
+_E4M3_NAN_PAST = 464.0   # the tie between e4m3's largest finite 448 and 480
+_E4M3_NAN_BITS = 0x7F
+
+
+def to_store(x, store, nonneg: bool = False):
+    """x cast to the storage dtype as jnp.astype casts it. For e4m3fn that
+    is torch's rounding (identical up to the +-464 tie, ties to even
+    included) except past the tie, where torch saturates to +-448 and JAX
+    gives NaN: one masked_fill on the f8 bytes puts the NaN back.
+    nonneg: x is a ReLU output, so x > 464 finds the overflow without the
+    pass that |x| takes."""
+    y = x.to(store)
+    if store == torch.float8_e4m3fn:
+        over = (x if nonneg else x.abs()) > _E4M3_NAN_PAST
+        y.view(torch.uint8).masked_fill_(over, _E4M3_NAN_BITS)
+    return y
 
 
 def _block_filters(spec):
@@ -115,13 +134,14 @@ class Block(nn.Module):
         for i, (sep, bn) in enumerate(units):
             if i == 0 and self.start_with_relu:
                 y = relu(up(y))
-            y = conv2d(up(y), sep.conv1.weight, padding=1,
-                       groups=y.shape[1]).to(store)
+            y = to_store(conv2d(up(y), sep.conv1.weight, padding=1,
+                                groups=y.shape[1]), store)
             w, b = _fold(sep.pointwise.weight, bn, cd)
             z = conv2d(up(y), w, b)
-            if i + 1 < len(units):
+            inner = i + 1 < len(units)
+            if inner:
                 z = relu(z)   # the next unit's pre-relu, in this epilogue
-            y = z.to(store)
+            y = to_store(z, store, nonneg=inner)
         y = up(y)
         if self.stride != 1:
             y = max_pool2d(y, 3, self.stride, 1)
@@ -130,7 +150,7 @@ class Block(nn.Module):
             skip = conv2d(up(x), w, b, stride=self.stride)
         else:
             skip = up(x)
-        return (y + skip).to(store)
+        return to_store(y + skip, store)
 
 
 def _bn(bn):
@@ -164,9 +184,9 @@ class Xception(nn.Module):
         if store is not None:
             cd = x.dtype
             w, b = _fold(self.conv1.weight, self.bn1, cd)
-            x = relu(conv2d(x, w, b, stride=2)).to(store)
+            x = to_store(relu(conv2d(x, w, b, stride=2)), store, nonneg=True)
             w, b = _fold(self.conv2.weight, self.bn2, cd)
-            return relu(conv2d(x.to(cd), w, b)).to(store)
+            return to_store(relu(conv2d(x.to(cd), w, b)), store, nonneg=True)
         x = conv2d(x, self.conv1.weight, stride=2)
         x = relu(batchnorm_eval(x, *_bn(self.bn1)))
         x = conv2d(x, self.conv2.weight)

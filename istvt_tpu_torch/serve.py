@@ -5,8 +5,10 @@
   * partial batches padded with zeros and the pad sliced off;
   * probability outputs (sigmoid over the BCE logit) and threshold-at-0
     `preds` (reference train_CNN.py:527);
-  * `input_dtype` casts ONLY the inputs: int8 serving keeps the deployed
-    dtypes of the weights (bf16 floats, int8 q8 copies, f32 scales).
+  * `compute_dtype` puts the float parameters AND the inputs in that
+    dtype (the float serving path, e.g. bf16); `input_dtype` casts ONLY the
+    inputs: int8 serving keeps the deployed dtypes of the weights (bf16
+    floats, int8 q8 copies, f32 scales).
 Every forward runs under torch.inference_mode on the given device.
 The JAX package's data-parallel mesh mode is not ported yet.
 """
@@ -17,21 +19,36 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from istvt_tpu_torch.core import tree
+
 
 class Predictor:
     def __init__(self, model, device: torch.device,
                  batch_sizes: Sequence[int] = (1, 8, 16),
+                 compute_dtype: Optional[torch.dtype] = None,
                  input_dtype: Optional[torch.dtype] = None):
+        """compute_dtype: the floating-point parameters and the inputs in
+        this dtype. The JAX Predictor casts the params on every call; here
+        the model's parameters are cast once, in place, when the Predictor
+        is built (core/tree.cast: buffers such as the BN statistics and the
+        int8 copies keep their dtypes). Weight copies derived from the
+        parameters (quantize_params, pack_params) are built from the cast
+        parameters before the Predictor, as cli/serve.build_predictor does.
+        input_dtype: cast only the inputs."""
         self.model = model
         self.device = torch.device(device)
         self.batch_sizes = sorted(batch_sizes)
+        self.compute_dtype = compute_dtype
         self.input_dtype = input_dtype
+        if compute_dtype is not None:
+            tree.cast(model, compute_dtype)
         self.n_forwards = 0   # model calls made by predict()
 
     def _forward(self, x: np.ndarray) -> np.ndarray:
         t = torch.from_numpy(x).to(self.device)
-        if self.input_dtype is not None:
-            t = t.to(self.input_dtype)
+        dtype = self.compute_dtype or self.input_dtype
+        if dtype is not None:
+            t = t.to(dtype)
         with torch.inference_mode():
             logits = self.model(t)
         self.n_forwards += 1

@@ -41,6 +41,7 @@ from istvt_tpu.nn.layers import layernorm, linear
 from istvt_tpu_torch.compat.from_jax import params_from_jax
 from istvt_tpu_torch.core import precision as tprecision
 from istvt_tpu_torch.core.config import ISTVTConfig
+from istvt_tpu_torch.kernels import _lib
 from istvt_tpu_torch.kernels import quant as tq
 from istvt_tpu_torch.models import istvt as tistvt
 
@@ -166,7 +167,7 @@ def test_int8_kernels_match_jax_on_the_models_own_activations(weights,
     _, per_layer, _ = jax_run
     model = _port(qparams, state)
     heads, n_valid = TINY_HEADS, 26
-    tq.reset_launch_counts()
+    _lib.reset_launches()
     with tprecision.highest(), torch.inference_mode():
         for i, (pt, ps, pf) in enumerate(model.vit.transformer.layers):
             at, asp, ff = pt.fn, ps.fn, pf.fn
@@ -189,7 +190,7 @@ def test_int8_kernels_match_jax_on_the_models_own_activations(weights,
                 rel = _rel_l2(got[name].reshape(ref.shape).numpy(),
                               ref.numpy())
                 assert rel <= 1e-3, (i, name, rel)
-    assert all(v == 0 for v in tq.launch_counts.values())
+    assert all(v == 0 for v in _lib.LAUNCHES.values())
 
 
 def test_int8_slice_matches_jax_per_layer_and_logits(weights, jax_run):
@@ -197,7 +198,7 @@ def test_int8_slice_matches_jax_per_layer_and_logits(weights, jax_run):
     clips, per_layer, want_logits = jax_run
     want_streams = [v[-1] for v in per_layer]
     model = _port(qparams, state)
-    tq.reset_launch_counts()
+    _lib.reset_launches()
     with tprecision.highest(), torch.inference_mode():
         ct = torch.from_numpy(clips)
         x, s, n_valid = model.vit.tokens(model.features(ct))
@@ -208,7 +209,7 @@ def test_int8_slice_matches_jax_per_layer_and_logits(weights, jax_run):
             streams.append(x.numpy())
         logits = model.vit.head(x).numpy()
         np.testing.assert_array_equal(model(ct).numpy(), logits)
-    assert all(v == 0 for v in tq.launch_counts.values())
+    assert all(v == 0 for v in _lib.LAUNCHES.values())
     for i, (got, want) in enumerate(zip(streams, want_streams)):
         rel = _rel_l2(got, want)
         assert rel <= 1e-2, (i, rel)
@@ -220,7 +221,8 @@ def test_unported_paths_raise(weights):
     params, qparams, state = weights
     model = _port(qparams, state)
     clips = torch.zeros(1, 2, 72, 72, 3)
-    for kw in (dict(use_pallas=False), dict(quantize="none"),
+    for kw in (dict(use_pallas=False),
+               dict(quantize="none", use_pallas=False),
                dict(q8_attn="boundary"), dict(q8_ff="mixed")):
         model.cfg = ISTVTConfig(**{**TINY, **kw})
         with pytest.raises(NotImplementedError):

@@ -9,13 +9,13 @@ fixture, not at import) where torch sees no CUDA device. Run on the card:
 import pytest
 import torch
 
-from istvt_tpu_torch.kernels import quant, selfcheck
+from istvt_tpu_torch.core.precision import highest
+from istvt_tpu_torch.kernels import _lib, attention, linear, selfcheck
+from istvt_tpu_torch.models.xception import to_store
 
 pytestmark = pytest.mark.gpu
 
-KERNELS = ["ln_qkv_q8_temporal_attention",
-           "mm_q8_ln_qkv_q8_spatial_attention",
-           "matmul_q8_res_ln_ff_q8_full"]
+KERNELS = list(_lib.LAUNCHES)
 
 
 @pytest.fixture(scope="module")
@@ -34,11 +34,12 @@ def cases(cuda, request):
 def test_kernel_f32_matches_plain(cases, name):
     kern, plain, make = cases[name]
     args = make(torch.float32)
-    before = quant.launch_counts[name]
-    got, want = kern(*args), plain(*args)
+    before = dict(_lib.LAUNCHES)
+    with highest():
+        got, want = kern(*args), plain(*args)
     torch.cuda.synchronize()
-    assert quant.launch_counts[name] == before + 1
-    ok, err = selfcheck.f32_close(got, want)
+    assert _lib.LAUNCHES == {**before, name: before[name] + 1}
+    ok, err = selfcheck.f32_close(name, got, want)
     assert ok, f"max|diff| {err}"
 
 
@@ -54,12 +55,14 @@ def test_kernel_bf16_matches_plain(cases, name):
 
 
 def test_f8_cast_same_on_card_and_cpu(cuda):
-    """The f8 stem store rounds the same on the card as on the CPU."""
+    """The f8 stem store rounds the same on the card as on the CPU, NaN
+    past the +-464 tie included."""
     x = torch.cat([torch.linspace(-500, 500, 20001),
                    torch.tensor([464.0, -464.0, 0.5 ** 10, 1e-12])])
     for dt in (torch.float32, torch.bfloat16):
-        cpu = x.to(dt).to(torch.float8_e4m3fn).float()
-        card = x.to(dt).cuda().to(torch.float8_e4m3fn).float().cpu()
+        cpu = to_store(x.to(dt), torch.float8_e4m3fn).float()
+        card = to_store(x.to(dt).cuda(), torch.float8_e4m3fn).float().cpu()
+        assert cpu.isnan().sum() > 0
         assert torch.equal(cpu.nan_to_num(1e9), card.nan_to_num(1e9))
 
 
@@ -71,3 +74,13 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         kern(x.half(), *rest)
     with pytest.raises(ValueError):
         kern(x.transpose(1, 2), *rest)
+    qkv = torch.zeros(2, 392, 3 * 512, device=cuda)      # S > 384
+    with pytest.raises(NotImplementedError, match="S <= 384"):
+        attention.spatial_attention_packed(qkv, 8, 362)
+    with pytest.raises(NotImplementedError, match="dim_head"):
+        attention.spatial_attention_packed(qkv[:, :368].contiguous(), 12,
+                                           362)
+    a = torch.zeros(16, 724, device=cuda)                # K % 8 != 0
+    with pytest.raises(ValueError, match="divisible by 8"):
+        linear.matmul_bias_residual(a, torch.zeros(724, 728, device=cuda),
+                                    torch.zeros(728, device=cuda))

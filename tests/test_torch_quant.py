@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from istvt_tpu.core import precision as jprecision
 from istvt_tpu.kernels import quant as jq
 from istvt_tpu_torch.core import precision as tprecision
+from istvt_tpu_torch.kernels import _lib
 from istvt_tpu_torch.kernels import quant as tq
 
 # (rows of the stream, widths) at the JAX test sizes: the small size of
@@ -126,10 +127,10 @@ def test_kernel_plain_matches_jax(kernel, size):
         tfn = tq.matmul_q8_res_ln_ff_q8_full
     with jprecision.highest():
         want = np.asarray(jfn(*_j(*arrs)))
-    tq.reset_launch_counts()
+    _lib.reset_launches()
     with tprecision.highest():
         got = tfn(*_t(*arrs))
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=2e-3)
-    assert all(v == 0 for v in tq.launch_counts.values())
+    assert all(v == 0 for v in _lib.LAUNCHES.values())

@@ -12,7 +12,7 @@ import torch
 from istvt_tpu.core.config import ISTVTConfig as JaxConfig
 from istvt_tpu_torch.core.config import ISTVTConfig
 from istvt_tpu_torch.core.device import require_cuda
-from istvt_tpu_torch.kernels import _lib, quant, selfcheck
+from istvt_tpu_torch.kernels import _lib, selfcheck
 
 
 def test_port_imports_no_jax():
@@ -43,12 +43,13 @@ def test_config_copy_matches_jax():
 
 def test_cpu_tensors_take_plain_path_and_count_nothing():
     cases = selfcheck.slice_cases(torch.device("cpu"))
-    quant.reset_launch_counts()
+    assert list(cases) == list(_lib.LAUNCHES)   # one case per counter
+    _lib.reset_launches()
     kern, plain, make = cases["ln_qkv_q8_temporal_attention"]
     args = make(torch.float32)
     args[0] = args[0][:, :3, :16].contiguous()         # a few rows only
     assert torch.equal(kern(*args), plain(*args))
-    assert all(v == 0 for v in quant.launch_counts.values())
+    assert all(v == 0 for v in _lib.LAUNCHES.values())
 
 
 def test_require_cuda():

@@ -2,6 +2,7 @@
 on the CPU at toy geometry, mirroring tests/test_serve.py and
 tests/test_serve_daemon.py."""
 import ast
+import copy
 import http.client
 import inspect
 import io
@@ -116,12 +117,51 @@ def test_cli_build_predictor_int8_only():
          "4"])
     pred = build_predictor(args, device=CPU)
     assert pred.batch_sizes == [1, 2, 4]
-    assert pred.input_dtype == torch.bfloat16
+    assert pred.input_dtype == torch.bfloat16 and pred.compute_dtype is None
     assert pred.model.cfg.quantize == "int8" and pred.model.cfg.feat_hw == 5
     out = pred.predict(np.zeros((1,) + CLIP, np.float32))
     assert np.isfinite(out["logits"]).all()
-    with pytest.raises(SystemExit, match="float serving path not ported"):
-        build_predictor(build_parser().parse_args([]), device=CPU)
     with pytest.raises(SystemExit, match="not ported"):
         build_predictor(SimpleNamespace(int8=True, artifact="x",
                                         checkpoint_dir=None), device=CPU)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_cli_build_predictor_float(bf16):
+    """Without --int8 the CLI serves the float fused model: bf16 parameters
+    and inputs with --bf16 (istvt_tpu/cli/serve.py:83-84), f32 otherwise."""
+    argv = ["-sl", "2", "-is", "72", "--depth", "1", "--max_batch", "2"]
+    pred = build_predictor(build_parser().parse_args(
+        argv + (["--bf16"] if bf16 else [])), device=CPU)
+    want = torch.bfloat16 if bf16 else torch.float32
+    m = pred.model
+    assert m.cfg.quantize == "none" and m.cfg.use_pallas
+    assert pred.compute_dtype == (want if bf16 else None)
+    assert pred.input_dtype is None
+    assert m.vit.transformer.layers[0][2].fn.net[0].weight.dtype == want
+    assert m.vit.transformer.layers[0][2].fn.w1.dtype == want   # packed
+    assert m.xcep.model.bn1.running_var.dtype == torch.float32
+    assert not m.vit.transformer.layers[0][0].fn.has_q8()
+    out = pred.predict(np.random.RandomState(2).randn(3, *CLIP)
+                       .astype(np.float32))
+    assert out["logits"].shape == (3,) and np.isfinite(out["logits"]).all()
+
+
+def test_predictor_compute_dtype_casts_params_and_inputs():
+    """compute_dtype casts the model's float parameters once and every input
+    (istvt_tpu/serve.py:29-33,70-73): the same logits as a model cast by
+    hand and fed inputs in that dtype."""
+    cfg = ISTVTConfig(num_frames=2, image_size=72, feat_hw=5, depth=1,
+                      use_pallas=True)
+    model = model_selection("istvt", cfg=cfg, device=CPU)
+    by_hand = istvt.pack_params(tree.cast(copy.deepcopy(model),
+                                          torch.bfloat16))
+    pred = Predictor(model, CPU, batch_sizes=(2,),
+                     compute_dtype=torch.bfloat16)
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    istvt.pack_params(model)              # after the cast, as the CLI does
+    clips = np.random.RandomState(5).randn(2, *CLIP).astype(np.float32)
+    with torch.inference_mode():
+        want = by_hand(torch.from_numpy(clips).to(torch.bfloat16))
+    np.testing.assert_array_equal(pred.predict(clips)["logits"],
+                                  want.reshape(-1).float().numpy())

@@ -99,22 +99,24 @@ def _e4m3_probe_values():
     return inrange.astype(np.float32), np.concatenate([over, -over])
 
 
+@pytest.mark.parametrize("nonneg", [False, True])
 @pytest.mark.parametrize("src", [torch.float32, torch.bfloat16])
-def test_f8_cast_matches_jax(src):
-    """torch.float8_e4m3fn rounds exactly as jnp.astype(float8_e4m3fn) on
-    every value the stem can store — ties to even included, and up to the
-    +-464 tie, which both round to +-448. Beyond it they differ: JAX
-    (ml_dtypes) gives NaN, torch saturates to +-448. The port keeps torch's
-    saturation; a NaN there would poison the clip's logits."""
+def test_f8_cast_matches_jax(src, nonneg):
+    """The port's f8 store (xception.to_store) rounds exactly as
+    jnp.astype(float8_e4m3fn) on every value: ties to even included, up to
+    the +-464 tie, which both round to +-448, and NaN past it (torch's own
+    cast saturates there to +-448; to_store puts JAX's NaN back). With
+    nonneg (the ReLU outputs) on the values >= 0 only."""
     inrange, over = _e4m3_probe_values()
-    for vals in (inrange, over):
+    for vals, is_over in ((inrange, False), (over, True)):
+        if nonneg:
+            vals = vals[vals >= 0]
         t_in = torch.from_numpy(vals).to(src)
         j_in = jnp.asarray(t_in.float().numpy()).astype(
             jnp.bfloat16 if src == torch.bfloat16 else jnp.float32)
         want = np.asarray(j_in.astype(jnp.float8_e4m3fn).astype(jnp.float32))
-        got = t_in.to(torch.float8_e4m3fn).float().numpy()
-        if vals is inrange:
-            np.testing.assert_array_equal(got, want)
-        else:
-            assert np.isnan(want).all()
-            np.testing.assert_array_equal(got, np.sign(vals) * 448.0)
+        got = tx.to_store(t_in, torch.float8_e4m3fn, nonneg=nonneg)
+        assert got.dtype == torch.float8_e4m3fn
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        if is_over:
+            assert np.isnan(want).all() and want.size >= 4

@@ -1,0 +1,81 @@
+"""Median B=16 forward time of a port serving path on one NVIDIA GPU.
+
+    python3 tools/torch_forward_ms.py [--root DIR] [--path int8|float]
+
+Imports istvt_tpu_torch from DIR (default: the checkout holding this
+script), builds the path's paper-geometry model (300^2 x 6, depth 12,
+seed 0) with its cli/serve.build_predictor (flags --int8, or --bf16 for the
+float path) and times it with `forward_times`, the one B=16 timing that
+chip_smoke.py's timing phase also calls. Prints one JSON line: root, path,
+median and quartile ms, clips/s, and the card's name and power limit. Run
+parent, change, change, parent in one call to compare two commits on one
+card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+BATCH, ITERS, WARMUP = 16, 20, 2
+
+
+def forward_times(model, clip):
+    """ms of ITERS B=16 calls `model(x)` (CUDA events), after WARMUP
+    warm-up calls, each on a distinct bf16 input drawn on the card from
+    seed 2 outside the timed span. Raises on non-finite logits."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    times = []
+    with torch.inference_mode():
+        for i in range(WARMUP + ITERS):
+            x = torch.randn(BATCH, *clip, generator=g,
+                            device=dev).to(torch.bfloat16)
+            e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            e0.record()
+            logits = model(x)
+            e1.record()
+            e1.synchronize()
+            if i >= WARMUP:
+                times.append(e0.elapsed_time(e1))
+    if not torch.isfinite(logits).all():
+        raise SystemExit("non-finite logits")
+    return times
+
+
+def main():
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=here)
+    ap.add_argument("--path", choices=("int8", "float"), default="int8")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    from istvt_tpu_torch.cli import serve as cli_serve
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this script times the GPU")
+    cli = cli_serve.build_parser().parse_args(
+        ["--int8"] if args.path == "int8" else ["--bf16"])
+    model = cli_serve.build_predictor(cli, torch.device("cuda")).model
+    times = forward_times(
+        model, (cli.seq_len, cli.input_size, cli.input_size, 3))
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    print(json.dumps({"root": os.path.relpath(root, here), "path": args.path,
+                      "median_ms": med, "q1_ms": q1, "q3_ms": q3,
+                      "clips_per_s": BATCH * 1e3 / med, "card": card}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()
