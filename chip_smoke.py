@@ -2,22 +2,27 @@
 
     python3 chip_smoke.py [--profile PATH]
 
-Drives the port's two ISTVT serving paths at the paper geometry (300^2 x 6
-frames, depth 12, 8 heads x 64, dim 728, FF 2912) with random weights from
-a seed: the int8 W8A8 path (`cli/serve.py --int8`) and the float fused
-path in bf16 (`cli/serve.py --bf16`). In phases; any failure raises and
-exits non-zero:
+Drives the port's two ISTVT serving paths and its training path at the
+paper geometry (300^2 x 6 frames, depth 12, 8 heads x 64, dim 728, FF
+2912) with random weights from a seed: the int8 W8A8 path
+(`cli/serve.py --int8`), the float fused path in bf16 (`cli/serve.py
+--bf16`), and training on the float fused path in bf16 over f32 masters
+(`cli/train.py --dataset synthetic --use_pallas --bf16 --dropout 0`). In
+phases; any failure raises and exits non-zero:
 
   1. device   - a CUDA device is required; prints nvidia-smi's name and
                 power limit and the torch / CUDA versions
   2. build    - nvcc builds every kernel from istvt_tpu_torch/kernels/csrc
-  3. kernels  - each of the eight kernels (nine cases: #20 with and
-                without its residual) vs its plain PyTorch version on the
-                card at the slice's shapes (2 clips, T+1 = 7, S = 368,
-                n_valid = 362): f32 at atol = rtol = 2e-3 (int8 kernels)
-                or 1e-5 (float kernels), bf16 at rel-L2 < 1e-2 and
-                max|diff| < 0.02 max|plain|; median kernel / plain /
-                library-call ms and the card's least time (bound)
+  3. kernels  - each of the thirteen kernels (fourteen cases, one per
+                launch counter: #20 with and without its residual; the
+                training slice's four backward kernels and the h1-stash
+                forward) vs its plain PyTorch version on the card at the
+                slice's shapes (2 clips, T+1 = 7, S = 368, n_valid = 362):
+                f32 at atol = rtol = 2e-3 (int8 kernels) or 1e-5 (float
+                kernels; backward kernels max|diff| <= 1e-5 max|plain| per
+                output), bf16 at rel-L2 < 1e-2 and max|diff| < 0.02
+                max|plain|; median kernel / plain / library-call ms and the
+                card's least time (bound)
   then for each path, int8 first:
   4. serving  - the model behind the HTTP ServeDaemon: float32 and uint8
                 POSTs, a 16-clip batch and two concurrent requests, all
@@ -29,10 +34,21 @@ exits non-zero:
   6. timing   - B=16 forward, median ms and clips/s
                 (tools/torch_forward_ms.forward_times: CUDA events, a
                 distinct input per iteration)
+  then training, through cli/train.py's code path (check_args, build,
+  the Trainer's step):
+  7. train    - B=16 steps at depth 12, bf16: median ms/step and peak
+                device memory; counted from 0 over the timed steps, every
+                kernel must have launched exactly its launches per step
+                (TRAIN_PER_LAYER x depth) times the steps, every other 0
+  8. train e2e - one step at depth 2 (full width, 300^2, B=2): the card
+                (kernels, bf16) vs the CPU (plain versions, f32) from the
+                same weights and batch: |dloss| <= 5e-2, gradient cosine
+                >= 0.99
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. With --profile PATH, torch.profiler tables
-of one B=16 forward of each path are written to PATH.
+of one B=16 forward of each serving path and of one B=16 train step are
+written to PATH.
 """
 from __future__ import annotations
 
@@ -55,6 +71,7 @@ _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [_ROOT, os.path.join(_ROOT, "tools")]
 
 from istvt_tpu_torch.cli import serve as cli_serve  # noqa: E402
+from istvt_tpu_torch.cli import train as cli_train  # noqa: E402
 from istvt_tpu_torch.core import tree  # noqa: E402
 from istvt_tpu_torch.core.config import ISTVTConfig  # noqa: E402
 from istvt_tpu_torch.core.device import require_cuda  # noqa: E402
@@ -102,7 +119,37 @@ KERNELS = {
     "ln_ff_residual": (
         _CSRC + "float_gemm.cu", "istvt_tpu/kernels/mlp.py:102",
         "float", 1),
+    # the training slice (path "train": launched by no serving forward)
+    "temporal_attention_packed/bwd": (
+        _CSRC + "attention_bwd.cu", "istvt_tpu/kernels/attention.py:440",
+        "train", 1),
+    "spatial_attention_packed/bwd": (
+        _CSRC + "attention_bwd.cu", "istvt_tpu/kernels/attention.py:842",
+        "train", 1),
+    "ln_matmul/bwd": (
+        _CSRC + "float_gemm.cu", "istvt_tpu/kernels/linear.py:165",
+        "train", 2),
+    "ln_ff_residual/h1": (
+        _CSRC + "float_gemm.cu", "istvt_tpu/kernels/mlp.py:150",
+        "train", 1),
+    "ln_ff_residual/bwd": (
+        _CSRC + "float_gemm.cu", "istvt_tpu/kernels/mlp.py:270",
+        "train", 1),
 }
+
+# launches per layer of one float fused train step (dropout 0): the
+# forward's kernels, except that the FF branch runs its h1-stash variant,
+# and the backward kernels; every other counter stays 0
+TRAIN_PER_LAYER = {
+    "ln_matmul": 2, "temporal_attention_packed": 1,
+    "spatial_attention_packed": 1, "matmul_bias_residual": 1,
+    "matmul_bias_residual/no_r": 1, "ln_ff_residual/h1": 1,
+    "temporal_attention_packed/bwd": 1, "spatial_attention_packed/bwd": 1,
+    "ln_matmul/bwd": 2, "ln_ff_residual/bwd": 1,
+}
+TRAIN_FLAGS = ["--dataset", "synthetic", "--use_pallas", "--bf16",
+               "--dropout", "0"]
+TRAIN_BATCH, TRAIN_STEPS = 16, 5
 
 # published H100 SXM peaks (hopper-kernels guide section 1): bytes/s, and
 # dense operations/s by the type of the inputs
@@ -159,9 +206,19 @@ def _ops(name, args):
     if name == "spatial_attention_packed":
         g, s, i3 = args[0].shape
         return {"bf16": 4 * g * s * args[2] * (i3 // 3)}
+    if name == "temporal_attention_packed/bwd":   # 5 products of (T1, T1)
+        b, t1, s, i3 = args[0].shape
+        return {"bf16": 10 * b * s * t1 * t1 * (i3 // 3)}
+    if name == "spatial_attention_packed/bwd":    # 5 products, valid keys
+        g, s, i3 = args[0].shape
+        return {"bf16": 10 * g * s * args[3] * (i3 // 3)}
     rows = args[0].numel() // args[0].shape[-1]
-    if name == "ln_ff_residual":
+    if name in ("ln_ff_residual", "ln_ff_residual/h1"):
         return {"bf16": 4 * rows * args[3].shape[0] * args[3].shape[1]}
+    if name == "ln_ff_residual/bwd":              # dW2, dH, dW1, dY
+        return {"bf16": 8 * rows * args[3].shape[0] * args[3].shape[1]}
+    if name == "ln_matmul/bwd":                   # dY, dW
+        return {"bf16": 4 * rows * args[3].numel()}
     # ln_matmul, matmul_bias_residual(/no_r): one (rows, K) @ (K, N) product
     return {"bf16": 2 * rows * args[-1 if name == "ln_matmul" else 1].numel()}
 
@@ -170,7 +227,8 @@ def _bound_ms(name, args, out):
     """The least time the card could take: the larger of the bytes the
     function must move (each input read once, the output written once) over
     the memory rate and its operations over the peak rate of their type."""
-    tensors = [t for t in args if torch.is_tensor(t)] + [out]
+    tensors = [t for t in args if torch.is_tensor(t)] + list(
+        selfcheck.outputs(out))
     t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BPS
     t_ops = sum(n / PEAK_OPS[k] for k, n in _ops(name, args).items())
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -192,6 +250,18 @@ def _library_call(name, args):
     if name == "matmul_bias_residual/no_r":
         x, w, b = args
         return lambda: F.linear(x, w.t(), b)
+    if name == "spatial_attention_packed/bwd":
+        # the backward of one SDPA call with the same additive mask
+        qkv, go, heads, n_valid = args
+        g, s, i3 = qkv.shape
+        q, k, v = (t.reshape(g, s, heads, -1).transpose(1, 2).detach()
+                   .requires_grad_() for t in qkv.split(i3 // 3, dim=-1))
+        mask = torch.zeros(1, 1, 1, s, dtype=qkv.dtype, device=qkv.device)
+        mask[..., n_valid:] = -1e30
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        gout = go.reshape(g, s, heads, -1).transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (q, k, v), gout,
+                                           retain_graph=True)
     return None
 
 
@@ -347,12 +417,108 @@ def timing_phase(path, model, dev, card, profile):
 
 
 # ---------------------------------------------------------------------------
+# 7-8. training through cli/train.py's code path
+
+
+def _trainer(flags, bf16=True):
+    args = cli_train.build_parser().parse_args(
+        [f for f in TRAIN_FLAGS if bf16 or f != "--bf16"] + flags)
+    cli_train.check_args(args)
+    return cli_train.build(args)
+
+
+def _profile_step(trainer, ts, batch, card, profile):
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        float(trainer.step_fn(ts, batch)["loss"])
+        torch.cuda.synchronize()
+    with open(profile, "a") as f:
+        f.write(f"{card}, float fused path, B={TRAIN_BATCH} bf16 train step\n")
+        f.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=50) + "\n")
+    phase("train", f"profile table appended to {profile}")
+
+
+def train_phase(card, profile):
+    """TRAIN_STEPS timed B=16 steps after one warm-up step; returns the
+    launch counts of the timed steps."""
+    t0 = time.perf_counter()
+    trainer, loader, _ = _trainer(
+        ["--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+         "--dataset_len", str(TRAIN_BATCH * (TRAIN_STEPS + 1))])
+    ts = trainer.init_state()
+    batches = list(loader)           # made before the timed steps
+    phase("train", f"model + {len(batches)} synthetic batches built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    float(trainer.step_fn(ts, batches[0])["loss"])        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    times, losses = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        m = trainer.step_fn(ts, batch)
+        losses.append(float(m["loss"]))   # waits for the step's kernels
+        times.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite([losses[-1], float(m["grad_norm"])]).all():
+            raise SystemExit(f"train step {ts.step}: non-finite {m}")
+    torch.cuda.synchronize()
+    counts = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    depth = trainer.model.cfg.depth
+    want = {n: TRAIN_PER_LAYER.get(n, 0) * depth * len(times)
+            for n in _lib.LAUNCHES}
+    ms = float(np.median(times))
+    phase("train", f"B={TRAIN_BATCH} bf16 steps (ms) "
+          f"{[round(t, 3) for t in times]}: median {ms:.3f} ms = "
+          f"{TRAIN_BATCH * 1e3 / ms:.2f} clips/s; peak device memory "
+          f"{peak:.2f} GiB; losses {[round(v, 5) for v in losses]} on "
+          f"{card} (informative)")
+    phase("train", f"launches over {len(times)} steps {counts} "
+          f"(want {want})")
+    if counts != want:
+        raise SystemExit("the train step did not launch each kernel its "
+                         "count per step")
+    if profile:
+        _profile_step(trainer, ts, batches[1], card, profile)
+    return counts
+
+
+def train_e2e_phase():
+    """One depth-2 B=2 step: card (kernels, bf16) vs CPU (plain, f32)."""
+    flags = ["--depth", "2", "--batch_size", "2", "--dataset_len", "2",
+             "--epochs", "1"]
+    card_tr, loader, _ = _trainer(flags)
+    cpu_tr, _, _ = _trainer(flags + ["--device", "cpu"], bf16=False)
+    batch = next(iter(loader))
+    out = []
+    t0 = time.perf_counter()
+    for tr in (card_tr, cpu_tr):
+        ts = tr.init_state()
+        with highest():
+            m = tr.step_fn(ts, batch)
+        out.append((float(m["loss"]), torch.cat([
+            p.grad.double().cpu().ravel() for p in tr.model.parameters()])))
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    cos = float(F.cosine_similarity(g_card, g_cpu, dim=0))
+    phase("train e2e", f"depth 2, B=2: loss card {l_card:.6f} vs CPU plain "
+          f"f32 {l_cpu:.6f} (|d| {abs(l_card - l_cpu):.3e}, limit 5e-2); "
+          f"gradient cosine {cos:.6f} (limit 0.99; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    if not (abs(l_card - l_cpu) <= 5e-2 and cos >= 0.99):
+        raise SystemExit("the card's train step disagrees with the CPU "
+                         "reference")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None,
-                    help="write a torch.profiler table of a B=16 forward here")
+                    help="write torch.profiler tables of a B=16 forward of "
+                         "each serving path and a B=16 train step here")
     args = ap.parse_args()
 
     # 1. device
@@ -394,6 +560,13 @@ def main():
         timing_phase(path, predictor.model, dev, card, args.profile)
         del predictor
         torch.cuda.empty_cache()
+
+    # 7-8 training
+    counts = train_phase(card, args.profile)
+    launches.update({n: counts[n] for n, k in KERNELS.items()
+                     if k[2] == "train"})
+    torch.cuda.empty_cache()
+    train_e2e_phase()
 
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": KERNELS[n][0],

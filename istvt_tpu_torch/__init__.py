@@ -6,16 +6,20 @@ and is held against it by the tests. It imports `torch` and never `jax`.
 
 Ported so far: the int8 W8A8 serving forward of ISTVT
 (`ISTVTConfig(use_pallas=True, quantize='int8')`, q8_ff='full',
-q8_attn='ingest', stem_store='f8'):
+q8_attn='ingest', stem_store='f8'), the float fused serving forward
+(`quantize='none'`), and training on the float fused path:
 
-  core/      ISTVTConfig copy, device selection, TF32 control, dtype cast
+  core/      config copies, device selection, TF32 control, dtype cast
   nn/        the layers the Xception stem and the ST layers use
-  kernels/   the three per-layer int8 kernels, hand-written CUDA for sm_90a
-             (csrc/), each with a plain PyTorch version beside it
+  kernels/   the per-layer kernels, forward and backward, hand-written CUDA
+             for sm_90a (csrc/), each with a plain PyTorch version beside it
   models/    Xception stem, ISTVT, the `istvt` registry key
-  compat/    JAX params -> port state_dict
+  compat/    JAX params -> port state_dict, BN statistics back
   serve.py   bucketed Predictor; serve_daemon.py the HTTP batch server
-  cli/       `python -m istvt_tpu_torch.cli.serve --int8`
+  train/     loss, metrics, schedules, the train / eval steps, Trainer
+  data/      synthetic clips and a synchronous ClipLoader
+  cli/       `python -m istvt_tpu_torch.cli.serve --int8`,
+             `python -m istvt_tpu_torch.cli.train --use_pallas --bf16 ...`
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,7 @@
 """JAX (params, state) trees -> port state_dict
-(counterpart of istvt_tpu/compat/torch_import.py, in the other direction).
+(counterpart of istvt_tpu/compat/torch_import.py, in the other direction),
+and the BatchNorm running statistics back (`state_to_jax`), so a training
+run's state is compared in either form.
 
 The JAX trees arrive as numpy arrays (`jax.device_get` or `np.asarray` of
 each leaf); this module never imports jax. Layouts (JAX -> torch):
@@ -123,3 +125,25 @@ def params_from_jax(params: Any, state: Any) -> Dict[str, torch.Tensor]:
     sd = xception_state_dict(params["xcep"], state["xcep"], "xcep.model.")
     sd.update(dsttr_state_dict(params["vit"], "vit."))
     return sd
+
+
+def state_to_jax(sd: Dict[str, torch.Tensor],
+                 prefix: str = "xcep.model.") -> Dict[str, Any]:
+    """The port's BatchNorm running statistics -> JAX `istvt.init`'s state
+    tree {'xcep': {'bn1': {'mean', 'var'}, ..., 'block{b}': {'rep':
+    [{'bn': ...}], 'skipbn': ...}}}, as numpy arrays (the inverse of the
+    state half of params_from_jax)."""
+    def bn(key):
+        return {"mean": sd[f"{prefix}{key}.running_mean"].cpu().numpy(),
+                "var": sd[f"{prefix}{key}.running_var"].cpu().numpy()}
+
+    st: Dict[str, Any] = {k: bn(k) for k in ("bn1", "bn2", "bn3", "bn4")}
+    for b, spec in enumerate(BLOCK_SPECS, start=1):
+        off = 1 if spec[4] else 0
+        blk: Dict[str, Any] = {"rep": [
+            {"bn": bn(f"block{b}.rep.{3 * i + 1 + off}")}
+            for i in range(spec[2])]}
+        if spec[0] != spec[1] or spec[3] != 1:
+            blk["skipbn"] = bn(f"block{b}.skipbn")
+        st[f"block{b}"] = blk
+    return {"xcep": st}

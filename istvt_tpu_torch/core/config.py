@@ -1,13 +1,16 @@
-"""ISTVT geometry and compute knobs.
+"""ISTVT geometry and compute knobs, and the training run's settings.
 
-A copy of `istvt_tpu.core.config.ISTVTConfig`: importing the JAX package's
-config pulls in `jax` (`istvt_tpu/core/__init__.py` imports the mesh
-module), so the port keeps its own dataclass. tests/test_torch_scaffold.py
-holds its fields and defaults equal to the JAX one.
+Copies of `istvt_tpu.core.config.ISTVTConfig`, `DataConfig` and
+`TrainConfig`: importing the JAX package's config pulls in `jax`
+(`istvt_tpu/core/__init__.py` imports the mesh module), so the port keeps
+its own dataclasses. tests/test_torch_scaffold.py and
+tests/test_torch_train_step.py hold their fields and defaults equal to
+the JAX ones.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,3 +46,36 @@ class ISTVTConfig:
     @property
     def inner_dim(self) -> int:
         return self.heads * self.dim_head
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Run-level data settings the Trainer reads (core/config.DataConfig)."""
+
+    root: str = ""
+    quality: str = "hq"             # 'hq' | 'lq'
+    seq_len: int = 6
+    input_size: int = 300
+    batch_size: int = 16
+    dataset: str = "ff++"           # 'ff++' | 'celeb' | 'oulu' |
+                                    # 'synthetic' | 'ff++video'
+    dataset_len: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and run settings (core/config.TrainConfig)."""
+
+    model_name: str = "istvt"
+    num_epochs: int = 40
+    base_lr: float = 5e-4           # reference train_CNN.py:209-211
+    optimizer: str = "adamw"        # 'adamw' | 'sgd'
+    weight_decay: float = 0.01
+    momentum: float = 0.9
+    seed: int = 0
+    warmup_epochs: int = 20
+    checkpoint_dir: str = "./output"
+    log_every: int = 1000
+    debug_nans: bool = False
+    compute_dtype: str = "float32"  # 'bfloat16': bf16 forward/backward
+                                    # against f32 master params

@@ -13,6 +13,9 @@ attention.py, linear.py, mlp.py (float fused path):
   ln_matmul                          LN -> GEMM
   matmul_bias_residual               GEMM + bias (+ residual)
   ln_ff_residual                     x + fc2(gelu(fc1(LN x)))
+  and for training (autograd.Functions' backward and the FF's stash):
+  temporal_attention_packed_bwd, spatial_attention_packed_bwd,
+  ln_matmul_bwd, ln_ff_residual_h1, ln_ff_residual_bwd
 Sources in csrc/, built at first use by _lib.py, which also holds the
 launch counts of every wrapper (_lib.LAUNCHES).
 """

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-At first use, nvcc compiles every source under csrc/ for sm_90a into one
-shared library with a plain C interface under kernels/build/ (listed in
-.gitignore), and ctypes loads it. Nothing is built or imported when this
+At first use, nvcc compiles every source under csrc/ for sm_90a (one
+compiler per source, all at once) and links them into one shared library
+with a plain C interface under kernels/build/ (listed in .gitignore), and
+ctypes loads it. Nothing is built or imported when this
 module is imported: the CPU tests import every module and never build.
 A failed build raises; there is no fallback to the plain versions.
 """
@@ -39,6 +40,12 @@ LAUNCHES: Dict[str, int] = dict.fromkeys([
     "matmul_bias_residual",                # with a residual
     "matmul_bias_residual/no_r",           # r=None
     "ln_ff_residual",                      # kernels/mlp.py
+    # the training slice: backward kernels and the h1-stash forward
+    "temporal_attention_packed/bwd",       # kernels/attention.py
+    "spatial_attention_packed/bwd",
+    "ln_matmul/bwd",                       # kernels/linear.py
+    "ln_ff_residual/h1",                   # kernels/mlp.py
+    "ln_ff_residual/bwd",
 ], 0)
 
 
@@ -52,8 +59,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, x_dt, s, b, y, R, D, stream
     "istvt_ln_rows": [_P, _I, _P, _P, _P, _I, _I, _P],
-    # a, w, dt, bias, res, out, gelu, M, N, K, stream
-    "istvt_gemm": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, dt, layout, out, out_f32, bias, res, gelu, out2, aux, part, mode,
+    # M, N, K, stream
+    "istvt_gemm": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                   _I, _P],
+    # x, dt, s, dy, res, dx, part, R, D, blocks, stream
+    "istvt_ln_bwd_rows": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # part, nout, P, N, out, stream
+    "istvt_colsum": [_P, _I, _I, _I, _P, _P],
     # x, x_dt, s, b, q, rs, R, D, stream
     "istvt_ln_quant_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
     # x, x_dt, q, rs, R, D, stream
@@ -64,6 +77,12 @@ _SIGNATURES = {
     "istvt_temporal_attn": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # qkv, out, dt, G, S, H, inner, n_valid, scale, stream
     "istvt_spatial_attn": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # qkv, dout, dqkv, dt, B, T1, S, H, inner, scale, stream
+    "istvt_temporal_attn_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                ctypes.c_float, _P],
+    # qkv, dout, dqkv, stats, dt, G, S, H, inner, n_valid, scale, stream
+    "istvt_spatial_attn_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()
@@ -94,22 +113,40 @@ def _stale() -> bool:
 
 
 def build(force: bool = False) -> Path:
-    """Compile csrc/*.cu into LIB_PATH (if stale). Returns the path; the
-    compiler's output, ptxas register/shared-memory report included, is
-    kept in build/build.log."""
+    """Compile csrc/*.cu into LIB_PATH (if stale): one nvcc per source, all
+    started together, then one link. Returns the path; the compilers'
+    output, ptxas register/shared-memory report included, is kept in
+    build/build.log."""
     if not force and not _stale():
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_PATH.stem}.{os.getpid()}.so"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-           "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), os.getpid()
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-lineinfo", "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        tmp = BUILD_DIR / f".{LIB_PATH.stem}.{tag}.so"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
 
@@ -145,6 +182,14 @@ def stream() -> int:
 
 def f32(t):
     return t.to(torch.float32).contiguous()
+
+
+def needs_grad(*tensors) -> bool:
+    """True where autograd records this call: grad mode is on and an input
+    requires grad. Wrappers with a backward kernel go through their
+    autograd.Function only then, so serving runs the plain forward."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def check_act(t, name):

@@ -1,0 +1,509 @@
+// The backward of the float fused path's two attention cores (kernels/attention.py
+// temporal_attention_packed_bwd, spatial_attention_packed_bwd), on the packed
+// [q | k | v] activations the forward read, writing the packed [dq | dk | dv].
+//
+// Replaces two TPU kernels:
+//   * istvt_tpu/kernels/attention.py fused_temporal_attention_packed_bwd
+//     (_temporal_packed_bwd_kernel): the softmax over the T+1 = 7 frames per (clip,
+//     location, head) after the self-subtract cat(x[:2], x[2:] - x[1:-1]) on q and k,
+//     taken backward, then the transposed self-subtract
+//     d[t] = ds[t] - ds[t + 1] (1 <= t < T) mapping the subtracted grads back to the
+//     projections. The casts are JAX's: the subtracted q, k are rounded to the
+//     activation dtype; dq is summed in f32 and rounded once; dk and dv are summed
+//     over the query frames in the activation dtype, each term rounded first, as the
+//     TPU kernel adds into its bf16 refs (so in bf16 the two agree term for term).
+//   * istvt_tpu/kernels/attention.py fused_frame_attention_bwd (_attn_bwd_kernel):
+//     per (frame, head), P = softmax(Q K^T s + mask) with keys >= n_valid masked,
+//     dV = round(P)^T dO, dP = dO V^T, dS = round((P o (dP - rowsum(P o dP))) s),
+//     dQ = dS K, dK = dS^T Q, f32 sums. rowsum(P o dP) is summed directly, as JAX
+//     does, not taken as dO . O (O was rounded to the activation dtype).
+//
+// What bounds them on the H100: the temporal backward is tiny arithmetic (7x7 per
+// location and head) and bound by reading qkv and dO once and writing dqkv once
+// (~337 MB at B=16 bf16). The spatial backward is 5 S^2 dh products per (frame, head),
+// about 0.08 TFLOP per B=16 layer, bound by operations. The TPU kernel held the whole
+// S x S f32 score tile of a frame in VMEM (542 KB), which does not fit the 227 KB of
+// shared memory of a block.
+//
+// What the design does about it: the temporal backward keeps one (clip, location,
+// head) in one warp's registers, lane = feature dim, like the forward core. The
+// spatial backward is two flash-style passes that recompute the probabilities, so
+// nothing S x S is stored and no two blocks write the same output (no atomics):
+// (a) per 32-query tile, each lane holding the score and dP rows of its key slots in
+// registers as the forward core does: the exact softmax, rowsum(P o dP), dS and dQ,
+// and per query row the softmax max, sum and rowsum; (b) per 32-key tile, streaming
+// 32-query chunks: P from the stored max / sum (the scores are summed in the same
+// order as in (a), so P and dS are bit-identical to (a)'s), then dK and dV. Both stay
+// on the FMA pipes in f32 (the f32 check needs no TF32); moving them to the bf16
+// tensor cores is later work. dim_head <= 64 (the shared memory of pass (b)).
+#include "common.cuh"
+
+namespace istvt {
+
+constexpr int kBwdTMax = 8;  // T + 1 <= 8
+
+// (i) Temporal backward: one warp per (clip, location, head); lane holds dims
+// lane + 32 e.
+template <typename T, int DPL>
+__global__ void __launch_bounds__(256) temporal_attn_bwd_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv, int B, int T1,
+    int S, int H, int inner, int dh, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long item = static_cast<long>(blockIdx.x) * 8 + warp;
+  if (item >= static_cast<long>(B) * S * H) return;
+  const int h = item % H;
+  const int s = (item / H) % S;
+  const int b = item / (static_cast<long>(H) * S);
+  const int i3 = 3 * inner;
+
+  float q[kBwdTMax][DPL], k[kBwdTMax][DPL], v[kBwdTMax][DPL], go[kBwdTMax][DPL];
+#pragma unroll
+  for (int t = 0; t < kBwdTMax; ++t) {
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      q[t][e] = k[t][e] = v[t][e] = go[t][e] = 0.f;
+      if (t < T1 && d < dh) {
+        const size_t tok = static_cast<size_t>(b * T1 + t) * S + s;
+        const T* base = qkv + tok * i3 + h * dh + d;
+        q[t][e] = to_f(base[0]);
+        k[t][e] = to_f(base[inner]);
+        v[t][e] = to_f(base[2 * inner]);
+        go[t][e] = to_f(dout[tok * inner + h * dh + d]);
+      }
+    }
+  }
+  // self-subtract in the activation dtype, rows 0 and 1 unchanged
+#pragma unroll
+  for (int t = kBwdTMax - 1; t >= 2; --t) {
+    if (t < T1) {
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) {
+        q[t][e] = round_to<T>(q[t][e] - q[t - 1][e]);
+        k[t][e] = round_to<T>(k[t][e] - k[t - 1][e]);
+      }
+    }
+  }
+  float dqs[kBwdTMax][DPL], dks[kBwdTMax][DPL], dv[kBwdTMax][DPL];
+#pragma unroll
+  for (int t = 0; t < kBwdTMax; ++t)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) dqs[t][e] = dks[t][e] = dv[t][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kBwdTMax; ++i) {
+    if (i >= T1) break;
+    float l[kBwdTMax], dp[kBwdTMax];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBwdTMax; ++j) {
+      l[j] = -INFINITY;
+      dp[j] = 0.f;
+      if (j < T1) {
+        float a = 0.f, c = 0.f;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          a = __fadd_rn(a, __fmul_rn(q[i][e], k[j][e]));
+          c = __fadd_rn(c, __fmul_rn(go[i][e], v[j][e]));
+        }
+        l[j] = __fmul_rn(warp_sum(a), scale);
+        dp[j] = warp_sum(c);
+        m = fmaxf(m, l[j]);
+      }
+    }
+    float es[kBwdTMax], den = 0.f, pdp = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBwdTMax; ++j) {
+      es[j] = 0.f;
+      if (j < T1) {
+        es[j] = expf(l[j] - m);
+        den = __fadd_rn(den, es[j]);
+        pdp = __fadd_rn(pdp, __fmul_rn(es[j], dp[j]));
+      }
+    }
+    pdp = __fdiv_rn(pdp, den);
+    float dq[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) dq[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBwdTMax; ++j) {
+      if (j < T1) {
+        const float p = __fdiv_rn(es[j], den);
+        const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[j], pdp)), scale);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          dq[e] = __fadd_rn(dq[e], __fmul_rn(ds, k[j][e]));
+          dks[j][e] = round_to<T>(__fadd_rn(dks[j][e], round_to<T>(__fmul_rn(ds, q[i][e]))));
+          dv[j][e] = round_to<T>(__fadd_rn(dv[j][e], round_to<T>(__fmul_rn(p, go[i][e]))));
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) dqs[i][e] = round_to<T>(dq[e]);
+  }
+  // the transposed self-subtract: d[0] = ds[0], d[t] = ds[t] - ds[t + 1] for
+  // 1 <= t < T1 - 1, d[T1 - 1] = ds[T1 - 1], in the activation dtype
+#pragma unroll
+  for (int t = 0; t < kBwdTMax; ++t) {
+    if (t >= T1) break;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      if (d >= dh) continue;
+      float gq = dqs[t][e], gk = dks[t][e];
+      if (t >= 1 && t + 1 < T1) {
+        gq = __fsub_rn(gq, dqs[t + 1][e]);
+        gk = __fsub_rn(gk, dks[t + 1][e]);
+      }
+      T* base = dqkv + (static_cast<size_t>(b * T1 + t) * S + s) * i3 + h * dh + d;
+      base[0] = from_f<T>(gq);
+      base[inner] = from_f<T>(gk);
+      base[2 * inner] = from_f<T>(dv[t][e]);
+    }
+  }
+}
+
+// (ii) Spatial backward. kSQ queries or keys per block tile, 4 per warp.
+constexpr int kSQ = 32, kSW = 4, kSMaxCh = 12;  // S <= 12 * 32 = 384
+
+// The f32 score of (query q, key j): sum over d in order of fmaf(q_d, k_d), times the
+// scale, -1e30 added for masked keys. Pass (a) and pass (b) both compute it this way,
+// so both get the same bits.
+__device__ __forceinline__ float masked_score(float dot, float scale, int key, int n_valid) {
+  float v = __fmul_rn(dot, scale);
+  if (key >= n_valid) v = __fadd_rn(v, -1e30f);
+  return v;
+}
+
+// (a) Block = (query tile of 32, head, frame); warp w owns queries 4w..4w+3, lane
+// owns keys 32 m + lane. Writes dQ and stats[(frame, head, row)] = (max, sum, rowsum).
+template <typename T, int DH>
+__global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv,
+    float* __restrict__ stats, int S, int H, int inner, int n_valid, float scale) {
+  constexpr int DPL = DH >= 32 ? DH / 32 : 1;
+  __shared__ __align__(16) float Qs[DH][kSQ + 4];  // Q tile, transposed
+  __shared__ __align__(16) float Gs[DH][kSQ + 4];  // dO tile, transposed
+  __shared__ float KV[32][DH + 1];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kSQ, h = blockIdx.y, f = blockIdx.z;
+  const int i3 = 3 * inner;
+  const T* base = qkv + static_cast<size_t>(f) * S * i3 + h * DH;
+  const T* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
+  const int nch = (S + 31) / 32;
+
+  for (int idx = tid; idx < kSQ * DH; idx += 256) {
+    const int qq = idx / DH, d = idx % DH, row = q0 + qq;
+    Qs[d][qq] = row < S ? to_f(base[static_cast<size_t>(row) * i3 + d]) : 0.f;
+    Gs[d][qq] = row < S ? to_f(gbase[static_cast<size_t>(row) * inner + d]) : 0.f;
+  }
+
+  float sc[kSW][kSMaxCh], dp[kSW][kSMaxCh];
+#pragma unroll
+  for (int m = 0; m < kSMaxCh; ++m) {
+#pragma unroll
+    for (int qq = 0; qq < kSW; ++qq) {
+      sc[qq][m] = -INFINITY;
+      dp[qq][m] = 0.f;
+    }
+    if (m < nch) {
+      const int key = m * 32 + lane;
+      __syncthreads();
+      for (int idx = tid; idx < 32 * DH; idx += 256) {
+        const int kk = idx / DH, d = idx % DH, r = m * 32 + kk;
+        KV[kk][d] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + inner + d]) : 0.f;
+      }
+      __syncthreads();
+      float a[kSW] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int d = 0; d < DH; ++d) {
+        const float kv = KV[lane][d];
+        const float4 qv = *reinterpret_cast<const float4*>(&Qs[d][warp * kSW]);
+        a[0] = fmaf(qv.x, kv, a[0]);
+        a[1] = fmaf(qv.y, kv, a[1]);
+        a[2] = fmaf(qv.z, kv, a[2]);
+        a[3] = fmaf(qv.w, kv, a[3]);
+      }
+      __syncthreads();
+      for (int idx = tid; idx < 32 * DH; idx += 256) {
+        const int kk = idx / DH, d = idx % DH, r = m * 32 + kk;
+        KV[kk][d] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + 2 * inner + d]) : 0.f;
+      }
+      __syncthreads();
+      float c[kSW] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int d = 0; d < DH; ++d) {
+        const float vv = KV[lane][d];
+        const float4 gv = *reinterpret_cast<const float4*>(&Gs[d][warp * kSW]);
+        c[0] = fmaf(gv.x, vv, c[0]);
+        c[1] = fmaf(gv.y, vv, c[1]);
+        c[2] = fmaf(gv.z, vv, c[2]);
+        c[3] = fmaf(gv.w, vv, c[3]);
+      }
+      if (key < S) {
+#pragma unroll
+        for (int qq = 0; qq < kSW; ++qq) {
+          sc[qq][m] = masked_score(a[qq], scale, key, n_valid);
+          dp[qq][m] = c[qq];
+        }
+      }
+    }
+  }
+  // exact softmax per query row, rowsum(P o dP), then dS (rounded to T) into dp
+#pragma unroll
+  for (int qq = 0; qq < kSW; ++qq) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int m = 0; m < kSMaxCh; ++m) mx = fmaxf(mx, sc[qq][m]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < kSMaxCh; ++m) {
+      sc[qq][m] = expf(sc[qq][m] - mx);
+      sum += sc[qq][m];
+    }
+    sum = warp_sum(sum);
+    float pdp = 0.f;
+#pragma unroll
+    for (int m = 0; m < kSMaxCh; ++m) {
+      sc[qq][m] = __fdiv_rn(sc[qq][m], sum);
+      pdp += __fmul_rn(sc[qq][m], dp[qq][m]);
+    }
+    pdp = warp_sum(pdp);
+#pragma unroll
+    for (int m = 0; m < kSMaxCh; ++m)
+      dp[qq][m] = round_to<T>(__fmul_rn(__fmul_rn(sc[qq][m], __fsub_rn(dp[qq][m], pdp)), scale));
+    const int row = q0 + warp * kSW + qq;
+    if (lane == 0 && row < S) {
+      float* st = stats + ((static_cast<size_t>(f) * H + h) * S + row) * 3;
+      st[0] = mx;
+      st[1] = sum;
+      st[2] = pdp;
+    }
+  }
+
+  float o[kSW][DPL];
+#pragma unroll
+  for (int qq = 0; qq < kSW; ++qq)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[qq][e] = 0.f;
+#pragma unroll
+  for (int m = 0; m < kSMaxCh; ++m) {
+    if (m < nch) {
+      __syncthreads();
+      for (int idx = tid; idx < 32 * DH; idx += 256) {
+        const int kk = idx / DH, d = idx % DH, r = m * 32 + kk;
+        KV[kk][d] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + inner + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int jj = 0; jj < 32; ++jj) {
+        float g[kSW];
+#pragma unroll
+        for (int qq = 0; qq < kSW; ++qq) g[qq] = __shfl_sync(0xffffffffu, dp[qq][m], jj);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          const int d = lane + 32 * e;
+          const float kv = d < DH ? KV[jj][d] : 0.f;
+#pragma unroll
+          for (int qq = 0; qq < kSW; ++qq) o[qq][e] = fmaf(g[qq], kv, o[qq][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int qq = 0; qq < kSW; ++qq) {
+    const int row = q0 + warp * kSW + qq;
+    if (row >= S) continue;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      if (d < DH) dqkv[(static_cast<size_t>(f) * S + row) * i3 + h * DH + d] = from_f<T>(o[qq][e]);
+    }
+  }
+}
+
+// (b) Block = (key tile of 32, head, frame); warp w owns keys 4w..4w+3; query chunks
+// of 32 stream through shared memory, lane = query. Writes dK and dV.
+template <typename T, int DH>
+__global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv,
+    const float* __restrict__ stats, int S, int H, int inner, int n_valid, float scale) {
+  constexpr int DPL = DH >= 32 ? DH / 32 : 1;
+  __shared__ __align__(16) float Ks[DH][kSQ + 4];  // K tile, transposed
+  __shared__ __align__(16) float Vs[DH][kSQ + 4];  // V tile, transposed
+  __shared__ float Qc[32][DH + 1];                 // query chunk
+  __shared__ float Gc[32][DH + 1];                 // dO chunk
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * kSQ, h = blockIdx.y, f = blockIdx.z;
+  const int i3 = 3 * inner;
+  const T* base = qkv + static_cast<size_t>(f) * S * i3 + h * DH;
+  const T* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
+  const float* fstats = stats + (static_cast<size_t>(f) * H + h) * S * 3;
+  const int nch = (S + 31) / 32;
+
+  for (int idx = tid; idx < kSQ * DH; idx += 256) {
+    const int kk = idx / DH, d = idx % DH, r = k0 + kk;
+    Ks[d][kk] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + inner + d]) : 0.f;
+    Vs[d][kk] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + 2 * inner + d]) : 0.f;
+  }
+  float dk[kSW][DPL], dv[kSW][DPL];
+#pragma unroll
+  for (int kk = 0; kk < kSW; ++kk)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) dk[kk][e] = dv[kk][e] = 0.f;
+
+  for (int m = 0; m < nch; ++m) {
+    __syncthreads();
+    for (int idx = tid; idx < 32 * DH; idx += 256) {
+      const int qq = idx / DH, d = idx % DH, r = m * 32 + qq;
+      Qc[qq][d] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + d]) : 0.f;
+      Gc[qq][d] = r < S ? to_f(gbase[static_cast<size_t>(r) * inner + d]) : 0.f;
+    }
+    __syncthreads();
+    const int qrow = m * 32 + lane;
+    float mx = 0.f, sum = 1.f, pdp = 0.f;
+    if (qrow < S) {
+      mx = fstats[qrow * 3];
+      sum = fstats[qrow * 3 + 1];
+      pdp = fstats[qrow * 3 + 2];
+    }
+    float a[kSW] = {0.f, 0.f, 0.f, 0.f}, c[kSW] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) {
+      const float qv = Qc[lane][d], gv = Gc[lane][d];
+      const float4 kv = *reinterpret_cast<const float4*>(&Ks[d][warp * kSW]);
+      const float4 vv = *reinterpret_cast<const float4*>(&Vs[d][warp * kSW]);
+      a[0] = fmaf(qv, kv.x, a[0]);
+      a[1] = fmaf(qv, kv.y, a[1]);
+      a[2] = fmaf(qv, kv.z, a[2]);
+      a[3] = fmaf(qv, kv.w, a[3]);
+      c[0] = fmaf(gv, vv.x, c[0]);
+      c[1] = fmaf(gv, vv.y, c[1]);
+      c[2] = fmaf(gv, vv.z, c[2]);
+      c[3] = fmaf(gv, vv.w, c[3]);
+    }
+    float pb[kSW], ds[kSW];
+#pragma unroll
+    for (int kk = 0; kk < kSW; ++kk) {
+      const int key = k0 + warp * kSW + kk;
+      float p = 0.f;
+      if (qrow < S && key < S)
+        p = __fdiv_rn(expf(masked_score(a[kk], scale, key, n_valid) - mx), sum);
+      pb[kk] = round_to<T>(p);
+      ds[kk] = round_to<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(c[kk], pdp)), scale));
+    }
+#pragma unroll 4
+    for (int jj = 0; jj < 32; ++jj) {
+      float pj[kSW], sj[kSW];
+#pragma unroll
+      for (int kk = 0; kk < kSW; ++kk) {
+        pj[kk] = __shfl_sync(0xffffffffu, pb[kk], jj);
+        sj[kk] = __shfl_sync(0xffffffffu, ds[kk], jj);
+      }
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) {
+        const int d = lane + 32 * e;
+        const float gv = d < DH ? Gc[jj][d] : 0.f;
+        const float qv = d < DH ? Qc[jj][d] : 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kSW; ++kk) {
+          dv[kk][e] = fmaf(pj[kk], gv, dv[kk][e]);
+          dk[kk][e] = fmaf(sj[kk], qv, dk[kk][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kSW; ++kk) {
+    const int key = k0 + warp * kSW + kk;
+    if (key >= S) continue;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      if (d < DH) {
+        T* o = dqkv + (static_cast<size_t>(f) * S + key) * i3 + h * DH + d;
+        o[inner] = from_f<T>(dk[kk][e]);
+        o[2 * inner] = from_f<T>(dv[kk][e]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_temporal_bwd(const void* qkv, const void* dout, void* dqkv, int B, int T1, int S,
+                        int H, int inner, float scale, cudaStream_t st) {
+  const int dh = inner / H;
+  const long items = static_cast<long>(B) * S * H;
+  const int blocks = static_cast<int>((items + 7) / 8);
+  auto in = static_cast<const T*>(qkv);
+  auto g = static_cast<const T*>(dout);
+  auto o = static_cast<T*>(dqkv);
+  if (dh <= 32)
+    temporal_attn_bwd_kernel<T, 1><<<blocks, 256, 0, st>>>(in, g, o, B, T1, S, H, inner, dh, scale);
+  else if (dh <= 64)
+    temporal_attn_bwd_kernel<T, 2><<<blocks, 256, 0, st>>>(in, g, o, B, T1, S, H, inner, dh, scale);
+  else
+    temporal_attn_bwd_kernel<T, 4><<<blocks, 256, 0, st>>>(in, g, o, B, T1, S, H, inner, dh, scale);
+  return 0;
+}
+
+template <typename T, int DH>
+void launch_spatial_bwd_dh(const T* qkv, const T* g, T* dqkv, float* stats, int G, int S, int H,
+                           int inner, int n_valid, float scale, cudaStream_t st) {
+  dim3 grid((S + kSQ - 1) / kSQ, H, G);
+  spatial_attn_bwd_dq_kernel<T, DH><<<grid, 256, 0, st>>>(qkv, g, dqkv, stats, S, H, inner,
+                                                          n_valid, scale);
+  spatial_attn_bwd_dkv_kernel<T, DH><<<grid, 256, 0, st>>>(qkv, g, dqkv, stats, S, H, inner,
+                                                           n_valid, scale);
+}
+
+template <typename T>
+int launch_spatial_bwd(const void* qkv, const void* dout, void* dqkv, void* stats, int G, int S,
+                       int H, int inner, int n_valid, float scale, cudaStream_t st) {
+  auto in = static_cast<const T*>(qkv);
+  auto g = static_cast<const T*>(dout);
+  auto o = static_cast<T*>(dqkv);
+  auto sts = static_cast<float*>(stats);
+  switch (inner / H) {
+    case 16: launch_spatial_bwd_dh<T, 16>(in, g, o, sts, G, S, H, inner, n_valid, scale, st); break;
+    case 32: launch_spatial_bwd_dh<T, 32>(in, g, o, sts, G, S, H, inner, n_valid, scale, st); break;
+    case 64: launch_spatial_bwd_dh<T, 64>(in, g, o, sts, G, S, H, inner, n_valid, scale, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+}  // namespace istvt
+
+using namespace istvt;
+
+extern "C" {
+
+// qkv (B, T1, S, 3 inner), dout (B, T1, S, inner) -> dqkv (B, T1, S, 3 inner); dt 0 f32,
+// 1 bf16; T1 <= 8, inner / H <= 128.
+int istvt_temporal_attn_bwd(const void* qkv, const void* dout, void* dqkv, int dt, int B,
+                            int T1, int S, int H, int inner, float scale, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  int rc = dt == kBF16
+               ? launch_temporal_bwd<__nv_bfloat16>(qkv, dout, dqkv, B, T1, S, H, inner, scale, st)
+               : launch_temporal_bwd<float>(qkv, dout, dqkv, B, T1, S, H, inner, scale, st);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// qkv (G, S, 3 inner), dout (G, S, inner) -> dqkv (G, S, 3 inner); keys >= n_valid
+// masked; stats f32 (G, H, S, 3) scratch; S <= 384, inner / H in {16, 32, 64}.
+int istvt_spatial_attn_bwd(const void* qkv, const void* dout, void* dqkv, void* stats, int dt,
+                           int G, int S, int H, int inner, int n_valid, float scale,
+                           void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  int rc = dt == kBF16 ? launch_spatial_bwd<__nv_bfloat16>(qkv, dout, dqkv, stats, G, S, H,
+                                                           inner, n_valid, scale, st)
+                       : launch_spatial_bwd<float>(qkv, dout, dqkv, stats, G, S, H, inner,
+                                                   n_valid, scale, st);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

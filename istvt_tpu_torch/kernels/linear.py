@@ -1,14 +1,18 @@
-"""LayerNorm -> GEMM and GEMM + bias (+ residual)
+"""LayerNorm -> GEMM and GEMM + bias (+ residual), forward and backward
 (counterpart of istvt_tpu/kernels/linear.py).
 
-  ln_matmul(x, s, b, w)             LayerNorm(x) @ w  (TPU: _ln_matmul_impl)
-  matmul_bias_residual(x, w, b, r)  x @ w + b (+ r)   (TPU: _matmul_bias_impl)
+  ln_matmul(x, s, b, w)             LayerNorm(x) @ w  (TPU: _ln_matmul_impl;
+                                    backward _ln_matmul_bwd_impl)
+  matmul_bias_residual(x, w, b, r)  x @ w + b (+ r)   (TPU: _matmul_bias_impl;
+                                    backward plain math, as in JAX)
 
 Weights are in the JAX (in, out) layout and are cast to x's dtype; the
 products accumulate in f32 and the f32 epilogue rounds once to x's dtype,
 in the JAX order. A CUDA tensor runs the hand-written kernels of
-csrc/float_gemm.cu (LN rows, then the GEMM with its fused epilogue); a CPU
-tensor runs the plain version beside each wrapper.
+csrc/float_gemm.cu (LN rows, the GEMM with its fused epilogue, and for the
+backward the LN-backward rows and column sums); a CPU tensor runs the
+plain version beside each wrapper. Where autograd records the call, both
+wrappers are torch.autograd.Functions whose backward runs the same way.
 """
 from __future__ import annotations
 
@@ -19,8 +23,9 @@ from istvt_tpu_torch.kernels import _lib
 _EPS = 1e-5
 
 
-def _ln(xf, scale, bias):
-    """f32 LayerNorm, two-pass variance, eps 1e-5 (kernels/linear._ln).
+def _ln_stats(xf):
+    """(xhat, rstd) of f32 rows, two-pass variance, eps 1e-5
+    (kernels/linear._ln_stats).
 
     The two statistics are summed in float64 and rounded to f32, and the
     reciprocal is 1 / sqrt (both IEEE), so this version and the CUDA
@@ -30,7 +35,21 @@ def _ln(xf, scale, bias):
     mean = xf.double().mean(dim=-1, keepdim=True).float()
     xc = xf - mean
     var = (xc * xc).double().mean(dim=-1, keepdim=True).float()
-    return xc * (1.0 / torch.sqrt(var + _EPS)) * scale + bias
+    rstd = 1.0 / torch.sqrt(var + _EPS)
+    return xc * rstd, rstd
+
+
+def _ln(xf, scale, bias):
+    """f32 LayerNorm (kernels/linear._ln): xhat * scale + bias."""
+    return _ln_stats(xf)[0] * scale + bias
+
+
+def _ln_bwd_rows(dy, xhat, s, rstd):
+    """LayerNorm input-grad for row-local stats, f32 (_ln_bwd_rows)."""
+    dxhat = dy * s
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    return (dxhat - m1 - xhat * m2) * rstd
 
 
 def ln_matmul_plain(x, s, b, w):
@@ -38,6 +57,19 @@ def ln_matmul_plain(x, s, b, w):
     dt = x.dtype
     y = _ln(x.float(), s.float(), b.float()).to(dt)
     return (y.float() @ w.to(dt).float()).to(dt)
+
+
+def ln_matmul_bwd_plain(x, s, b, w, g):
+    """Plain version of ln_matmul_bwd (the math of _ln_matmul_bwd_kernel):
+    x (R, D), w (D, K) in x's dtype, g (R, K) -> dx (R, D) in x's dtype,
+    ds, db (D,) and dw (D, K) in f32. dy = g w^T stays f32."""
+    dt = x.dtype
+    xhat, rstd = _ln_stats(x.float())
+    sf = s.float()
+    y = (xhat * sf + b.float()).to(dt)
+    dy = g.float() @ w.to(dt).float().t()
+    dx = _ln_bwd_rows(dy, xhat, sf, rstd).to(dt)
+    return (dx, (dy * xhat).sum(0), dy.sum(0), y.float().t() @ g.float())
 
 
 def matmul_bias_residual_plain(x, w, b, r=None):
@@ -49,23 +81,68 @@ def matmul_bias_residual_plain(x, w, b, r=None):
     return o.to(dt)
 
 
-def ln_matmul(x, s, b, w):
-    """LayerNorm(x) @ w: x (..., N, D), w (D, K) -> (..., N, K) in x.dtype.
-    CPU tensors take the plain version."""
+# ---------------------------------------------------------------------------
+# kernel wrappers (count their launches)
+
+
+def _ln_matmul_fwd(x, s, b, w):
     if not x.is_cuda:
         return ln_matmul_plain(x, s, b, w)
     lead, d = x.shape[:-1], x.shape[-1]
     _lib.check_act(x, "x")
     y = ln_rows(x.reshape(-1, d), _lib.f32(s), _lib.f32(b))
     out = torch.empty(lead + (w.shape[1],), dtype=x.dtype, device=x.device)
-    gemm(y, w, None, None, out, gelu=False)
+    gemm(y, w, out)
     _lib.LAUNCHES["ln_matmul"] += 1
     return out
 
 
-def matmul_bias_residual(x, w, b, r=None):
-    """x @ w + b (+ r): x (..., N, D), w (D, K), b (K,), r (..., N, K) or
-    None -> (..., N, K) in x.dtype. CPU tensors take the plain version."""
+def ln_matmul_bwd(x, s, b, w, g):
+    """The backward of LayerNorm(x) @ w (#19): x (R, D), w (D, K), g (R, K)
+    -> dx (R, D) in x.dtype; ds, db (D,), dw (D, K) in f32. CPU tensors
+    take the plain version."""
+    if not x.is_cuda:
+        return ln_matmul_bwd_plain(x, s, b, w, g)
+    _lib.check_act(x, "x")
+    _lib.check_act(g, "g")
+    w = w.to(x.dtype).contiguous()
+    s32 = _lib.f32(s)
+    y = ln_rows(x, s32, _lib.f32(b))
+    dy = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    gemm(g, w, dy, layout="nt")
+    dx, (ds, db) = ln_bwd(x, s32, dy)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
+    gemm(y, g, dw, layout="tn")
+    _lib.LAUNCHES["ln_matmul/bwd"] += 1
+    return dx, ds, db, dw
+
+
+class _LnMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s, b, w):
+        ctx.save_for_backward(x, s, b, w)
+        return _ln_matmul_fwd(x, s, b, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s, b, w = ctx.saved_tensors
+        d = x.shape[-1]
+        dx, ds, db, dw = ln_matmul_bwd(x.reshape(-1, d), s, b,
+                                       w.to(x.dtype),
+                                       g.reshape(-1, g.shape[-1]).contiguous())
+        return (dx.reshape(x.shape), ds.to(s.dtype), db.to(b.dtype),
+                dw.to(w.dtype))
+
+
+def ln_matmul(x, s, b, w):
+    """LayerNorm(x) @ w: x (..., N, D), w (D, K) -> (..., N, K) in x.dtype.
+    CPU tensors take the plain version. Differentiable (backward #19)."""
+    if _lib.needs_grad(x, s, b, w):
+        return _LnMatmul.apply(x, s, b, w)
+    return _ln_matmul_fwd(x, s, b, w)
+
+
+def _matmul_bias_residual_fwd(x, w, b, r):
     if not x.is_cuda:
         return matmul_bias_residual_plain(x, w, b, r)
     lead, k = x.shape[:-1], w.shape[1]
@@ -76,15 +153,59 @@ def matmul_bias_residual(x, w, b, r=None):
             raise ValueError(f"residual {tuple(r.shape)} {r.dtype} does not "
                              f"match x {tuple(x.shape)} {x.dtype}, K={k}")
     out = torch.empty(lead + (k,), dtype=x.dtype, device=x.device)
-    gemm(x.reshape(-1, x.shape[-1]), w, _lib.f32(b.to(x.dtype)), r, out,
-         gelu=False)
+    gemm(x.reshape(-1, x.shape[-1]), w, out, bias32=_lib.f32(b.to(x.dtype)),
+         res=r)
     _lib.LAUNCHES["matmul_bias_residual" if r is not None
                   else "matmul_bias_residual/no_r"] += 1
     return out
 
 
+def _matmul_bias_residual_bwd(x, w, g):
+    """(dx, dw) of x @ w for the flat x (R, D), w (D, K), g (R, K):
+    jax.vjp of _matmul_bias_reference, a dot with f32 accumulation, so
+    dx = g w^T rounded once to x's dtype and dw = x^T g in f32. No TPU
+    kernel: on the card the same GEMM launches run it (counted nowhere)."""
+    w = w.to(x.dtype)
+    if not x.is_cuda:
+        return ((g.float() @ w.float().t()).to(x.dtype),
+                x.float().t() @ g.float())
+    dx = torch.empty_like(x)
+    gemm(g, w.contiguous(), dx, layout="nt")
+    dw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
+    gemm(x, g, dw, layout="tn")
+    return dx, dw
+
+
+class _MatmulBiasResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, r):
+        ctx.save_for_backward(x, w, b)
+        ctx.has_r = r is not None
+        return _matmul_bias_residual_fwd(x, w, b, r)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        gf = g.reshape(-1, g.shape[-1]).contiguous()
+        dx, dw = _matmul_bias_residual_bwd(x.reshape(-1, x.shape[-1]), w, gf)
+        db = gf.sum(0, dtype=torch.float32)
+        return (dx.reshape(x.shape), dw.to(w.dtype), db.to(b.dtype),
+                g if ctx.has_r else None)
+
+
+def matmul_bias_residual(x, w, b, r=None):
+    """x @ w + b (+ r): x (..., N, D), w (D, K), b (K,), r (..., N, K) or
+    None -> (..., N, K) in x.dtype. CPU tensors take the plain version.
+    Differentiable (backward in plain math, as JAX's _mbr_bwd)."""
+    if _lib.needs_grad(x, w, b, r):
+        return _MatmulBiasResidual.apply(x, w, b, r)
+    return _matmul_bias_residual_fwd(x, w, b, r)
+
+
 # ---------------------------------------------------------------------------
 # launch plumbing, shared with kernels/mlp.py (counts nothing)
+
+_LAYOUT = {"nn": 0, "nt": 1, "tn": 2}
 
 
 def ln_rows(x, s32, b32):
@@ -97,18 +218,85 @@ def ln_rows(x, s32, b32):
     return y
 
 
-def gemm(a, w, bias32, res, out, gelu: bool):
-    """out = epilogue(a (M, K) @ w (K, N)) on the card: f32 accumulation,
-    + bias32 (f32), tanh-GELU, + res, cast to out's dtype (= a's)."""
-    m, k = a.shape
-    w = w.to(a.dtype).contiguous()
-    if w.shape[0] != k or k % 8 or w.shape[1] % 8:
-        raise ValueError(f"GEMM takes a (M, K) @ w (K, N) with K and N "
-                         f"divisible by 8 (got {tuple(a.shape)} @ "
-                         f"{tuple(w.shape)})")
-    if not w.is_cuda or w.data_ptr() % 16:
-        raise ValueError("GEMM weights must be 16-byte aligned CUDA tensors")
+def gemm(a, b, out, *, layout: str = "nn", bias32=None, res=None,
+         gelu: bool = False, out2=None, aux=None, part=None):
+    """out (M, N) = epilogue(A @ B) on the card, f32 accumulation.
+
+    layout 'nn': a (M, K), b (K, N) (b is cast to a's dtype: the weight);
+    'nt': a (M, K), b (N, K), out = a @ b^T; 'tn': a (K, M), b (K, N),
+    out = a^T @ b. out in a's dtype, or f32 (bf16 inputs: weight
+    gradients, f32 intermediates). Epilogue: + bias32 (f32), the
+    pre-activation into out2, tanh-GELU, + res; or, with aux (the pre-GELU
+    hidden; layout 'nt', out in a's dtype), out = acc * gelu'(aux),
+    gelu(aux) into out2 and the per-block column sums of the f32 result
+    into part, (ceil(M / gemm_row_tile), N) f32."""
+    code = _LAYOUT[layout]
+    b = b.to(a.dtype).contiguous()
+    if layout == "tn":
+        (k, m), n = a.shape, b.shape[1]
+        ok = b.shape[0] == k and m % 8 == 0 and n % 8 == 0
+    elif layout == "nt":
+        (m, k), n = a.shape, b.shape[0]
+        ok = b.shape[1] == k and k % 8 == 0
+    else:
+        (m, k), n = a.shape, b.shape[1]
+        ok = b.shape[0] == k and k % 8 == 0 and n % 8 == 0
+    if not ok:
+        raise ValueError(f"GEMM {layout} takes operands whose contiguous "
+                         f"extents are divisible by 8 (got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)})")
+    if out.numel() != m * n or not out.is_contiguous():
+        raise ValueError(f"GEMM output {tuple(out.shape)}, want ({m}, {n}) "
+                         f"contiguous")
+    for t in (a, b, res, out, out2, aux):
+        if t is not None and (not t.is_cuda or t.data_ptr() % 16):
+            raise ValueError("GEMM operands must be 16-byte aligned CUDA "
+                             "tensors")
+    out_f32 = out.dtype == torch.float32
+    if not out_f32 and out.dtype != a.dtype:
+        raise TypeError(f"GEMM output {out.dtype} for {a.dtype} inputs")
     _lib.check(_lib.load().istvt_gemm(
-        a.data_ptr(), w.data_ptr(), _lib.DTYPE_CODE[a.dtype],
-        _lib.ptr(bias32), _lib.ptr(res), out.data_ptr(), int(gelu), m,
-        w.shape[1], k, _lib.stream()), "gemm")
+        a.data_ptr(), b.data_ptr(), _lib.DTYPE_CODE[a.dtype], code,
+        out.data_ptr(), int(out_f32), _lib.ptr(bias32), _lib.ptr(res),
+        int(gelu), _lib.ptr(out2), _lib.ptr(aux), _lib.ptr(part),
+        int(aux is not None), m, n, k, _lib.stream()), "gemm")
+
+
+def gemm_row_tile(dtype) -> int:
+    """Rows per block of the GEMM (bf16 tensor-core tile 128, f32 64): the
+    row count of a column-sum partial."""
+    return 128 if dtype == torch.bfloat16 else 64
+
+
+def colsum(part):
+    """(nout, P, N) or (P, N) f32 partials -> their sums over P, in order."""
+    p3 = part.reshape((-1,) + part.shape[-2:])
+    nout, p, n = p3.shape
+    out = torch.empty((nout, n), dtype=torch.float32, device=part.device)
+    _lib.check(_lib.load().istvt_colsum(p3.data_ptr(), nout, p, n,
+                                        out.data_ptr(), _lib.stream()),
+               "colsum")
+    return out.reshape(part.shape[:-2] + (n,))
+
+
+_LN_BWD_BLOCKS = 256
+
+
+def ln_bwd(x, s32, dy, res=None):
+    """LayerNorm backward rows on the card: x (R, D) in its dtype, dy (R, D)
+    f32 -> dx (+ res) in x's dtype, and the column sums (dy * xhat, dy
+    [, res]) in f32."""
+    rows, d = x.shape
+    if d > 1024:
+        raise NotImplementedError(f"LayerNorm backward takes D <= 1024 "
+                                  f"(got {d})")
+    blocks = max(1, min((rows + 7) // 8, _LN_BWD_BLOCKS))
+    nout = 2 if res is None else 3
+    part = torch.empty((nout, blocks, d), dtype=torch.float32,
+                       device=x.device)
+    dx = torch.empty_like(x)
+    _lib.check(_lib.load().istvt_ln_bwd_rows(
+        x.data_ptr(), _lib.DTYPE_CODE[x.dtype], s32.data_ptr(),
+        dy.data_ptr(), _lib.ptr(res), dx.data_ptr(), part.data_ptr(), rows,
+        d, blocks, _lib.stream()), "ln_bwd_rows")
+    return dx, colsum(part)

@@ -1,4 +1,5 @@
-"""Kernel-vs-plain check cases at the serving slice's shapes.
+"""Kernel-vs-plain check cases at the serving slice's shapes (and, for the
+training slice's backward kernels and h1-stash forward, the same shapes).
 
 Used by chip_smoke.py (phase 3) and tests/test_torch_kernels_gpu.py: the
 same seeded inputs go through each kernel's wrapper (CUDA) and its plain
@@ -16,7 +17,11 @@ atol = rtol = 2e-3. That margin matters: one flipped activation code would
 move its row's outputs by up to amax * max|w| / 127, about 1e-3 at these
 scales. The float kernels differ from theirs only by summation order, and
 are held in f32 at atol = rtol = 1e-5: a GEMM that rounded its f32 inputs
-to TF32 or bf16 would be off by about 1e-3 here.
+to TF32 or bf16 would be off by about 1e-3 here. The backward kernels
+return several outputs, among them weight gradients summed over every
+row; each output is held at max|diff| <= 1e-5 * max|plain| (summation
+order only; TF32 or bf16 rounding of the f32 inputs is ~1e-3 of the
+scale and fails).
 
 Case names are the wrappers' launch-count names (kernels/_lib.LAUNCHES).
 """
@@ -34,6 +39,8 @@ SMALL = dict(b=2, t1=4, s=32, n_valid=26, d=128, inner=64, heads=4, hid=256)
 INT8_CASES = ("ln_qkv_q8_temporal_attention",
               "mm_q8_ln_qkv_q8_spatial_attention",
               "matmul_q8_res_ln_ff_q8_full")
+BWD_CASES = ("temporal_attention_packed/bwd", "spatial_attention_packed/bwd",
+             "ln_matmul/bwd", "ln_ff_residual/bwd")
 F32_TOL_INT8, F32_TOL_FLOAT = 2e-3, 1e-5
 
 
@@ -74,9 +81,19 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
     w1, b1f, w2, b2f = init(d, d, hid), init(d, hid), init(hid, hid, d), \
         init(hid, d)
     stream = x.reshape(b, t1 * s, d)
+    # backward cases: output grads, the stream's rows
+    g_t, g_s = rn(b, t1, s, inner), rn(b * t1, s, inner)
+    rows = stream.reshape(-1, d)
+    g_qkv, g_rows = rn(rows.shape[0], 3 * inner), rn(*rows.shape)
 
     def on(dt, *ts):
         return [t.to(device, dt) for t in ts]
+
+    def ff_bwd_args(dt):
+        xr, s_, b_, w1_, b1_, w2_, b2_ = on(dt, rows, ln_s, ln_b, w1, b1f, w2,
+                                             b2f)
+        h1 = mlp.ln_ff_residual_h1_plain(xr, s_, b_, w1_, b1_, w2_, b2_)[1]
+        return [xr, s_, b_, w1_, h1, w2_, *on(dt, g_rows)]
 
     return {
         "ln_qkv_q8_temporal_attention": (
@@ -113,27 +130,64 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
         "ln_ff_residual": (
             mlp.ln_ff_residual, mlp.ln_ff_residual_plain,
             lambda dt: on(dt, stream, ln_s, ln_b, w1, b1f, w2, b2f)),
+        "temporal_attention_packed/bwd": (
+            attention.temporal_attention_packed_bwd,
+            attention.temporal_packed_bwd_plain,
+            lambda dt: [*on(dt, qkv_t, g_t), heads]),
+        "spatial_attention_packed/bwd": (
+            attention.spatial_attention_packed_bwd,
+            attention.spatial_packed_bwd_plain,
+            lambda dt: [*on(dt, qkv_s, g_s), heads, n_valid]),
+        "ln_matmul/bwd": (
+            linear.ln_matmul_bwd, linear.ln_matmul_bwd_plain,
+            lambda dt: on(dt, rows, ln_s, ln_b, w_qkv, g_qkv)),
+        "ln_ff_residual/h1": (
+            mlp.ln_ff_residual_h1, mlp.ln_ff_residual_h1_plain,
+            lambda dt: on(dt, stream, ln_s, ln_b, w1, b1f, w2, b2f)),
+        "ln_ff_residual/bwd": (
+            mlp.ln_ff_residual_bwd, mlp.ln_ff_residual_bwd_plain,
+            ff_bwd_args),
     }
 
 
+def outputs(out) -> tuple:
+    """A kernel's result as a tuple of tensors."""
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
 def f32_tol(case: str) -> float:
-    """The f32 criterion of a case, atol = rtol."""
+    """The f32 criterion of a case: atol = rtol, or for a backward case
+    the bound on max|diff| / max|plain| of every output."""
     return F32_TOL_INT8 if case in INT8_CASES else F32_TOL_FLOAT
 
 
 def f32_close(case: str, got, want) -> tuple:
-    """(ok, max|diff|) at atol = rtol = f32_tol(case)."""
-    err = (got - want).abs().max().item()
-    tol = f32_tol(case)
-    return torch.allclose(got, want, atol=tol, rtol=tol), err
+    """(ok, err): err is max|diff| (for a backward case max|diff| /
+    max|plain|, the worst output), ok its criterion (f32_tol)."""
+    tol, ok, err = f32_tol(case), True, 0.0
+    for g, w in zip(outputs(got), outputs(want)):
+        diff = (g.float() - w.float()).abs().max().item()
+        if case in BWD_CASES:
+            e = diff / max(w.float().abs().max().item(), 1e-30)
+            ok = ok and e <= tol
+        else:
+            e = diff
+            ok = ok and torch.allclose(g, w, atol=tol, rtol=tol)
+        err = max(err, e)
+    return ok, err
 
 
 def bf16_close(got, want, rel_l2: float = 1e-2, max_frac: float = 0.02):
-    """(ok, rel-L2, max|diff|, max|want|): the criterion of
-    tests/test_tpu_smoke._assert_close_bf16 — small relative L2 error AND
-    a max deviation bounded by a fraction of the tensor's scale, since two
-    valid bf16 accumulation orders round a few entries differently."""
-    g, w = got.float(), want.float()
-    rel = ((g - w).norm() / w.norm().clamp_min(1e-9)).item()
-    mx, scale = (g - w).abs().max().item(), w.abs().max().item()
-    return rel < rel_l2 and mx < max_frac * scale, rel, mx, scale
+    """(ok, rel-L2, max|diff|, max|want|) of the worst output: the
+    criterion of tests/test_tpu_smoke._assert_close_bf16 — small relative
+    L2 error AND a max deviation bounded by a fraction of the tensor's
+    scale, since two valid bf16 accumulation orders round a few entries
+    differently."""
+    ok, worst = True, (0.0, 0.0, 0.0)
+    for g, w in zip(outputs(got), outputs(want)):
+        g, w = g.float(), w.float()
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-9)).item()
+        mx, scale = (g - w).abs().max().item(), w.abs().max().item()
+        ok = ok and rel < rel_l2 and mx < max_frac * scale
+        worst = max(worst, (rel, mx, scale))
+    return (ok,) + worst

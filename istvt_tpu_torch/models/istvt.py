@@ -21,7 +21,10 @@
 Ported: the eval forward with `use_pallas=True`, in two forms: int8 W8A8
 serving (`quantize='int8'`, q8_ff='full', q8_attn='ingest'; stem_store
 'f8' or 'bf16') and float fused (`quantize='none'`, in the parameters'
-dtype, f32 or bf16; the stem stores nothing in f8). Every other
+dtype, f32 or bf16; the stem stores nothing in f8); and the train forward
+of the float fused path (`model.train()`, `dropout == 0`, `remat=False`):
+train-mode BatchNorm in the stem, every ST-layer kernel differentiable
+through its backward kernel (train/step.py drives it). Every other
 configuration raises NotImplementedError naming its ROADMAP.md item; none
 falls back silently.
 
@@ -29,7 +32,9 @@ Module and state_dict names are the reference's (network/vivit/vivit.py,
 module.py), so `istvt_tpu.compat.torch_import.istvt_from_torch` loads a
 port state_dict; the int8 copies are extra buffers (`qkv_wq`, ...) that
 `quantize_params` attaches, and the float path's (in, out) weight copies
-are non-persistent buffers (`qkv_w`, ...) that `pack_params` attaches.
+are non-persistent buffers (`qkv_w`, ...) that `pack_params` attaches for
+eval. Train mode never reads those copies (an optimizer step would leave
+them stale): it builds them from the parameters inside every forward.
 """
 from __future__ import annotations
 
@@ -69,6 +74,20 @@ class _ServingBuffers(nn.Module):
     def has_packed(self) -> bool:
         return all(getattr(self, n) is not None for n in self.packed_names)
 
+    def io_sources(self):
+        """The nn.Linear modules of each (in, out) copy, in packed_names
+        order."""
+        raise NotImplementedError
+
+    def io_weights(self):
+        """The (in, out) weights the float kernels take, in packed_names
+        order: in train mode built from the current parameters on every
+        call (differentiable, never stale); in eval mode the copies
+        pack_params attached."""
+        if self.training:
+            return tuple(_io(*ls) for ls in self.io_sources())
+        return tuple(getattr(self, n) for n in self.packed_names)
+
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         dev = next(self.parameters()).device
         for n in self.q8_names:
@@ -76,6 +95,11 @@ class _ServingBuffers(nn.Module):
             if v is not None and getattr(self, n) is None:
                 setattr(self, n, torch.empty_like(v, device=dev))
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+def _io(*linears):
+    """The (in, out) weight of nn.Linear modules, concatenated over out."""
+    return torch.cat([m.weight.t() for m in linears], dim=1).contiguous()
 
 
 class TemporalAttention(_ServingBuffers):
@@ -92,6 +116,9 @@ class TemporalAttention(_ServingBuffers):
                                     nn.Dropout(0.0))
         self._register_copies()
 
+    def io_sources(self):
+        return (self.to_qk, self.to_v), (self.to_out[0],)
+
 
 class SpatialAttention(_ServingBuffers):
     """Per-frame spatial attention (reference module.py:66-93)."""
@@ -105,6 +132,9 @@ class SpatialAttention(_ServingBuffers):
         self.to_out = nn.Sequential(nn.Linear(inner, dim, device=device),
                                     nn.Dropout(0.0))
         self._register_copies()
+
+    def io_sources(self):
+        return (self.to_qkv,), (self.to_out[0],)
 
 
 class FeedForward(_ServingBuffers):
@@ -120,6 +150,9 @@ class FeedForward(_ServingBuffers):
                                  nn.Linear(hidden, dim, device=device),
                                  nn.Dropout(0.0))
         self._register_copies()
+
+    def io_sources(self):
+        return (self.net[0],), (self.net[3],)
 
 
 class PreNorm(nn.Module):
@@ -189,8 +222,9 @@ class DSTTr(nn.Module):
             out_t = temporal_block_fused(pt, x, heads, s)
             x = spatial_block_fused(ps, out_t, heads, s, residual=x,
                                     n_valid=n_valid)
-            return ln_ff_residual(x, pf.norm.weight, pf.norm.bias, ff.w1,
-                                  ff.net[0].bias, ff.w2, ff.net[3].bias)
+            w1, w2 = ff.io_weights()
+            return ln_ff_residual(x, pf.norm.weight, pf.norm.bias, w1,
+                                  ff.net[0].bias, w2, ff.net[3].bias)
         bq, nq, d = x.shape
         t1 = nq // s
         inner = at.qkv_wq.shape[1] // 3
@@ -222,7 +256,8 @@ class DSTTr(nn.Module):
 
 
 class ISTVT(nn.Module):
-    """XceptionVidTr (reference vivit.py:193-208), eval forward."""
+    """XceptionVidTr (reference vivit.py:193-208): the eval forward, and the
+    train forward of the float fused path."""
 
     name = "istvt"
 
@@ -235,8 +270,8 @@ class ISTVT(nn.Module):
     def _check_path(self):
         cfg = self.cfg
         if self.training:
-            raise NotImplementedError(f"training is not ported yet "
-                                      f"({_ROADMAP}, 'Training')")
+            self._check_train()
+            return
         if not cfg.use_pallas:
             raise NotImplementedError(
                 f"use_pallas=False (XLA-math forward) is not ported yet "
@@ -260,8 +295,28 @@ class ISTVT(nn.Module):
             raise RuntimeError("cfg.quantize='int8' but the model carries no "
                                "int8 weights: run quantize_params(model)")
 
+    def _check_train(self):
+        """Train mode runs the float fused path with dropout 0 only
+        (models/istvt.py:357-373 with `ln_ff_residual`)."""
+        cfg = self.cfg
+        if not cfg.use_pallas or cfg.quantize != "none":
+            raise NotImplementedError(
+                f"training runs the float fused path only (use_pallas=True, "
+                f"quantize='none'; got use_pallas={cfg.use_pallas}, "
+                f"quantize={cfg.quantize!r}) ({_ROADMAP}, 'Float XLA-math "
+                f"forward' / 'Training')")
+        if cfg.dropout != 0.0:
+            raise NotImplementedError(
+                f"dropout={cfg.dropout}: the train-mode feed-forward with "
+                f"dropout is the XLA-math path with exact GELU ({_ROADMAP}, "
+                f"'Float XLA-math forward')")
+        if cfg.remat:
+            raise NotImplementedError(f"remat is not ported yet ({_ROADMAP},"
+                                      f" 'Training')")
+
     def forward(self, clips, return_attn: bool = False, attn_bias=None):
-        """clips (B, T, H, W, 3) NHWC -> logits (B, num_classes)."""
+        """clips (B, T, H, W, 3) NHWC -> logits (B, num_classes). In train
+        mode the stem's BN running statistics are updated in place."""
         if return_attn or attn_bias is not None:
             raise NotImplementedError(
                 f"attention maps / attn_bias are not ported yet "
@@ -327,14 +382,10 @@ def pack_params(model: ISTVT) -> ISTVT:
     contiguous, in the parameters' dtype; the temporal q|k and v weights
     packed into one (D, 3I) matrix. Run it after any cast or load of the
     parameters: the copies do not follow them."""
-    def io(*linears):
-        return torch.cat([m.weight.t() for m in linears], dim=1).contiguous()
-
-    for pt, ps, pf in model.vit.transformer.layers:
-        at, asp, ff = pt.fn, ps.fn, pf.fn
-        at.qkv_w, at.out_w = io(at.to_qk, at.to_v), io(at.to_out[0])
-        asp.qkv_w, asp.out_w = io(asp.to_qkv), io(asp.to_out[0])
-        ff.w1, ff.w2 = io(ff.net[0]), io(ff.net[3])
+    for layer in model.vit.transformer.layers:
+        for m in layer:
+            for name, linears in zip(m.fn.packed_names, m.fn.io_sources()):
+                setattr(m.fn, name, _io(*linears))
     return model
 
 

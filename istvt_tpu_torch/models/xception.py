@@ -5,7 +5,9 @@ The module tree and its state_dict keys are the reference's
 ReLU modules counted in N, skip/skipbn, conv3/bn3, conv4/bn4, fc — so
 `istvt_tpu.compat.torch_import.xception_from_torch` reads a port
 state_dict unchanged. Only `low_level_features` (conv1 through block3, the
-ISTVT stem, eval mode) runs; the later blocks hold weights only.
+ISTVT stem) runs, in eval mode or, for training, with train-mode
+BatchNorm (batch statistics; the running statistics updated in place);
+the later blocks hold weights only.
 
 Activations enter and leave as NHWC; inside, they are NCHW tensors in
 channels_last memory (a free permute of NHWC), the layout cuDNN prefers.
@@ -25,8 +27,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from istvt_tpu_torch.nn.layers import (batchnorm_eval, bn_affine, conv2d,
-                                       max_pool2d, relu, separable_conv2d)
+from istvt_tpu_torch.nn.layers import (batchnorm_eval, batchnorm_train,
+                                       bn_affine, conv2d, max_pool2d, relu,
+                                       separable_conv2d)
 
 # (in, out, reps, stride, start_with_relu, grow_first) per block
 # (reference network/xception.py:126-140)
@@ -117,12 +120,12 @@ class Block(nn.Module):
             if i > 0 or self.start_with_relu:
                 y = relu(y)
             y = separable_conv2d(y, sep.conv1.weight, sep.pointwise.weight)
-            y = batchnorm_eval(y, *_bn(bn))
+            y = _batchnorm(bn, y)
         if self.stride != 1:
             y = max_pool2d(y, 3, self.stride, 1)
         if self.skip is not None:
             skip = conv2d(x, self.skip.weight, stride=self.stride)
-            skip = batchnorm_eval(skip, *_bn(self.skipbn))
+            skip = _batchnorm(self.skipbn, skip)
         else:
             skip = x
         return y + skip
@@ -157,6 +160,14 @@ def _bn(bn):
     return bn.weight, bn.bias, bn.running_mean, bn.running_var
 
 
+def _batchnorm(bn, x):
+    """BatchNorm as the module's mode says: train (batch statistics, the
+    running ones updated in place) or eval."""
+    if bn.training:
+        return batchnorm_train(x, *_bn(bn))
+    return batchnorm_eval(x, *_bn(bn))
+
+
 def _fold(w, bn, cd):
     """Eval BN folded into the preceding conv: (w * A in f32 -> cd, B -> cd)."""
     a, b = bn_affine(*_bn(bn))
@@ -188,19 +199,18 @@ class Xception(nn.Module):
             w, b = _fold(self.conv2.weight, self.bn2, cd)
             return to_store(relu(conv2d(x.to(cd), w, b)), store, nonneg=True)
         x = conv2d(x, self.conv1.weight, stride=2)
-        x = relu(batchnorm_eval(x, *_bn(self.bn1)))
+        x = relu(_batchnorm(self.bn1, x))
         x = conv2d(x, self.conv2.weight)
-        return relu(batchnorm_eval(x, *_bn(self.bn2)))
+        return relu(_batchnorm(self.bn2, x))
 
     def low_level_features(self, x, store_dtype: Optional[torch.dtype] = None):
-        """(N, H, W, C) NHWC -> (N, h, w, 728) NHWC in x.dtype, eval mode.
+        """(N, H, W, C) NHWC -> (N, h, w, 728) NHWC in x.dtype, in the
+        modules' mode (train mode updates the BN running statistics).
 
-        store_dtype (serving): storage dtype of the inter-conv tensors
-        (torch.float8_e4m3fn); compute stays in x.dtype."""
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet (ROADMAP.md queue 1, "
-                "training)")
+        store_dtype (eval-mode serving): storage dtype of the inter-conv
+        tensors (torch.float8_e4m3fn); compute stays in x.dtype."""
+        if store_dtype is not None and self.training:
+            raise ValueError("the f8 stem store is for eval-mode serving")
         cd = x.dtype
         x = self._entry(x.permute(0, 3, 1, 2), store_dtype)
         for i in range(1, self.cfg.low_level_through + 1):

@@ -1,7 +1,8 @@
-"""Layers of the serving slice (counterpart of istvt_tpu/nn/layers.py).
+"""Layers of the ported slices (counterpart of istvt_tpu/nn/layers.py).
 
 Plain functions on tensors with the JAX package's numerics: LayerNorm
-eps 1e-5 with the two-pass variance in f32, eval BatchNorm eps 1e-5,
+eps 1e-5 with the two-pass variance in f32, eval and train BatchNorm
+eps 1e-5,
 MaxPool padding with -inf like torch MaxPool2d(3, s, 1). Convolutions take
 NCHW activations (kept in channels_last memory by the stem) and OIHW
 weights, and run through cuDNN on the card, as XLA computes them outside
@@ -50,6 +51,36 @@ def batchnorm_eval(x, weight, bias, mean, var, eps: float = _EPS):
     scale = (weight.float() * inv).to(x.dtype)
     shift = (bias.float() - mean.float() * weight.float() * inv).to(x.dtype)
     return x * scale[None, :, None, None] + shift[None, :, None, None]
+
+
+def batchnorm_train(x, weight, bias, running_mean, running_var,
+                    momentum: float = 0.1, eps: float = _EPS):
+    """Train BatchNorm over the channel axis 1 (nn/layers.batchnorm,
+    train=True), differentiable through the batch statistics.
+
+    As jnp.mean / jnp.var of an array in the activation dtype do, the batch
+    mean and (biased) variance are summed in f32 and rounded to x's dtype
+    (bf16 under --bf16, where torch's own BN keeps f32 statistics). The
+    scale and shift are formed in f32 from those rounded statistics and
+    cast to x's dtype. The f32 running statistics are updated in place:
+    (1 - momentum) * old + momentum * new, with the unbiased variance
+    var * n / (n - 1) taken in x's dtype (the factor rounded to it too)."""
+    dims = [0] + list(range(2, x.dim()))
+    xf = x.float()
+    mean = xf.mean(dim=dims).to(x.dtype)
+    var = xf.var(dim=dims, unbiased=False).to(x.dtype)
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        unbiased = var * torch.tensor(n / max(n - 1, 1), dtype=var.dtype)
+        running_mean.copy_((1 - momentum) * running_mean
+                           + momentum * mean.to(running_mean.dtype))
+        running_var.copy_((1 - momentum) * running_var
+                          + momentum * unbiased.to(running_var.dtype))
+    inv = torch.rsqrt(var.float() + eps)
+    scale = (weight.float() * inv).to(x.dtype)
+    shift = (bias.float() - mean.float() * weight.float() * inv).to(x.dtype)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return x * scale.reshape(shape) + shift.reshape(shape)
 
 
 def max_pool2d(x, window: int = 3, stride: int = 2, padding: int = 1):

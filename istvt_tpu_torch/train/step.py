@@ -1,0 +1,182 @@
+"""Training and evaluation steps (counterpart of istvt_tpu/train/step.py).
+
+One train step: forward in train mode, BCE-with-logits loss, backward
+through the kernels' backward passes, optimizer update, metrics. With
+compute_dtype=torch.bfloat16 the parameters are cast inside the
+differentiated function (torch.func.functional_call on the casts), as
+JAX's compute_loss casts inside jax.value_and_grad: the forward and
+backward run in bf16, and the gradients arrive in f32 on the f32 master
+parameters. The optimizers are torch's AdamW and SGD configured as optax's
+adamw and sgd (decoupled decay times lr, eps 1e-8, a first momentum buffer
+of g), with the lr set from the step-indexed schedule before every update
+(optax's count semantics: the first update uses schedule(0)).
+
+Not ported (raise, naming ROADMAP.md queue 1): recalibrate_bn, a device
+mesh. Other losses (distillation, attention transfer) are queue 1 work.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from istvt_tpu_torch.core.config import TrainConfig
+from istvt_tpu_torch.models import istvt
+from istvt_tpu_torch.train import losses, metrics
+
+_ROADMAP = "ROADMAP.md queue 1"
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """optax.adamw(schedule, weight_decay) or optax.sgd(schedule, momentum)
+    as a recipe: `build` makes the torch optimizer over the parameters; the
+    train step sets its lr from `schedule` before every update."""
+
+    name: str
+    schedule: Callable[[int], float]
+    weight_decay: float = 0.01
+    momentum: float = 0.9
+
+    def build(self, params) -> torch.optim.Optimizer:
+        if self.name == "adamw":
+            return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999),
+                                     eps=1e-8,
+                                     weight_decay=self.weight_decay)
+        if self.name == "sgd":
+            return torch.optim.SGD(params, lr=0.0, momentum=self.momentum)
+        raise ValueError(f"unknown optimizer {self.name}")
+
+
+def make_optimizer(tc: TrainConfig, schedule) -> Optimizer:
+    """AdamW or SGD(+momentum), matching reference train_CNN.py:198-202."""
+    if tc.optimizer not in ("adamw", "sgd"):
+        raise ValueError(f"unknown optimizer {tc.optimizer}")
+    return Optimizer(tc.optimizer, schedule, tc.weight_decay, tc.momentum)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The f32 master parameters and BN running statistics live in `model`
+    (JAX's params and model_state); `opt` holds the optimizer state."""
+
+    model: nn.Module
+    opt: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
+    return TrainState(model=model, opt=optimizer.build(model.parameters()),
+                      schedule=optimizer.schedule)
+
+
+def _device(model):
+    return next(model.parameters()).device
+
+
+def _clips(batch, dev):
+    x = batch.get("clips", batch.get("images"))
+    return torch.as_tensor(x).to(dev)
+
+
+def make_train_step(compute_dtype: Optional[torch.dtype] = None,
+                    grad_accum: int = 1, mesh=None):
+    """Returns step(ts, batch) -> {'loss', 'accuracy', 'grad_norm'} (0-dim
+    f32 tensors), updating ts in place.
+
+    batch: {'clips': (B, T, H, W, 3), 'labels': (B,)} (numpy or tensors).
+    grad_accum=k > 1 splits the batch into k microbatches run one after
+    the other: gradients are averaged into one update, the BN running
+    statistics thread through the microbatches in order, and loss and
+    accuracy are the microbatch means (JAX's _accumulate)."""
+    if mesh is not None:
+        raise NotImplementedError(f"a device mesh is not ported yet "
+                                  f"({_ROADMAP}, 'Parallelism')")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum={grad_accum}")
+
+    def compute_loss(model, x, labels):
+        if compute_dtype is None:
+            logits = model(x)
+        else:
+            cast = {n: p.to(compute_dtype) if p.is_floating_point() else p
+                    for n, p in model.named_parameters()}
+            logits = torch.func.functional_call(model, cast,
+                                                (x.to(compute_dtype),))
+        return losses.bce_with_logits(logits, labels), logits
+
+    def step(ts: TrainState, batch) -> Dict[str, torch.Tensor]:
+        model = ts.model.train()
+        dev = _device(model)
+        x = _clips(batch, dev)
+        labels = torch.as_tensor(batch["labels"]).to(dev)
+        b = x.shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch {b} not divisible by "
+                             f"grad_accum={grad_accum}")
+        ts.opt.zero_grad(set_to_none=True)
+        mb = b // grad_accum
+        loss_sum = torch.zeros((), device=dev)
+        acc_sum = torch.zeros((), device=dev)
+        for i in range(grad_accum):
+            sl = slice(i * mb, (i + 1) * mb)
+            loss, logits = compute_loss(model, x[sl], labels[sl])
+            loss.backward()
+            loss_sum += loss.detach()
+            acc_sum += metrics.accuracy(logits.detach(), labels[sl])
+        params = list(model.parameters())
+        for p in params:
+            if p.grad is None:
+                # a parameter the forward does not reach (the Xception
+                # blocks past the stem) has a zero gradient in JAX, and
+                # optax's adamw still decays it
+                p.grad = torch.zeros_like(p)
+        if grad_accum > 1:
+            for p in params:
+                p.grad.div_(grad_accum)
+        grad_norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
+                                   for p in params))
+        lr = float(ts.schedule(ts.step))
+        for group in ts.opt.param_groups:
+            group["lr"] = lr
+        ts.opt.step()
+        ts.step += 1
+        return {"loss": loss_sum / grad_accum,
+                "accuracy": acc_sum / grad_accum, "grad_norm": grad_norm}
+
+    return step
+
+
+def recalibrate_bn(*args, **kwargs):
+    raise NotImplementedError(f"recalibrate_bn is not ported yet "
+                              f"({_ROADMAP}, 'Training')")
+
+
+def make_eval_step():
+    """Returns eval(model, batch) -> per-batch logits, labels, 'correct'
+    and the confusion counts (reference eval loop, threshold at 0). The
+    model runs in eval mode in its parameters' dtype, as JAX's eval step
+    applies the uncast params; the float path's (in, out) weight copies
+    are packed from the current parameters first."""
+
+    @torch.no_grad()
+    def step(model, batch):
+        model.eval()
+        istvt.pack_params(model)
+        dev = _device(model)
+        logits = model(_clips(batch, dev).to(
+            next(model.parameters()).dtype))
+        if logits.dim() == 2 and logits.shape[-1] == 2:
+            logits = logits[:, 1] - logits[:, 0]
+        flat = logits.reshape(-1).float()
+        labels = torch.as_tensor(batch["labels"]).to(dev).reshape(-1)
+        out = {"logits": flat, "labels": labels,
+               "correct": (metrics.binary_predictions(flat)
+                           == labels.to(torch.int32)).float()}
+        out.update(metrics.confusion_counts(flat, labels))
+        return out
+
+    return step

@@ -1,6 +1,8 @@
 """The port's CUDA kernels vs their plain PyTorch versions on the card, at
 the serving slice's shapes (the checks of chip_smoke.py phase 3) and at
-the small geometry of the JAX kernel tests (dim_head 16, S = 32).
+the small geometry of the JAX kernel tests (dim_head 16, S = 32): every
+launch counter of kernels/_lib.LAUNCHES, the training slice's backward
+kernels and h1-stash forward included.
 
 Needs an NVIDIA GPU with nvcc: marked `gpu`, and skipped (inside the
 fixture, not at import) where torch sees no CUDA device. Run on the card:
@@ -49,7 +51,7 @@ def test_kernel_bf16_matches_plain(cases, name):
     args = make(torch.bfloat16)
     got, want = kern(*args), plain(*args)
     torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16
+    assert selfcheck.outputs(got)[0].dtype == torch.bfloat16
     ok, rel, mx, scale = selfcheck.bf16_close(got, want)
     assert ok, (rel, mx, scale)
 
@@ -84,3 +86,44 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="divisible by 8"):
         linear.matmul_bias_residual(a, torch.zeros(724, 728, device=cuda),
                                     torch.zeros(728, device=cuda))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One bf16 train step of a small float fused ISTVT on the card
+    (kernels, their backward kernels) against the same step in f32 on the
+    CPU (plain versions): loss within 5e-2, gradient cosine >= 0.99, and
+    every backward kernel launched its count per layer."""
+    import copy
+
+    from istvt_tpu_torch.core.config import ISTVTConfig, TrainConfig
+    from istvt_tpu_torch.models import istvt
+    from istvt_tpu_torch.train import schedule, step
+
+    cfg = ISTVTConfig(num_frames=2, image_size=72, feat_hw=5, depth=2,
+                      use_pallas=True, dropout=0.0)
+    cpu = istvt.init(cfg, torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    batch = {"clips": torch.randn(2, 2, 72, 72, 3, generator=g),
+             "labels": torch.tensor([0, 1])}
+    opt = step.make_optimizer(TrainConfig(checkpoint_dir=""),
+                              schedule.constant_schedule(1e-4))
+    grads, losses = [], []
+    _lib.reset_launches()
+    for model, dt in ((card, torch.bfloat16), (cpu, None)):
+        ts = step.create_train_state(model, opt)
+        with highest():
+            m = step.make_train_step(compute_dtype=dt)(ts, batch)
+        losses.append(float(m["loss"]))
+        grads.append(torch.cat([p.grad.double().cpu().ravel()
+                                for p in model.parameters()]))
+    torch.cuda.synchronize()
+    per_layer = {"temporal_attention_packed/bwd": 1,
+                 "spatial_attention_packed/bwd": 1, "ln_matmul/bwd": 2,
+                 "ln_ff_residual/h1": 1, "ln_ff_residual/bwd": 1,
+                 "ln_ff_residual": 0}
+    for name, n in per_layer.items():
+        assert _lib.LAUNCHES[name] == n * cfg.depth, (name, _lib.LAUNCHES)
+    assert abs(losses[0] - losses[1]) <= 5e-2, losses
+    cos = torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0)
+    assert cos >= 0.99, cos
