@@ -2,22 +2,24 @@
 
     python3 chip_smoke.py [--profile PATH]
 
-Drives the port's two ISTVT serving paths and its training path at the
-paper geometry (300^2 x 6 frames, depth 12, 8 heads x 64, dim 728, FF
-2912) with random weights from a seed: the int8 W8A8 path
-(`cli/serve.py --int8`), the float fused path in bf16 (`cli/serve.py
---bf16`), and training on the float fused path in bf16 over f32 masters
-(`cli/train.py --dataset synthetic --use_pallas --bf16 --dropout 0`). In
-phases; any failure raises and exits non-zero:
+Drives the port's two ISTVT serving paths, its training path and its
+interpretability path at the paper geometry (300^2 x 6 frames, depth 12,
+8 heads x 64, dim 728, FF 2912) with random weights from a seed: the int8
+W8A8 path (`cli/serve.py --int8`), the float fused path in bf16
+(`cli/serve.py --bf16`), training on the float fused path in bf16 over f32
+masters (`cli/train.py --dataset synthetic --use_pallas --bf16 --dropout
+0`), and the LRP relevance maps (`interpret/`, `cli/visualize.py`) in f32.
+In phases; any failure raises and exits non-zero:
 
   1. device   - a CUDA device is required; prints nvidia-smi's name and
                 power limit and the torch / CUDA versions
   2. build    - nvcc builds every kernel from istvt_tpu_torch/kernels/csrc
-  3. kernels  - each of the thirteen kernels (fourteen cases, one per
+  3. kernels  - each of the fourteen kernels (fifteen cases, one per
                 launch counter: #20 with and without its residual; the
                 training slice's four backward kernels and the h1-stash
-                forward) vs its plain PyTorch version on the card at the
-                slice's shapes (2 clips, T+1 = 7, S = 368, n_valid = 362):
+                forward; fused_ff at the attention-map path's 5,068
+                unpadded rows) vs its plain PyTorch version on the card at
+                the slice's shapes (2 clips, T+1 = 7, S = 368, n_valid = 362):
                 f32 at atol = rtol = 2e-3 (int8 kernels) or 1e-5 (float
                 kernels; backward kernels max|diff| <= 1e-5 max|plain| per
                 output), bf16 at rel-L2 < 1e-2 and max|diff| < 0.02
@@ -44,22 +46,41 @@ phases; any failure raises and exits non-zero:
                 (kernels, bf16) vs the CPU (plain versions, f32) from the
                 same weights and batch: |dloss| <= 5e-2, gradient cosine
                 >= 0.99
+  then the interpretability path, B=1, f32 with TF32 off:
+  9. interpret - generate_lrp for each method, with use_pallas (counted
+                from 0: fused_ff exactly 12 launches per call, every other
+                counter 0) and without (every counter 0); generate_full_lrp
+                (finite, non-negative cams); generate_feature_relevance
+                through the fused forward and its backward kernels in eval
+                mode (exactly a train step's launches per layer x 12 per
+                call); each a warm-up then 3 timed calls: ms per call and
+                peak device memory; the
+                visualize CLI (`cli/visualize.main`, --dataset synthetic
+                --max_clips 1): 18 PNGs (12 overlays of 304^2, 6 frames of
+                300^2), every counter 0
+ 10. interpret e2e - depth 2: the card (kernels) vs the CPU (plain
+                versions) from the same weights and clip: cam_s, cam_t of
+                transformer_attribution at rel-L2 <= 1e-3, |dlogit| <= 1e-4
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. With --profile PATH, torch.profiler tables
-of one B=16 forward of each serving path and of one B=16 train step are
-written to PATH.
+of one B=16 forward of each serving path, of one B=16 train step and of
+one B=1 generate_lrp call with and without use_pallas are written to
+PATH.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import http.client
 import io
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -72,10 +93,13 @@ sys.path[:0] = [_ROOT, os.path.join(_ROOT, "tools")]
 
 from istvt_tpu_torch.cli import serve as cli_serve  # noqa: E402
 from istvt_tpu_torch.cli import train as cli_train  # noqa: E402
+from istvt_tpu_torch.cli import visualize as cli_visualize  # noqa: E402
 from istvt_tpu_torch.core import tree  # noqa: E402
 from istvt_tpu_torch.core.config import ISTVTConfig  # noqa: E402
 from istvt_tpu_torch.core.device import require_cuda  # noqa: E402
 from istvt_tpu_torch.core.precision import highest  # noqa: E402
+from istvt_tpu_torch.interpret import (  # noqa: E402
+    generate_feature_relevance, generate_full_lrp, generate_lrp)
 from istvt_tpu_torch.kernels import _lib, selfcheck  # noqa: E402
 from istvt_tpu_torch.models import istvt  # noqa: E402
 from istvt_tpu_torch.serve_daemon import ServeDaemon  # noqa: E402
@@ -135,6 +159,11 @@ KERNELS = {
     "ln_ff_residual/bwd": (
         _CSRC + "float_gemm.cu", "istvt_tpu/kernels/mlp.py:270",
         "train", 1),
+    # the interpretability slice (path "interpret": the attention-map
+    # forward's feed-forward)
+    "fused_ff": (
+        _CSRC + "float_gemm.cu", "istvt_tpu/kernels/mlp.py:35",
+        "interpret", 1),
 }
 
 # launches per layer of one float fused train step (dropout 0): the
@@ -150,6 +179,10 @@ TRAIN_PER_LAYER = {
 TRAIN_FLAGS = ["--dataset", "synthetic", "--use_pallas", "--bf16",
                "--dropout", "0"]
 TRAIN_BATCH, TRAIN_STEPS = 16, 5
+
+# kernels whose path runs in f32 (the interpretability path): phase 3
+# times them in f32 as well as in bf16
+F32_PATH = ("fused_ff",)
 
 # published H100 SXM peaks (hopper-kernels guide section 1): bytes/s, and
 # dense operations/s by the type of the inputs
@@ -215,6 +248,8 @@ def _ops(name, args):
     rows = args[0].numel() // args[0].shape[-1]
     if name in ("ln_ff_residual", "ln_ff_residual/h1"):
         return {"bf16": 4 * rows * args[3].shape[0] * args[3].shape[1]}
+    if name == "fused_ff":                        # fc1, fc2
+        return {"bf16": 4 * rows * args[1].shape[0] * args[1].shape[1]}
     if name == "ln_ff_residual/bwd":              # dW2, dH, dW1, dY
         return {"bf16": 8 * rows * args[3].shape[0] * args[3].shape[1]}
     if name == "ln_matmul/bwd":                   # dY, dW
@@ -287,6 +322,13 @@ def check_kernels(dev):
         lib = _library_call(name, args16)
         lib_ms = None if lib is None else _median_ms(lib)
         bound_ms, bound_by = _bound_ms(name, args16, out16)
+        if name in F32_PATH:
+            # its path runs in f32 (the FMA GEMM): time that too
+            with highest():
+                f32_ms = [_median_ms(lambda: kern(*args)),
+                          _median_ms(lambda: plain(*args))]
+            phase("kernels", f"{name}: f32 median ms kernel {f32_ms[0]:.4f} "
+                  f"plain {f32_ms[1]:.4f} (informative)")
         phase("kernels", f"{name}: f32 max|diff| {err32:.3e} "
               f"({'ok' if ok32 else 'FAIL'} at {selfcheck.f32_tol(name)}); "
               f"bf16 rel-L2 {rel:.3e} "
@@ -512,13 +554,194 @@ def train_e2e_phase():
 
 
 # ---------------------------------------------------------------------------
+# 9-10. the interpretability path
+
+
+METHODS = ("transformer_attribution", "rollout", "last_layer")
+LRP_CALLS = 3       # timed calls per (use_pallas, method), after a warm-up
+
+
+def _counted(want_nonzero):
+    """SystemExit unless every launch counter equals want_nonzero's entry
+    (0 where it has none)."""
+    counts = dict(_lib.LAUNCHES)
+    want = {n: want_nonzero.get(n, 0) for n in counts}
+    if counts != want:
+        raise SystemExit(f"launches {counts}, want {want}")
+    return counts
+
+
+def _png_size(path):
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise SystemExit(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def _timed_calls(fn, per_call):
+    """A warm-up call, then LRP_CALLS timed ones (host clock, each ending
+    in a synchronize), counted from 0: every launch counter must equal
+    per_call's entry times the calls (0 where it has none). Returns (the
+    last output, ms per call, peak device memory GiB, the counts)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    times = []
+    for _ in range(LRP_CALLS):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    counts = _counted({n: k * LRP_CALLS for n, k in per_call.items()})
+    return (out, times, torch.cuda.max_memory_allocated() / 2 ** 30,
+            counts)
+
+
+def _ms(times):
+    return (f"ms per call {[round(t, 3) for t in times]} (median "
+            f"{float(np.median(times)):.3f})")
+
+
+def _profile_lrp(model, clip, card, profile):
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        generate_lrp(model, clip)
+        torch.cuda.synchronize()
+    with open(profile, "a") as f:
+        f.write(f"{card}, generate_lrp B=1 f32, use_pallas="
+                f"{model.cfg.use_pallas}\n")
+        f.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=40) + "\n")
+
+
+def lrp_phase(model, clip, card, profile):
+    """generate_lrp per method, with and without use_pallas; returns the
+    fused_ff launches of the use_pallas calls."""
+    fused_launches = 0
+    hw = PAPER.feat_hw ** 2
+    for up in (True, False):
+        model.cfg = dataclasses.replace(PAPER, use_pallas=up)
+        for method in METHODS:
+            (cam_s, cam_t), times, peak, counts = _timed_calls(
+                lambda: generate_lrp(model, clip, method=method),
+                {"fused_ff": DEPTH} if up else {})
+            fused_launches += counts["fused_ff"]
+            for cam in (cam_s, cam_t):
+                if (cam.shape != (1, PAPER.num_frames, hw)
+                        or not torch.isfinite(cam).all()):
+                    raise SystemExit(f"generate_lrp {method}: bad cam "
+                                     f"{tuple(cam.shape)}")
+            phase("interpret", f"generate_lrp {method}, use_pallas={up}: "
+                  f"{_ms(times)}; peak device memory {peak:.3f} GiB; "
+                  f"fused_ff launches {counts['fused_ff']} over "
+                  f"{LRP_CALLS} calls, every other counter 0 on {card}")
+        if profile:
+            _profile_lrp(model, clip, card, profile)
+            phase("interpret", f"profile table appended to {profile}")
+    return fused_launches
+
+
+def interpret_phase(dev, card, profile):
+    """Phase 9 at the paper geometry, B=1, f32; returns the launches of
+    fused_ff over the use_pallas generate_lrp calls."""
+    t0 = time.perf_counter()
+    model = istvt.init(PAPER, torch.Generator().manual_seed(0), dev)
+    clip = torch.from_numpy(np.random.RandomState(2).randn(1, *CLIP).astype(
+        np.float32)).to(dev)
+    phase("interpret", f"model built in {time.perf_counter() - t0:.1f} s")
+    with highest():
+        fused_launches = lrp_phase(model, clip, card, profile)
+
+        model.cfg = dataclasses.replace(PAPER, use_pallas=True)
+        cams, times, peak, _ = _timed_calls(
+            lambda: generate_full_lrp(model, clip), {"fused_ff": DEPTH})
+        for cam in cams:
+            if not (torch.isfinite(cam).all() and (cam >= 0).all()):
+                raise SystemExit("generate_full_lrp: cams not finite and "
+                                 "non-negative")
+        phase("interpret", f"generate_full_lrp, use_pallas=True: "
+              f"{_ms(times)}; peak device memory {peak:.3f} GiB; fused_ff "
+              f"{DEPTH} launches per call; cams finite, >= 0")
+
+        istvt.pack_params(model)
+        rel, times, peak, counts = _timed_calls(
+            lambda: generate_feature_relevance(model, clip),
+            {n: k * DEPTH for n, k in TRAIN_PER_LAYER.items()})
+        if (rel.shape != (1,) + CLIP[:3]) or not torch.isfinite(rel).all():
+            raise SystemExit(f"generate_feature_relevance: bad output "
+                             f"{tuple(rel.shape)}")
+        phase("interpret", f"generate_feature_relevance, use_pallas=True: "
+              f"{_ms(times)}; peak device memory {peak:.3f} GiB; launches "
+              f"over {LRP_CALLS} calls {counts} (a train step's per layer "
+              f"x {DEPTH} per call); finite")
+        del model
+        torch.cuda.empty_cache()
+
+        with tempfile.TemporaryDirectory() as out:
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            written = cli_visualize.main(["--dataset", "synthetic",
+                                          "--max_clips", "1",
+                                          "--out_dir", out])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            _counted({})
+            sizes = sorted(_png_size(p) for p in written)
+            side, t = PAPER.feat_hw * 16, PAPER.num_frames
+            want = sorted([(side, side)] * (2 * t)
+                          + [(PAPER.image_size,) * 2] * t)
+            if sizes != want or len(os.listdir(out)) != 3 * t:
+                raise SystemExit(f"visualize wrote {sizes}")
+        phase("interpret", f"cli/visualize --dataset synthetic --max_clips "
+              f"1: {3 * t} PNGs ({2 * t} of {side}^2, {t} of "
+              f"{PAPER.image_size}^2) in {sec:.1f} s (model build "
+              f"included); every counter 0")
+    return fused_launches
+
+
+def interpret_e2e_phase(dev):
+    """Phase 10: depth 2, card (kernels) vs CPU (plain versions), f32."""
+    cfg = dataclasses.replace(PAPER, depth=2, use_pallas=True)
+    cpu = istvt.init(cfg, torch.Generator().manual_seed(3))
+    card = copy.deepcopy(cpu).to(dev)
+    clip = np.random.RandomState(4).randn(1, *CLIP).astype(np.float32)
+    out = []
+    t0 = time.perf_counter()
+    with highest():
+        for model in (card, cpu):
+            x = torch.from_numpy(clip).to(next(model.parameters()).device)
+            with torch.no_grad():
+                logit, _ = model(x, return_attn=True)
+            cams = generate_lrp(model, x)
+            out.append((logit.double().cpu(),
+                        [c.double().cpu() for c in cams]))
+    (l_card, c_card), (l_cpu, c_cpu) = out
+    dlogit = float((l_card - l_cpu).abs().max())
+    rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+           for a, b in zip(c_card, c_cpu)]
+    phase("interpret e2e", f"depth 2, B=1: logit card {l_card.tolist()} vs "
+          f"CPU plain f32 {l_cpu.tolist()} (|d| {dlogit:.3e}, limit 1e-4); "
+          f"transformer_attribution cam_s / cam_t rel-L2 {rel[0]:.3e} / "
+          f"{rel[1]:.3e} (limit 1e-3; {time.perf_counter() - t0:.1f} s)")
+    if not (dlogit <= 1e-4 and max(rel) <= 1e-3):
+        raise SystemExit("the card's relevance maps disagree with the CPU "
+                         "reference")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of a B=16 forward of "
-                         "each serving path and a B=16 train step here")
+                         "each serving path, a B=16 train step and a B=1 "
+                         "generate_lrp call with and without use_pallas "
+                         "here")
     args = ap.parse_args()
 
     # 1. device
@@ -567,6 +790,12 @@ def main():
                      if k[2] == "train"})
     torch.cuda.empty_cache()
     train_e2e_phase()
+    torch.cuda.empty_cache()
+
+    # 9-10 the interpretability path
+    launches["fused_ff"] = interpret_phase(dev, card, args.profile)
+    torch.cuda.empty_cache()
+    interpret_e2e_phase(dev)
 
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": KERNELS[n][0],

@@ -7,7 +7,9 @@ and is held against it by the tests. It imports `torch` and never `jax`.
 Ported so far: the int8 W8A8 serving forward of ISTVT
 (`ISTVTConfig(use_pallas=True, quantize='int8')`, q8_ff='full',
 q8_attn='ingest', stem_store='f8'), the float fused serving forward
-(`quantize='none'`), and training on the float fused path:
+(`quantize='none'`), training on the float fused path, and the
+interpretability path (attention maps, attn_bias gradients, LRP
+relevance; the XLA-math eval forward, `use_pallas=False`):
 
   core/      config copies, device selection, TF32 control, dtype cast
   nn/        the layers the Xception stem and the ST layers use
@@ -18,8 +20,10 @@ q8_attn='ingest', stem_store='f8'), the float fused serving forward
   serve.py   bucketed Predictor; serve_daemon.py the HTTP batch server
   train/     loss, metrics, schedules, the train / eval steps, Trainer
   data/      synthetic clips and a synchronous ClipLoader
+  interpret/ LRP rollout, full epsilon-rule LRP, saliency PNGs
   cli/       `python -m istvt_tpu_torch.cli.serve --int8`,
-             `python -m istvt_tpu_torch.cli.train --use_pallas --bf16 ...`
+             `python -m istvt_tpu_torch.cli.train --use_pallas --bf16 ...`,
+             `python -m istvt_tpu_torch.cli.visualize --dataset synthetic`
 """
 
 __version__ = "0.1.0"

@@ -46,6 +46,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys([
     "ln_matmul/bwd",                       # kernels/linear.py
     "ln_ff_residual/h1",                   # kernels/mlp.py
     "ln_ff_residual/bwd",
+    # the attention-map path
+    "fused_ff",                            # kernels/mlp.py
 ], 0)
 
 

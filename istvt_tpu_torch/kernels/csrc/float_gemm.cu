@@ -2,7 +2,7 @@
 // rows and a column-sum pass: the building blocks of the float fused path's
 // projection kernels, forward and backward (kernels/linear.py, kernels/mlp.py).
 //
-// Replaces five TPU kernels:
+// Replaces six TPU kernels:
 //   * istvt_tpu/kernels/linear.py _ln_matmul_impl (_ln_matmul_kernel): LN -> x @ w,
 //     here ln_rows then gemm;
 //   * istvt_tpu/kernels/linear.py _matmul_bias_impl (_matmul_bias[_res]_kernel):
@@ -10,6 +10,9 @@
 //   * istvt_tpu/kernels/mlp.py _ln_ff_res_impl (_ln_ff_res_kernel): x + fc2(gelu(fc1(LN x))),
 //     here ln_rows, gemm (+ b1, tanh-GELU), gemm (+ b2, + x); its training variant
 //     (stash_h1) also writes the pre-GELU h1 from fc1's epilogue (`out2`);
+//   * istvt_tpu/kernels/mlp.py _fused_ff_impl (_ff_kernel): fc2(gelu(fc1(x))) without
+//     LN or residual, the attention-map path's feed-forward on its unpadded
+//     B * 7 * 362 rows, here gemm (+ b1, tanh-GELU), gemm (+ b2);
 //   * istvt_tpu/kernels/linear.py _ln_matmul_bwd_impl (_ln_matmul_bwd_kernel): here
 //     ln_rows (y), gemm NT (dy = g w^T, f32), ln_bwd_rows (dx and the ds / db column
 //     partials), colsum, gemm TN (dw = y^T g, f32);
@@ -25,7 +28,8 @@
 // rows, the (N, 4D) FF hidden and the backward's dy / dh1 in VMEM; this first version
 // writes them to device memory in the dtype JAX rounds them to (the activation dtype,
 // or f32 where the JAX kernel keeps f32), so the numbers are the same at the cost of
-// extra round trips.
+// extra round trips. In f32 (the attention-map path's dtype) the GEMMs run on the FMA
+// pipes, 67 TFLOP/s at most.
 //
 // What the design does about it: the bf16 GEMM runs on the tensor cores through
 // mma.sync m16n8k16 (f32 accumulate) with a 128x128x32 block tile, 8 warps of 64x32,

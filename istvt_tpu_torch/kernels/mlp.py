@@ -1,10 +1,12 @@
-"""The PreNorm feed-forward residual branch, forward and backward
-(counterpart of istvt_tpu/kernels/mlp.py).
+"""The transformer MLP kernels, forward and backward (counterpart of
+istvt_tpu/kernels/mlp.py).
 
   ln_ff_residual(x, s, bn, w1, b1, w2, b2) = x + fc2(gelu_tanh(fc1(LN x)))
+  fused_ff(x, w1, b1, w2, b2)              = fc2(gelu_tanh(fc1(x)))
 
-TPU kernel _ln_ff_res_impl. A CUDA tensor runs three launches of
-csrc/float_gemm.cu: LN rows -> GEMM (+ b1, tanh-GELU) -> GEMM (+ b2, + x).
+ln_ff_residual is TPU kernel _ln_ff_res_impl, the PreNorm FF branch of the
+float fused path. A CUDA tensor runs three launches of csrc/float_gemm.cu:
+LN rows -> GEMM (+ b1, tanh-GELU) -> GEMM (+ b2, + x).
 The TPU kernel keeps the (N, 4D) hidden in VMEM; here it makes a round
 trip through device memory in x's dtype (240 MB at B=16 in bf16). The
 numbers are the same, because JAX casts the hidden to x's dtype before fc2
@@ -17,6 +19,18 @@ as JAX's custom_vjp is: its forward is the h1-stash variant
 epilogue also writes the pre-GELU hidden h1 in x's dtype, and its backward
 is ln_ff_residual_bwd (TPU _ln_ff_bwd_impl), which recomputes LN and the
 GELU from the stash instead of the fc1 GEMM.
+
+fused_ff is TPU kernel _fused_ff_impl, the feed-forward of the
+attention-map path (models/istvt._feed_forward with use_pallas: no LN, no
+residual; the rows are B*(T+1)*362, unpadded). A CUDA tensor runs two
+launches of the same GEMM: fc1 with the + b1, tanh-GELU epilogue, then fc2
+with the + b2 epilogue (the GEMM masks the row tail, so any row count
+goes). Its hidden also round-trips device memory in x's dtype; one kernel
+that keeps the hidden tile in shared memory, as the TPU kernel keeps it in
+VMEM, is later work, as for ln_ff_residual. Its backward is autograd
+through fused_ff_plain, a recompute in plain PyTorch, as JAX's
+_fused_ff_bwd is jax.vjp of _ff_reference: the JAX package has no backward
+kernel for it.
 """
 from __future__ import annotations
 
@@ -186,3 +200,66 @@ def ln_ff_residual(x, s, bn, w1, b1, w2, b2):
     if _lib.needs_grad(x, s, bn, w1, b1, w2, b2):
         return _LnFFResidual.apply(x, s, bn, w1, b1, w2, b2)
     return _ln_ff_residual_fwd(x, s, bn, w1, b1, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# fused_ff (#22): fc2(gelu_tanh(fc1(x))), no LN, no residual
+
+
+def fused_ff_plain(x, w1, b1, w2, b2):
+    """Plain version of fused_ff (_ff_reference after the wrapper's casts of
+    every parameter to x's dtype): fc1 and fc2 accumulate in f32, the bias
+    is added in f32, tanh-GELU, the hidden cast to x's dtype before fc2."""
+    dt = x.dtype
+    h = x.float() @ w1.to(dt).float() + b1.to(dt).float()
+    h = _gelu_tanh(h).to(dt)
+    o = h.float() @ w2.to(dt).float() + b2.to(dt).float()
+    return o.to(dt)
+
+
+def _fused_ff_fwd(x, w1, b1, w2, b2):
+    if not x.is_cuda:
+        return fused_ff_plain(x, w1, b1, w2, b2)
+    dt, d = x.dtype, x.shape[-1]
+    _lib.check_act(x, "x")
+    flat = x.reshape(-1, d)
+    hid = torch.empty((flat.shape[0], w1.shape[1]), dtype=dt, device=x.device)
+    gemm(flat, w1, hid, bias32=_lib.f32(b1.to(dt)), gelu=True)
+    out = torch.empty(x.shape[:-1] + (w2.shape[1],), dtype=dt,
+                      device=x.device)
+    gemm(hid, w2, out, bias32=_lib.f32(b2.to(dt)))
+    _lib.LAUNCHES["fused_ff"] += 1
+    return out
+
+
+class _FusedFF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _fused_ff_fwd(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = ctx.saved_tensors
+        need = [i for i, n in enumerate(ctx.needs_input_grad) if n]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(i in need)
+                      for i, t in enumerate(ins)]
+            out = fused_ff_plain(*leaves)
+            grads = torch.autograd.grad(out, [leaves[i] for i in need], g)
+        full = [None] * len(ins)
+        for i, gi in zip(need, grads):
+            full[i] = gi
+        return tuple(full)
+
+
+def fused_ff(x, w1, b1, w2, b2):
+    """fc2(gelu_tanh(fc1(x))): x (..., N, D), w1 (D, 4D), b1 (4D,),
+    w2 (4D, D), b2 (D,) -> (..., N, D) in x.dtype; every parameter is cast
+    to x's dtype first, as JAX's wrapper does. CPU tensors take the plain
+    version. Differentiable: the backward recomputes fused_ff_plain."""
+    dt = x.dtype
+    w1, b1, w2, b2 = (t.to(dt) for t in (w1, b1, w2, b2))
+    if _lib.needs_grad(x, w1, b1, w2, b2):
+        return _FusedFF.apply(x, w1, b1, w2, b2)
+    return _fused_ff_fwd(x, w1, b1, w2, b2)

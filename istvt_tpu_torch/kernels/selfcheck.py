@@ -1,5 +1,7 @@
 """Kernel-vs-plain check cases at the serving slice's shapes (and, for the
-training slice's backward kernels and h1-stash forward, the same shapes).
+training slice's backward kernels and h1-stash forward, the same shapes;
+fused_ff, the attention-map path's feed-forward, at that path's unpadded
+rows: 2 clips x 7 frames x 362 tokens = 5,068).
 
 Used by chip_smoke.py (phase 3) and tests/test_torch_kernels_gpu.py: the
 same seeded inputs go through each kernel's wrapper (CUDA) and its plain
@@ -85,6 +87,8 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
     g_t, g_s = rn(b, t1, s, inner), rn(b * t1, s, inner)
     rows = stream.reshape(-1, d)
     g_qkv, g_rows = rn(rows.shape[0], 3 * inner), rn(*rows.shape)
+    # the attention-map path runs at S = n_valid, unpadded
+    ff_rows = x[:, :, :n_valid].reshape(b, t1 * n_valid, d)
 
     def on(dt, *ts):
         return [t.to(device, dt) for t in ts]
@@ -147,6 +151,9 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
         "ln_ff_residual/bwd": (
             mlp.ln_ff_residual_bwd, mlp.ln_ff_residual_bwd_plain,
             ff_bwd_args),
+        "fused_ff": (
+            mlp.fused_ff, mlp.fused_ff_plain,
+            lambda dt: on(dt, ff_rows, w1, b1f, w2, b2f)),
     }
 
 

@@ -21,10 +21,21 @@
 Ported: the eval forward with `use_pallas=True`, in two forms: int8 W8A8
 serving (`quantize='int8'`, q8_ff='full', q8_attn='ingest'; stem_store
 'f8' or 'bf16') and float fused (`quantize='none'`, in the parameters'
-dtype, f32 or bf16; the stem stores nothing in f8); and the train forward
+dtype, f32 or bf16; the stem stores nothing in f8); the train forward
 of the float fused path (`model.train()`, `dropout == 0`, `remat=False`):
 train-mode BatchNorm in the stem, every ST-layer kernel differentiable
-through its backward kernel (train/step.py drives it). Every other
+through its backward kernel (train/step.py drives it); and the unfused
+eval layer of models/istvt.py:378-394, which the attention-map path
+(`forward(clips, return_attn=True)` or `attn_bias=...`; interpret/ drives
+it) and the XLA-math forward (`use_pallas=False`) run:
+
+    o = temporal_residual_attention(LN x)    (nn/attention.py, plain
+    x = spatial_only_attention(LN o) + x      torch)
+    x = feed_forward(LN x) + x               (fused_ff, kernel #22, with
+                                              use_pallas; else linear ->
+                                              exact-erf GELU -> linear)
+
+at S = 362, unpadded (the maps and the bias are 362 wide). Every other
 configuration raises NotImplementedError naming its ROADMAP.md item; none
 falls back silently.
 
@@ -38,17 +49,21 @@ them stale): it builds them from the parameters inside every forward.
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from istvt_tpu_torch.core.config import ISTVTConfig
 from istvt_tpu_torch.kernels import quant
-from istvt_tpu_torch.kernels.mlp import ln_ff_residual
+from istvt_tpu_torch.kernels.mlp import fused_ff, ln_ff_residual
 from istvt_tpu_torch.models import xception
 from istvt_tpu_torch.nn.attention import (spatial_block_fused,
-                                          temporal_block_fused)
-from istvt_tpu_torch.nn.layers import layernorm, linear
+                                          spatial_only_attention,
+                                          temporal_block_fused,
+                                          temporal_residual_attention)
+from istvt_tpu_torch.nn.layers import gelu, layernorm, linear
 
 _ROADMAP = "ROADMAP.md queue 1"
 
@@ -191,13 +206,14 @@ class DSTTr(nn.Module):
             nn.LayerNorm(d, device=device),
             nn.Linear(d, cfg.num_classes, device=device))
 
-    def tokens(self, feats):
+    def tokens(self, feats, pad: bool = True):
         """(B, T, h, w, D) -> stream (B, (T+1) * S, D), S, n_valid.
 
-        S is the token count per frame padded to a multiple of 8; the pad
-        tokens are zeros, masked out of the spatial-attention keys and
-        isolated everywhere else (per-token LN/FF, per-location temporal
-        attention), as models/istvt.py:220-254 pads for its kernels."""
+        With `pad` (the fused kernels' path) S is the token count per frame
+        padded to a multiple of 8; the pad tokens are zeros, masked out of
+        the spatial-attention keys and isolated everywhere else (per-token
+        LN/FF, per-location temporal attention), as models/istvt.py:220-254
+        pads for its kernels. Without it S = n_valid = h * w + 1."""
         b, t, hh, ww, d = feats.shape
         s = hh * ww + 1
         x = feats.reshape(b, t, hh * ww, d)
@@ -206,10 +222,10 @@ class DSTTr(nn.Module):
         x = x + self.pos_embedding[:, :t, :s].to(x.dtype)
         cls_t = self.temporal_token.to(x.dtype)[:, :, None, :]
         x = torch.cat([cls_t.expand(b, 1, s, d), x], dim=1)
-        pad = (-s) % 8
-        if pad:
-            x = F.pad(x, (0, 0, 0, pad))
-        return x.reshape(b, (t + 1) * (s + pad), d), s + pad, s
+        extra = (-s) % 8 if pad else 0
+        if extra:
+            x = F.pad(x, (0, 0, 0, extra))
+        return x.reshape(b, (t + 1) * (s + extra), d), s + extra, s
 
     def run_layer(self, layer, x, s: int, n_valid: int):
         """One ST layer: x = attn_s(attn_t(x)) + x; x = ff(x) + x, as the
@@ -240,6 +256,39 @@ class DSTTr(nn.Module):
             asp.to_out[0].bias, pf.norm.weight, pf.norm.bias,
             ff.w1q, ff.w1s, ff.net[0].bias, ff.w2q, ff.w2s, ff.net[3].bias)
 
+    def run_layer_unfused(self, layer, x, s: int, bias_t=None, bias_s=None,
+                          need_attn: bool = False):
+        """One ST layer on the unpadded stream (models/istvt.py:378-394):
+        x = attn_s(LN attn_t(LN x)) + x; x = ff(LN x) + x, the attention on
+        the XLA-math branches. Returns (x, map_t, map_s); the maps are None
+        unless need_attn."""
+        pt, ps, pf = layer
+        heads = self.cfg.heads
+        res_t = temporal_residual_attention(
+            pt.fn, layernorm(x, pt.norm.weight, pt.norm.bias), heads, s,
+            return_attn=need_attn, attn_bias=bias_t)
+        out_t, a_t = res_t if need_attn else (res_t, None)
+        res_s = spatial_only_attention(
+            ps.fn, layernorm(out_t, ps.norm.weight, ps.norm.bias), heads, s,
+            return_attn=need_attn, attn_bias=bias_s)
+        out_s, a_s = res_s if need_attn else (res_s, None)
+        x = out_s + x
+        f = self.feed_forward(pf.fn, layernorm(x, pf.norm.weight,
+                                               pf.norm.bias))
+        return f + x, a_t, a_s
+
+    def feed_forward(self, ff, h):
+        """The eval feed-forward of the unfused layer (models/istvt.py:
+        166-185): kernel #22 (fused_ff, tanh-GELU) with use_pallas, else
+        linear -> exact-erf GELU -> linear. Reads the nn.Linear parameters
+        (JAX reads p['fc1']['w']), never the pack_params copies."""
+        fc1, fc2 = ff.net[0], ff.net[3]
+        if self.cfg.use_pallas:
+            return fused_ff(h, fc1.weight.t(), fc1.bias, fc2.weight.t(),
+                            fc2.bias)
+        h = gelu(linear(h, fc1.weight, fc1.bias))
+        return linear(h, fc2.weight, fc2.bias)
+
     def head(self, x):
         """Stream -> logits from the (temporal-CLS, spatial-CLS) token; LN is
         per token, so normalising that token alone equals the reference's
@@ -248,11 +297,38 @@ class DSTTr(nn.Module):
         cls = layernorm(x[:, 0], tr.norm.weight, tr.norm.bias)
         return linear(layernorm(cls, hn.weight, hn.bias), fc.weight, fc.bias)
 
-    def forward(self, feats):
-        x, s, n_valid = self.tokens(feats)
-        for layer in self.transformer.layers:
-            x = self.run_layer(layer, x, s, n_valid)
-        return self.head(x)
+    def forward(self, feats, return_attn: bool = False, attn_bias=None):
+        """(B, T, h, w, D) features -> logits (B, num_classes) (the
+        counterpart of models/istvt.dsttr_apply); with
+        return_attn (logits, {'t': [L x (B, H, S, T+1, T+1)], 's': [L x
+        (B, H, T+1, S, S)]}). attn_bias ({'t': [...], 's': [...]} in the
+        same orders, or None) is added to every post-softmax map.
+
+        The fused kernels run when use_pallas is set and no map is asked
+        for; otherwise the unfused layer at S = h * w + 1, unpadded."""
+        need_attn = return_attn or attn_bias is not None
+        fused = self.cfg.use_pallas and not need_attn
+        if self.cfg.quantize == "int8" and not fused:
+            # loud, not silent (models/istvt.py:238-248): a config that
+            # claims int8 serving but runs float would mislabel every
+            # measurement made with it
+            warnings.warn("cfg.quantize='int8' but running FLOAT: the "
+                          "fused-kernel path is off (use_pallas/attn-map)",
+                          stacklevel=2)
+        x, s, n_valid = self.tokens(feats, pad=fused)
+        attns = {"t": [], "s": []}
+        for i, layer in enumerate(self.transformer.layers):
+            if fused:
+                x = self.run_layer(layer, x, s, n_valid)
+                continue
+            bias = ((None, None) if attn_bias is None
+                    else (attn_bias["t"][i], attn_bias["s"][i]))
+            x, a_t, a_s = self.run_layer_unfused(layer, x, s, *bias,
+                                                 need_attn=need_attn)
+            attns["t"].append(a_t)
+            attns["s"].append(a_s)
+        logits = self.head(x)
+        return (logits, attns) if return_attn else logits
 
 
 class ISTVT(nn.Module):
@@ -263,21 +339,28 @@ class ISTVT(nn.Module):
 
     def __init__(self, cfg: ISTVTConfig = ISTVTConfig(), device=None):
         super().__init__()
-        self.cfg = cfg
         self.xcep = xception.TransferModel(device=device)
         self.vit = DSTTr(cfg, device=device)
 
-    def _check_path(self):
+    @property
+    def cfg(self) -> ISTVTConfig:
+        """The model's configuration, the one its DSTTr reads: assigning
+        it reconfigures both."""
+        return self.vit.cfg
+
+    @cfg.setter
+    def cfg(self, cfg: ISTVTConfig):
+        self.vit.cfg = cfg
+
+    def _check_path(self, need_attn: bool = False):
         cfg = self.cfg
         if self.training:
-            self._check_train()
+            self._check_train(need_attn)
             return
-        if not cfg.use_pallas:
-            raise NotImplementedError(
-                f"use_pallas=False (XLA-math forward) is not ported yet "
-                f"({_ROADMAP}, 'Float XLA-math forward')")
         if cfg.quantize not in ("int8", "none"):
             raise ValueError(f"quantize={cfg.quantize!r}")
+        if need_attn or not cfg.use_pallas:
+            return          # the unfused layer (DSTTr.forward)
         layer = self.vit.transformer.layers[0]
         if cfg.quantize == "none":
             if not all(m.fn.has_packed() for m in layer):
@@ -295,10 +378,14 @@ class ISTVT(nn.Module):
             raise RuntimeError("cfg.quantize='int8' but the model carries no "
                                "int8 weights: run quantize_params(model)")
 
-    def _check_train(self):
+    def _check_train(self, need_attn: bool = False):
         """Train mode runs the float fused path with dropout 0 only
         (models/istvt.py:357-373 with `ln_ff_residual`)."""
         cfg = self.cfg
+        if need_attn:
+            raise NotImplementedError(
+                f"attention maps in train mode (train/attn_dump.py) are not "
+                f"ported yet ({_ROADMAP}, 'Interpretation')")
         if not cfg.use_pallas or cfg.quantize != "none":
             raise NotImplementedError(
                 f"training runs the float fused path only (use_pallas=True, "
@@ -315,14 +402,14 @@ class ISTVT(nn.Module):
                                       f" 'Training')")
 
     def forward(self, clips, return_attn: bool = False, attn_bias=None):
-        """clips (B, T, H, W, 3) NHWC -> logits (B, num_classes). In train
-        mode the stem's BN running statistics are updated in place."""
-        if return_attn or attn_bias is not None:
-            raise NotImplementedError(
-                f"attention maps / attn_bias are not ported yet "
-                f"({_ROADMAP}, 'Attention-map path')")
-        self._check_path()
-        return self.vit(self.features(clips))
+        """clips (B, T, H, W, 3) NHWC -> logits (B, num_classes); with
+        return_attn (logits, {'t': [...], 's': [...]}), every layer's maps
+        (DSTTr.forward). attn_bias (eval mode) is added to every
+        post-softmax map. In train mode the stem's BN running statistics
+        are updated in place."""
+        self._check_path(return_attn or attn_bias is not None)
+        return self.vit(self.features(clips), return_attn=return_attn,
+                        attn_bias=attn_bias)
 
     def features(self, clips):
         """Per-frame stem: (B, T, H, W, 3) -> (B, T, h, w, 728)."""

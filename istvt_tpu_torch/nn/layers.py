@@ -1,8 +1,8 @@
 """Layers of the ported slices (counterpart of istvt_tpu/nn/layers.py).
 
-Plain functions on tensors with the JAX package's numerics: LayerNorm
-eps 1e-5 with the two-pass variance in f32, eval and train BatchNorm
-eps 1e-5,
+Plain functions on tensors with the JAX package's numerics: exact-erf
+GELU, LayerNorm eps 1e-5 with the two-pass variance in f32, eval and
+train BatchNorm eps 1e-5,
 MaxPool padding with -inf like torch MaxPool2d(3, s, 1). Convolutions take
 NCHW activations (kept in channels_last memory by the stem) and OIHW
 weights, and run through cuDNN on the card, as XLA computes them outside
@@ -18,6 +18,11 @@ _EPS = 1e-5
 
 def relu(x):
     return torch.clamp_min(x, 0)
+
+
+def gelu(x):
+    """Exact GELU (erf), torch nn.GELU()'s default (nn/layers.gelu)."""
+    return F.gelu(x, approximate="none")
 
 
 def conv2d(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):

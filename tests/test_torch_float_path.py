@@ -127,8 +127,16 @@ def test_float_model_rejects_unported_options(jax_run):
     at = model.vit.transformer.layers[0][0].fn
     assert torch.equal(at.qkv_w, torch.cat([at.to_qk.weight.t(),
                                             at.to_v.weight.t()], dim=1))
-    with pytest.raises(NotImplementedError, match="Attention-map"):
-        model(clips, return_attn=True)
+    # attention maps run the unfused layer at S = 26, unpadded (ported:
+    # tests/test_torch_attn_map.py holds them against JAX)
+    with torch.no_grad():
+        logits, attns = model(clips, return_attn=True)
+    assert logits.shape == (1, 1)
+    assert [a.shape for a in attns["s"]] == [(1, 8, 3, 26, 26)] * 2
+    assert [a.shape for a in attns["t"]] == [(1, 8, 26, 3, 3)] * 2
+    with pytest.raises(NotImplementedError, match="Interpretation"):
+        model.train()(clips, return_attn=True)
+    model.eval()
     model.cfg = ISTVTConfig(**{**TINY, "quantize": "int4"})
     with pytest.raises(ValueError, match="quantize"):
         model(clips)

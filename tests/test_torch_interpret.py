@@ -1,0 +1,296 @@
+"""The port's interpretability path (istvt_tpu_torch/interpret/,
+cli/visualize.py) vs the JAX package, on the CPU at toy geometry (72^2,
+T = 3, feat_hw 5, depth 2, B = 2), and a behaviour check of the port on
+its own.
+
+One set of weights runs through both packages (JAX `istvt.init`, carried
+across by `compat.from_jax.params_from_jax`); JAX under HIGHEST precision
+with its Pallas kernels in interpret mode, the port on its plain versions
+in f32 with TF32 off. Tolerances, with the measured values:
+
+  * generate_lrp, three methods x both use_pallas values: cams at rel-L2
+    <= 1e-4 (measured <= 1.6e-6);
+  * generate_feature_relevance, both use_pallas values (True: the fused
+    forward differentiated in eval mode): rel-L2 <= 1e-4 (measured
+    <= 1.2e-6);
+  * generate_full_lrp, with and without from_features, and its relevance
+    walk (per-layer map relevance, stage sums): rel-L2 <= 1e-4, the walk's
+    logits 1e-5 (measured <= 1.3e-6);
+  * the heatmap helpers are the same numpy code: equal to 1e-6, and
+    save_png's file, decoded by PIL, equals the JAX writer's pixel for
+    pixel;
+  * the visualize CLI writes the JAX CLI's file names, and on the JAX
+    CLI's own weights its PNGs equal the JAX CLI's within 1 LSB (measured
+    max 1: a cam that differs in its 7th digit can round one overlay byte
+    the other way).
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from PIL import Image
+
+from istvt_tpu.cli import visualize as jvis
+from istvt_tpu.core import precision as jprecision
+from istvt_tpu.core.config import ISTVTConfig as JaxConfig
+from istvt_tpu.data import SyntheticVideoDataset as JaxSynthetic
+from istvt_tpu.interpret import full_lrp as jfull
+from istvt_tpu.interpret import heatmap as jheat
+from istvt_tpu.interpret import lrp as jlrp
+from istvt_tpu.models import istvt as jistvt
+from istvt_tpu_torch.cli import visualize as tvis
+from istvt_tpu_torch.compat.from_jax import params_from_jax
+from istvt_tpu_torch.core import precision as tprecision
+from istvt_tpu_torch.core.config import ISTVTConfig, TrainConfig
+from istvt_tpu_torch.interpret import (generate_feature_relevance,
+                                       generate_full_lrp, generate_lrp)
+from istvt_tpu_torch.interpret import heatmap as theat
+from istvt_tpu_torch.interpret.full_lrp import dsttr_full_lrp
+from istvt_tpu_torch.kernels import _lib
+from istvt_tpu_torch.models import istvt as tistvt
+from istvt_tpu_torch.train import schedule as tschedule
+from istvt_tpu_torch.train import step as tstep
+
+TINY = dict(num_frames=3, image_size=72, feat_hw=5, depth=2, num_classes=1)
+METHODS = ("transformer_attribution", "rollout", "last_layer")
+_J_FEAT = jax.jit(jlrp.generate_feature_relevance,
+                  static_argnames=("cfg", "index"))
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    params, state = jistvt.init(jax.random.PRNGKey(0), JaxConfig(**TINY))
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    clips = np.random.RandomState(5).randn(2, 3, 72, 72, 3).astype(
+        np.float32)
+    return to_np(params), to_np(state), clips
+
+
+def _port(params, state, **kw):
+    model = tistvt.init(ISTVTConfig(**TINY, **kw),
+                        torch.Generator().manual_seed(0))
+    model.load_state_dict(params_from_jax(params, state))
+    return model
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_generate_lrp_matches_jax(weights, use_pallas):
+    params, state, clips = weights
+    cfg = JaxConfig(**TINY, use_pallas=use_pallas)
+    model = _port(params, state, use_pallas=use_pallas)
+    for method in METHODS:
+        with jprecision.highest():
+            want = jlrp.generate_lrp(params, state, jnp.asarray(clips), cfg,
+                                     method=method)
+        _lib.reset_launches()
+        with tprecision.highest():
+            got = generate_lrp(model, torch.from_numpy(clips), method=method)
+        assert all(v == 0 for v in _lib.LAUNCHES.values())
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape == (2, 3, 25)
+            assert _rel_l2(g.numpy(), w) <= 1e-4, (method, _rel_l2(g, w))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_generate_feature_relevance_matches_jax(weights, use_pallas):
+    params, state, clips = weights
+    cfg = JaxConfig(**TINY, use_pallas=use_pallas)
+    with jprecision.highest():
+        want = _J_FEAT(params, state, jnp.asarray(clips), cfg=cfg, index=0)
+    model = _port(params, state, use_pallas=use_pallas)
+    if use_pallas:
+        tistvt.pack_params(model)      # the fused forward's weight copies
+    with tprecision.highest():
+        got = generate_feature_relevance(model, torch.from_numpy(clips))
+    assert tuple(got.shape) == want.shape == (2, 3, 72, 72)
+    assert _rel_l2(got.numpy(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("from_features", [False, True])
+def test_generate_full_lrp_matches_jax(weights, from_features):
+    params, state, clips = weights
+    cfg = JaxConfig(**TINY, use_pallas=True)
+    model = _port(params, state, use_pallas=True)
+    x = clips
+    if from_features:
+        with torch.no_grad():
+            x = model.features(torch.from_numpy(clips)).numpy()
+    with jprecision.highest():
+        want = jfull.generate_full_lrp(params, state, jnp.asarray(x), cfg,
+                                       from_features=from_features)
+    with tprecision.highest():
+        got = generate_full_lrp(model, torch.from_numpy(x),
+                                from_features=from_features)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape == (2, 3, 25)
+        assert (g >= 0).all()
+        assert _rel_l2(g.numpy(), w) <= 1e-4, _rel_l2(g, w)
+
+
+def test_full_lrp_relevance_walk_matches_jax(weights):
+    """dsttr_full_lrp's per-layer map relevance and stage sums."""
+    params, state, _ = weights
+    cfg = JaxConfig(**TINY)
+    feats = np.random.RandomState(7).randn(1, 3, 5, 5, 728).astype(
+        np.float32)
+    with jprecision.highest():
+        want_r, want_l, want_sums = jax.jit(
+            jfull.dsttr_full_lrp, static_argnames=("cfg", "index"))(
+                params["vit"], jnp.asarray(feats), cfg=cfg, index=0)
+    model = _port(params, state)
+    with tprecision.highest():
+        got_r, got_l, got_sums = dsttr_full_lrp(model.vit,
+                                                torch.from_numpy(feats))
+    assert _rel_l2(got_l.numpy(), want_l) <= 1e-5
+    assert _rel_l2(got_sums.numpy(), want_sums) <= 1e-4
+    for k in ("t", "s"):
+        for g, w in zip(got_r[k], want_r[k]):
+            assert tuple(g.shape) == w.shape
+            assert _rel_l2(g.numpy(), w) <= 1e-4, k
+
+
+def test_heatmap_helpers_match_jax(tmp_path):
+    rng = np.random.RandomState(0)
+    m = rng.randn(5, 5).astype(np.float32)
+    np.testing.assert_allclose(theat.bilinear_upsample(m, 16),
+                               jheat.bilinear_upsample(m, 16), atol=1e-6)
+    v = np.linspace(-0.2, 1.2, 301)
+    np.testing.assert_allclose(theat.jet(v), jheat.jet(v), atol=1e-6)
+    np.testing.assert_allclose(theat.minmax(m), jheat.minmax(m), atol=1e-6)
+    cam, frame = rng.rand(25), rng.rand(72, 72, 3).astype(np.float32)
+    for f in (None, frame, 255 * frame):
+        got = theat.render_saliency(cam, f, grid=5, scale=16)
+        want = jheat.render_saliency(cam, f, grid=5, scale=16)
+        assert got.dtype == np.uint8 and got.shape == (80, 80, 3)
+        np.testing.assert_array_equal(got, want)
+    for img in (got, np.uint8(255 * rng.rand(72, 72))):
+        theat.save_png(str(tmp_path / "port" / "a.png"), img)
+        jheat.save_png(str(tmp_path / "jax" / "a.png"), img)
+        a = np.asarray(Image.open(tmp_path / "port" / "a.png"))
+        b = np.asarray(Image.open(tmp_path / "jax" / "a.png"))
+        assert a.dtype == b.dtype and a.shape == b.shape == img.shape
+        np.testing.assert_array_equal(a, b)
+
+
+CLI = ["--dataset", "synthetic", "--input_size", "72", "--seq_len", "6",
+       "--depth", "2", "--max_clips", "1"]
+
+
+def test_visualize_cli_writes_the_jax_cli_files(tmp_path, monkeypatch):
+    """A 1-clip run of each CLI: the same 18 file names; then the port's
+    per-clip body on the JAX CLI's own weights (istvt.init(PRNGKey(0)))
+    writes the JAX CLI's PNGs within 1 LSB."""
+    monkeypatch.setenv("ISTVT_NO_COMPILE_CACHE", "1")
+    written = tvis.main(["--device", "cpu", "--out_dir",
+                         str(tmp_path / "port"), *CLI])
+    with jprecision.highest():
+        jvis.main(["--out_dir", str(tmp_path / "jax"), *CLI])
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert len(names) == 18 and names[:3] == [
+        "clip00000_f0.png", "clip00000_f0_s.png", "clip00000_f0_t.png"]
+    assert sorted(os.listdir(tmp_path / "port")) == names
+    assert sorted(map(os.path.basename, written)) == names
+
+    args = tvis.build_parser().parse_args(
+        ["--device", "cpu", "--out_dir", str(tmp_path / "shared"), *CLI])
+    cfg = JaxConfig(num_frames=6, image_size=72, feat_hw=5, depth=2)
+    params, state = jistvt.init(jax.random.PRNGKey(0), cfg)
+    model = tistvt.init(ISTVTConfig(num_frames=6, image_size=72, feat_hw=5,
+                                    depth=2), torch.Generator())
+    model.load_state_dict(params_from_jax(
+        *jax.tree_util.tree_map(np.asarray, (params, state))))
+    item = JaxSynthetic(1, 6, 72)[0]
+    with tprecision.highest():
+        tvis.render_clip(model, item, 0, args)
+    for n in names:
+        a = np.asarray(Image.open(tmp_path / "shared" / n), np.int16)
+        b = np.asarray(Image.open(tmp_path / "jax" / n), np.int16)
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1, n
+
+    tvis.main(["--device", "cpu", "--mode", "features", "--out_dir",
+               str(tmp_path / "feat"), *CLI])
+    feat = sorted(os.listdir(tmp_path / "feat"))
+    assert feat == [f"clip00000_f{t}_feat.png" for t in range(6)]
+    assert np.asarray(Image.open(tmp_path / "feat" / feat[0])).shape == (
+        72, 72)
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--dataset", "ff++"], "the real datasets"),
+    (["--dataset", "synthetic", "--model_path", "x"], "checkpoint"),
+    (["--dataset", "synthetic", "--mode", "channels"], "model zoo")])
+def test_visualize_cli_unported_options_exit(argv, item):
+    with pytest.raises(SystemExit, match=item):
+        tvis.main(["--device", "cpu", *argv])
+
+
+def test_lrp_localizes_synthetic_artifact():
+    """Behaviour (the counterpart of tests/test_lrp_golden.py::
+    test_lrp_localizes_synthetic_artifact): train a tiny port model on the
+    port's own train path (use_pallas=True, dropout 0) on clips whose fake
+    class carries per-frame noise in a FIXED patch; the cams of
+    generate_lrp(use_pallas=True) for a fake clip are larger inside the
+    patch's feature cells than outside. T = 2, B = 4, 30 steps, measured
+    inside / outside: cam_s 8.2e-4 / 3.1e-6, cam_t 2.3e-2 / 3.2e-3 (at 20
+    steps the cams had not yet localized; with other model seeds cam_s can
+    come out all zero at B = 4, so the seed is fixed).
+
+    Under pytest-xdist it takes its share of the cores as intra-op
+    threads (one with 6 workers on 8 cores): this run's thousands of small
+    parallel regions stall on an oversubscribed machine (856 s with all
+    cores' threads inside the 6-worker suite; one thread: 36 s alone,
+    about 120 s beside five 8-thread matmul loops; all 8 threads alone:
+    about 15 s)."""
+    size, fhw, t = 72, 5, 2
+    cell = size / fhw
+    lo, hi = int(cell * 1), int(cell * 4)      # the patch covers cells 1..3
+
+    def make_batch(n, seed):
+        rng = np.random.default_rng(seed)
+        clips, labels = [], []
+        for i in range(n):
+            base = rng.normal(0, 0.3, (size, size, 3)).astype(np.float32)
+            clip = np.stack([np.roll(base, s, axis=1) for s in range(t)])
+            if i % 2 == 1:
+                clip[:, lo:hi, lo:hi] += rng.normal(
+                    0, 1.0, (t, hi - lo, hi - lo, 3)).astype(np.float32)
+            clips.append(clip)
+            labels.append(i % 2)
+        return {"clips": torch.from_numpy(np.stack(clips)),
+                "labels": torch.tensor(labels)}
+
+    cfg = ISTVTConfig(num_frames=t, image_size=size, feat_hw=fhw, depth=2,
+                      use_pallas=True, dropout=0.0)
+    threads = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, threads // workers))
+    try:
+        model = tistvt.init(cfg, torch.Generator().manual_seed(0))
+        opt = tstep.make_optimizer(TrainConfig(checkpoint_dir=""),
+                                   tschedule.cosine_schedule(3e-4, 10_000))
+        ts = tstep.create_train_state(model, opt)
+        step = tstep.make_train_step()
+        batch = make_batch(4, seed=0)
+        for _ in range(30):
+            m = step(ts, batch)
+        assert float(m["loss"]) < 0.3, float(m["loss"])
+        fake = make_batch(2, seed=7)["clips"][1:2]
+        cam_s, cam_t = generate_lrp(model.eval(), fake)
+    finally:
+        torch.set_num_threads(threads)
+    mask = np.zeros((fhw, fhw), bool)
+    mask[1:4, 1:4] = True
+    for name, cam in (("cam_s", cam_s), ("cam_t", cam_t)):
+        grid = cam[0].mean(0).reshape(fhw, fhw).numpy()
+        inside, outside = grid[mask].mean(), grid[~mask].mean()
+        assert inside > outside, (name, inside, outside, grid)

@@ -221,17 +221,25 @@ def test_unported_paths_raise(weights):
     params, qparams, state = weights
     model = _port(qparams, state)
     clips = torch.zeros(1, 2, 72, 72, 3)
-    for kw in (dict(use_pallas=False),
-               dict(quantize="none", use_pallas=False),
-               dict(q8_attn="boundary"), dict(q8_ff="mixed")):
+    for kw in (dict(q8_attn="boundary"), dict(q8_ff="mixed")):
         model.cfg = ISTVTConfig(**{**TINY, **kw})
         with pytest.raises(NotImplementedError):
             model(clips)
+    # an int8 config whose path is off the fused kernels (use_pallas=False,
+    # attention maps) runs float and warns, as models/istvt.py:238-248
+    # does; tests/test_torch_attn_map.py holds that path against JAX
+    model.cfg = ISTVTConfig(**{**TINY, "use_pallas": False})
+    with pytest.warns(UserWarning, match="running FLOAT"):
+        with torch.no_grad():
+            assert torch.isfinite(model(clips)).all()
     model.cfg = ISTVTConfig(**TINY)
-    with pytest.raises(NotImplementedError):
-        model(clips, return_attn=True)
+    with pytest.warns(UserWarning, match="running FLOAT"):
+        with torch.no_grad():
+            logits, _ = model(clips, return_attn=True)
+    assert torch.isfinite(logits).all()
     with pytest.raises(NotImplementedError):
         model.train()(clips)
+    model.eval()
     with pytest.raises(RuntimeError, match="quantize_params"):
         _port(params, state)(clips)
 

@@ -127,3 +127,31 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert abs(losses[0] - losses[1]) <= 5e-2, losses
     cos = torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0)
     assert cos >= 0.99, cos
+
+
+def test_attention_map_path_on_card_matches_cpu(cuda):
+    """The attention-map path of a small ISTVT (use_pallas: its
+    feed-forward is fused_ff, #22) on the card against the CPU's plain
+    versions, f32: generate_lrp's cams at rel-L2 <= 1e-3 and fused_ff
+    launched once per layer; its backward (plain recompute) launches
+    nothing."""
+    from istvt_tpu_torch.core.config import ISTVTConfig
+    from istvt_tpu_torch.interpret import generate_lrp
+    from istvt_tpu_torch.models import istvt
+
+    cfg = ISTVTConfig(num_frames=2, image_size=72, feat_hw=5, depth=2,
+                      use_pallas=True)
+    cpu = istvt.init(cfg, torch.Generator().manual_seed(0))
+    card = istvt.init(cfg, torch.Generator().manual_seed(0), cuda)
+    clips = torch.randn(1, 2, 72, 72, 3, generator=torch.Generator()
+                        .manual_seed(1))
+    with highest():
+        want = generate_lrp(cpu, clips)
+        _lib.reset_launches()
+        got = generate_lrp(card, clips.to(cuda))
+        torch.cuda.synchronize()
+    assert _lib.LAUNCHES == {**dict.fromkeys(_lib.LAUNCHES, 0),
+                             "fused_ff": cfg.depth}
+    for g, w in zip(got, want):
+        rel = (g.cpu() - w).norm() / w.norm().clamp_min(1e-30)
+        assert rel <= 1e-3, rel
