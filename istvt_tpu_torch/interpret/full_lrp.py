@@ -25,7 +25,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from istvt_tpu_torch.interpret.lrp import bias_grads, cams
+from istvt_tpu_torch.interpret.lrp import bias_grads, cams, eval_mode
 from istvt_tpu_torch.nn.attention import self_subtract
 from istvt_tpu_torch.nn.layers import gelu, linear
 
@@ -240,17 +240,19 @@ def generate_full_lrp(model, clips, index: int = 0,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full epsilon-rule LRP cams: (cam_s (B, T, hw), cam_t (B, T, hw)).
 
-    model: the port's ISTVT in eval mode. from_features=True treats `clips`
+    model: the port's ISTVT, run in eval mode whatever its mode (and given
+    back in it). from_features=True treats `clips`
     as the (B, T, h, w, C) Xception feature grid (stem skipped; the map
     gradients come from the DSTTr's own forward)."""
-    if from_features:
-        feats = clips
-        _, grads, _ = bias_grads(model.vit, feats, index, feats.device)
-    else:
-        with torch.no_grad():
-            feats = model.features(clips)
-        _, grads, _ = bias_grads(model, clips, index, clips.device)
-    rel_attns, _, _ = dsttr_full_lrp(model.vit, feats, index)
+    with eval_mode(model):
+        if from_features:
+            feats = clips
+            _, grads, _ = bias_grads(model.vit, feats, index, feats.device)
+        else:
+            with torch.no_grad():
+                feats = model.features(clips)
+            _, grads, _ = bias_grads(model, clips, index, clips.device)
+        rel_attns, _, _ = dsttr_full_lrp(model.vit, feats, index)
     abars = {k: [(g * r).clamp_min(0.0).mean(dim=1)
                  for g, r in zip(grads[k], rel_attns[k])] for k in "ts"}
     return cams(abars["s"], abars["t"])

@@ -16,12 +16,34 @@ The functions take the port's ISTVT and run it as its `cfg` says: with
 use_pallas the unfused layer's feed-forward is kernel #22 (fused_ff), and
 generate_feature_relevance differentiates the fused forward (its backward
 kernels run in eval mode); without it every layer is plain torch.
+
+Each entry point (attention_maps_and_grads and so generate_lrp,
+generate_feature_relevance, full_lrp.generate_full_lrp) runs the model in
+eval mode, as JAX applies train=False (interpret/lrp.py:74, :141;
+full_lrp.py:310), and gives it back in the
+mode each of its modules came in (`eval_mode`), also when it raises: a
+model left in train mode by a train step gets the eval maps and keeps
+its BatchNorm statistics.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Tuple
 
 import torch
+
+
+@contextlib.contextmanager
+def eval_mode(model):
+    """Run the block with `model` in eval mode, then restore every
+    module's own training flag."""
+    modes = [(m, m.training) for m in model.modules()]
+    model.eval()
+    try:
+        yield model
+    finally:
+        for m, training in modes:
+            m.training = training
 
 
 def _head_agg(attn, grad):
@@ -82,8 +104,10 @@ def bias_grads(module, inputs, index: int, device):
 def attention_maps_and_grads(model, clips, index: int = 0):
     """Forward + backward: (attns, grads, logits) with attns / grads
     {'t': [L x (B, H, S, T+1, T+1)], 's': [L x (B, H, T+1, S, S)]}.
-    model: the port's ISTVT in eval mode; clips (B, T, H, W, 3)."""
-    return bias_grads(model, clips, index, clips.device)
+    model: the port's ISTVT, run in eval mode (eval_mode); clips (B, T, H,
+    W, 3)."""
+    with eval_mode(model):
+        return bias_grads(model, clips, index, clips.device)
 
 
 def cams(abars_s, abars_t) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,7 +152,7 @@ def generate_feature_relevance(model, clips, index: int = 0):
     dumps, visualize_feat_map.py:228-236). With use_pallas the eval-mode
     fused forward is differentiated (pack_params must have run)."""
     x = clips.detach().requires_grad_(True)
-    with torch.enable_grad():
+    with eval_mode(model), torch.enable_grad():
         logits = torch.func.functional_call(model, detached(model), (x,))
         (g,) = torch.autograd.grad(logits[:, index].sum(), x)
     return (g * clips).abs().sum(dim=-1)

@@ -34,6 +34,12 @@ LAUNCHES: Dict[str, int] = dict.fromkeys([
     "ln_qkv_q8_temporal_attention",        # kernels/quant.py
     "mm_q8_ln_qkv_q8_spatial_attention",
     "matmul_q8_res_ln_ff_q8_full",
+    # the int8 A/B modes (q8_attn='boundary', q8_ff='mixed' / 'bf16')
+    "ln_matmul_q8",                        # kernels/quant.py
+    "matmul_q8_ln_matmul_q8",
+    "matmul_q8_bias_residual",             # with a residual
+    "matmul_q8_bias_residual/no_r",        # r=None
+    "ln_ff_residual_q8",
     "temporal_attention_packed",           # kernels/attention.py
     "spatial_attention_packed",
     "ln_matmul",                           # kernels/linear.py

@@ -2,7 +2,7 @@
 // rows and a column-sum pass: the building blocks of the float fused path's
 // projection kernels, forward and backward (kernels/linear.py, kernels/mlp.py).
 //
-// Replaces six TPU kernels:
+// Replaces six TPU kernels, and serves as the second half of a seventh:
 //   * istvt_tpu/kernels/linear.py _ln_matmul_impl (_ln_matmul_kernel): LN -> x @ w,
 //     here ln_rows then gemm;
 //   * istvt_tpu/kernels/linear.py _matmul_bias_impl (_matmul_bias[_res]_kernel):
@@ -16,6 +16,9 @@
 //   * istvt_tpu/kernels/linear.py _ln_matmul_bwd_impl (_ln_matmul_bwd_kernel): here
 //     ln_rows (y), gemm NT (dy = g w^T, f32), ln_bwd_rows (dx and the ds / db column
 //     partials), colsum, gemm TN (dw = y^T g, f32);
+//   * (fc2 of) istvt_tpu/kernels/quant.py _ln_ff_q8_impl (_ln_ff_q8_kernel, the
+//     q8_ff='mixed' FF): gemm (+ b2, + x) on the GELU hidden that
+//     q8_rows_gemm.cu's int8 fc1 rounded to x's dtype;
 //   * istvt_tpu/kernels/mlp.py _ln_ff_bwd_impl (_ln_ff_bwd_kernel): here ln_rows (y),
 //     gemm NT with the GELU-backward epilogue (dh1 = (g w2^T) * gelu'(h1) in x's dtype,
 //     gelu(h1) for dw2, db1 column partials), colsum, gemm TN (dw2, dw1, f32), gemm NT

@@ -1,24 +1,42 @@
-// Row quantization and the W8A8 GEMM: the building blocks that the three
-// int8 serving kernels (kernels/quant.py) chain together.
+// Row quantization and the W8A8 GEMM: the building blocks that the int8 serving
+// kernels (kernels/quant.py) chain together.
 //
 // Replaces the in-kernel GEMM stages of the TPU kernels in
-// istvt_tpu/kernels/quant.py: _ln_qkv_q8_temporal_kernel (LN -> quant -> QKV),
-// _mm_q8_ln_qkv_q8_spatial_kernel (quant -> out-proj -> LN -> quant -> QKV) and
-// _mm_q8_res_ln_ff_q8_kernel (quant -> out-proj + residual -> LN -> quant ->
-// fc1 -> GELU -> quant -> fc2 + residual).
+// istvt_tpu/kernels/quant.py:
+//   * _ln_qkv_q8_temporal_kernel (#1, LN -> quant -> QKV) and _ln_matmul_q8_kernel
+//     (#4, the same without the attention): ln_quant_rows, gemm (acc * rs * ws, rounded
+//     to x's dtype);
+//   * _mm_q8_ln_qkv_q8_spatial_kernel (#2, quant -> out-proj -> LN -> quant -> QKV) and
+//     _mm_q8_ln_mm_q8_kernel (#8, the same without the attention): quant_rows, gemm
+//     (+ b, into an f32 intermediate), ln_quant_rows, gemm;
+//   * _matmul_q8_kernel / _matmul_q8_res_kernel (#5, quant -> GEMM + b [+ r]):
+//     quant_rows, gemm (+ bias [+ residual], rounded to x's dtype);
+//   * _mm_q8_res_ln_ff_q8_kernel (#3, quant -> out-proj + residual -> LN -> quant ->
+//     fc1 -> GELU -> quant -> fc2 + residual): quant_rows, gemm, ln_quant_rows, gemm
+//     (+ b1, GELU, f32), quant_rows, gemm (+ b2, + y);
+//   * _ln_ff_q8_kernel (#6, LN -> quant -> fc1 -> GELU -> bf16 fc2 + b2 + x): here
+//     ln_quant_rows, gemm (+ b1, GELU, rounded to x's dtype), then float_gemm.cu's
+//     gemm (+ b2, + x). The (rows, 2912) hidden makes a round trip through device
+//     memory in x's dtype (5,152 x 2,912 x 2 bytes = 30 MB at the 2-clip slice, 240 MB
+//     at B=16), where the TPU kernel keeps it in VMEM; the numbers are the same,
+//     since JAX rounds the hidden to x's dtype before fc2.
 //
 // What bounds it on the H100: the GEMMs are int8 tensor-core work (about
-// 7 TOP per B=16 forward); the row passes move bytes only. This first
-// version runs each stage as its own launch with the intermediates in
-// device memory, so it is bound by those round trips and by the GEMM's
-// single-buffered shared-memory pipeline (one __syncthreads pair per
-// 32-deep k step, no cp.async/TMA, no wgmma). What the design does about
-// it: the GEMM uses the int8 tensor cores through mma.sync m16n8k32
+// 7 TOP per B=16 forward); the row passes move bytes only. At the slice #4, #5 and
+// the row passes are bound by bytes (the (rows, 1536) bf16 QKV written once is the
+// largest stream), #8 and #6 by operations. This first version runs each stage as
+// its own launch with the intermediates in device memory, so it is bound by those
+// round trips and by the GEMM's single-buffered shared-memory pipeline (one
+// __syncthreads pair per 32-deep k step, no cp.async/TMA, no wgmma). What the design
+// does about it: the GEMM uses the int8 tensor cores through mma.sync m16n8k32
 // (128x128 block tile, 8 warps of 64x32), transposes the (K, N) weight tile
 // in registers with byte permutes so both fragments load as 32-bit words
 // from padded, conflict-free shared memory, and fuses the whole f32
 // epilogue (x row scale x column scale + bias + residual, tanh-GELU, cast)
-// so the int32 accumulator never leaves registers.
+// so the int32 accumulator never leaves registers. Rows need not fill the
+// 128-row tile (B * 7 * 368 rows is a multiple of 128 only when B is one of
+// 8; the 2-clip slice has 5,152): the A loads zero-fill rows >= M and the
+// epilogue skips them.
 #include "common.cuh"
 
 namespace istvt {

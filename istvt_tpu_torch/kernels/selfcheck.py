@@ -14,8 +14,8 @@ cases quantize them.
 
 Int8 kernels and their plain versions take the same int8 decisions
 (identical LayerNorm statistics, quantization and epilogue order), so in
-f32 they differ only by the attention's summation order, far inside
-atol = rtol = 2e-3. That margin matters: one flipped activation code would
+f32 they differ only by the attention's (or #6's float fc2's) summation
+order, far inside atol = rtol = 2e-3. That margin matters: one flipped activation code would
 move its row's outputs by up to amax * max|w| / 127, about 1e-3 at these
 scales. The float kernels differ from theirs only by summation order, and
 are held in f32 at atol = rtol = 1e-5: a GEMM that rounded its f32 inputs
@@ -40,7 +40,9 @@ SLICE = dict(b=2, t1=7, s=368, n_valid=362, d=728, inner=512, heads=8,
 SMALL = dict(b=2, t1=4, s=32, n_valid=26, d=128, inner=64, heads=4, hid=256)
 INT8_CASES = ("ln_qkv_q8_temporal_attention",
               "mm_q8_ln_qkv_q8_spatial_attention",
-              "matmul_q8_res_ln_ff_q8_full")
+              "matmul_q8_res_ln_ff_q8_full", "ln_matmul_q8",
+              "matmul_q8_ln_matmul_q8", "matmul_q8_bias_residual",
+              "matmul_q8_bias_residual/no_r", "ln_ff_residual_q8")
 BWD_CASES = ("temporal_attention_packed/bwd", "spatial_attention_packed/bwd",
              "ln_matmul/bwd", "ln_ff_residual/bwd")
 F32_TOL_INT8, F32_TOL_FLOAT = 2e-3, 1e-5
@@ -114,6 +116,25 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
             lambda dt: [*on(dt, a_s, x.reshape(b, t1 * s, d)), woq, wos,
                         *on(dt, bo, ln_s, ln_b), w1q, w1s, *on(dt, b1),
                         w2q, w2s, *on(dt, b2)]),
+        "ln_matmul_q8": (
+            quant.ln_matmul_q8, quant.ln_matmul_q8_plain,
+            lambda dt: [*on(dt, stream, ln_s, ln_b), wqt, wst]),
+        "matmul_q8_ln_matmul_q8": (
+            quant.matmul_q8_ln_matmul_q8, quant.matmul_q8_ln_matmul_q8_plain,
+            lambda dt: [*on(dt, a_s), woq, wos, *on(dt, bo, ln_s, ln_b),
+                        wqs, wss]),
+        "matmul_q8_bias_residual": (
+            quant.matmul_q8_bias_residual,
+            quant.matmul_q8_bias_residual_plain,
+            lambda dt: [*on(dt, a_s), woq, wos, *on(dt, bo, stream)]),
+        "matmul_q8_bias_residual/no_r": (
+            quant.matmul_q8_bias_residual,
+            quant.matmul_q8_bias_residual_plain,
+            lambda dt: [*on(dt, a_s), woq, wos, *on(dt, bo)]),
+        "ln_ff_residual_q8": (
+            quant.ln_ff_residual_q8, quant.ln_ff_residual_q8_plain,
+            lambda dt: [*on(dt, stream, ln_s, ln_b), w1q, w1s,
+                        *on(dt, b1, w2, b2f)]),
         "temporal_attention_packed": (
             attention.temporal_attention_packed,
             attention.temporal_packed_plain,

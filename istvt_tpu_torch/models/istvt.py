@@ -5,10 +5,21 @@
     -> tokens: spatial CLS per frame, learned pos-embedding, a temporal-CLS
        frame -> (B, T+1, 362, 728), padded to S = 368 (n_valid = 362)
     -> 12 ST layers, either
-       int8 serving (quantize='int8'), three kernels (kernels/quant.py):
-         a_t = ln_qkv_q8_temporal_attention(x)
-         a_s = mm_q8_ln_qkv_q8_spatial_attention(a_t)
-         x   = matmul_q8_res_ln_ff_q8_full(a_s, x)
+       int8 serving (quantize='int8'), as ISTVTConfig.q8_ff / q8_attn
+       choose (models/istvt.py:258-350; kernels/quant.py):
+         q8_ff='full', q8_attn='ingest' (the default), three kernels:
+           a_t = ln_qkv_q8_temporal_attention(x)
+           a_s = mm_q8_ln_qkv_q8_spatial_attention(a_t)
+           x   = matmul_q8_res_ln_ff_q8_full(a_s, x)
+         q8_ff='full', any other q8_attn but 'layer' ('boundary'):
+           a_t = temporal_attention_packed(ln_matmul_q8(x))
+           a_s = spatial_attention_packed(matmul_q8_ln_matmul_q8(a_t))
+           x   = matmul_q8_res_ln_ff_q8_full(a_s, x)
+         q8_ff='mixed' or 'bf16', whatever q8_attn is:
+           o_t = temporal_block_q8(x), x = spatial_block_q8(o_t) + x
+           (nn/attention.py: ln_matmul_q8 -> packed core ->
+           matmul_q8_bias_residual), then x = ln_ff_residual_q8(x)
+           (int8 fc1, fc2 in x's dtype) or kernels/mlp.ln_ff_residual(x)
        or float fused (quantize='none'), five kernels (nn/attention.py,
        kernels/mlp.py):
          o_t = ln_matmul -> temporal_attention_packed -> matmul_bias_residual
@@ -19,7 +30,8 @@
        spatial-CLS) token -> logits.
 
 Ported: the eval forward with `use_pallas=True`, in two forms: int8 W8A8
-serving (`quantize='int8'`, q8_ff='full', q8_attn='ingest'; stem_store
+serving (`quantize='int8'`, every q8_ff / q8_attn mode above, but not
+q8_attn='layer' with q8_ff='full', the one-kernel layer #9; stem_store
 'f8' or 'bf16') and float fused (`quantize='none'`, in the parameters'
 dtype, f32 or bf16; the stem stores nothing in f8); the train forward
 of the float fused path (`model.train()`, `dropout == 0`, `remat=False`):
@@ -44,7 +56,8 @@ module.py), so `istvt_tpu.compat.torch_import.istvt_from_torch` loads a
 port state_dict; the int8 copies are extra buffers (`qkv_wq`, ...) that
 `quantize_params` attaches, and the float path's (in, out) weight copies
 are non-persistent buffers (`qkv_w`, ...) that `pack_params` attaches for
-eval. Train mode never reads those copies (an optimizer step would leave
+eval (the int8 modes q8_ff='mixed' and 'bf16' read the feed-forward's
+too). Train mode never reads those copies (an optimizer step would leave
 them stale): it builds them from the parameters inside every forward.
 """
 from __future__ import annotations
@@ -57,11 +70,15 @@ from torch import nn
 
 from istvt_tpu_torch.core.config import ISTVTConfig
 from istvt_tpu_torch.kernels import quant
+from istvt_tpu_torch.kernels.attention import (spatial_attention_packed,
+                                               temporal_attention_packed)
 from istvt_tpu_torch.kernels.mlp import fused_ff, ln_ff_residual
 from istvt_tpu_torch.models import xception
 from istvt_tpu_torch.nn.attention import (spatial_block_fused,
+                                          spatial_block_q8,
                                           spatial_only_attention,
                                           temporal_block_fused,
+                                          temporal_block_q8,
                                           temporal_residual_attention)
 from istvt_tpu_torch.nn.layers import gelu, layernorm, linear
 
@@ -228,29 +245,52 @@ class DSTTr(nn.Module):
         return x.reshape(b, (t + 1) * (s + extra), d), s + extra, s
 
     def run_layer(self, layer, x, s: int, n_valid: int):
-        """One ST layer: x = attn_s(attn_t(x)) + x; x = ff(x) + x, as the
-        int8 chain (models/istvt.py:284-318) or the float fused one
-        (:357-373)."""
+        """One ST layer: x = attn_s(attn_t(x)) + x; x = ff(x) + x, as an
+        int8 chain (models/istvt.py:258-350, by q8_ff and q8_attn) or the
+        float fused one (:357-373)."""
         pt, ps, pf = layer
         at, asp, ff = pt.fn, ps.fn, pf.fn
-        heads = self.cfg.heads
-        if self.cfg.quantize != "int8":
+        cfg = self.cfg
+        heads = cfg.heads
+        if cfg.quantize != "int8":
             out_t = temporal_block_fused(pt, x, heads, s)
             x = spatial_block_fused(ps, out_t, heads, s, residual=x,
                                     n_valid=n_valid)
             w1, w2 = ff.io_weights()
             return ln_ff_residual(x, pf.norm.weight, pf.norm.bias, w1,
                                   ff.net[0].bias, w2, ff.net[3].bias)
+        if cfg.q8_ff != "full":
+            out_t = temporal_block_q8(pt, x, heads, s)
+            x = spatial_block_q8(ps, out_t, heads, s, residual=x,
+                                 n_valid=n_valid)
+            if cfg.q8_ff == "mixed":
+                return quant.ln_ff_residual_q8(
+                    x, pf.norm.weight, pf.norm.bias, ff.w1q, ff.w1s,
+                    ff.net[0].bias, ff.w2, ff.net[3].bias)
+            return ln_ff_residual(x, pf.norm.weight, pf.norm.bias, ff.w1,
+                                  ff.net[0].bias, ff.w2, ff.net[3].bias)
         bq, nq, d = x.shape
         t1 = nq // s
         inner = at.qkv_wq.shape[1] // 3
-        a_t = quant.ln_qkv_q8_temporal_attention(
-            x.reshape(bq, t1, s, d), pt.norm.weight, pt.norm.bias,
-            at.qkv_wq, at.qkv_ws, heads)
-        a_s = quant.mm_q8_ln_qkv_q8_spatial_attention(
-            a_t.reshape(bq * t1, s, inner), at.out_wq, at.out_ws,
-            at.to_out[0].bias, ps.norm.weight, ps.norm.bias,
-            asp.qkv_wq, asp.qkv_ws, heads, n_valid)
+        if cfg.q8_attn == "ingest":
+            a_t = quant.ln_qkv_q8_temporal_attention(
+                x.reshape(bq, t1, s, d), pt.norm.weight, pt.norm.bias,
+                at.qkv_wq, at.qkv_ws, heads)
+            a_s = quant.mm_q8_ln_qkv_q8_spatial_attention(
+                a_t.reshape(bq * t1, s, inner), at.out_wq, at.out_ws,
+                at.to_out[0].bias, ps.norm.weight, ps.norm.bias,
+                asp.qkv_wq, asp.qkv_ws, heads, n_valid)
+        else:
+            qkv_t = quant.ln_matmul_q8(x, pt.norm.weight, pt.norm.bias,
+                                       at.qkv_wq, at.qkv_ws)
+            a_t = temporal_attention_packed(
+                qkv_t.reshape(bq, t1, s, 3 * inner), heads)
+            qkv_s = quant.matmul_q8_ln_matmul_q8(
+                a_t.reshape(bq, nq, inner), at.out_wq, at.out_ws,
+                at.to_out[0].bias, ps.norm.weight, ps.norm.bias,
+                asp.qkv_wq, asp.qkv_ws)
+            a_s = spatial_attention_packed(
+                qkv_s.reshape(bq * t1, s, 3 * inner), heads, n_valid)
         return quant.matmul_q8_res_ln_ff_q8_full(
             a_s.reshape(bq, nq, inner), x, asp.out_wq, asp.out_ws,
             asp.to_out[0].bias, pf.norm.weight, pf.norm.bias,
@@ -367,16 +407,24 @@ class ISTVT(nn.Module):
                 raise RuntimeError("the float fused path needs the (in, out) "
                                    "weight copies: run pack_params(model)")
             return
-        if cfg.q8_ff != "full" or cfg.q8_attn != "ingest":
+        if (cfg.q8_ff not in ("full", "mixed", "bf16")
+                or (cfg.q8_ff == "full" and cfg.q8_attn == "layer")):
+            # JAX runs the one-kernel layer #9 (q8_attn='layer') or, for
+            # an undocumented q8_ff, the fully-int8 FF #7 there
             raise NotImplementedError(
-                f"q8_ff={cfg.q8_ff!r} / q8_attn={cfg.q8_attn!r}: only "
-                f"'full' / 'ingest' is ported ({_ROADMAP}, "
-                f"'Int8 A/B modes')")
+                f"q8_ff={cfg.q8_ff!r} / q8_attn={cfg.q8_attn!r} is not "
+                f"ported yet ({_ROADMAP}, 'Int8 A/B modes')")
         if cfg.stem_store not in ("f8", "bf16"):
             raise ValueError(f"stem_store={cfg.stem_store!r}")
         if not all(m.fn.has_q8() for m in layer):
             raise RuntimeError("cfg.quantize='int8' but the model carries no "
                                "int8 weights: run quantize_params(model)")
+        ff = layer[2].fn
+        if cfg.q8_ff != "full" and (ff.w2 is None or (
+                cfg.q8_ff == "bf16" and ff.w1 is None)):
+            raise RuntimeError(f"q8_ff={cfg.q8_ff!r} needs the feed-forward's "
+                               f"(in, out) weight copies: run "
+                               f"pack_params(model)")
 
     def _check_train(self, need_attn: bool = False):
         """Train mode runs the float fused path with dropout 0 only
@@ -464,7 +512,8 @@ def quantize_params(model: ISTVT) -> ISTVT:
 
 @torch.no_grad()
 def pack_params(model: ISTVT) -> ISTVT:
-    """Attach the float fused path's weights in place: every ST layer's
+    """Attach the float fused path's weights in place (the int8 modes
+    q8_ff='mixed' and 'bf16' read the feed-forward's): every ST layer's
     projection and FF weight in the JAX (in, out) layout the kernels take,
     contiguous, in the parameters' dtype; the temporal q|k and v weights
     packed into one (D, 3I) matrix. Run it after any cast or load of the

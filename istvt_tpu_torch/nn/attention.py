@@ -20,6 +20,12 @@ copies that models/istvt.pack_params attaches at build time, in train
 mode copies built from the parameters on every call (differentiable, as
 JAX concatenates its weights inside the differentiated function). Every
 wrapper is differentiable, so the branches train.
+
+Int8 blocks (`temporal_block_q8`, `spatial_block_q8`; JAX :220-257): the
+serving form of the fused branches for q8_ff='mixed' / 'bf16', with the
+two projections W8A8 (kernels/quant.ln_matmul_q8, #4, and
+matmul_q8_bias_residual, #5, from the modules' int8 copies) around the
+same packed attention cores. Serving only: not differentiable.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ import torch
 from istvt_tpu_torch.kernels.attention import (spatial_attention_packed,
                                                temporal_attention_packed)
 from istvt_tpu_torch.kernels.linear import ln_matmul, matmul_bias_residual
+from istvt_tpu_torch.kernels.quant import (ln_matmul_q8,
+                                           matmul_q8_bias_residual)
 from istvt_tpu_torch.nn.layers import linear
 
 
@@ -135,3 +143,37 @@ def spatial_block_fused(pre, x, heads: int, tokens_per_frame: int, residual,
         qkv.reshape(b * t1, tokens_per_frame, 3 * inner), heads, n_valid)
     return matmul_bias_residual(out.reshape(b, n, inner), w_out,
                                 asp.to_out[0].bias, residual)
+
+
+def temporal_block_q8(pre, x, heads: int, tokens_per_frame: int):
+    """Int8 PreNorm temporal branch: LN + W8A8 QKV (#4) -> self-subtract
+    attention -> W8A8 out-projection + bias (#5, no residual). pre:
+    PreNorm(TemporalAttention) carrying quantize_params' copies; x (B, N,
+    D) -> (B, N, D)."""
+    at = pre.fn
+    b, n, _ = x.shape
+    inner = at.out_wq.shape[0]
+    qkv = ln_matmul_q8(x, pre.norm.weight, pre.norm.bias, at.qkv_wq,
+                       at.qkv_ws)
+    out = temporal_attention_packed(
+        qkv.reshape(b, n // tokens_per_frame, tokens_per_frame, 3 * inner),
+        heads)
+    return matmul_q8_bias_residual(out.reshape(b, n, inner), at.out_wq,
+                                   at.out_ws, at.to_out[0].bias, None)
+
+
+def spatial_block_q8(pre, x, heads: int, tokens_per_frame: int, residual,
+                     n_valid: int = -1):
+    """Int8 PreNorm spatial branch: LN + W8A8 QKV (#4) -> spatial
+    attention (keys >= n_valid masked) -> W8A8 out-projection + bias + the
+    layer residual (#5). x, residual (B, N, D) -> (B, N, D)."""
+    asp = pre.fn
+    b, n, _ = x.shape
+    inner = asp.out_wq.shape[0]
+    qkv = ln_matmul_q8(x, pre.norm.weight, pre.norm.bias, asp.qkv_wq,
+                       asp.qkv_ws)
+    out = spatial_attention_packed(
+        qkv.reshape(b * (n // tokens_per_frame), tokens_per_frame,
+                    3 * inner), heads, n_valid)
+    return matmul_q8_bias_residual(out.reshape(b, n, inner), asp.out_wq,
+                                   asp.out_ws, asp.to_out[0].bias, residual)

@@ -9,7 +9,10 @@
     dtype (the float serving path, e.g. bf16); `input_dtype` casts ONLY the
     inputs: int8 serving keeps the deployed dtypes of the weights (bf16
     floats, int8 q8 copies, f32 scales).
-Every forward runs under torch.inference_mode on the given device.
+Every forward runs the model in eval mode (the Predictor puts it there,
+as the JAX Predictor applies train=False, serve.py:76) under
+torch.inference_mode on the given device: a model handed over in train
+mode gives the eval logits and keeps its BatchNorm statistics.
 The JAX package's data-parallel mesh mode is not ported yet.
 """
 from __future__ import annotations
@@ -49,6 +52,7 @@ class Predictor:
         dtype = self.compute_dtype or self.input_dtype
         if dtype is not None:
             t = t.to(dtype)
+        self.model.eval()
         with torch.inference_mode():
             logits = self.model(t)
         self.n_forwards += 1

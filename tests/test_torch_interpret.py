@@ -46,7 +46,8 @@ from istvt_tpu_torch.cli import visualize as tvis
 from istvt_tpu_torch.compat.from_jax import params_from_jax
 from istvt_tpu_torch.core import precision as tprecision
 from istvt_tpu_torch.core.config import ISTVTConfig, TrainConfig
-from istvt_tpu_torch.interpret import (generate_feature_relevance,
+from istvt_tpu_torch.interpret import (attention_maps_and_grads,
+                                       generate_feature_relevance,
                                        generate_full_lrp, generate_lrp)
 from istvt_tpu_torch.interpret import heatmap as theat
 from istvt_tpu_torch.interpret.full_lrp import dsttr_full_lrp
@@ -134,6 +135,43 @@ def test_generate_full_lrp_matches_jax(weights, from_features):
         assert tuple(g.shape) == w.shape == (2, 3, 25)
         assert (g >= 0).all()
         assert _rel_l2(g.numpy(), w) <= 1e-4, _rel_l2(g, w)
+
+
+def test_interpret_runs_a_train_mode_model_in_eval_mode(weights):
+    """A model in train mode (as a train step leaves it) gets the eval
+    model's cams, maps and gradients from every entry point, as JAX applies
+    train=False (interpret/lrp.py:74, :141; full_lrp.py:310); no buffer
+    moves, and the model comes back with every module in train mode, also
+    when the call raises."""
+    params, state, clips = weights
+    model = tistvt.pack_params(_port(params, state, use_pallas=True))
+    ct = torch.from_numpy(clips[:1])
+
+    def maps_and_grads():
+        attns, grads, _ = attention_maps_and_grads(model, ct)
+        return [*attns["s"], *attns["t"], *grads["s"], *grads["t"]]
+
+    calls = {
+        "generate_lrp": lambda: generate_lrp(model, ct),
+        "attention_maps_and_grads": maps_and_grads,
+        "generate_full_lrp": lambda: generate_full_lrp(model, ct),
+        "generate_feature_relevance": lambda: [
+            generate_feature_relevance(model, ct)],
+    }
+    with tprecision.highest():
+        want = {k: f() for k, f in calls.items()}
+        buffers = {n: b.clone() for n, b in model.named_buffers()}
+        model.train()
+        for name, f in calls.items():
+            got = f()
+            assert all(m.training for m in model.modules()), name
+            for g, w in zip(got, want[name]):
+                assert torch.equal(g, w), name
+        with pytest.raises(RuntimeError):
+            generate_lrp(model, ct[:, :, :64, :64])    # 4x4 features
+    assert all(m.training for m in model.modules())
+    for n, b in model.named_buffers():
+        assert torch.equal(b, buffers[n]), n
 
 
 def test_full_lrp_relevance_walk_matches_jax(weights):

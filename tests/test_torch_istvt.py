@@ -22,6 +22,16 @@ frame: one flipped code at the input of layer 0's second kernel moves the
 stream after layer 0 by 9.6e-4, and the stems differ in 967 of 72800 f8
 features (rel-L2 9.6e-3). Measured at this geometry: 2.6e-3 and 4.6e-3
 after layers 0 and 1 for these clips; 1e-5 for clips where no code flips.
+
+The int8 A/B modes (ISTVTConfig.q8_ff / q8_attn: ('full', 'boundary'),
+('mixed', *), ('bf16', *); models/istvt.py:258-350) are held the same
+way, each against one JAX run of its own: every kernel of every layer on
+JAX's own inputs at rel-L2 <= 1e-3, the free-running stream after every
+layer at rel-L2 <= 1e-2 and the logits at atol = rtol = 1e-2 (measured:
+kernels <= 6.4e-5, where one int8 code flips in layer 1's first GEMM, else
+<= 1.2e-5; streams <= 4.6e-3; |dlogit| <= 2.1e-3). In the
+'mixed' and 'bf16' modes q8_attn is not read, so ('mixed', 'layer') equals
+('mixed', 'ingest') bit for bit on the port.
 """
 import numpy as np
 import pytest
@@ -34,6 +44,8 @@ from istvt_tpu.compat.torch_import import istvt_from_torch
 from istvt_tpu.core import precision as jprecision
 from istvt_tpu.core.config import ISTVTConfig as JaxConfig
 from istvt_tpu.core.tree import flatten_with_paths
+from istvt_tpu.kernels import attention as jattn
+from istvt_tpu.kernels import mlp as jmlp
 from istvt_tpu.kernels import quant as jq
 from istvt_tpu.models import istvt as jistvt
 from istvt_tpu.models import xception as jxception
@@ -42,6 +54,8 @@ from istvt_tpu_torch.compat.from_jax import params_from_jax
 from istvt_tpu_torch.core import precision as tprecision
 from istvt_tpu_torch.core.config import ISTVTConfig
 from istvt_tpu_torch.kernels import _lib
+from istvt_tpu_torch.kernels import attention as tattn
+from istvt_tpu_torch.kernels import mlp as tmlp
 from istvt_tpu_torch.kernels import quant as tq
 from istvt_tpu_torch.models import istvt as tistvt
 
@@ -94,10 +108,9 @@ def test_port_state_dict_loads_back_into_jax(weights):
                                           err_msg=k)
 
 
-def _jax_streams(qparams, state, clips, cfg):
-    """JAX int8 chain layer by layer (the calls of models/istvt.py:201-254,
-    :284-318, :478-482): per layer the input x and the outputs a_t, a_s
-    and x of its three kernels, then the logits."""
+def _jax_tokens(qparams, state, clips):
+    """The JAX int8 stem and token assembly (models/istvt.py:201-254): the
+    padded stream (B, (T+1) * S, D), S and n_valid."""
     vp = qparams["vit"]
     b, t = clips.shape[:2]
     x = clips.reshape(b * t, *clips.shape[2:])
@@ -113,7 +126,25 @@ def _jax_streams(qparams, state, clips, cfg):
     x = jnp.concatenate([ct, x], axis=1)
     s_valid, s = s, s + (-s) % 8
     x = jnp.pad(x, ((0, 0), (0, 0), (0, s - s_valid), (0, 0)))
-    x = x.reshape(b, (t + 1) * s, d)
+    return x.reshape(b, (t + 1) * s, d), s, s_valid
+
+
+def _jax_head(vp, x, s):
+    """LN and mlp_head on the (temporal-CLS, spatial-CLS) token."""
+    b, n, d = x.shape
+    cls = layernorm(vp["norm"], x).reshape(b, n // s, s, d)[:, 0, 0]
+    return linear(vp["mlp_head"]["fc"], layernorm(vp["mlp_head"]["norm"],
+                                                  cls))
+
+
+def _jax_streams(qparams, state, clips, cfg):
+    """JAX int8 chain layer by layer (the calls of models/istvt.py:201-254,
+    :284-318, :478-482): per layer the input x and the outputs a_t, a_s
+    and x of its three kernels, then the logits."""
+    vp = qparams["vit"]
+    b, t = clips.shape[:2]
+    x, s, s_valid = _jax_tokens(qparams, state, clips)
+    d = x.shape[-1]
     per_layer = []
     for layer in vp["layers"]:
         x_in = x
@@ -134,10 +165,7 @@ def _jax_streams(qparams, state, clips, cfg):
             pf["norm"]["bias"], q_f["w1q"], q_f["w1s"], pf["fc1"]["b"],
             q_f["w2q"], q_f["w2s"], pf["fc2"]["b"])
         per_layer.append(tuple(np.asarray(v) for v in (x_in, a_t, a_s, x)))
-    cls = layernorm(vp["norm"], x).reshape(b, t + 1, s, d)[:, 0, 0]
-    logits = linear(vp["mlp_head"]["fc"], layernorm(vp["mlp_head"]["norm"],
-                                                    cls))
-    return per_layer, np.asarray(logits)
+    return per_layer, np.asarray(_jax_head(vp, x, s))
 
 
 def _rel_l2(got, want):
@@ -218,12 +246,20 @@ def test_int8_slice_matches_jax_per_layer_and_logits(weights, jax_run):
 
 
 def test_unported_paths_raise(weights):
+    """The one int8 mode left, q8_attn='layer' with q8_ff='full' (#9), and
+    an undocumented q8_ff (JAX runs #7 there, models/istvt.py:352) raise
+    naming the ROADMAP item; 'mixed' / 'bf16' without pack_params raise
+    naming it; an int8 model without its int8 copies raises."""
     params, qparams, state = weights
     model = _port(qparams, state)
     clips = torch.zeros(1, 2, 72, 72, 3)
-    for kw in (dict(q8_attn="boundary"), dict(q8_ff="mixed")):
+    for kw in (dict(q8_attn="layer"), dict(q8_ff="int8")):
         model.cfg = ISTVTConfig(**{**TINY, **kw})
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="Int8 A/B modes"):
+            model(clips)
+    for ff in ("mixed", "bf16"):
+        model.cfg = ISTVTConfig(**{**TINY, "q8_ff": ff})
+        with pytest.raises(RuntimeError, match="pack_params"):
             model(clips)
     # an int8 config whose path is off the fused kernels (use_pallas=False,
     # attention maps) runs float and warns, as models/istvt.py:238-248
@@ -242,6 +278,184 @@ def test_unported_paths_raise(weights):
     model.eval()
     with pytest.raises(RuntimeError, match="quantize_params"):
         _port(params, state)(clips)
+
+
+# ---------------------------------------------------------------------------
+# the int8 A/B modes: (q8_ff, q8_attn)
+
+MODES = {"boundary": ("full", "boundary"), "mixed": ("mixed", "ingest"),
+         "bf16": ("bf16", "ingest"), "mixed_layer": ("mixed", "layer")}
+_JAX_NS = (jq, jattn, jmlp)
+_PORT_NS = (tq, tattn, tmlp)
+
+
+def _layer_steps(ns, p, q8_ff, heads, s, n_valid, shape):
+    """One ST layer of an A/B mode as its kernel calls, in order:
+    [(name, fn(env) -> output)], env holding the layer input 'x' and each
+    earlier output by name; 'out' is the layer's output. ns: the (quant,
+    attention, mlp) kernel modules of one package, p the layer's weights
+    in the JAX tree's layout (istvt.py:258-350; nn/attention.py:220-257)."""
+    q, att, mlp = ns
+    b, nq, _ = shape
+    t1 = nq // s
+    at, asp, ff = p["attn_t"], p["attn_s"], p["ff"]
+    inner = at["q8"]["qkv_wq"].shape[1] // 3
+
+    def ln_qkv(src, blk):
+        return lambda e: q.ln_matmul_q8(
+            e[src], blk["norm"]["scale"], blk["norm"]["bias"],
+            blk["q8"]["qkv_wq"], blk["q8"]["qkv_ws"])
+
+    def out_proj(src, blk, res):
+        return lambda e: q.matmul_q8_bias_residual(
+            e[src].reshape(b, nq, inner), blk["q8"]["out_wq"],
+            blk["q8"]["out_ws"], blk["to_out"]["b"],
+            e["x"] if res else None)
+
+    t_core = ("a_t", lambda e: att.temporal_attention_packed(
+        e["qkv_t"].reshape(b, t1, s, 3 * inner), heads))
+    s_core = ("a_s", lambda e: att.spatial_attention_packed(
+        e["qkv_s"].reshape(b * t1, s, 3 * inner), heads, n_valid))
+    if q8_ff == "full":
+        return [
+            ("qkv_t", ln_qkv("x", at)), t_core,
+            ("qkv_s", lambda e: q.matmul_q8_ln_matmul_q8(
+                e["a_t"].reshape(b, nq, inner), at["q8"]["out_wq"],
+                at["q8"]["out_ws"], at["to_out"]["b"],
+                asp["norm"]["scale"], asp["norm"]["bias"],
+                asp["q8"]["qkv_wq"], asp["q8"]["qkv_ws"])), s_core,
+            ("out", lambda e: q.matmul_q8_res_ln_ff_q8_full(
+                e["a_s"].reshape(b, nq, inner), e["x"], asp["q8"]["out_wq"],
+                asp["q8"]["out_ws"], asp["to_out"]["b"],
+                ff["norm"]["scale"], ff["norm"]["bias"], ff["q8"]["w1q"],
+                ff["q8"]["w1s"], ff["fc1"]["b"], ff["q8"]["w2q"],
+                ff["q8"]["w2s"], ff["fc2"]["b"]))]
+    if q8_ff == "mixed":
+        ff_step = lambda e: q.ln_ff_residual_q8(  # noqa: E731
+            e["y"], ff["norm"]["scale"], ff["norm"]["bias"], ff["q8"]["w1q"],
+            ff["q8"]["w1s"], ff["fc1"]["b"], ff["fc2"]["w"], ff["fc2"]["b"])
+    else:
+        ff_step = lambda e: mlp.ln_ff_residual(  # noqa: E731
+            e["y"], ff["norm"]["scale"], ff["norm"]["bias"], ff["fc1"]["w"],
+            ff["fc1"]["b"], ff["fc2"]["w"], ff["fc2"]["b"])
+    return [("qkv_t", ln_qkv("x", at)), t_core,
+            ("o_t", out_proj("a_t", at, False)),
+            ("qkv_s", ln_qkv("o_t", asp)), s_core,
+            ("y", out_proj("a_s", asp, True)), ("out", ff_step)]
+
+
+def _port_layer_params(layer):
+    """A port layer's weights in the JAX tree's layout: the int8 copies,
+    and the FF's (in, out) copies that pack_params attached."""
+    pt, ps, pf = layer
+
+    def blk(pre, **rest):
+        return {"norm": {"scale": pre.norm.weight, "bias": pre.norm.bias},
+                "q8": {n: getattr(pre.fn, n) for n in pre.fn.q8_names},
+                **rest}
+
+    ff = pf.fn
+    return {"attn_t": blk(pt, to_out={"b": pt.fn.to_out[0].bias}),
+            "attn_s": blk(ps, to_out={"b": ps.fn.to_out[0].bias}),
+            "ff": blk(pf, fc1={"w": ff.w1, "b": ff.net[0].bias},
+                      fc2={"w": ff.w2, "b": ff.net[3].bias})}
+
+
+@pytest.fixture(scope="module")
+def jax_tokens(weights):
+    """The clips of jax_run and JAX's stream entering layer 0."""
+    _, qparams, state = weights
+    clips = np.random.RandomState(3).randn(2, 2, 72, 72, 3).astype(np.float32)
+    with jprecision.highest():
+        x, s, s_valid = _jax_tokens(qparams, state, jnp.asarray(clips))
+    return clips, np.asarray(x), s, s_valid
+
+
+@pytest.fixture(scope="module", params=list(MODES))
+def jax_mode_run(request, weights, jax_tokens):
+    """One JAX run of a mode: istvt.apply's logits, and its chain layer by
+    layer with every kernel's output (env per layer)."""
+    _, qparams, state = weights
+    clips, x, s, s_valid = jax_tokens
+    q8_ff, q8_attn = MODES[request.param]
+    cfg = JaxConfig(**TINY, q8_ff=q8_ff, q8_attn=q8_attn)
+    jp = jax.tree_util.tree_map(jnp.asarray, qparams)
+    envs = []
+    with jprecision.highest():
+        want_logits, _ = jistvt.apply(jp, state, jnp.asarray(clips), cfg)
+        x = jnp.asarray(x)
+        for layer in jp["vit"]["layers"]:
+            env = {"x": x}
+            for name, fn in _layer_steps(_JAX_NS, layer, q8_ff, cfg.heads,
+                                         s, s_valid, x.shape):
+                env[name] = fn(env)
+            envs.append({k: np.asarray(v) for k, v in env.items()})
+            x = env["out"]
+        chain_logits = np.asarray(_jax_head(jp["vit"], x, s))
+    want_logits = np.asarray(want_logits)
+    np.testing.assert_allclose(chain_logits, want_logits, atol=1e-6)
+    return request.param, envs, want_logits
+
+
+def _port_mode(qparams, state, mode):
+    model = tistvt.pack_params(_port(qparams, state))
+    q8_ff, q8_attn = MODES[mode]
+    model.cfg = ISTVTConfig(**TINY, q8_ff=q8_ff, q8_attn=q8_attn)
+    return model
+
+
+def test_ab_mode_kernels_match_jax_on_the_models_own_activations(
+        weights, jax_mode_run):
+    """Every kernel of every layer of the mode, fed JAX's own inputs to
+    it: its output within rel-L2 1e-3, every launch counter 0."""
+    _, qparams, state = weights
+    mode, envs, _ = jax_mode_run
+    model = _port_mode(qparams, state, mode)
+    q8_ff = MODES[mode][0]
+    _lib.reset_launches()
+    with tprecision.highest(), torch.inference_mode():
+        for i, layer in enumerate(model.vit.transformer.layers):
+            env = {k: torch.tensor(v) for k, v in envs[i].items()}
+            steps = _layer_steps(_PORT_NS, _port_layer_params(layer), q8_ff,
+                                 TINY_HEADS, 32, 26, env["x"].shape)
+            assert [n for n, _ in steps] == list(envs[i])[1:]
+            for name, fn in steps:
+                got = fn(env).reshape(env[name].shape).numpy()
+                rel = _rel_l2(got, envs[i][name])
+                assert rel <= 1e-3, (mode, i, name, rel)
+    assert all(v == 0 for v in _lib.LAUNCHES.values())
+
+
+def test_ab_mode_slice_matches_jax_per_layer_and_logits(weights,
+                                                        jax_mode_run):
+    """The port's model path of the mode (DSTTr.run_layer) run free from
+    the clips: the stream after every layer within rel-L2 1e-2 of JAX's,
+    the logits within atol = rtol = 1e-2 of istvt.apply's; every launch
+    counter 0. ('mixed', 'layer') equals ('mixed', 'ingest') bit for
+    bit."""
+    _, qparams, state = weights
+    mode, envs, want_logits = jax_mode_run
+    clips = np.random.RandomState(3).randn(2, 2, 72, 72, 3).astype(np.float32)
+    ct = torch.from_numpy(clips)
+    model = _port_mode(qparams, state, mode)
+    _lib.reset_launches()
+    with tprecision.highest(), torch.inference_mode():
+        x, s, n_valid = model.vit.tokens(model.features(ct))
+        streams = []
+        for layer in model.vit.transformer.layers:
+            x = model.vit.run_layer(layer, x, s, n_valid)
+            streams.append(x.numpy())
+        logits = model.vit.head(x).numpy()
+        np.testing.assert_array_equal(model(ct).numpy(), logits)
+        if mode == "mixed_layer":
+            np.testing.assert_array_equal(
+                _port_mode(qparams, state, "mixed")(ct).numpy(), logits)
+    assert all(v == 0 for v in _lib.LAUNCHES.values())
+    for i, env in enumerate(envs):
+        rel = _rel_l2(streams[i], env["out"])
+        assert rel <= 1e-2, (mode, i, rel)
+    assert np.isfinite(logits).all() and logits.shape == (2, 1)
+    np.testing.assert_allclose(logits, want_logits, atol=1e-2, rtol=1e-2)
 
 
 def test_infer_feat_hw_matches_table():

@@ -2,7 +2,8 @@
 the serving slice's shapes (the checks of chip_smoke.py phase 3) and at
 the small geometry of the JAX kernel tests (dim_head 16, S = 32): every
 launch counter of kernels/_lib.LAUNCHES, the training slice's backward
-kernels and h1-stash forward included.
+kernels and h1-stash forward and the int8 A/B modes' kernels included;
+then small models on the card against the CPU.
 
 Needs an NVIDIA GPU with nvcc: marked `gpu`, and skipped (inside the
 fixture, not at import) where torch sees no CUDA device. Run on the card:
@@ -155,3 +156,50 @@ def test_attention_map_path_on_card_matches_cpu(cuda):
     for g, w in zip(got, want):
         rel = (g.cpu() - w).norm() / w.norm().clamp_min(1e-30)
         assert rel <= 1e-3, rel
+
+
+@pytest.mark.parametrize("q8_ff, q8_attn", [("full", "boundary"),
+                                            ("mixed", "ingest"),
+                                            ("bf16", "ingest")])
+def test_int8_mode_on_card_matches_cpu(cuda, q8_ff, q8_attn):
+    """A small int8 ISTVT in each A/B mode, as cli/serve.py --int8 builds
+    it (bf16 parameters, quantize_params, then pack_params for the FF's
+    float copies): the card's logits (kernels, bf16) against the CPU's
+    (plain versions, f32) within 5e-2, each mode's kernels launched once
+    per layer (ln_matmul_q8 twice in the q8 blocks), every other counter
+    0."""
+    import copy
+
+    from istvt_tpu_torch.core import tree
+    from istvt_tpu_torch.core.config import ISTVTConfig
+    from istvt_tpu_torch.models import istvt
+
+    cfg = ISTVTConfig(num_frames=2, image_size=72, feat_hw=5, depth=2,
+                      use_pallas=True, quantize="int8", q8_ff=q8_ff,
+                      q8_attn=q8_attn)
+    card = tree.cast(istvt.init(cfg, torch.Generator().manual_seed(0), cuda),
+                     torch.bfloat16)
+    istvt.pack_params(istvt.quantize_params(card))
+    cpu = istvt.pack_params(tree.cast(copy.deepcopy(card).cpu(),
+                                      torch.float32))
+    clips = torch.randn(2, 2, 72, 72, 3, generator=torch.Generator()
+                        .manual_seed(1))
+    _lib.reset_launches()
+    with torch.inference_mode():
+        got = card(clips.to(cuda, torch.bfloat16)).float().cpu()
+        torch.cuda.synchronize()
+        counts = dict(_lib.LAUNCHES)
+        with highest():
+            want = cpu(clips)
+    if q8_ff == "full":
+        per_layer = {"ln_matmul_q8": 1, "matmul_q8_ln_matmul_q8": 1,
+                     "matmul_q8_res_ln_ff_q8_full": 1}
+    else:
+        per_layer = {"ln_matmul_q8": 2, "matmul_q8_bias_residual": 1,
+                     "matmul_q8_bias_residual/no_r": 1,
+                     ("ln_ff_residual_q8" if q8_ff == "mixed"
+                      else "ln_ff_residual"): 1}
+    per_layer.update(temporal_attention_packed=1, spatial_attention_packed=1)
+    assert counts == {**dict.fromkeys(counts, 0),
+                      **{n: k * cfg.depth for n, k in per_layer.items()}}
+    assert (got - want).abs().max() <= 5e-2, (got, want)

@@ -2,10 +2,21 @@
 the CPU) held against the JAX package's kernels (interpret mode on the CPU,
 through their public wrappers) on the same numpy inputs.
 
-Tolerance for kernels A/B/C, atol = rtol = 2e-3: the two sides compute the
-LayerNorm statistics in different summation orders, so a last-ulp LN
+Tolerance for kernels A/B/C and for the A/B modes' #4, #5 (with and
+without the residual), #6 and #8, atol = rtol = 2e-3: the two sides compute
+the LayerNorm statistics in different summation orders, so a last-ulp LN
 difference can flip one int8 activation code, which moves one output by at
-most about amax * max|w| / 127 (a few 1e-4 at these scales)."""
+most about amax * max|w| / 127 (a few 1e-4 at these scales).
+
+#4, #5, #6 and #8 return a GEMM's output without an attention after it,
+where one flipped code moves its row by up to about 1e-2 at these scales.
+JAX's own Pallas kernel and JAX's own unfused math
+(_quant_rows(_ln(...)) outside the kernel) already disagree on such a
+near-tie: in matmul_q8_ln_matmul_q8 at the small size, row 190's LN output
+sits 7.6e-6 of a code from a tie, and the kernel moves that row by 7.6e-3
+against JAX's own composition, which the port's plain version matches to
+2.4e-7. So these cases hold every row at atol = rtol = 2e-3 except at most
+one row in 64, and the whole output at rel-L2 <= 1e-3."""
 import numpy as np
 import pytest
 import torch
@@ -105,12 +116,70 @@ def _ff_inputs(rng, c):
     return a, r, woq, wos, bo, s, b, w1q, w1s, b1, w2q, w2s, b2
 
 
+def _ln_matmul_q8_inputs(rng, c):
+    x, s, b, wq, ws = _temporal_inputs(rng, c)
+    return x.reshape(c["b"], -1, c["d"]), s, b, wq, ws
+
+
+def _mm_q8_inputs(rng, c, res: bool):
+    a = (rng.randn(c["b"], c["t1"] * c["s"], c["inner"]) * 0.3
+         ).astype(np.float32)
+    wq, ws = _q8(rng, c["inner"], c["d"])
+    bo = (rng.randn(c["d"]) * 0.01).astype(np.float32)
+    if not res:
+        return a, wq, ws, bo
+    r = (rng.randn(c["b"], c["t1"] * c["s"], c["d"]) * 0.3
+         ).astype(np.float32)
+    return a, wq, ws, bo, r
+
+
+def _mm_ln_mm_inputs(rng, c):
+    a, woq, wos, bo, s, b, wq, ws = _spatial_inputs(rng, c)
+    return a.reshape(c["b"], -1, c["inner"]), woq, wos, bo, s, b, wq, ws
+
+
+def _ff_q8_inputs(rng, c):
+    x = (rng.randn(c["b"], c["t1"] * c["s"], c["d"]) * 0.8
+         ).astype(np.float32)
+    s = (rng.rand(c["d"]) + 0.5).astype(np.float32)
+    b = (rng.randn(c["d"]) * 0.01).astype(np.float32)
+    w1q, w1s = _q8(rng, c["d"], c["hid"])
+    b1 = (rng.randn(c["hid"]) * 0.01).astype(np.float32)
+    w2 = (rng.randn(c["hid"], c["d"]) * 0.02).astype(np.float32)
+    b2 = (rng.randn(c["d"]) * 0.01).astype(np.float32)
+    return x, s, b, w1q, w1s, b1, w2, b2
+
+
+# the kernels of the A/B modes: (inputs, JAX wrapper, port wrapper)
+AB_KERNELS = {
+    "ln_matmul_q8": (_ln_matmul_q8_inputs, jq.ln_matmul_q8,
+                     tq.ln_matmul_q8),
+    "matmul_q8_bias_residual": (
+        lambda rng, c: _mm_q8_inputs(rng, c, True),
+        jq.matmul_q8_bias_residual, tq.matmul_q8_bias_residual),
+    "matmul_q8_bias_residual/no_r": (
+        lambda rng, c: _mm_q8_inputs(rng, c, False),
+        jq.matmul_q8_bias_residual, tq.matmul_q8_bias_residual),
+    "matmul_q8_ln_matmul_q8": (_mm_ln_mm_inputs, jq.matmul_q8_ln_matmul_q8,
+                               tq.matmul_q8_ln_matmul_q8),
+    "ln_ff_residual_q8": (_ff_q8_inputs, jq.ln_ff_residual_q8,
+                          tq.ln_ff_residual_q8),
+}
+KERNELS = ["temporal", "spatial", "ff", *AB_KERNELS]
+
+
 @pytest.mark.parametrize("size", list(SIZES))
-@pytest.mark.parametrize("kernel", ["temporal", "spatial", "ff"])
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_kernel_plain_matches_jax(kernel, size):
     c = SIZES[size]
-    rng = np.random.RandomState(
-        3 * list(SIZES).index(size) + ["temporal", "spatial", "ff"].index(kernel))
+    i = list(SIZES).index(size)
+    if kernel in AB_KERNELS:
+        rng = np.random.RandomState(10 + len(AB_KERNELS) * i
+                                    + list(AB_KERNELS).index(kernel))
+        make, jfn, tfn = AB_KERNELS[kernel]
+        arrs = make(rng, c)
+    else:
+        rng = np.random.RandomState(3 * i + KERNELS.index(kernel))
     if kernel == "temporal":
         arrs = _temporal_inputs(rng, c)
         jfn = lambda *a: jq.ln_qkv_q8_temporal_attention(*a, c["heads"])
@@ -121,7 +190,7 @@ def test_kernel_plain_matches_jax(kernel, size):
             *a, c["heads"], c["n_valid"])
         tfn = lambda *a: tq.mm_q8_ln_qkv_q8_spatial_attention(
             *a, c["heads"], c["n_valid"])
-    else:
+    elif kernel == "ff":
         arrs = _ff_inputs(rng, c)
         jfn = jq.matmul_q8_res_ln_ff_q8_full
         tfn = tq.matmul_q8_res_ln_ff_q8_full
@@ -132,5 +201,18 @@ def test_kernel_plain_matches_jax(kernel, size):
         got = tfn(*_t(*arrs))
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert np.isfinite(got.numpy()).all()
-    np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=2e-3)
+    if kernel in AB_KERNELS:
+        _assert_close_but_near_ties(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=2e-3)
     assert all(v == 0 for v in _lib.LAUNCHES.values())
+
+
+def _assert_close_but_near_ties(got, want):
+    """atol = rtol = 2e-3 on every row but at most one in 64 (a near-tie
+    that flips an int8 code), rel-L2 <= 1e-3 over the whole output."""
+    g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    bad = ~np.isclose(g, w, atol=2e-3, rtol=2e-3).all(axis=1)
+    assert bad.sum() <= max(1, len(bad) // 64), np.flatnonzero(bad)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= 1e-3, rel

@@ -3,6 +3,7 @@ on the CPU at toy geometry, mirroring tests/test_serve.py and
 tests/test_serve_daemon.py."""
 import ast
 import copy
+import dataclasses
 import http.client
 import inspect
 import io
@@ -165,3 +166,31 @@ def test_predictor_compute_dtype_casts_params_and_inputs():
         want = by_hand(torch.from_numpy(clips).to(torch.bfloat16))
     np.testing.assert_array_equal(pred.predict(clips)["logits"],
                                   want.reshape(-1).float().numpy())
+
+
+@pytest.mark.parametrize("path", ["int8", "float"])
+def test_predictor_runs_a_train_mode_model_in_eval_mode(path):
+    """A model handed over in train mode (make_train_step and Trainer.fit
+    without a val_loader leave it so) serves the eval-mode logits, as the
+    JAX Predictor applies train=False (istvt_tpu/serve.py:76): a clip's
+    logit is the same alone and in a batch of three and equals the eval
+    model's, and no buffer (the BatchNorm statistics among them) moves."""
+    cfg = dataclasses.replace(TINY, quantize="int8" if path == "int8"
+                              else "none")
+    model = model_selection("istvt", cfg=cfg, device=CPU)
+    if path == "int8":
+        istvt.quantize_params(model)
+    else:
+        istvt.pack_params(model)
+    clips = np.random.RandomState(6).randn(3, *CLIP).astype(np.float32)
+    with torch.inference_mode():
+        want = copy.deepcopy(model).eval()(torch.from_numpy(clips))
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    pred = Predictor(model.train(), CPU, batch_sizes=(1, 3))
+    alone = pred.predict(clips[:1])["logits"]
+    batch = pred.predict(clips)["logits"]
+    np.testing.assert_allclose(alone, batch[:1], atol=1e-6)
+    np.testing.assert_allclose(batch, want.reshape(-1).numpy(), atol=1e-6)
+    assert not any(m.training for m in model.modules())
+    for n, b in model.named_buffers():
+        assert torch.equal(b, buffers[n]), n
