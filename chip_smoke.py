@@ -2,23 +2,24 @@
 
     python3 chip_smoke.py [--profile PATH]
 
-Drives the port's two ISTVT serving paths, the int8 path's three A/B
+Drives the port's two ISTVT serving paths, the int8 path's five A/B
 modes, its training path and its interpretability path at the paper
 geometry (300^2 x 6 frames, depth 12, 8 heads x 64, dim 728, FF 2912) with
 random weights from a seed: the int8 W8A8 path (`cli/serve.py --int8`,
 q8_ff='full', q8_attn='ingest'), then on the same weights the modes that
 ISTVTConfig.q8_ff / q8_attn choose (no CLI flag chooses them, as in the
-JAX package): ('full', 'boundary'), ('mixed', 'ingest') and ('bf16',
-'ingest'); the float fused path in bf16 (`cli/serve.py --bf16`), training
-on the float fused path in bf16 over f32 masters (`cli/train.py --dataset
-synthetic --use_pallas --bf16 --dropout 0`), and the LRP relevance maps
-(`interpret/`, `cli/visualize.py`) in f32. In phases; any failure raises
+JAX package): ('full', 'boundary'), ('mixed', 'ingest'), ('bf16',
+'ingest'), ('full', 'layer') (one kernel a layer) and ('int8', 'ingest')
+(the fully-int8 FF); the float fused path in bf16 (`cli/serve.py
+--bf16`), training on the float fused path in bf16 over f32 masters
+(`cli/train.py --dataset synthetic --use_pallas --bf16 --dropout 0`), and
+the LRP relevance maps (`interpret/`, `cli/visualize.py`) in f32. In phases; any failure raises
 and exits non-zero:
 
   1. device   - a CUDA device is required; prints nvidia-smi's name and
                 power limit and the torch / CUDA versions
   2. build    - nvcc builds every kernel from istvt_tpu_torch/kernels/csrc
-  3. kernels  - each of the eighteen kernels (twenty cases, one per
+  3. kernels  - each of the twenty kernels (twenty-two cases, one per
                 launch counter: #20 and #5 with and without their
                 residual; the training slice's four backward kernels and
                 the h1-stash forward; fused_ff at the attention-map path's
@@ -26,9 +27,12 @@ and exits non-zero:
                 card at the slice's shapes (2 clips, T+1 = 7, S = 368,
                 n_valid = 362): f32 at atol = rtol = 2e-3 (int8 kernels) or
                 1e-5 (float kernels; backward kernels max|diff| <= 1e-5
-                max|plain| per output), bf16 at rel-L2 < 1e-2 and
-                max|diff| < 0.02 max|plain|; median kernel / plain /
-                library-call ms and the card's least time (bound)
+                max|plain| per output; the whole layer #9 as a
+                free-running chain, rel-L2 < 1e-2 and max|diff| < 0.02
+                max|plain|: kernels/selfcheck.py says why), bf16 at
+                rel-L2 < 1e-2 and max|diff| < 0.02 max|plain|; median
+                kernel / plain / library-call ms and the card's least time
+                (bound)
   then for each serving path, int8 first:
   4. serving  - the model behind the HTTP ServeDaemon: float32 and uint8
                 POSTs, a 16-clip batch and two concurrent requests, all
@@ -44,9 +48,13 @@ and exits non-zero:
   as cli/serve.py --int8 runs it, then pack_params for 'mixed' / 'bf16'):
   4m. launches - one counted B=16 forward: each kernel exactly its
                 launches per forward (MODE_PER_LAYER x depth), every other
-                0; for 'boundary', its 16 logits vs the 'ingest' logits of
-                the same clips within atol = rtol = 2e-2
-                (tests/test_quant.py:245-270)
+                0; for 'boundary' and 'layer', its 16 logits vs the
+                'ingest' logits of the same clips within atol = rtol =
+                2e-2 (tests/test_quant.py:245-270), and whether they are
+                equal bit for bit; for 'layer', the CUDA kernels of one
+                profiled B=16 forward by name: #9's persistent kernel
+                exactly once a layer, none of the row, GEMM or attention
+                kernels of the #1-#3 chain it replaces
   5m, 6m      - phases 5 and 6 for the mode
   then training, through cli/train.py's code path (check_args, build,
   the Trainer's step):
@@ -144,6 +152,10 @@ KERNELS = {
         _CSRC + "q8_rows_gemm.cu", "istvt_tpu/kernels/quant.py:130"),
     "ln_ff_residual_q8": (
         _CSRC + "q8_rows_gemm.cu", "istvt_tpu/kernels/quant.py:205"),
+    "st_layer_q8": (
+        _CSRC + "q8_layer.cu", "istvt_tpu/kernels/quant.py:838"),
+    "ln_ff_residual_q8_full": (
+        _CSRC + "q8_rows_gemm.cu", "istvt_tpu/kernels/quant.py:273"),
     "temporal_attention_packed": (
         _CSRC + "q8_attention.cu", "istvt_tpu/kernels/attention.py:324"),
     "spatial_attention_packed": (
@@ -183,9 +195,10 @@ SERVE_PER_LAYER = {
               "matmul_bias_residual/no_r": 1, "ln_ff_residual": 1},
 }
 # the int8 A/B modes after the int8 path: (q8_ff, q8_attn) and launches
-# per layer of one forward (models/istvt.py:258-350)
+# per layer of one forward (models/istvt.py:258-356)
 INT8_MODES = {"boundary": ("full", "boundary"), "mixed": ("mixed", "ingest"),
-              "bf16_ff": ("bf16", "ingest")}
+              "bf16_ff": ("bf16", "ingest"), "layer": ("full", "layer"),
+              "ff_int8": ("int8", "ingest")}
 _Q8_BLOCKS = {"ln_matmul_q8": 2, "temporal_attention_packed": 1,
               "spatial_attention_packed": 1, "matmul_q8_bias_residual": 1,
               "matmul_q8_bias_residual/no_r": 1}
@@ -195,7 +208,15 @@ MODE_PER_LAYER = {
                  "matmul_q8_res_ln_ff_q8_full": 1},
     "mixed": {**_Q8_BLOCKS, "ln_ff_residual_q8": 1},
     "bf16_ff": {**_Q8_BLOCKS, "ln_ff_residual": 1},
+    "layer": {"st_layer_q8": 1},
+    "ff_int8": {**_Q8_BLOCKS, "ln_ff_residual_q8_full": 1},
 }
+# the modes whose logits must match the 'ingest' chain's (the same
+# quantization points), and the CUDA kernels (by name) that a 'layer'
+# forward must not launch: those of the #1-#3 chain that #9 replaces
+SAME_AS_INGEST = ("boundary", "layer")
+CHAIN_KERNELS = ("quant_rows_kernel", "gemm_q8_kernel", "temporal_attn_kernel",
+                 "spatial_attn_kernel")
 # the paths whose model reads pack_params' (in, out) copies
 PACKED = ("float", "mixed", "bf16_ff")
 
@@ -284,6 +305,14 @@ def _ops(name, args):
         rows = a.numel() // a.shape[-1]
         d, hid = wqo.shape[1], w1q.shape[1]
         return {"int8": 2 * rows * (a.shape[-1] * d + 2 * d * hid)}
+    if name == "st_layer_q8":                     # 6 GEMMs, both cores
+        x, n_valid = args[0], args[24]
+        b, t1, s, d = x.shape
+        inner = args[3].shape[1] // 3
+        return {"int8": 2 * x.numel() // d * sum(
+                    args[i].numel() for i in (3, 5, 10, 12, 17, 20)),
+                "bf16": 4 * b * s * t1 * t1 * inner
+                + 4 * b * t1 * s * n_valid * inner}
     if name == "temporal_attention_packed":
         b, t1, s, i3 = args[0].shape
         return {"bf16": 4 * b * s * t1 * t1 * (i3 // 3)}
@@ -306,6 +335,8 @@ def _ops(name, args):
     if name == "ln_ff_residual_q8":               # int8 fc1, float fc2
         return {"int8": 2 * rows * args[3].numel(),
                 "bf16": 2 * rows * args[6].numel()}
+    if name == "ln_ff_residual_q8_full":          # int8 fc1 and fc2
+        return {"int8": 2 * rows * (args[3].numel() + args[6].numel())}
     if name in ("ln_ff_residual", "ln_ff_residual/h1"):
         return {"bf16": 4 * rows * args[3].shape[0] * args[3].shape[1]}
     if name == "fused_ff":                        # fc1, fc2
@@ -389,8 +420,10 @@ def check_kernels(dev):
                           _median_ms(lambda: plain(*args))]
             phase("kernels", f"{name}: f32 median ms kernel {f32_ms[0]:.4f} "
                   f"plain {f32_ms[1]:.4f} (informative)")
+        crit = ("rel-L2 < " if name in selfcheck.FREE_RUNNING_CASES
+                else "") + str(selfcheck.f32_tol(name))
         phase("kernels", f"{name}: f32 max|diff| {err32:.3e} "
-              f"({'ok' if ok32 else 'FAIL'} at {selfcheck.f32_tol(name)}); "
+              f"({'ok' if ok32 else 'FAIL'} at {crit}); "
               f"bf16 rel-L2 {rel:.3e} "
               f"max|diff| {mx:.3e} vs max|plain| {scale:.3e} "
               f"({'ok' if ok16 else 'FAIL'}); bf16 median ms kernel "
@@ -513,6 +546,23 @@ def timing_phase(path, model, dev, card, profile):
         phase("timing", f"{path}: profile table appended to {profile}")
 
 
+def _chain_launches(model, dev):
+    """CUDA kernel launches by name in one profiled B=16 forward:
+    (#9's st_layer_q8_kernel, each kernel of the #1-#3 chain)."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    x = torch.randn(16, *CLIP, device=dev).to(torch.bfloat16)
+    with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            model(x)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def count(name):
+        return sum(e.count for e in events if name in e.key)
+
+    return count("st_layer_q8_kernel"), {n: count(n) for n in CHAIN_KERNELS}
+
+
 def mode_phases(predictor, dev, card, profile):
     """Phases 4m-6m: each A/B mode on the int8 path's weights."""
     clips = np.random.RandomState(5).randn(16, *CLIP).astype(np.float32)
@@ -535,15 +585,24 @@ def mode_phases(predictor, dev, card, profile):
             raise SystemExit(f"{mode}: non-finite logits {logits}")
         phase("modes", f"{mode} (q8_ff={q8_ff!r}, q8_attn={q8_attn!r}): "
               f"{predictor.n_forwards} B=16 forward; launches {counts}")
-        if mode == "boundary":
+        if mode in SAME_AS_INGEST:
             gap = np.abs(logits - ingest)
             ok = bool((gap <= 2e-2 + 2e-2 * np.abs(ingest)).all())
-            phase("modes", f"boundary vs ingest logits, 16 clips: max|d| "
+            phase("modes", f"{mode} vs ingest logits, 16 clips: max|d| "
                   f"{gap.max():.3e} ({'ok' if ok else 'FAIL'} at atol = "
-                  f"rtol = 2e-2)")
+                  f"rtol = 2e-2); bit for bit equal: "
+                  f"{bool(np.array_equal(logits, ingest))}")
             if not ok:
-                raise SystemExit("the boundary chain disagrees with the "
-                                 "ingest chain")
+                raise SystemExit(f"the {mode} path disagrees with the "
+                                 f"ingest chain")
+        if mode == "layer":
+            n9, chain = _chain_launches(model, dev)
+            phase("modes", f"layer: CUDA launches in one profiled B=16 "
+                  f"forward: st_layer_q8_kernel {n9} (want {DEPTH}); the "
+                  f"#1-#3 chain's kernels {chain} (want 0)")
+            if n9 != DEPTH or any(chain.values()):
+                raise SystemExit("the layer path did not run one #9 launch "
+                                 "per layer and nothing of the chain")
         e2e_phase(mode, predictor)
         timing_phase(mode, model, dev, card, profile)
 

@@ -34,7 +34,9 @@ class ISTVTConfig:
     dropout: float = 0.0
     use_pallas: bool = False       # fused kernels (CUDA here)
     quantize: str = "none"         # 'int8': W8A8 ST-layer GEMMs for serving
-    q8_ff: str = "full"            # 'full' | 'mixed' | 'bf16'
+    q8_ff: str = "full"            # 'full' | 'mixed' | 'bf16'; any other
+    #                                value runs the q8 blocks then the
+    #                                fully-int8 FF (kernels/quant #7)
     stem_store: str = "f8"         # int8-serving stem storage: 'f8' | 'bf16'
     q8_attn: str = "ingest"        # 'ingest' | 'boundary' | 'layer'
     remat: bool = False

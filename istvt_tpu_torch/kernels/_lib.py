@@ -40,6 +40,9 @@ LAUNCHES: Dict[str, int] = dict.fromkeys([
     "matmul_q8_bias_residual",             # with a residual
     "matmul_q8_bias_residual/no_r",        # r=None
     "ln_ff_residual_q8",
+    # the last int8 modes (q8_attn='layer'; q8_ff outside full/mixed/bf16)
+    "st_layer_q8",                         # kernels/quant.py
+    "ln_ff_residual_q8_full",
     "temporal_attention_packed",           # kernels/attention.py
     "spatial_attention_packed",
     "ln_matmul",                           # kernels/linear.py
@@ -81,6 +84,10 @@ _SIGNATURES = {
     "istvt_quant_rows": [_P, _I, _P, _P, _I, _I, _P],
     # a, w, rs, ws, bias, res, res_dt, out, out_dt, gelu, M, N, K, stream
     "istvt_gemm_q8": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # ptrs (host array of 30 pointers), dt, B, T1, S, D, H, inner, hid,
+    # n_valid, scale, stream
+    "istvt_st_layer_q8": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          ctypes.c_float, _P],
     # qkv, out, dt, B, T1, S, H, inner, scale, stream
     "istvt_temporal_attn": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # qkv, out, dt, G, S, H, inner, n_valid, scale, stream

@@ -55,9 +55,10 @@ __device__ __forceinline__ float warp_max(float v) {
 // variance, eps 1e-5): mean and 1 / sqrt(var + eps). Both sums run in double and
 // round once to f32, so the f32 results do not depend on the summation order and
 // the plain version (which does the same) gets the same values; 1 / sqrt with
-// IEEE operations, not rsqrtf.
+// IEEE operations, not rsqrtf. xr is not __restrict__: the persistent layer kernel
+// (q8_layer.cu) reads rows here that it wrote earlier in the same launch.
 template <typename T>
-__device__ __forceinline__ void row_ln_stats(const T* __restrict__ xr, int D, int lane,
+__device__ __forceinline__ void row_ln_stats(const T* xr, int D, int lane,
                                              float& mean, float& rstd) {
   double sum = 0.0;
   for (int d = lane; d < D; d += 32) sum += static_cast<double>(to_f(xr[d]));

@@ -29,202 +29,30 @@
 // through a 32-key shared-memory chunk, Q sits transposed in shared memory
 // so a warp's 4 queries load as one broadcast float4. This first version
 // stays on the FMA pipes in f32; moving QK^T and PV to the bf16 tensor cores
-// is later work.
-#include "common.cuh"
+// is later work. The bodies are device functions in q8_attention.cuh, which
+// q8_layer.cu (#9) runs inside its persistent kernel.
+#include "q8_attention.cuh"
 
 namespace istvt {
 
-constexpr int kTMax = 8;  // T + 1 <= 8
-
-// (iv) One warp per (clip, location, head); lane holds dims lane + 32 e.
+// (iv) One warp per (clip, location, head).
 template <typename T, int DPL>
 __global__ void __launch_bounds__(256) temporal_attn_kernel(
     const T* __restrict__ qkv, T* __restrict__ out, int B, int T1, int S, int H, int inner,
     int dh, float scale) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long item = static_cast<long>(blockIdx.x) * 8 + warp;
+  const long item = static_cast<long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   if (item >= static_cast<long>(B) * S * H) return;
-  const int h = item % H;
-  const int s = (item / H) % S;
-  const int b = item / (static_cast<long>(H) * S);
-  const int i3 = 3 * inner;
-
-  float q[kTMax][DPL], k[kTMax][DPL], v[kTMax][DPL];
-#pragma unroll
-  for (int t = 0; t < kTMax; ++t) {
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      q[t][e] = k[t][e] = v[t][e] = 0.f;
-      if (t < T1 && d < dh) {
-        const T* base = qkv + (static_cast<size_t>(b * T1 + t) * S + s) * i3 + h * dh + d;
-        q[t][e] = to_f(base[0]);
-        k[t][e] = to_f(base[inner]);
-        v[t][e] = to_f(base[2 * inner]);
-      }
-    }
-  }
-  // self-subtract in the activation dtype, rows 0 and 1 unchanged; descending
-  // t so that q[t - 1] still holds the projected (unsubtracted) value
-#pragma unroll
-  for (int t = kTMax - 1; t >= 2; --t) {
-    if (t < T1) {
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        q[t][e] = round_to<T>(q[t][e] - q[t - 1][e]);
-        k[t][e] = round_to<T>(k[t][e] - k[t - 1][e]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kTMax; ++i) {
-    if (i >= T1) break;
-    float l[kTMax];
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTMax; ++j) {
-      l[j] = -INFINITY;
-      if (j < T1) {
-        float p = 0.f;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) p = __fadd_rn(p, __fmul_rn(q[i][e], k[j][e]));
-        l[j] = __fmul_rn(warp_sum(p), scale);
-        m = fmaxf(m, l[j]);
-      }
-    }
-    float den = 0.f;
-    float acc[DPL];
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTMax; ++j) {
-      if (j < T1) {
-        const float w = expf(l[j] - m);
-        den = __fadd_rn(den, w);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(w, v[j][e]));
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < dh)
-        out[(static_cast<size_t>(b * T1 + i) * S + s) * inner + h * dh + d] =
-            from_f<T>(__fdiv_rn(acc[e], den));
-    }
-  }
+  temporal_attn_item<T, DPL>(qkv, out, T1, S, H, inner, dh, scale, item, threadIdx.x & 31);
 }
 
-// (v) Block = (query tile of 32, head, frame); warp w owns queries 4w..4w+3.
-constexpr int kQT = 32, kQW = 4, kMaxCh = 12;  // S <= 12 * 32 = 384
-
+// (v) Block = (query tile of 32, head, frame).
 template <typename T, int DH>
 __global__ void __launch_bounds__(256) spatial_attn_kernel(
     const T* __restrict__ qkv, T* __restrict__ out, int S, int inner, int n_valid,
     float scale) {
-  constexpr int DPL = DH >= 32 ? DH / 32 : 1;
-  __shared__ __align__(16) float Qs[DH][kQT + 4];
-  __shared__ float KV[32][DH + 1];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kQT, h = blockIdx.y, f = blockIdx.z;
-  const int i3 = 3 * inner;
-  const T* base = qkv + static_cast<size_t>(f) * S * i3 + h * DH;
-  const int nch = (S + 31) / 32;
-
-  for (int idx = tid; idx < kQT * DH; idx += 256) {
-    const int qq = idx / DH, d = idx % DH, row = q0 + qq;
-    Qs[d][qq] = row < S ? to_f(base[static_cast<size_t>(row) * i3 + d]) : 0.f;
-  }
-
-  float sc[kQW][kMaxCh];
-#pragma unroll
-  for (int m = 0; m < kMaxCh; ++m) {
-    if (m < nch) {
-      __syncthreads();
-      for (int idx = tid; idx < 32 * DH; idx += 256) {
-        const int kk = idx / DH, d = idx % DH, key = m * 32 + kk;
-        KV[kk][d] = key < S ? to_f(base[static_cast<size_t>(key) * i3 + inner + d]) : 0.f;
-      }
-      __syncthreads();
-      float a[kQW] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        const float kv = KV[lane][d];
-        const float4 qv = *reinterpret_cast<const float4*>(&Qs[d][warp * kQW]);
-        a[0] = fmaf(qv.x, kv, a[0]);
-        a[1] = fmaf(qv.y, kv, a[1]);
-        a[2] = fmaf(qv.z, kv, a[2]);
-        a[3] = fmaf(qv.w, kv, a[3]);
-      }
-      const int key = m * 32 + lane;
-#pragma unroll
-      for (int qq = 0; qq < kQW; ++qq) {
-        float v = __fmul_rn(a[qq], scale);
-        if (key >= n_valid) v = __fadd_rn(v, -1e30f);
-        sc[qq][m] = key < S ? v : -INFINITY;
-      }
-    } else {
-#pragma unroll
-      for (int qq = 0; qq < kQW; ++qq) sc[qq][m] = -INFINITY;
-    }
-  }
-  // exact softmax per query row: max, exp, sum, normalise, round to T
-#pragma unroll
-  for (int qq = 0; qq < kQW; ++qq) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int m = 0; m < kMaxCh; ++m) mx = fmaxf(mx, sc[qq][m]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int m = 0; m < kMaxCh; ++m) {
-      sc[qq][m] = expf(sc[qq][m] - mx);
-      sum += sc[qq][m];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int m = 0; m < kMaxCh; ++m) sc[qq][m] = round_to<T>(__fdiv_rn(sc[qq][m], sum));
-  }
-
-  float o[kQW][DPL];
-#pragma unroll
-  for (int qq = 0; qq < kQW; ++qq)
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) o[qq][e] = 0.f;
-#pragma unroll
-  for (int m = 0; m < kMaxCh; ++m) {
-    if (m < nch) {
-      __syncthreads();
-      for (int idx = tid; idx < 32 * DH; idx += 256) {
-        const int kk = idx / DH, d = idx % DH, key = m * 32 + kk;
-        KV[kk][d] = key < S ? to_f(base[static_cast<size_t>(key) * i3 + 2 * inner + d]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < 32; ++jj) {
-        float p[kQW];
-#pragma unroll
-        for (int qq = 0; qq < kQW; ++qq) p[qq] = __shfl_sync(0xffffffffu, sc[qq][m], jj);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          const int d = lane + 32 * e;
-          const float vv = d < DH ? KV[jj][d] : 0.f;
-#pragma unroll
-          for (int qq = 0; qq < kQW; ++qq) o[qq][e] = fmaf(p[qq], vv, o[qq][e]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int qq = 0; qq < kQW; ++qq) {
-    const int row = q0 + warp * kQW + qq;
-    if (row >= S) continue;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < DH) out[(static_cast<size_t>(f) * S + row) * inner + h * DH + d] = from_f<T>(o[qq][e]);
-    }
-  }
+  __shared__ __align__(16) float smem[spatial_smem_floats(DH)];
+  spatial_attn_tile<T, DH>(qkv, out, S, inner, n_valid, scale, blockIdx.x, blockIdx.y,
+                           blockIdx.z, smem);
 }
 
 template <typename T>

@@ -1,0 +1,212 @@
+// The two attention cores as device functions: q8_attention.cu launches each as a
+// kernel of its own, q8_layer.cu walks them inside one persistent kernel per ST
+// layer. As in q8_rows_gemm.cuh, no pointer parameter is __restrict__ (the
+// persistent kernel reads here what it wrote earlier in the same launch).
+#pragma once
+
+#include "common.cuh"
+
+namespace istvt {
+
+constexpr int kTMax = 8;  // T + 1 <= 8
+
+// (iv) Temporal attention of one (clip, location, head) `item` by one warp; lane
+// holds dims lane + 32 e.
+template <typename T, int DPL>
+__device__ __forceinline__ void temporal_attn_item(const T* qkv, T* out, int T1, int S, int H,
+                                                   int inner, int dh, float scale, long item,
+                                                   int lane) {
+  const int h = item % H;
+  const int s = (item / H) % S;
+  const int b = item / (static_cast<long>(H) * S);
+  const int i3 = 3 * inner;
+
+  float q[kTMax][DPL], k[kTMax][DPL], v[kTMax][DPL];
+#pragma unroll
+  for (int t = 0; t < kTMax; ++t) {
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      q[t][e] = k[t][e] = v[t][e] = 0.f;
+      if (t < T1 && d < dh) {
+        const T* base = qkv + (static_cast<size_t>(b * T1 + t) * S + s) * i3 + h * dh + d;
+        q[t][e] = to_f(base[0]);
+        k[t][e] = to_f(base[inner]);
+        v[t][e] = to_f(base[2 * inner]);
+      }
+    }
+  }
+  // self-subtract in the activation dtype, rows 0 and 1 unchanged; descending
+  // t so that q[t - 1] still holds the projected (unsubtracted) value
+#pragma unroll
+  for (int t = kTMax - 1; t >= 2; --t) {
+    if (t < T1) {
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) {
+        q[t][e] = round_to<T>(q[t][e] - q[t - 1][e]);
+        k[t][e] = round_to<T>(k[t][e] - k[t - 1][e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kTMax; ++i) {
+    if (i >= T1) break;
+    float l[kTMax];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kTMax; ++j) {
+      l[j] = -INFINITY;
+      if (j < T1) {
+        float p = 0.f;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) p = __fadd_rn(p, __fmul_rn(q[i][e], k[j][e]));
+        l[j] = __fmul_rn(warp_sum(p), scale);
+        m = fmaxf(m, l[j]);
+      }
+    }
+    float den = 0.f;
+    float acc[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTMax; ++j) {
+      if (j < T1) {
+        const float w = expf(l[j] - m);
+        den = __fadd_rn(den, w);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(w, v[j][e]));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      if (d < dh)
+        out[(static_cast<size_t>(b * T1 + i) * S + s) * inner + h * dh + d] =
+            from_f<T>(__fdiv_rn(acc[e], den));
+    }
+  }
+}
+
+// (v) Spatial attention of one (query tile of 32, head, frame) by 256 threads; warp w
+// owns queries 4w..4w+3. smem: spatial_smem_floats(DH) floats, 16-byte aligned (Q
+// transposed, then one 32-key chunk of K or V). A block may start its next tile on
+// the same memory: Q is rewritten only after every warp has passed the barrier
+// before the tile's last V chunk, and K / V only after a barrier.
+constexpr int kQT = 32, kQW = 4, kMaxCh = 12;  // S <= 12 * 32 = 384
+
+__host__ __device__ constexpr int spatial_smem_floats(int dh) {
+  return dh * (kQT + 4) + 32 * (dh + 1);
+}
+
+template <typename T, int DH>
+__device__ __forceinline__ void spatial_attn_tile(const T* qkv, T* out, int S, int inner,
+                                                  int n_valid, float scale, int q_tile, int h,
+                                                  int f, float* smem) {
+  constexpr int DPL = DH >= 32 ? DH / 32 : 1;
+  constexpr int kQS = kQT + 4, kKS = DH + 1;  // row strides of Qs [DH][kQS], KV [32][kKS]
+  float* Qs = smem;
+  float* KV = smem + DH * kQS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = q_tile * kQT;
+  const int i3 = 3 * inner;
+  const T* base = qkv + static_cast<size_t>(f) * S * i3 + h * DH;
+  const int nch = (S + 31) / 32;
+
+  for (int idx = tid; idx < kQT * DH; idx += 256) {
+    const int qq = idx / DH, d = idx % DH, row = q0 + qq;
+    Qs[d * kQS + qq] = row < S ? to_f(base[static_cast<size_t>(row) * i3 + d]) : 0.f;
+  }
+
+  float sc[kQW][kMaxCh];
+#pragma unroll
+  for (int m = 0; m < kMaxCh; ++m) {
+    if (m < nch) {
+      __syncthreads();
+      for (int idx = tid; idx < 32 * DH; idx += 256) {
+        const int kk = idx / DH, d = idx % DH, key = m * 32 + kk;
+        KV[kk * kKS + d] = key < S ? to_f(base[static_cast<size_t>(key) * i3 + inner + d]) : 0.f;
+      }
+      __syncthreads();
+      float a[kQW] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int d = 0; d < DH; ++d) {
+        const float kv = KV[lane * kKS + d];
+        const float4 qv = *reinterpret_cast<const float4*>(&Qs[d * kQS + warp * kQW]);
+        a[0] = fmaf(qv.x, kv, a[0]);
+        a[1] = fmaf(qv.y, kv, a[1]);
+        a[2] = fmaf(qv.z, kv, a[2]);
+        a[3] = fmaf(qv.w, kv, a[3]);
+      }
+      const int key = m * 32 + lane;
+#pragma unroll
+      for (int qq = 0; qq < kQW; ++qq) {
+        float v = __fmul_rn(a[qq], scale);
+        if (key >= n_valid) v = __fadd_rn(v, -1e30f);
+        sc[qq][m] = key < S ? v : -INFINITY;
+      }
+    } else {
+#pragma unroll
+      for (int qq = 0; qq < kQW; ++qq) sc[qq][m] = -INFINITY;
+    }
+  }
+  // exact softmax per query row: max, exp, sum, normalise, round to T
+#pragma unroll
+  for (int qq = 0; qq < kQW; ++qq) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int m = 0; m < kMaxCh; ++m) mx = fmaxf(mx, sc[qq][m]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < kMaxCh; ++m) {
+      sc[qq][m] = expf(sc[qq][m] - mx);
+      sum += sc[qq][m];
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int m = 0; m < kMaxCh; ++m) sc[qq][m] = round_to<T>(__fdiv_rn(sc[qq][m], sum));
+  }
+
+  float o[kQW][DPL];
+#pragma unroll
+  for (int qq = 0; qq < kQW; ++qq)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[qq][e] = 0.f;
+#pragma unroll
+  for (int m = 0; m < kMaxCh; ++m) {
+    if (m < nch) {
+      __syncthreads();
+      for (int idx = tid; idx < 32 * DH; idx += 256) {
+        const int kk = idx / DH, d = idx % DH, key = m * 32 + kk;
+        KV[kk * kKS + d] =
+            key < S ? to_f(base[static_cast<size_t>(key) * i3 + 2 * inner + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int jj = 0; jj < 32; ++jj) {
+        float p[kQW];
+#pragma unroll
+        for (int qq = 0; qq < kQW; ++qq) p[qq] = __shfl_sync(0xffffffffu, sc[qq][m], jj);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          const int d = lane + 32 * e;
+          const float vv = d < DH ? KV[jj * kKS + d] : 0.f;
+#pragma unroll
+          for (int qq = 0; qq < kQW; ++qq) o[qq][e] = fmaf(p[qq], vv, o[qq][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int qq = 0; qq < kQW; ++qq) {
+    const int row = q0 + warp * kQW + qq;
+    if (row >= S) continue;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      if (d < DH) out[(static_cast<size_t>(f) * S + row) * inner + h * DH + d] = from_f<T>(o[qq][e]);
+    }
+  }
+}
+
+}  // namespace istvt

@@ -11,9 +11,12 @@
 //     (+ b, into an f32 intermediate), ln_quant_rows, gemm;
 //   * _matmul_q8_kernel / _matmul_q8_res_kernel (#5, quant -> GEMM + b [+ r]):
 //     quant_rows, gemm (+ bias [+ residual], rounded to x's dtype);
+//   * _ln_ff_q8_full_kernel (#7, LN -> quant -> fc1 -> GELU -> quant -> fc2 + b2 + x):
+//     ln_quant_rows, gemm (+ b1, GELU, f32), quant_rows, gemm (+ b2, + x read in x's
+//     own dtype, one rounding to it);
 //   * _mm_q8_res_ln_ff_q8_kernel (#3, quant -> out-proj + residual -> LN -> quant ->
-//     fc1 -> GELU -> quant -> fc2 + residual): quant_rows, gemm, ln_quant_rows, gemm
-//     (+ b1, GELU, f32), quant_rows, gemm (+ b2, + y);
+//     fc1 -> GELU -> quant -> fc2 + residual): quant_rows, gemm (+ b, + r, into an f32
+//     y), then #7's four launches on y;
 //   * _ln_ff_q8_kernel (#6, LN -> quant -> fc1 -> GELU -> bf16 fc2 + b2 + x): here
 //     ln_quant_rows, gemm (+ b1, GELU, rounded to x's dtype), then float_gemm.cu's
 //     gemm (+ b2, + x). The (rows, 2912) hidden makes a round trip through device
@@ -36,161 +39,41 @@
 // so the int32 accumulator never leaves registers. Rows need not fill the
 // 128-row tile (B * 7 * 368 rows is a multiple of 128 only when B is one of
 // 8; the 2-clip slice has 5,152): the A loads zero-fill rows >= M and the
-// epilogue skips them.
-#include "common.cuh"
+// epilogue skips them. The bodies are device functions in q8_rows_gemm.cuh, which
+// q8_layer.cu (#9) runs inside its persistent kernel.
+#include "q8_rows_gemm.cuh"
 
 namespace istvt {
 
-// (i) LayerNorm (two-pass statistics, eps 1e-5) + per-row int8 quant.
-// One warp per row. Mirrors kernels/linear._ln followed by _quant_rows.
+// (i) LayerNorm + per-row int8 quant, one warp per row.
 template <typename T>
 __global__ void __launch_bounds__(256) ln_quant_rows_kernel(
     const T* __restrict__ x, const float* __restrict__ s, const float* __restrict__ b,
     int8_t* __restrict__ q, float* __restrict__ rs, int R, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * 8 + warp;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= R) return;
-  const T* xr = x + static_cast<size_t>(row) * D;
-  // order-independent statistics, so the plain version yields the same int8 codes
-  float mean, r;
-  row_ln_stats(xr, D, lane, mean, r);
-  float amax = 0.f;
-  for (int d = lane; d < D; d += 32)
-    amax = fmaxf(amax, fabsf(ln_affine(to_f(xr[d]), mean, r, s[d], b[d])));
-  const float rsv = row_scale(warp_max(amax));
-  int8_t* qr = q + static_cast<size_t>(row) * D;
-  for (int d = lane; d < D; d += 32)
-    qr[d] = quant_code(ln_affine(to_f(xr[d]), mean, r, s[d], b[d]), rsv);
-  if (lane == 0) rs[row] = rsv;
+  ln_quant_row(x, s, b, q, rs, row, D, threadIdx.x & 31);
 }
 
-// (ii) Per-row int8 quant alone (_quant_rows). One warp per row.
+// (ii) Per-row int8 quant alone, one warp per row.
 template <typename T>
 __global__ void __launch_bounds__(256) quant_rows_kernel(
     const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ rs, int R, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * 8 + warp;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= R) return;
-  const T* xr = x + static_cast<size_t>(row) * D;
-  float amax = 0.f;
-  for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(to_f(xr[d])));
-  const float rsv = row_scale(warp_max(amax));
-  int8_t* qr = q + static_cast<size_t>(row) * D;
-  for (int d = lane; d < D; d += 32) qr[d] = quant_code(to_f(xr[d]), rsv);
-  if (lane == 0) rs[row] = rsv;
+  quant_row(x, q, rs, row, D, threadIdx.x & 31);
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// (iii) out[M, N] = epilogue(A[M, K] (int8) @ W[K, N] (int8)), int32 accumulate.
-// epilogue: f32 acc * rs[m] * ws[n] (+ bias[n]) (+ res[m, n]) (-> tanh-GELU),
-// rounded once to TO. The order of the f32 operations is the JAX kernels'
-// (acc * rs * ws + b + r). K % 4 == 0 and N % 4 == 0 (checked by the caller).
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kLDS = kBK / 4 + 4;  // ints per shared row: 8 data + 4 pad
-
+// (iii) The W8A8 GEMM, one 128 x 128 output tile per block.
 template <typename TO, typename TR, bool GELU>
 __global__ void __launch_bounds__(256) gemm_q8_kernel(
     const int8_t* __restrict__ A, const int8_t* __restrict__ W,
     const float* __restrict__ rs, const float* __restrict__ ws,
     const float* __restrict__ bias, const TR* __restrict__ res,
     TO* __restrict__ out, int M, int N, int K) {
-  __shared__ int As[kBM * kLDS];
-  __shared__ int Bs[kBN * kLDS];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;   // 2 x 4 warps, 64 x 32 each
-  const int g = lane >> 2, t = lane & 3;     // mma group / thread-in-group
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // A tile: 128 rows x 8 words, 4 words per thread, k-contiguous.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * 256, r = idx >> 3, c = idx & 7;
-      const int gm = m0 + r, gk = k0 + c * 4;
-      int v = 0;
-      if (gm < M && gk < K) v = *reinterpret_cast<const int*>(A + static_cast<size_t>(gm) * K + gk);
-      As[r * kLDS + c] = v;
-    }
-    // W tile: 32 k x 128 n bytes = 8 x 32 blocks of 4x4 bytes, one per thread;
-    // each block is transposed in registers so Bs holds 4 consecutive k of
-    // one column per word (the mma "col" B layout).
-    {
-      const int kb = tid & 7, nb = tid >> 3;
-      const int gk = k0 + kb * 4, gn = n0 + nb * 4;
-      int r[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r[j] = (gk + j < K && gn < N)
-                   ? *reinterpret_cast<const int*>(W + static_cast<size_t>(gk + j) * N + gn)
-                   : 0;
-      const int t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
-      const int t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
-      Bs[(nb * 4 + 0) * kLDS + kb] = __byte_perm(t0, t2, 0x5410);
-      Bs[(nb * 4 + 1) * kLDS + kb] = __byte_perm(t0, t2, 0x7632);
-      Bs[(nb * 4 + 2) * kLDS + kb] = __byte_perm(t1, t3, 0x5410);
-      Bs[(nb * 4 + 3) * kLDS + kb] = __byte_perm(t1, t3, 0x7632);
-    }
-    __syncthreads();
-    int af[4][4], bf[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int rb = wm * 64 + mi * 16 + g;
-      af[mi][0] = As[rb * kLDS + t];
-      af[mi][1] = As[(rb + 8) * kLDS + t];
-      af[mi][2] = As[rb * kLDS + t + 4];
-      af[mi][3] = As[(rb + 8) * kLDS + t + 4];
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int cb = wn * 32 + ni * 8 + g;
-      bf[ni][0] = Bs[cb * kLDS + t];
-      bf[ni][1] = Bs[cb * kLDS + t + 4];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + g + 8 * h;
-      if (row >= M) continue;
-      const float rsv = rs[row];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + wn * 32 + ni * 8 + t * 2 + e;
-          if (col >= N) continue;
-          const size_t o = static_cast<size_t>(row) * N + col;
-          float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * h + e]), rsv), ws[col]);
-          if (bias != nullptr) v = __fadd_rn(v, bias[col]);
-          if (res != nullptr) v = __fadd_rn(v, to_f(res[o]));
-          if (GELU) v = gelu_tanh(v);
-          out[o] = from_f<TO>(v);
-        }
-      }
-    }
-  }
+  __shared__ int smem[kGemmSmemInts];
+  gemm_q8_tile<TO, TR, GELU>(A, W, rs, ws, bias, res, out, M, N, K, blockIdx.x, blockIdx.y,
+                             smem);
 }
 
 template <typename TO, typename TR>

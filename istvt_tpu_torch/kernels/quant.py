@@ -9,8 +9,8 @@ the quantization points):
   * GEMM - int8 x int8 -> int32, epilogue acc * row_scale * col_scale
     (+ bias, + residual) in f32.
 
-Seven kernels, one wrapper each, serve the int8 modes that
-istvt_tpu/models/istvt.py:258-350 chooses among (ISTVTConfig.q8_ff and
+Nine kernels, one wrapper each, serve the int8 modes that
+istvt_tpu/models/istvt.py:258-356 chooses among (ISTVTConfig.q8_ff and
 q8_attn); #n is the kernel's row in PERF.md's table of the TPU kernels
 (#1-#3 are ingest's, in the order below):
 
@@ -19,18 +19,24 @@ q8_attn); #n is the kernel's row in PERF.md's table of the TPU kernels
     mm_q8_ln_qkv_q8_spatial_attention   W8A8 + b -> LN -> W8A8 QKV ->
                                         spatial core
     matmul_q8_res_ln_ff_q8_full         W8A8 + b + r -> LN -> int8 FF
-  q8_ff='full', q8_attn='boundary' (the packed attention cores between)
+  q8_ff='full', q8_attn='layer' (one a layer)
+    st_layer_q8                         the whole ST layer in one
+                                        persistent kernel     (TPU #9)
+  q8_ff='full', any other q8_attn ('boundary'; the packed attention
+  cores between)
     ln_matmul_q8                        LN -> W8A8            (TPU #4)
     matmul_q8_ln_matmul_q8              W8A8 + b -> LN -> W8A8 (TPU #8)
     matmul_q8_res_ln_ff_q8_full
-  q8_ff='mixed' / 'bf16' (nn/attention.temporal_block_q8 and
-  spatial_block_q8, then the FF)
+  any other q8_ff (nn/attention.temporal_block_q8 and spatial_block_q8,
+  then the FF)
     ln_matmul_q8
     matmul_q8_bias_residual             W8A8 + b [+ r]        (TPU #5)
-    ln_ff_residual_q8                   LN -> int8 fc1 -> GELU -> fc2 in
-                                        x's dtype + b2 + x    (TPU #6;
-                                        'bf16' runs kernels/mlp's
-                                        ln_ff_residual instead)
+    then by q8_ff:
+    'mixed'  ln_ff_residual_q8          LN -> int8 fc1 -> GELU -> fc2 in
+                                        x's dtype + b2 + x    (TPU #6)
+    'bf16'   kernels/mlp's ln_ff_residual
+    other    ln_ff_residual_q8_full     LN -> int8 fc1 -> GELU -> int8
+                                        fc2 + b2 + x          (TPU #7)
 
 Each wrapper, for a CUDA tensor, launches the hand-written CUDA kernels in
 csrc/ (built at first use, kernels/_lib.py) and counts one launch in
@@ -42,17 +48,21 @@ raises.
 Each mode rounds in its own places, as JAX does: the QKV of #1 and #4 in
 the activation dtype, the 728-wide intermediate of #2, #3 and #8 kept in
 f32, the GELU hidden of #6 in the activation dtype (fc2 then runs in that
-dtype with f32 sums), the hidden of #3 requantized to int8.
+dtype with f32 sums), the hidden of #3 and #7 requantized to int8. #9
+rounds where #1 -> #2 -> #3 do.
 
 The plain versions do the int8 x int8 products in float64, which is exact
 (float32 is not: a K=2912 dot of int8 codes can exceed 2**24).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from istvt_tpu_torch.kernels import _lib
-from istvt_tpu_torch.kernels.attention import (spatial_core,
+from istvt_tpu_torch.kernels.attention import (check_spatial, check_temporal,
+                                               spatial_core,
                                                spatial_packed_plain,
                                                temporal_core,
                                                temporal_packed_plain)
@@ -64,10 +74,18 @@ from istvt_tpu_torch.kernels.mlp import _gelu_tanh
 # plain helpers (kernels/quant.quantize_weight, _quant_rows, _q8_dot)
 
 
+def _div127(t):
+    """t / 127 rounded once, on every device. A CUDA tensor divided by a
+    Python number is multiplied by the number's reciprocal instead, which
+    can be an ulp off the quotient that JAX and the kernels take; a
+    tensor divisor is divided by."""
+    return t / torch.full_like(t, 127.0)
+
+
 def quantize_weight(w):
     """(D, K) float -> (int8 (D, K), f32 scales (K,)) per output column."""
     w = w.to(torch.float32).contiguous()
-    scale = w.abs().amax(dim=0) / 127.0
+    scale = _div127(w.abs().amax(dim=0))
     scale = scale.clamp_min(1e-12)
     q = torch.clamp(torch.round(w / scale[None, :]), -127, 127)
     return q.to(torch.int8), scale
@@ -76,7 +94,7 @@ def quantize_weight(w):
 def _quant_rows(yf):
     """f32 (R, D) -> (int8 (R, D), f32 row scales (R, 1))."""
     amax = yf.abs().amax(dim=-1, keepdim=True)
-    rs = amax.clamp_min(1e-6) / 127.0
+    rs = _div127(amax.clamp_min(1e-6))
     q = torch.clamp(torch.round(yf / rs), -127, 127)
     return q.to(torch.int8), rs
 
@@ -142,16 +160,11 @@ def matmul_q8_res_ln_ff_q8_full_plain(a, r, wqo, wso, bo, s, b, w1q, w1s,
     """Plain version of kernel C (quant._mm_q8_res_ln_ff_q8_impl):
     y = a @ dq(wqo) + bo + r;  y + fc2_q8(gelu_tanh(fc1_q8(LN(y))))."""
     d = wqo.shape[1]
-    lead = a.shape[:-1]
     q, rs = _quant_rows(a.reshape(-1, a.shape[-1]).float())
     y = _q8_dot(q, wqo) * rs * wso.float() + bo.float() \
         + r.reshape(-1, d).float()
-    h = _ln(y, s.float(), b.float())
-    q1, rs1 = _quant_rows(h)
-    hid = _gelu_tanh(_q8_dot(q1, w1q) * rs1 * w1s.float() + b1.float())
-    q2, rs2 = _quant_rows(hid)
-    o = _q8_dot(q2, w2q) * rs2 * w2s.float() + b2.float()
-    return (o + y).to(a.dtype).reshape(*lead, d)
+    out = ln_ff_residual_q8_full_plain(y, s, b, w1q, w1s, b1, w2q, w2s, b2)
+    return out.to(a.dtype).reshape(*a.shape[:-1], d)
 
 
 def matmul_q8_res_ln_ff_q8_full(a, r, wqo, wso, bo, s, b, w1q, w1s, b1,
@@ -172,13 +185,8 @@ def matmul_q8_res_ln_ff_q8_full(a, r, wqo, wso, bo, s, b, w1q, w1s, b1,
     q, rs = _quant(lib, st, a.reshape(-1, d_in))
     y = torch.empty((q.shape[0], d), dtype=torch.float32, device=a.device)
     _gemm(lib, st, q, wqo, rs, wso, bo, r, y)
-    q1, rs1 = _ln_quant(lib, st, y, s, b)
-    hid = torch.empty((q.shape[0], hdim), dtype=torch.float32,
-                      device=a.device)
-    _gemm(lib, st, q1, w1q, rs1, w1s, b1, None, hid, gelu=True)
-    q2, rs2 = _quant(lib, st, hid)
     out = torch.empty(a.shape[:-1] + (d,), dtype=a.dtype, device=a.device)
-    _gemm(lib, st, q2, w2q, rs2, w2s, b2, y, out)
+    _ff_q8_full_cuda(lib, st, y, s, b, w1q, w1s, b1, w2q, w2s, b2, out)
     _lib.LAUNCHES["matmul_q8_res_ln_ff_q8_full"] += 1
     return out
 
@@ -336,6 +344,142 @@ def ln_ff_residual_q8(x, s, b, w1q, w1s, b1, w2, b2):
     gemm(hid, w2, out, bias32=_lib.f32(b2), res=flat)
     _lib.LAUNCHES["ln_ff_residual_q8"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# #7: LN -> int8 fc1 + b1 -> tanh-GELU -> int8 fc2 + b2 + x (any q8_ff but
+# 'full', 'mixed' and 'bf16'; the FF half of #3)
+
+
+def ln_ff_residual_q8_full_plain(x, s, b, w1q, w1s, b1, w2q, w2s, b2):
+    """Plain version of ln_ff_residual_q8_full (quant._ln_ff_q8_full_impl):
+    the f32 GELU hidden requantized per row, both GEMMs W8A8; + b2 + x in
+    f32 (x read in its own dtype, quant.py:270), one rounding."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    q, rs = _quant_rows(_ln(xf, s.float(), b.float()))
+    hid = _gelu_tanh(_q8_dot(q, w1q) * rs * w1s.float() + b1.float())
+    q2, rs2 = _quant_rows(hid)
+    o = _q8_dot(q2, w2q) * rs2 * w2s.float() + b2.float()
+    return (o + xf).to(x.dtype).reshape(*lead, d)
+
+
+def _ff_q8_full_cuda(lib, st, x, s, b, w1q, w1s, b1, w2q, w2s, b2, out):
+    """#7's launches on a CUDA (R, D) x into out (R's rows, x's or another
+    float dtype): LN + row quant, fc1 + b1 + GELU into an f32 hidden, row
+    quant of it, fc2 + b2 + x (read in x's dtype) rounded once to out's."""
+    q, rs = _ln_quant(lib, st, x, s, b)
+    hid = torch.empty((x.shape[0], w1q.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    _gemm(lib, st, q, w1q, rs, w1s, b1, None, hid, gelu=True)
+    q2, rs2 = _quant(lib, st, hid)
+    _gemm(lib, st, q2, w2q, rs2, w2s, b2, x, out)
+
+
+def ln_ff_residual_q8_full(x, s, b, w1q, w1s, b1, w2q, w2s, b2):
+    """x + fc2_q8(gelu_tanh(fc1_q8(LN x))): x (..., N, D), w1q int8 (D, H),
+    w2q int8 (H, D) -> (..., N, D) in x.dtype. CPU tensors take the plain
+    version."""
+    if not x.is_cuda:
+        return ln_ff_residual_q8_full_plain(x, s, b, w1q, w1s, b1, w2q, w2s,
+                                            b2)
+    d, hdim = x.shape[-1], w1q.shape[1]
+    _lib.check_act(x, "x")
+    _check_q8(w1q, w1s, d, hdim)
+    _check_q8(w2q, w2s, hdim, d)
+    out = torch.empty_like(x)
+    _ff_q8_full_cuda(_lib.load(), _lib.stream(), x.reshape(-1, d), s, b, w1q,
+                     w1s, b1, w2q, w2s, b2, out)
+    _lib.LAUNCHES["ln_ff_residual_q8_full"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# #9: one whole int8 ST layer (q8_attn='layer'): one persistent kernel
+# (csrc/q8_layer.cu) with grid-wide barriers between its 14 phases
+
+
+def st_layer_q8_plain(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss,
+                      wos, sos, bos, sf, bf, w1q, w1s, b1, w2q, w2s, b2,
+                      heads: int, n_valid: int = -1):
+    """Plain version of st_layer_q8 (quant._st_layer_q8_impl): the
+    composition #1 -> #2 -> #3 of the plain versions above, since the TPU
+    kernel rounds where they do: the temporal qkv in x's dtype before the
+    self-subtract (quant.py:720-725, as #1 at :512-517), the t-out-proj
+    output kept in f32 into the spatial LN and its qkv rounded to x's
+    dtype (:763-772, as #8 and so #2), the s-out-proj output + b + x in
+    f32 into the fully-int8 FF and + y at the end (:817-833, as #3)."""
+    b, t1, s, d = x.shape
+    a_t = ln_qkv_q8_temporal_plain(x, st, bt, wqt, wst, heads)
+    a_s = mm_q8_ln_qkv_q8_spatial_plain(a_t.reshape(b * t1, s, -1), wot, sot,
+                                        bot, ss, bs, wqs, wss, heads,
+                                        n_valid)
+    out = matmul_q8_res_ln_ff_q8_full_plain(
+        a_s.reshape(b, t1 * s, -1), x.reshape(b, t1 * s, d), wos, sos, bos,
+        sf, bf, w1q, w1s, b1, w2q, w2s, b2)
+    return out.reshape(x.shape)
+
+
+# csrc/q8_layer.cu's LayerQ8: the pointers in the order the C entry reads
+# them (the weights in _st_layer_q8_impl's argument order)
+_LAYER_PTRS = ("x", "out", "st", "bt", "wqt", "wst", "wot", "sot", "bot",
+               "ss", "bs", "wqs", "wss", "wos", "sos", "bos", "sf", "bf",
+               "w1q", "w1s", "b1", "w2q", "w2s", "b2", "q", "rs", "qkv", "a",
+               "y", "hid")
+
+
+def st_layer_q8(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss, wos,
+                sos, bos, sf, bf, w1q, w1s, b1, w2q, w2s, b2, heads: int,
+                n_valid: int = -1):
+    """One full int8 ST layer, x = FF(attn_s(attn_t(x)) + x) with every
+    PreNorm and residual: x (B, T1, S, D) -> (B, T1, S, D) in x.dtype. The
+    arguments are _st_layer_q8_impl's: per branch its LayerNorm, int8
+    weights with their column scales and the out-projection's (fc1's,
+    fc2's) bias. On the card one launch: a persistent kernel that walks
+    the layer's phases with its intermediates in a workspace allocated
+    here (889 MB at B=16 in bf16). CPU tensors take the plain version."""
+    if not x.is_cuda:
+        return st_layer_q8_plain(x, st, bt, wqt, wst, wot, sot, bot, ss, bs,
+                                 wqs, wss, wos, sos, bos, sf, bf, w1q, w1s,
+                                 b1, w2q, w2s, b2, heads, n_valid)
+    if x.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)}: expected (B, T1, S, D)")
+    bsz, t1, s_len, d = x.shape
+    i3, hdim = wqt.shape[1], w1q.shape[1]
+    inner = i3 // 3
+    _lib.check_act(x, "x")
+    check_temporal(t1, inner, heads)
+    check_spatial(s_len, inner, heads, dims=(16, 64))
+    for wq, ws, d_in, d_out in ((wqt, wst, d, i3), (wot, sot, inner, d),
+                                (wqs, wss, d, i3), (wos, sos, inner, d),
+                                (w1q, w1s, d, hdim), (w2q, w2s, hdim, d)):
+        _check_q8(wq, ws, d_in, d_out)
+    vecs = {"st": st, "bt": bt, "wst": wst, "sot": sot, "bot": bot, "ss": ss,
+            "bs": bs, "wss": wss, "sos": sos, "bos": bos, "sf": sf, "bf": bf,
+            "w1s": w1s, "b1": b1, "w2s": w2s, "b2": b2}
+    for name, v in vecs.items():
+        if v.device != x.device:
+            raise ValueError(f"{name} on {v.device}, x on {x.device}")
+    rows = bsz * t1 * s_len
+    dev = x.device
+    ptr = {"x": x, "out": torch.empty_like(x), "wqt": wqt, "wot": wot,
+           "wqs": wqs, "wos": wos, "w1q": w1q, "w2q": w2q,
+           **{n: _lib.f32(v) for n, v in vecs.items()},
+           "q": torch.empty(rows * max(d, inner, hdim), dtype=torch.int8,
+                            device=dev),
+           "rs": torch.empty(rows, dtype=torch.float32, device=dev),
+           "qkv": torch.empty(rows * i3, dtype=x.dtype, device=dev),
+           "a": torch.empty(rows * inner, dtype=x.dtype, device=dev),
+           "y": torch.empty(rows * d, dtype=torch.float32, device=dev),
+           "hid": torch.empty(rows * hdim, dtype=torch.float32, device=dev)}
+    arr = (ctypes.c_void_p * len(_LAYER_PTRS))(
+        *(ptr[n].data_ptr() for n in _LAYER_PTRS))
+    _lib.check(_lib.load().istvt_st_layer_q8(
+        ctypes.addressof(arr), _lib.DTYPE_CODE[x.dtype], bsz, t1, s_len, d,
+        heads, inner, hdim, s_len if n_valid < 0 else n_valid,
+        (inner // heads) ** -0.5, _lib.stream()), "st_layer_q8")
+    _lib.LAUNCHES["st_layer_q8"] += 1
+    return ptr["out"]
 
 
 # ---------------------------------------------------------------------------

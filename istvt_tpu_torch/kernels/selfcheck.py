@@ -25,6 +25,18 @@ row; each output is held at max|diff| <= 1e-5 * max|plain| (summation
 order only; TF32 or bf16 rounding of the f32 inputs is ~1e-3 of the
 scale and fails).
 
+st_layer_q8 (#9) is the one int8 case that quantizes attention outputs it
+computed itself (a_t, then a_s): the temporal core's summation order
+moves a_t by up to 4.8e-7 against the plain version's, which flips 7 or 8
+of its 2.6 million int8 codes at SLICE, and the spatial attention spreads
+each flip over its frame (f32 max|diff| 9.8e-3 and 1.1e-2, rel-L2 8.6e-4
+and 7.3e-4 at seeds 0 and 1 on an NVIDIA H100 80GB HBM3, 700 W,
+tools/q8_layer_diag.py). So #9 is held in f32 as a free-running chain is
+(tests/test_torch_istvt.py holds the stream after every layer at rel-L2
+<= 1e-2), by the bf16 criterion below; that it computes exactly what
+#1 -> #2 -> #3 compute is held bit for bit by
+tests/test_torch_kernels_gpu.py.
+
 Case names are the wrappers' launch-count names (kernels/_lib.LAUNCHES).
 """
 from __future__ import annotations
@@ -42,10 +54,12 @@ INT8_CASES = ("ln_qkv_q8_temporal_attention",
               "mm_q8_ln_qkv_q8_spatial_attention",
               "matmul_q8_res_ln_ff_q8_full", "ln_matmul_q8",
               "matmul_q8_ln_matmul_q8", "matmul_q8_bias_residual",
-              "matmul_q8_bias_residual/no_r", "ln_ff_residual_q8")
+              "matmul_q8_bias_residual/no_r", "ln_ff_residual_q8",
+              "st_layer_q8", "ln_ff_residual_q8_full")
 BWD_CASES = ("temporal_attention_packed/bwd", "spatial_attention_packed/bwd",
              "ln_matmul/bwd", "ln_ff_residual/bwd")
-F32_TOL_INT8, F32_TOL_FLOAT = 2e-3, 1e-5
+FREE_RUNNING_CASES = ("st_layer_q8",)
+F32_TOL_INT8, F32_TOL_FLOAT, F32_TOL_FREE_RUNNING = 2e-3, 1e-5, 1e-2
 
 
 def slice_cases(device, geometry=SLICE, seed: int = 0):
@@ -91,6 +105,10 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
     g_qkv, g_rows = rn(rows.shape[0], 3 * inner), rn(*rows.shape)
     # the attention-map path runs at S = n_valid, unpadded
     ff_rows = x[:, :, :n_valid].reshape(b, t1 * n_valid, d)
+    # st_layer_q8's spatial QKV and out-projection (drawn last, so that
+    # the draws above stay those of the other cases)
+    wqs2, wss2 = q8(d, 3 * inner)
+    wos2, sos2 = q8(inner, d)
 
     def on(dt, *ts):
         return [t.to(device, dt) for t in ts]
@@ -135,6 +153,16 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
             quant.ln_ff_residual_q8, quant.ln_ff_residual_q8_plain,
             lambda dt: [*on(dt, stream, ln_s, ln_b), w1q, w1s,
                         *on(dt, b1, w2, b2f)]),
+        "st_layer_q8": (
+            quant.st_layer_q8, quant.st_layer_q8_plain,
+            lambda dt: [*on(dt, x, ln_s, ln_b), wqt, wst, woq, wos,
+                        *on(dt, bo, ln_s, ln_b), wqs2, wss2, wos2, sos2,
+                        *on(dt, bo, ln_s, ln_b), w1q, w1s, *on(dt, b1), w2q,
+                        w2s, *on(dt, b2), heads, n_valid]),
+        "ln_ff_residual_q8_full": (
+            quant.ln_ff_residual_q8_full, quant.ln_ff_residual_q8_full_plain,
+            lambda dt: [*on(dt, stream, ln_s, ln_b), w1q, w1s, *on(dt, b1),
+                        w2q, w2s, *on(dt, b2)]),
         "temporal_attention_packed": (
             attention.temporal_attention_packed,
             attention.temporal_packed_plain,
@@ -184,14 +212,20 @@ def outputs(out) -> tuple:
 
 
 def f32_tol(case: str) -> float:
-    """The f32 criterion of a case: atol = rtol, or for a backward case
-    the bound on max|diff| / max|plain| of every output."""
+    """The f32 criterion of a case: atol = rtol, for a backward case the
+    bound on max|diff| / max|plain| of every output, for a free-running
+    case the bound on rel-L2 (with max|diff| < 0.02 max|plain|)."""
+    if case in FREE_RUNNING_CASES:
+        return F32_TOL_FREE_RUNNING
     return F32_TOL_INT8 if case in INT8_CASES else F32_TOL_FLOAT
 
 
 def f32_close(case: str, got, want) -> tuple:
     """(ok, err): err is max|diff| (for a backward case max|diff| /
     max|plain|, the worst output), ok its criterion (f32_tol)."""
+    if case in FREE_RUNNING_CASES:
+        ok, _, mx, _ = bf16_close(got, want, rel_l2=F32_TOL_FREE_RUNNING)
+        return ok, mx
     tol, ok, err = f32_tol(case), True, 0.0
     for g, w in zip(outputs(got), outputs(want)):
         diff = (g.float() - w.float()).abs().max().item()

@@ -11,15 +11,19 @@
            a_t = ln_qkv_q8_temporal_attention(x)
            a_s = mm_q8_ln_qkv_q8_spatial_attention(a_t)
            x   = matmul_q8_res_ln_ff_q8_full(a_s, x)
-         q8_ff='full', any other q8_attn but 'layer' ('boundary'):
+         q8_ff='full', q8_attn='layer', one kernel:
+           x   = st_layer_q8(x)
+         q8_ff='full', any other q8_attn ('boundary'):
            a_t = temporal_attention_packed(ln_matmul_q8(x))
            a_s = spatial_attention_packed(matmul_q8_ln_matmul_q8(a_t))
            x   = matmul_q8_res_ln_ff_q8_full(a_s, x)
-         q8_ff='mixed' or 'bf16', whatever q8_attn is:
+         any other q8_ff, whatever q8_attn is:
            o_t = temporal_block_q8(x), x = spatial_block_q8(o_t) + x
            (nn/attention.py: ln_matmul_q8 -> packed core ->
-           matmul_q8_bias_residual), then x = ln_ff_residual_q8(x)
-           (int8 fc1, fc2 in x's dtype) or kernels/mlp.ln_ff_residual(x)
+           matmul_q8_bias_residual), then by q8_ff x =
+           ln_ff_residual_q8(x) ('mixed': int8 fc1, fc2 in x's dtype),
+           kernels/mlp.ln_ff_residual(x) ('bf16') or, for any other
+           value, ln_ff_residual_q8_full(x) (both GEMMs int8)
        or float fused (quantize='none'), five kernels (nn/attention.py,
        kernels/mlp.py):
          o_t = ln_matmul -> temporal_attention_packed -> matmul_bias_residual
@@ -30,8 +34,7 @@
        spatial-CLS) token -> logits.
 
 Ported: the eval forward with `use_pallas=True`, in two forms: int8 W8A8
-serving (`quantize='int8'`, every q8_ff / q8_attn mode above, but not
-q8_attn='layer' with q8_ff='full', the one-kernel layer #9; stem_store
+serving (`quantize='int8'`, every q8_ff / q8_attn mode above; stem_store
 'f8' or 'bf16') and float fused (`quantize='none'`, in the parameters'
 dtype, f32 or bf16; the stem stores nothing in f8); the train forward
 of the float fused path (`model.train()`, `dropout == 0`, `remat=False`):
@@ -57,8 +60,9 @@ port state_dict; the int8 copies are extra buffers (`qkv_wq`, ...) that
 `quantize_params` attaches, and the float path's (in, out) weight copies
 are non-persistent buffers (`qkv_w`, ...) that `pack_params` attaches for
 eval (the int8 modes q8_ff='mixed' and 'bf16' read the feed-forward's
-too). Train mode never reads those copies (an optimizer step would leave
-them stale): it builds them from the parameters inside every forward.
+too; every other int8 mode reads the int8 copies only). Train mode never
+reads those copies (an optimizer step would leave them stale): it builds
+them from the parameters inside every forward.
 """
 from __future__ import annotations
 
@@ -246,7 +250,7 @@ class DSTTr(nn.Module):
 
     def run_layer(self, layer, x, s: int, n_valid: int):
         """One ST layer: x = attn_s(attn_t(x)) + x; x = ff(x) + x, as an
-        int8 chain (models/istvt.py:258-350, by q8_ff and q8_attn) or the
+        int8 chain (models/istvt.py:258-356, by q8_ff and q8_attn) or the
         float fused one (:357-373)."""
         pt, ps, pf = layer
         at, asp, ff = pt.fn, ps.fn, pf.fn
@@ -267,11 +271,26 @@ class DSTTr(nn.Module):
                 return quant.ln_ff_residual_q8(
                     x, pf.norm.weight, pf.norm.bias, ff.w1q, ff.w1s,
                     ff.net[0].bias, ff.w2, ff.net[3].bias)
-            return ln_ff_residual(x, pf.norm.weight, pf.norm.bias, ff.w1,
-                                  ff.net[0].bias, ff.w2, ff.net[3].bias)
+            if cfg.q8_ff == "bf16":
+                return ln_ff_residual(x, pf.norm.weight, pf.norm.bias, ff.w1,
+                                      ff.net[0].bias, ff.w2, ff.net[3].bias)
+            # any other value: the fully-int8 FF (models/istvt.py:350-356)
+            return quant.ln_ff_residual_q8_full(
+                x, pf.norm.weight, pf.norm.bias, ff.w1q, ff.w1s,
+                ff.net[0].bias, ff.w2q, ff.w2s, ff.net[3].bias)
         bq, nq, d = x.shape
         t1 = nq // s
         inner = at.qkv_wq.shape[1] // 3
+        if cfg.q8_attn == "layer":
+            # the whole layer in one kernel (models/istvt.py:275-282)
+            x = quant.st_layer_q8(
+                x.reshape(bq, t1, s, d), pt.norm.weight, pt.norm.bias,
+                at.qkv_wq, at.qkv_ws, at.out_wq, at.out_ws, at.to_out[0].bias,
+                ps.norm.weight, ps.norm.bias, asp.qkv_wq, asp.qkv_ws,
+                asp.out_wq, asp.out_ws, asp.to_out[0].bias, pf.norm.weight,
+                pf.norm.bias, ff.w1q, ff.w1s, ff.net[0].bias, ff.w2q, ff.w2s,
+                ff.net[3].bias, heads, n_valid)
+            return x.reshape(bq, nq, d)
         if cfg.q8_attn == "ingest":
             a_t = quant.ln_qkv_q8_temporal_attention(
                 x.reshape(bq, t1, s, d), pt.norm.weight, pt.norm.bias,
@@ -407,20 +426,15 @@ class ISTVT(nn.Module):
                 raise RuntimeError("the float fused path needs the (in, out) "
                                    "weight copies: run pack_params(model)")
             return
-        if (cfg.q8_ff not in ("full", "mixed", "bf16")
-                or (cfg.q8_ff == "full" and cfg.q8_attn == "layer")):
-            # JAX runs the one-kernel layer #9 (q8_attn='layer') or, for
-            # an undocumented q8_ff, the fully-int8 FF #7 there
-            raise NotImplementedError(
-                f"q8_ff={cfg.q8_ff!r} / q8_attn={cfg.q8_attn!r} is not "
-                f"ported yet ({_ROADMAP}, 'Int8 A/B modes')")
         if cfg.stem_store not in ("f8", "bf16"):
             raise ValueError(f"stem_store={cfg.stem_store!r}")
         if not all(m.fn.has_q8() for m in layer):
             raise RuntimeError("cfg.quantize='int8' but the model carries no "
                                "int8 weights: run quantize_params(model)")
+        # every int8 mode runs (DSTTr.run_layer); only the 'mixed' and
+        # 'bf16' feed-forwards read float (in, out) copies
         ff = layer[2].fn
-        if cfg.q8_ff != "full" and (ff.w2 is None or (
+        if cfg.q8_ff in ("mixed", "bf16") and (ff.w2 is None or (
                 cfg.q8_ff == "bf16" and ff.w1 is None)):
             raise RuntimeError(f"q8_ff={cfg.q8_ff!r} needs the feed-forward's "
                                f"(in, out) weight copies: run "

@@ -24,14 +24,17 @@ features (rel-L2 9.6e-3). Measured at this geometry: 2.6e-3 and 4.6e-3
 after layers 0 and 1 for these clips; 1e-5 for clips where no code flips.
 
 The int8 A/B modes (ISTVTConfig.q8_ff / q8_attn: ('full', 'boundary'),
-('mixed', *), ('bf16', *); models/istvt.py:258-350) are held the same
-way, each against one JAX run of its own: every kernel of every layer on
-JAX's own inputs at rel-L2 <= 1e-3, the free-running stream after every
-layer at rel-L2 <= 1e-2 and the logits at atol = rtol = 1e-2 (measured:
-kernels <= 6.4e-5, where one int8 code flips in layer 1's first GEMM, else
-<= 1.2e-5; streams <= 4.6e-3; |dlogit| <= 2.1e-3). In the
-'mixed' and 'bf16' modes q8_attn is not read, so ('mixed', 'layer') equals
-('mixed', 'ingest') bit for bit on the port.
+('full', 'layer'), ('mixed', *), ('bf16', *), and any other q8_ff, here
+'int8'; models/istvt.py:258-356) are held the same way, each against one
+JAX run of its own: every kernel of every layer on JAX's own inputs at
+rel-L2 <= 1e-3, the free-running stream after every layer at rel-L2 <=
+1e-2 and the logits at atol = rtol = 1e-2 (measured: kernels <= 6.4e-5,
+where one int8 code flips in layer 1's first GEMM, else <= 1.2e-5;
+'layer''s one kernel is a whole layer, inside which such a flip spreads
+over its frame, 9.6e-4; streams <= 4.6e-3; |dlogit| <= 2.1e-3). The
+'layer' and 'int8' models load JAX's quantized weights and run without
+pack_params. In the 'mixed' and 'bf16' modes q8_attn is not read, so
+('mixed', 'layer') equals ('mixed', 'ingest') bit for bit on the port.
 """
 import numpy as np
 import pytest
@@ -246,17 +249,20 @@ def test_int8_slice_matches_jax_per_layer_and_logits(weights, jax_run):
 
 
 def test_unported_paths_raise(weights):
-    """The one int8 mode left, q8_attn='layer' with q8_ff='full' (#9), and
-    an undocumented q8_ff (JAX runs #7 there, models/istvt.py:352) raise
-    naming the ROADMAP item; 'mixed' / 'bf16' without pack_params raise
-    naming it; an int8 model without its int8 copies raises."""
+    """Every int8 mode runs: q8_attn='layer' (#9) and a q8_ff outside
+    'full' / 'mixed' / 'bf16' (#7, models/istvt.py:350-356) on a model
+    without pack_params (they read the int8 copies only), with finite
+    logits; 'mixed' / 'bf16' without pack_params raise naming it; an int8
+    model without its int8 copies raises; an int8 config off the fused
+    path warns that it runs float."""
     params, qparams, state = weights
     model = _port(qparams, state)
     clips = torch.zeros(1, 2, 72, 72, 3)
     for kw in (dict(q8_attn="layer"), dict(q8_ff="int8")):
         model.cfg = ISTVTConfig(**{**TINY, **kw})
-        with pytest.raises(NotImplementedError, match="Int8 A/B modes"):
-            model(clips)
+        with torch.no_grad():
+            logits = model(clips)
+        assert logits.shape == (1, 1) and torch.isfinite(logits).all()
     for ff in ("mixed", "bf16"):
         model.cfg = ISTVTConfig(**{**TINY, "q8_ff": ff})
         with pytest.raises(RuntimeError, match="pack_params"):
@@ -284,22 +290,47 @@ def test_unported_paths_raise(weights):
 # the int8 A/B modes: (q8_ff, q8_attn)
 
 MODES = {"boundary": ("full", "boundary"), "mixed": ("mixed", "ingest"),
-         "bf16": ("bf16", "ingest"), "mixed_layer": ("mixed", "layer")}
+         "bf16": ("bf16", "ingest"), "mixed_layer": ("mixed", "layer"),
+         "layer": ("full", "layer"), "ff_int8": ("int8", "ingest")}
 _JAX_NS = (jq, jattn, jmlp)
 _PORT_NS = (tq, tattn, tmlp)
 
 
-def _layer_steps(ns, p, q8_ff, heads, s, n_valid, shape):
-    """One ST layer of an A/B mode as its kernel calls, in order:
-    [(name, fn(env) -> output)], env holding the layer input 'x' and each
-    earlier output by name; 'out' is the layer's output. ns: the (quant,
-    attention, mlp) kernel modules of one package, p the layer's weights
-    in the JAX tree's layout (istvt.py:258-350; nn/attention.py:220-257)."""
+def _st_layer(q, x, p, heads, n_valid):
+    """kernels/quant.st_layer_q8 of either package on layer p (the JAX
+    tree's layout): JAX's takes the tree, the port's its leaves in
+    _st_layer_q8_impl's order."""
+    if q is jq:
+        return jq.st_layer_q8(x, p, heads, n_valid)
+    at, asp, ff = p["attn_t"], p["attn_s"], p["ff"]
+    args = []
+    for blk in (at, asp):
+        args += [blk["norm"]["scale"], blk["norm"]["bias"],
+                 blk["q8"]["qkv_wq"], blk["q8"]["qkv_ws"],
+                 blk["q8"]["out_wq"], blk["q8"]["out_ws"], blk["to_out"]["b"]]
+    args += [ff["norm"]["scale"], ff["norm"]["bias"], ff["q8"]["w1q"],
+             ff["q8"]["w1s"], ff["fc1"]["b"], ff["q8"]["w2q"],
+             ff["q8"]["w2s"], ff["fc2"]["b"]]
+    return tq.st_layer_q8(x, *args, heads, n_valid)
+
+
+def _layer_steps(ns, p, mode, heads, s, n_valid, shape):
+    """One ST layer of an A/B mode, (q8_ff, q8_attn), as its kernel calls,
+    in order: [(name, fn(env) -> output)], env holding the layer input 'x'
+    and each earlier output by name; 'out' is the layer's output. ns: the
+    (quant, attention, mlp) kernel modules of one package, p the layer's
+    weights in the JAX tree's layout (istvt.py:258-356;
+    nn/attention.py:220-257)."""
     q, att, mlp = ns
-    b, nq, _ = shape
+    q8_ff, q8_attn = mode
+    b, nq, d = shape
     t1 = nq // s
     at, asp, ff = p["attn_t"], p["attn_s"], p["ff"]
     inner = at["q8"]["qkv_wq"].shape[1] // 3
+    if q8_ff == "full" and q8_attn == "layer":
+        return [("out", lambda e: _st_layer(
+            q, e["x"].reshape(b, t1, s, d), p, heads,
+            n_valid).reshape(shape))]
 
     def ln_qkv(src, blk):
         return lambda e: q.ln_matmul_q8(
@@ -334,10 +365,15 @@ def _layer_steps(ns, p, q8_ff, heads, s, n_valid, shape):
         ff_step = lambda e: q.ln_ff_residual_q8(  # noqa: E731
             e["y"], ff["norm"]["scale"], ff["norm"]["bias"], ff["q8"]["w1q"],
             ff["q8"]["w1s"], ff["fc1"]["b"], ff["fc2"]["w"], ff["fc2"]["b"])
-    else:
+    elif q8_ff == "bf16":
         ff_step = lambda e: mlp.ln_ff_residual(  # noqa: E731
             e["y"], ff["norm"]["scale"], ff["norm"]["bias"], ff["fc1"]["w"],
             ff["fc1"]["b"], ff["fc2"]["w"], ff["fc2"]["b"])
+    else:
+        ff_step = lambda e: q.ln_ff_residual_q8_full(  # noqa: E731
+            e["y"], ff["norm"]["scale"], ff["norm"]["bias"], ff["q8"]["w1q"],
+            ff["q8"]["w1s"], ff["fc1"]["b"], ff["q8"]["w2q"], ff["q8"]["w2s"],
+            ff["fc2"]["b"])
     return [("qkv_t", ln_qkv("x", at)), t_core,
             ("o_t", out_proj("a_t", at, False)),
             ("qkv_s", ln_qkv("o_t", asp)), s_core,
@@ -386,8 +422,8 @@ def jax_mode_run(request, weights, jax_tokens):
         x = jnp.asarray(x)
         for layer in jp["vit"]["layers"]:
             env = {"x": x}
-            for name, fn in _layer_steps(_JAX_NS, layer, q8_ff, cfg.heads,
-                                         s, s_valid, x.shape):
+            for name, fn in _layer_steps(_JAX_NS, layer, MODES[request.param],
+                                         cfg.heads, s, s_valid, x.shape):
                 env[name] = fn(env)
             envs.append({k: np.asarray(v) for k, v in env.items()})
             x = env["out"]
@@ -398,8 +434,13 @@ def jax_mode_run(request, weights, jax_tokens):
 
 
 def _port_mode(qparams, state, mode):
-    model = tistvt.pack_params(_port(qparams, state))
+    """The port model from JAX's quantized weights (params_from_jax) in the
+    mode; pack_params only for the modes whose FF reads float copies
+    ('mixed', 'bf16'): the others run from the int8 copies alone."""
+    model = _port(qparams, state)
     q8_ff, q8_attn = MODES[mode]
+    if q8_ff in ("mixed", "bf16"):
+        tistvt.pack_params(model)
     model.cfg = ISTVTConfig(**TINY, q8_ff=q8_ff, q8_attn=q8_attn)
     return model
 
@@ -411,13 +452,13 @@ def test_ab_mode_kernels_match_jax_on_the_models_own_activations(
     _, qparams, state = weights
     mode, envs, _ = jax_mode_run
     model = _port_mode(qparams, state, mode)
-    q8_ff = MODES[mode][0]
     _lib.reset_launches()
     with tprecision.highest(), torch.inference_mode():
         for i, layer in enumerate(model.vit.transformer.layers):
             env = {k: torch.tensor(v) for k, v in envs[i].items()}
-            steps = _layer_steps(_PORT_NS, _port_layer_params(layer), q8_ff,
-                                 TINY_HEADS, 32, 26, env["x"].shape)
+            steps = _layer_steps(_PORT_NS, _port_layer_params(layer),
+                                 MODES[mode], TINY_HEADS, 32, 26,
+                                 env["x"].shape)
             assert [n for n, _ in steps] == list(envs[i])[1:]
             for name, fn in steps:
                 got = fn(env).reshape(env[name].shape).numpy()

@@ -3,7 +3,8 @@ the serving slice's shapes (the checks of chip_smoke.py phase 3) and at
 the small geometry of the JAX kernel tests (dim_head 16, S = 32): every
 launch counter of kernels/_lib.LAUNCHES, the training slice's backward
 kernels and h1-stash forward and the int8 A/B modes' kernels included;
-then small models on the card against the CPU.
+the one-kernel layer #9 at more shapes and against the #1 -> #2 -> #3
+chain; then small models on the card against the CPU.
 
 Needs an NVIDIA GPU with nvcc: marked `gpu`, and skipped (inside the
 fixture, not at import) where torch sees no CUDA device. Run on the card:
@@ -160,14 +161,16 @@ def test_attention_map_path_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("q8_ff, q8_attn", [("full", "boundary"),
                                             ("mixed", "ingest"),
-                                            ("bf16", "ingest")])
+                                            ("bf16", "ingest"),
+                                            ("full", "layer"),
+                                            ("int8", "ingest")])
 def test_int8_mode_on_card_matches_cpu(cuda, q8_ff, q8_attn):
     """A small int8 ISTVT in each A/B mode, as cli/serve.py --int8 builds
     it (bf16 parameters, quantize_params, then pack_params for the FF's
     float copies): the card's logits (kernels, bf16) against the CPU's
     (plain versions, f32) within 5e-2, each mode's kernels launched once
-    per layer (ln_matmul_q8 twice in the q8 blocks), every other counter
-    0."""
+    per layer (ln_matmul_q8 twice in the q8 blocks; st_layer_q8 alone for
+    q8_attn='layer'), every other counter 0."""
     import copy
 
     from istvt_tpu_torch.core import tree
@@ -191,15 +194,86 @@ def test_int8_mode_on_card_matches_cpu(cuda, q8_ff, q8_attn):
         counts = dict(_lib.LAUNCHES)
         with highest():
             want = cpu(clips)
-    if q8_ff == "full":
+    ff_kernel = {"mixed": "ln_ff_residual_q8",
+                 "bf16": "ln_ff_residual"}.get(q8_ff, "ln_ff_residual_q8_full")
+    if q8_attn == "layer":
+        per_layer = {"st_layer_q8": 1}
+    elif q8_ff == "full":
         per_layer = {"ln_matmul_q8": 1, "matmul_q8_ln_matmul_q8": 1,
                      "matmul_q8_res_ln_ff_q8_full": 1}
     else:
         per_layer = {"ln_matmul_q8": 2, "matmul_q8_bias_residual": 1,
-                     "matmul_q8_bias_residual/no_r": 1,
-                     ("ln_ff_residual_q8" if q8_ff == "mixed"
-                      else "ln_ff_residual"): 1}
-    per_layer.update(temporal_attention_packed=1, spatial_attention_packed=1)
+                     "matmul_q8_bias_residual/no_r": 1, ff_kernel: 1}
+    if q8_attn != "layer":
+        per_layer.update(temporal_attention_packed=1,
+                         spatial_attention_packed=1)
     assert counts == {**dict.fromkeys(counts, 0),
                       **{n: k * cfg.depth for n, k in per_layer.items()}}
     assert (got - want).abs().max() <= 5e-2, (got, want)
+
+
+def _layer_case(cuda, **geometry):
+    """st_layer_q8's selfcheck case at SLICE with `geometry` changed."""
+    return selfcheck.slice_cases(cuda, {**selfcheck.SLICE, **geometry})[
+        "st_layer_q8"]
+
+
+@pytest.mark.parametrize("b, n_valid", [(1, 362), (3, 362), (2, 368)])
+def test_st_layer_q8_rows_off_the_tile_and_masks(cuda, b, n_valid):
+    """#9 at B=1 and B=3 (2,576 and 7,728 rows: neither fills the 128-row
+    GEMM tile) and without masked keys, in f32 and bf16, against its plain
+    version by selfcheck's criteria; one launch per call."""
+    kern, plain, make = _layer_case(cuda, b=b, n_valid=n_valid)
+    args = make(torch.float32)
+    _lib.reset_launches()
+    with highest():
+        got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["st_layer_q8"] == 1
+    ok, err = selfcheck.f32_close("st_layer_q8", got, want)
+    assert ok, f"max|diff| {err}"
+    args = make(torch.bfloat16)
+    ok, rel, mx, scale = selfcheck.bf16_close(kern(*args), plain(*args))
+    assert ok, (rel, mx, scale)
+
+
+def test_st_layer_q8_equals_the_ingest_chain(cuda):
+    """One launch of #9 equals #1 -> #2 -> #3 on the card bit for bit, in
+    f32 and bf16: the same device code in the same order."""
+    from istvt_tpu_torch.kernels import quant
+
+    _, _, make = _layer_case(cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        (x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss, wos, sos, bos,
+         sf, bf, w1q, w1s, b1, w2q, w2s, b2, heads, n_valid) = make(dt)
+        b, t1, s, d = x.shape
+        a_t = quant.ln_qkv_q8_temporal_attention(x, st, bt, wqt, wst, heads)
+        a_s = quant.mm_q8_ln_qkv_q8_spatial_attention(
+            a_t.reshape(b * t1, s, -1), wot, sot, bot, ss, bs, wqs, wss, heads,
+            n_valid)
+        want = quant.matmul_q8_res_ln_ff_q8_full(
+            a_s.reshape(b, t1 * s, -1), x.reshape(b, t1 * s, d), wos, sos, bos,
+            sf, bf, w1q, w1s, b1, w2q, w2s, b2).reshape(x.shape)
+        got = quant.st_layer_q8(*make(dt))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (dt, (got - want).abs().max())
+
+
+def test_st_layer_q8_rejects_what_the_kernel_cannot_take(cuda):
+    from istvt_tpu_torch.kernels import quant
+
+    x, *rest = _layer_case(cuda, b=1)[2](torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.st_layer_q8(x.transpose(1, 2), *rest)
+    with pytest.raises(TypeError, match="dtype"):
+        quant.st_layer_q8(x.half(), *rest)
+    cpu_w = list(rest)
+    cpu_w[2] = cpu_w[2].cpu()                  # wqt, the temporal QKV
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.st_layer_q8(x, *cpu_w)
+    cpu_v = list(rest)
+    cpu_v[0] = cpu_v[0].cpu()                  # st, the temporal LN scale
+    with pytest.raises(ValueError, match="cpu"):
+        quant.st_layer_q8(x, *cpu_v)
+    with pytest.raises(ValueError, match="B, T1, S, D"):
+        quant.st_layer_q8(x[0], *rest)
