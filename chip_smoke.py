@@ -13,26 +13,31 @@ JAX package): ('full', 'boundary'), ('mixed', 'ingest'), ('bf16',
 (the fully-int8 FF); the float fused path in bf16 (`cli/serve.py
 --bf16`), training on the float fused path in bf16 over f32 masters
 (`cli/train.py --dataset synthetic --use_pallas --bf16 --dropout 0`), and
-the LRP relevance maps (`interpret/`, `cli/visualize.py`) in f32. In phases; any failure raises
-and exits non-zero:
+the LRP relevance maps (`interpret/`, `cli/visualize.py`) in f32, then the
+kernel API (`istvt_tpu_torch.kernels`, `kernels/conv.py`), which no model
+path reaches. In phases; any failure raises and exits non-zero:
 
   1. device   - a CUDA device is required; prints nvidia-smi's name and
                 power limit and the torch / CUDA versions
   2. build    - nvcc builds every kernel from istvt_tpu_torch/kernels/csrc
-  3. kernels  - each of the twenty kernels (twenty-two cases, one per
-                launch counter: #20 and #5 with and without their
+  3. kernels  - each of the 24 kernels (kernels/selfcheck.CASES: one case
+                per launch counter -- #20 and #5 with and without their
                 residual; the training slice's four backward kernels and
                 the h1-stash forward; fused_ff at the attention-map path's
-                5,068 unpadded rows) vs its plain PyTorch version on the
-                card at the slice's shapes (2 clips, T+1 = 7, S = 368,
-                n_valid = 362): f32 at atol = rtol = 2e-3 (int8 kernels) or
+                5,068 unpadded rows; the kernel API's #13 unpacked entry,
+                #14-#17 and #24 -- and #16, #17 at S = 362 and #24 at the
+                stem's other stride-1 units) vs its plain PyTorch version
+                on the card at the slice's shapes (2 clips, T+1 = 7, S =
+                368, n_valid = 362; #24 12 frames): f32 at atol = rtol =
+                2e-3 (int8 kernels) or
                 1e-5 (float kernels; backward kernels max|diff| <= 1e-5
                 max|plain| per output; the whole layer #9 as a
                 free-running chain, rel-L2 < 1e-2 and max|diff| < 0.02
                 max|plain|: kernels/selfcheck.py says why), bf16 at
-                rel-L2 < 1e-2 and max|diff| < 0.02 max|plain|; median
+                rel-L2 < 1e-2 and max|diff| < 0.02 max|plain| (#16, #17:
+                and the share of bf16 elements equal bit for bit); median
                 kernel / plain / library-call ms and the card's least time
-                (bound)
+                (bound); for #24 also the stem's cuDNN composition's ms
   then for each serving path, int8 first:
   4. serving  - the model behind the HTTP ServeDaemon: float32 and uint8
                 POSTs, a 16-clip batch and two concurrent requests, all
@@ -81,10 +86,24 @@ and exits non-zero:
  10. interpret e2e - depth 2: the card (kernels) vs the CPU (plain
                 versions) from the same weights and clip: cam_s, cam_t of
                 transformer_attribution at rel-L2 <= 1e-3, |dlogit| <= 1e-4
+ 11. kernel api - f32, counted from 0: spatial_attention_pallas and
+                temporal_attention_pallas forward and backward at (2, 7,
+                368, 8 x 64), fused_frame_attention at (112, 368, 64),
+                sepconv_bn forward and backward on block2's first unit of
+                the stem (12 x 74^2 x 128 -> 256, eval BN folded by
+                fold_bn): exactly one launch of each kernel-API counter
+                (API_LAUNCHES), every other 0; every earlier counted phase
+                held those six at 0 (no model path reaches them, as in the
+                JAX package); the outputs and gradients vs the plain
+                versions (max|diff| <= 1e-5 max|plain|) and vs autograd of
+                JAX's XLA references (2e-4), sepconv_bn vs the stem's own
+                cuDNN composition (atol = rtol = 1e-5, its gradient 1e-5
+                max)
 
 The line before the last is the kernels' JSON record (`launches`: each
 kernel's launches over every counted run above; a kernel that no counted
-run launched fails the script); the last line is {"ok": true, "device":
+run launched fails the script; a kernel's cases at other shapes under
+`variants`); the last line is {"ok": true, "device":
 {...}}. With --profile PATH, torch.profiler tables of one B=16 forward of
 each serving path and int8 mode, of one B=16 train step and of one B=1
 generate_lrp call with and without use_pallas are written to PATH.
@@ -182,6 +201,19 @@ KERNELS = {
     # the interpretability slice (the attention-map forward's feed-forward)
     "fused_ff": (
         _CSRC + "float_gemm.cu", "istvt_tpu/kernels/mlp.py:35"),
+    # the kernel API (on no model path, as in the JAX package)
+    "fused_frame_attention": (
+        _CSRC + "q8_attention.cu", "istvt_tpu/kernels/attention.py:114"),
+    "fused_frame_attention_mh": (
+        _CSRC + "q8_attention.cu", "istvt_tpu/kernels/attention.py:141"),
+    "fused_frame_attention_bwd": (
+        _CSRC + "attention_bwd.cu", "istvt_tpu/kernels/attention.py:842"),
+    "fused_temporal_attention": (
+        _CSRC + "temporal_unpacked.cu", "istvt_tpu/kernels/attention.py:553"),
+    "fused_temporal_attention_bwd": (
+        _CSRC + "temporal_unpacked.cu", "istvt_tpu/kernels/attention.py:662"),
+    "sepconv_bn": (
+        _CSRC + "sepconv_bn.cu", "istvt_tpu/kernels/conv.py:67"),
 }
 
 # launches per layer of one serving forward, by path; every counter not
@@ -234,14 +266,22 @@ TRAIN_FLAGS = ["--dataset", "synthetic", "--use_pallas", "--bf16",
                "--dropout", "0"]
 TRAIN_BATCH, TRAIN_STEPS = 16, 5
 
-# kernels whose path runs in f32 (the interpretability path): phase 3
-# times them in f32 as well as in bf16
-F32_PATH = ("fused_ff",)
+# kernels whose path runs in f32 (the interpretability path; the kernel API
+# phase's sepconv_bn): phase 3 times them in f32 as well as in bf16
+F32_PATH = ("fused_ff", "sepconv_bn")
 
-# published H100 SXM peaks (hopper-kernels guide section 1): bytes/s, and
-# dense operations/s by the type of the inputs
+# the kernel API phase: launches of one call of each entry point (forward
+# and backward of the differentiable ones)
+API_LAUNCHES = {"fused_frame_attention_mh": 1, "fused_frame_attention_bwd": 1,
+                "fused_temporal_attention": 1,
+                "fused_temporal_attention_bwd": 1, "fused_frame_attention": 1,
+                "sepconv_bn": 1}
+
+# published H100 SXM peaks (NVIDIA's data sheet): bytes/s, and dense
+# operations/s by the type of the inputs (f32: the FMA pipes, outside the
+# tensor cores)
 HBM_BPS = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 
 def phase(name, msg):
@@ -325,6 +365,22 @@ def _ops(name, args):
     if name == "spatial_attention_packed/bwd":    # 5 products, valid keys
         g, s, i3 = args[0].shape
         return {"bf16": 10 * g * s * args[3] * (i3 // 3)}
+    if name in ("fused_frame_attention", "fused_frame_attention_mh"):
+        g, s, inner = args[0].shape               # no mask
+        return {"bf16": 4 * g * s * s * inner}
+    if name == "fused_frame_attention_bwd":       # 5 products, no mask
+        g, s, inner = args[0].shape
+        return {"bf16": 10 * g * s * s * inner}
+    if name == "fused_temporal_attention":
+        b, t1, s, inner = args[0].shape
+        return {"bf16": 4 * b * s * t1 * t1 * inner}
+    if name == "fused_temporal_attention_bwd":    # 5 products of (T1, T1)
+        b, t1, s, inner = args[0].shape
+        return {"bf16": 10 * b * s * t1 * t1 * inner}
+    if name == "sepconv_bn":                      # pointwise; f32 depthwise
+        pixels, cin = args[0].numel() // args[0].shape[-1], args[0].shape[-1]
+        return {"bf16": 2 * pixels * cin * args[2].shape[1],
+                "f32": 18 * pixels * cin}
     rows = args[0].numel() // args[0].shape[-1]
     if name == "ln_matmul_q8":                    # (rows, D) @ (D, K)
         return {"int8": 2 * rows * args[3].numel()}
@@ -376,6 +432,22 @@ def _library_call(name, args):
     if name == "matmul_bias_residual/no_r":
         x, w, b = args
         return lambda: F.linear(x, w.t(), b)
+    if name in ("fused_frame_attention", "fused_frame_attention_mh"):
+        q, k, v = args[:3]
+        heads = args[3] if len(args) > 3 else 1
+        g, s, _ = q.shape
+        q, k, v = (t.view(g, s, heads, -1).transpose(1, 2) for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(q, k, v)
+    if name == "fused_frame_attention_bwd":
+        # the backward of one SDPA call without a mask
+        q, k, v, go, heads = args
+        g, s, _ = q.shape
+        q, k, v = (t.reshape(g, s, heads, -1).transpose(1, 2).detach()
+                   .requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v)
+        gout = go.reshape(g, s, heads, -1).transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (q, k, v), gout,
+                                           retain_graph=True)
     if name == "spatial_attention_packed/bwd":
         # the backward of one SDPA call with the same additive mask
         qkv, go, heads, n_valid = args
@@ -391,11 +463,32 @@ def _library_call(name, args):
     return None
 
 
+def _cudnn_sepconv(args):
+    """The stem's own route for a sepconv_bn case, timed beside it: cuDNN's
+    grouped 3x3 conv and 1x1 conv on channels_last tensors, then the
+    affine (several PyTorch calls, so not a library_ms)."""
+    x, dw, pw, a, b, relu_in = args
+    cin, cout = pw.shape
+    xc = x.permute(0, 3, 1, 2)                   # NHWC memory: channels_last
+    w_dw = dw.t().reshape(cin, 1, 3, 3).to(x.dtype)
+    w_pw = pw.t().reshape(cout, cin, 1, 1).to(x.dtype).contiguous(
+        memory_format=torch.channels_last)
+    a4, b4 = (t.to(x.dtype).reshape(1, cout, 1, 1) for t in (a, b))
+
+    def run():
+        y = F.conv2d(xc.clamp_min(0) if relu_in else xc, w_dw, padding=1,
+                     groups=cin)
+        return F.conv2d(y, w_pw) * a4 + b4
+
+    return run
+
+
 def check_kernels(dev):
     """Every case vs its plain version in f32 and bf16, then bf16 times.
     Returns {case: JSON fields}."""
     rows = {}
     for name, (kern, plain, make) in selfcheck.slice_cases(dev).items():
+        counter = selfcheck.counter(name)
         args = make(torch.float32)
         with highest():
             got, want = kern(*args), plain(*args)
@@ -403,17 +496,24 @@ def check_kernels(dev):
         ok32, err32 = selfcheck.f32_close(name, got, want)
         args16 = make(torch.bfloat16)
         out16 = kern(*args16)
-        ok16, rel, mx, scale = selfcheck.bf16_close(out16, plain(*args16))
+        want16 = plain(*args16)
+        ok16, rel, mx, scale = selfcheck.bf16_close(out16, want16)
+        extra = {}
+        if counter in selfcheck.BITWISE_CASES:
+            extra["bf16_bit_equal"] = selfcheck.bit_equal_share(out16,
+                                                                want16)
         torch.cuda.synchronize()
         ms_plain_a = _median_ms(lambda: plain(*args16))
         ms_kern_a = _median_ms(lambda: kern(*args16))
         ms_kern_b = _median_ms(lambda: kern(*args16))
         ms_plain_b = _median_ms(lambda: plain(*args16))
         ms, plain_ms = min(ms_kern_a, ms_kern_b), min(ms_plain_a, ms_plain_b)
-        lib = _library_call(name, args16)
+        lib = _library_call(counter, args16)
         lib_ms = None if lib is None else _median_ms(lib)
-        bound_ms, bound_by = _bound_ms(name, args16, out16)
-        if name in F32_PATH:
+        bound_ms, bound_by = _bound_ms(counter, args16, out16)
+        if counter == "sepconv_bn":
+            extra["cudnn_ms"] = _median_ms(_cudnn_sepconv(args16))
+        if counter in F32_PATH:
             # its path runs in f32 (the FMA GEMM): time that too
             with highest():
                 f32_ms = [_median_ms(lambda: kern(*args)),
@@ -429,12 +529,13 @@ def check_kernels(dev):
               f"({'ok' if ok16 else 'FAIL'}); bf16 median ms kernel "
               f"{ms_kern_a:.4f}/{ms_kern_b:.4f} plain "
               f"{ms_plain_a:.4f}/{ms_plain_b:.4f} library {lib_ms} "
-              f"bound {bound_ms:.4f} ({bound_by})")
+              f"bound {bound_ms:.4f} ({bound_by})"
+              + "".join(f"; {k} {v:.4f}" for k, v in extra.items()))
         if not (ok32 and ok16):
             raise SystemExit(f"kernel {name} disagrees with its plain version")
         rows[name] = {"max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": lib_ms}
+                      "library_ms": lib_ms, **extra}
     return rows
 
 
@@ -861,6 +962,129 @@ def interpret_e2e_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# 11. the kernel API
+
+
+def _max_rel(got, want):
+    """max|diff| / max|want| over the outputs."""
+    return max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def kernel_api_phase(dev):
+    """The kernel API's entry points (istvt_tpu_torch.kernels, kernels/conv)
+    at the slice's attention geometry and on one Xception unit of the
+    stem, f32, counted from 0: each entry exactly its API_LAUNCHES; then
+    the results against the plain versions and references."""
+    from istvt_tpu_torch.kernels import attention, conv
+    from istvt_tpu_torch.models import xception
+    from istvt_tpu_torch.nn.layers import batchnorm_eval, separable_conv2d
+
+    gen = torch.Generator().manual_seed(6)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    heads, dh = PAPER.heads, PAPER.dim_head
+    s_q = [rn(2, PAPER.num_frames + 1, 368, heads, dh) for _ in range(4)]
+    t_q = [rn(2, PAPER.num_frames + 1, 368, heads * dh) for _ in range(4)]
+    f_q = [rn(2 * (PAPER.num_frames + 1) * heads, 368, dh) for _ in range(3)]
+    # a unit of the stem as it is built: block2's first (74^2 x 128 ->
+    # 256, pre-ReLU), its BN with running statistics as after training
+    block = xception.init_(xception.Block(xception.BLOCK_SPECS[1]),
+                           gen).to(dev).eval()
+    sep, bn = block.units()[0]
+    with torch.no_grad():
+        bn.running_mean.copy_(rn(256, scale=0.1))
+        bn.running_var.copy_(torch.rand(256, generator=gen).to(dev) + 0.5)
+        bn.weight.copy_(torch.rand(256, generator=gen).to(dev) + 0.5)
+        bn.bias.copy_(rn(256, scale=0.1))
+    a, b = conv.fold_bn(bn.weight.detach(), bn.bias.detach(),
+                        bn.running_mean, bn.running_var)
+    dw = sep.conv1.weight.detach().reshape(128, 9).t()
+    pw = sep.pointwise.weight.detach().reshape(256, 128).t()
+    x = rn(12, 74, 74, 128, scale=0.5)
+    g_x = rn(12, 74, 74, 256)
+
+    def with_grads(fn, ins, g):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, g)
+
+    t0 = time.perf_counter()
+    with highest():
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        s_out, s_grads = with_grads(attention.spatial_attention_pallas,
+                                    s_q[:3], s_q[3])
+        t_out, t_grads = with_grads(
+            lambda *u: attention.temporal_attention_pallas(*u, heads),
+            t_q[:3], t_q[3])
+        f_out = attention.fused_frame_attention(*f_q)
+        c_out, (c_grad,) = with_grads(
+            lambda u: conv.sepconv_bn(u, dw, pw, a, b, True), [x], g_x)
+        torch.cuda.synchronize()
+        counts = _tally(API_LAUNCHES)
+        sec = time.perf_counter() - t0
+
+        fold = attention._fold
+        checks = {
+            "spatial_attention_pallas fwd vs #15 plain": _max_rel(
+                [s_out], [attention.fused_frame_attention_mh_plain(
+                    *map(fold, s_q[:3]), heads).reshape(s_out.shape)]),
+            "its grads vs #13 plain": _max_rel(
+                [u.reshape(-1) for u in s_grads],
+                [u.reshape(-1) for u in attention
+                 .fused_frame_attention_bwd_plain(*map(fold, s_q), heads)]),
+            "its grads vs autograd of _spatial_reference": _max_rel(
+                s_grads, attention._reference_grads(
+                    attention._spatial_reference, s_q[:3], s_q[3])),
+            "temporal_attention_pallas fwd vs #16 plain": _max_rel(
+                [t_out],
+                [attention.fused_temporal_attention_plain(*t_q[:3], heads)]),
+            "its grads vs #17 plain": _max_rel(
+                t_grads, attention.fused_temporal_attention_bwd_plain(
+                    *t_q, heads)),
+            "its grads vs autograd of _temporal_reference": _max_rel(
+                t_grads, attention._reference_grads(
+                    lambda *u: attention._temporal_reference(*u, heads),
+                    t_q[:3], t_q[3])),
+            "fused_frame_attention vs #14 plain": _max_rel(
+                [f_out], [attention.fused_frame_attention_plain(*f_q)]),
+        }
+
+        def stem(u):                 # the stem's cuDNN composition
+            y = separable_conv2d(u.permute(0, 3, 1, 2).clamp_min(0),
+                                 sep.conv1.weight.detach(),
+                                 sep.pointwise.weight.detach())
+            return batchnorm_eval(y, bn.weight.detach(), bn.bias.detach(),
+                                  bn.running_mean,
+                                  bn.running_var).permute(0, 2, 3, 1)
+
+        want, (want_grad,) = with_grads(stem, [x], g_x)
+        unit_err = float((c_out - want).abs().max())
+        unit_ok = bool(torch.allclose(c_out, want, atol=1e-5, rtol=1e-5))
+        checks["sepconv_bn grad vs the stem's autograd"] = _max_rel(
+            [c_grad], [want_grad])
+    limits = {n: 2e-4 if "autograd" in n and "sepconv" not in n else 1e-5
+              for n in checks}
+    bad = [n for n, e in checks.items() if not e <= limits[n]]
+    phase("kernel api", f"spatial_attention_pallas (2, 7, 368, 8, 64), "
+          f"temporal_attention_pallas (2, 7, 368, 512), fused_frame_attention "
+          f"(112, 368, 64), sepconv_bn on block2's first unit (12 x 74^2 x "
+          f"128 -> 256, eval BN folded by fold_bn), forward and backward, "
+          f"f32, in {sec:.2f} s: launches {counts}")
+    for n, e in checks.items():
+        phase("kernel api", f"{n}: max|diff| / max|ref| {e:.3e} (limit "
+              f"{limits[n]:g})")
+    phase("kernel api", f"sepconv_bn vs the stem's cuDNN composition "
+          f"(separable_conv2d, batchnorm_eval): max|diff| {unit_err:.3e} "
+          f"({'ok' if unit_ok else 'FAIL'} at atol = rtol = 1e-5)")
+    if bad or not unit_ok:
+        raise SystemExit(f"kernel API results disagree: {bad or 'sepconv'}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -921,13 +1145,21 @@ def main():
     interpret_phase(dev, card, args.profile)
     torch.cuda.empty_cache()
     interpret_e2e_phase(dev)
+    torch.cuda.empty_cache()
+
+    # 11 the kernel API
+    kernel_api_phase(dev)
 
     idle = [n for n, k in TOTAL.items() if k == 0]
     if idle:
         raise SystemExit(f"kernels never launched on a counted path: {idle}")
+    variants = {n: [{"case": c, **r} for c, r in rows.items()
+                    if c != n and selfcheck.counter(c) == n]
+                for n in KERNELS}
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": KERNELS[n][0],
-         "replaces": KERNELS[n][1], "launches": TOTAL[n], **rows[n]}
+         "replaces": KERNELS[n][1], "launches": TOTAL[n], **rows[n],
+         **({"variants": variants[n]} if variants[n] else {})}
         for n in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

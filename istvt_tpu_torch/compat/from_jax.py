@@ -50,6 +50,21 @@ def _sep(sd, prefix, p):
     sd[f"{prefix}.pointwise.weight"] = _conv(p["pw"]["w"])
 
 
+def block_state_dict(bp, bs, spec, prefix: str = ""):
+    """models/xception.block_init params/state of one block with `spec`
+    (a BLOCK_SPECS entry) -> the keys of the port's xception.Block."""
+    sd: Dict[str, torch.Tensor] = {}
+    off = 1 if spec[4] else 0   # rep index shift of the leading ReLU
+    for i, unit in enumerate(bp["rep"]):
+        _sep(sd, f"{prefix}rep.{3 * i + off}", unit["sep"])
+        _bn(sd, f"{prefix}rep.{3 * i + 1 + off}", unit["bn"],
+            bs["rep"][i]["bn"])
+    if "skip" in bp:
+        sd[f"{prefix}skip.weight"] = _conv(bp["skip"]["w"])
+        _bn(sd, f"{prefix}skipbn", bp["skipbn"], bs["skipbn"])
+    return sd
+
+
 def xception_state_dict(p, s, prefix: str = "") -> Dict[str, torch.Tensor]:
     """models/xception params/state -> reference Xception keys."""
     sd: Dict[str, torch.Tensor] = {}
@@ -58,16 +73,8 @@ def xception_state_dict(p, s, prefix: str = "") -> Dict[str, torch.Tensor]:
     sd[f"{prefix}conv2.weight"] = _conv(p["conv2"]["w"])
     _bn(sd, f"{prefix}bn2", p["bn2"], s["bn2"])
     for b, spec in enumerate(BLOCK_SPECS, start=1):
-        pre = f"{prefix}block{b}"
-        bp, bs = p[f"block{b}"], s[f"block{b}"]
-        off = 1 if spec[4] else 0   # rep index shift of the leading ReLU
-        for i, unit in enumerate(bp["rep"]):
-            _sep(sd, f"{pre}.rep.{3 * i + off}", unit["sep"])
-            _bn(sd, f"{pre}.rep.{3 * i + 1 + off}", unit["bn"],
-                bs["rep"][i]["bn"])
-        if "skip" in bp:
-            sd[f"{pre}.skip.weight"] = _conv(bp["skip"]["w"])
-            _bn(sd, f"{pre}.skipbn", bp["skipbn"], bs["skipbn"])
+        sd.update(block_state_dict(p[f"block{b}"], s[f"block{b}"], spec,
+                                   f"{prefix}block{b}."))
     _sep(sd, f"{prefix}conv3", p["conv3"])
     _bn(sd, f"{prefix}bn3", p["bn3"], s["bn3"])
     _sep(sd, f"{prefix}conv4", p["conv4"])

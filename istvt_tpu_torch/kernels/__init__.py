@@ -16,6 +16,37 @@ attention.py, linear.py, mlp.py (float fused path):
   and for training (autograd.Functions' backward and the FF's stash):
   temporal_attention_packed_bwd, spatial_attention_packed_bwd,
   ln_matmul_bwd, ln_ff_residual_h1, ln_ff_residual_bwd
+  fused_ff                           fc2(gelu_tanh(fc1 x)), the attention-map
+                                     path's feed-forward
 Sources in csrc/, built at first use by _lib.py, which also holds the
 launch counts of every wrapper (_lib.LAUNCHES).
+
+The kernel API, exported here under the names of istvt_tpu.kernels:
+  fused_frame_attention        (G, S, dh) per-frame attention (#14)
+  fused_frame_attention_mh     (G, S, H*dh), every head, no mask (#15)
+  fused_frame_attention_bwd    its backward, separate q, k, v, do (#13)
+  fused_temporal_attention     self-subtract temporal attention on
+                               separate (B, T1, S, H*dh) q, k, v (#16)
+  fused_temporal_attention_bwd its backward (#17)
+  spatial_attention_pallas, temporal_attention_pallas: differentiable
+  entry points (torch.autograd.Function, as JAX's custom_vjp)
+  fused_ff (above)
+and conv.sepconv_bn, the fused [ReLU ->] sepconv -> folded BN (#24).
+#14-#17 and #24 are on no model path, in either package: the models run
+the packed cores and the stem's cuDNN convolutions (the JAX package's
+docstring says its nn/attention.py uses these entry points; it uses the
+packed kernels). They are reached through this API and the tests only.
+Limits: S <= 384 and dh in 16/32/64/128 (#13: 16/32/64) for the spatial
+entries, T1 <= 8 and dh <= 128 for the temporal ones; outside them a CUDA
+tensor raises NotImplementedError.
 """
+from istvt_tpu_torch.kernels.attention import (  # noqa: F401
+    fused_frame_attention,
+    fused_frame_attention_bwd,
+    fused_frame_attention_mh,
+    fused_temporal_attention,
+    fused_temporal_attention_bwd,
+    spatial_attention_pallas,
+    temporal_attention_pallas,
+)
+from istvt_tpu_torch.kernels.mlp import fused_ff  # noqa: F401

@@ -57,6 +57,14 @@ LAUNCHES: Dict[str, int] = dict.fromkeys([
     "ln_ff_residual/bwd",
     # the attention-map path
     "fused_ff",                            # kernels/mlp.py
+    # the kernel API (istvt_tpu_torch.kernels, kernels/conv.py): on no
+    # model path, as in the JAX package
+    "fused_frame_attention",               # kernels/attention.py
+    "fused_frame_attention_mh",
+    "fused_frame_attention_bwd",           # the unpacked entry of #13
+    "fused_temporal_attention",
+    "fused_temporal_attention_bwd",
+    "sepconv_bn",                          # kernels/conv.py
 ], 0)
 
 
@@ -98,6 +106,22 @@ _SIGNATURES = {
     # qkv, dout, dqkv, stats, dt, G, S, H, inner, n_valid, scale, stream
     "istvt_spatial_attn_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P],
+    # q, k, v, out, dt, G, S, H, inner, scale, stream
+    "istvt_frame_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
+                         _P],
+    # q, k, v, dout, dq, dk, dv, stats, dt, G, S, H, inner, n_valid, scale,
+    # stream
+    "istvt_frame_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, ctypes.c_float, _P],
+    # q, k, v, out, dt, B, T1, S, H, dh, scale, stream
+    "istvt_temporal_unpacked": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                ctypes.c_float, _P],
+    # q, k, v, dout, dq, dk, dv, dt, B, T1, S, H, dh, scale, stream
+    "istvt_temporal_unpacked_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, ctypes.c_float, _P],
+    # x, dw, pw, a, b, out, dt, N, H, W, Cin, Cout, relu_in, stream
+    "istvt_sepconv_bn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
 }
 
 _lock = threading.Lock()

@@ -16,7 +16,10 @@
 //     per (frame, head), P = softmax(Q K^T s + mask) with keys >= n_valid masked,
 //     dV = round(P)^T dO, dP = dO V^T, dS = round((P o (dP - rowsum(P o dP))) s),
 //     dQ = dS K, dK = dS^T Q, f32 sums. rowsum(P o dP) is summed directly, as JAX
-//     does, not taken as dO . O (O was rounded to the activation dtype).
+//     does, not taken as dO . O (O was rounded to the activation dtype). The same
+//     kernels serve that function's own separate-tensor signature (the kernel API's
+//     entry, kernels/attention.fused_frame_attention_bwd), reading q, k, v and
+//     writing dq, dk, dv through SplitRows (common.cuh) instead of the packed rows.
 //
 // What bounds them on the H100: the temporal backward is tiny arithmetic (7x7 per
 // location and head) and bound by reading qkv and dO once and writing dqkv once
@@ -177,24 +180,26 @@ __device__ __forceinline__ float masked_score(float dot, float scale, int key, i
 
 // (a) Block = (query tile of 32, head, frame); warp w owns queries 4w..4w+3, lane
 // owns keys 32 m + lane. Writes dQ and stats[(frame, head, row)] = (max, sum, rowsum).
-template <typename T, int DH>
+// kPacked: q is the packed qkv (G, S, 3 inner) and dq the packed dqkv; else q, k, v,
+// dq, dk, dv are (G, S, inner) tensors of their own.
+template <typename T, int DH, bool kPacked>
 __global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
-    const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv,
-    float* __restrict__ stats, int S, int H, int inner, int n_valid, float scale) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats, int S, int H,
+    int inner, int n_valid, float scale) {
   constexpr int DPL = DH >= 32 ? DH / 32 : 1;
   __shared__ __align__(16) float Qs[DH][kSQ + 4];  // Q tile, transposed
   __shared__ __align__(16) float Gs[DH][kSQ + 4];  // dO tile, transposed
   __shared__ float KV[32][DH + 1];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * kSQ, h = blockIdx.y, f = blockIdx.z;
-  const int i3 = 3 * inner;
-  const T* base = qkv + static_cast<size_t>(f) * S * i3 + h * DH;
+  const auto base = rows<kPacked>(q, k, v, inner).at(static_cast<size_t>(f) * S, h * DH);
   const T* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
   const int nch = (S + 31) / 32;
 
   for (int idx = tid; idx < kSQ * DH; idx += 256) {
     const int qq = idx / DH, d = idx % DH, row = q0 + qq;
-    Qs[d][qq] = row < S ? to_f(base[static_cast<size_t>(row) * i3 + d]) : 0.f;
+    Qs[d][qq] = row < S ? to_f(base.q(row)[d]) : 0.f;
     Gs[d][qq] = row < S ? to_f(gbase[static_cast<size_t>(row) * inner + d]) : 0.f;
   }
 
@@ -211,7 +216,7 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
       __syncthreads();
       for (int idx = tid; idx < 32 * DH; idx += 256) {
         const int kk = idx / DH, d = idx % DH, r = m * 32 + kk;
-        KV[kk][d] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + inner + d]) : 0.f;
+        KV[kk][d] = r < S ? to_f(base.k(r)[d]) : 0.f;
       }
       __syncthreads();
       float a[kSW] = {0.f, 0.f, 0.f, 0.f};
@@ -227,7 +232,7 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
       __syncthreads();
       for (int idx = tid; idx < 32 * DH; idx += 256) {
         const int kk = idx / DH, d = idx % DH, r = m * 32 + kk;
-        KV[kk][d] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + 2 * inner + d]) : 0.f;
+        KV[kk][d] = r < S ? to_f(base.v(r)[d]) : 0.f;
       }
       __syncthreads();
       float c[kSW] = {0.f, 0.f, 0.f, 0.f};
@@ -293,7 +298,7 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
       __syncthreads();
       for (int idx = tid; idx < 32 * DH; idx += 256) {
         const int kk = idx / DH, d = idx % DH, r = m * 32 + kk;
-        KV[kk][d] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + inner + d]) : 0.f;
+        KV[kk][d] = r < S ? to_f(base.k(r)[d]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -312,22 +317,24 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
     }
   }
 #pragma unroll
+  const auto ob = rows<kPacked>(dq, dq, dq, inner).at(static_cast<size_t>(f) * S, h * DH);
   for (int qq = 0; qq < kSW; ++qq) {
     const int row = q0 + warp * kSW + qq;
     if (row >= S) continue;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) {
       const int d = lane + 32 * e;
-      if (d < DH) dqkv[(static_cast<size_t>(f) * S + row) * i3 + h * DH + d] = from_f<T>(o[qq][e]);
+      if (d < DH) ob.q(row)[d] = from_f<T>(o[qq][e]);
     }
   }
 }
 
 // (b) Block = (key tile of 32, head, frame); warp w owns keys 4w..4w+3; query chunks
 // of 32 stream through shared memory, lane = query. Writes dK and dV.
-template <typename T, int DH>
+template <typename T, int DH, bool kPacked>
 __global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
-    const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv,
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, T* __restrict__ dk_out, T* __restrict__ dv_out,
     const float* __restrict__ stats, int S, int H, int inner, int n_valid, float scale) {
   constexpr int DPL = DH >= 32 ? DH / 32 : 1;
   __shared__ __align__(16) float Ks[DH][kSQ + 4];  // K tile, transposed
@@ -336,16 +343,15 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
   __shared__ float Gc[32][DH + 1];                 // dO chunk
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int k0 = blockIdx.x * kSQ, h = blockIdx.y, f = blockIdx.z;
-  const int i3 = 3 * inner;
-  const T* base = qkv + static_cast<size_t>(f) * S * i3 + h * DH;
+  const auto base = rows<kPacked>(q, k, v, inner).at(static_cast<size_t>(f) * S, h * DH);
   const T* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
   const float* fstats = stats + (static_cast<size_t>(f) * H + h) * S * 3;
   const int nch = (S + 31) / 32;
 
   for (int idx = tid; idx < kSQ * DH; idx += 256) {
     const int kk = idx / DH, d = idx % DH, r = k0 + kk;
-    Ks[d][kk] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + inner + d]) : 0.f;
-    Vs[d][kk] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + 2 * inner + d]) : 0.f;
+    Ks[d][kk] = r < S ? to_f(base.k(r)[d]) : 0.f;
+    Vs[d][kk] = r < S ? to_f(base.v(r)[d]) : 0.f;
   }
   float dk[kSW][DPL], dv[kSW][DPL];
 #pragma unroll
@@ -357,7 +363,7 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
     __syncthreads();
     for (int idx = tid; idx < 32 * DH; idx += 256) {
       const int qq = idx / DH, d = idx % DH, r = m * 32 + qq;
-      Qc[qq][d] = r < S ? to_f(base[static_cast<size_t>(r) * i3 + d]) : 0.f;
+      Qc[qq][d] = r < S ? to_f(base.q(r)[d]) : 0.f;
       Gc[qq][d] = r < S ? to_f(gbase[static_cast<size_t>(r) * inner + d]) : 0.f;
     }
     __syncthreads();
@@ -414,6 +420,9 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
       }
     }
   }
+  // packed: dk_out is the dqkv (dk, dv at columns inner and 2 inner of its rows)
+  const auto ob =
+      rows<kPacked>(dk_out, dk_out, dv_out, inner).at(static_cast<size_t>(f) * S, h * DH);
 #pragma unroll
   for (int kk = 0; kk < kSW; ++kk) {
     const int key = k0 + warp * kSW + kk;
@@ -422,9 +431,8 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
     for (int e = 0; e < DPL; ++e) {
       const int d = lane + 32 * e;
       if (d < DH) {
-        T* o = dqkv + (static_cast<size_t>(f) * S + key) * i3 + h * DH + d;
-        o[inner] = from_f<T>(dk[kk][e]);
-        o[2 * inner] = from_f<T>(dv[kk][e]);
+        ob.k(key)[d] = from_f<T>(dk[kk][e]);
+        ob.v(key)[d] = from_f<T>(dv[kk][e]);
       }
     }
   }
@@ -448,27 +456,43 @@ int launch_temporal_bwd(const void* qkv, const void* dout, void* dqkv, int B, in
   return 0;
 }
 
-template <typename T, int DH>
-void launch_spatial_bwd_dh(const T* qkv, const T* g, T* dqkv, float* stats, int G, int S, int H,
-                           int inner, int n_valid, float scale, cudaStream_t st) {
+// Packed: q = qkv, dq = dqkv (k, v, dk, dv unused). Unpacked: six tensors of their own.
+template <typename T, int DH, bool kPacked>
+void launch_spatial_bwd_dh(const T* q, const T* k, const T* v, const T* g, T* dq, T* dk, T* dv,
+                           float* stats, int G, int S, int H, int inner, int n_valid, float scale,
+                           cudaStream_t st) {
   dim3 grid((S + kSQ - 1) / kSQ, H, G);
-  spatial_attn_bwd_dq_kernel<T, DH><<<grid, 256, 0, st>>>(qkv, g, dqkv, stats, S, H, inner,
-                                                          n_valid, scale);
-  spatial_attn_bwd_dkv_kernel<T, DH><<<grid, 256, 0, st>>>(qkv, g, dqkv, stats, S, H, inner,
-                                                           n_valid, scale);
+  spatial_attn_bwd_dq_kernel<T, DH, kPacked><<<grid, 256, 0, st>>>(q, k, v, g, dq, stats, S, H,
+                                                                   inner, n_valid, scale);
+  spatial_attn_bwd_dkv_kernel<T, DH, kPacked><<<grid, 256, 0, st>>>(
+      q, k, v, g, kPacked ? dq : dk, dv, stats, S, H, inner, n_valid, scale);
 }
 
-template <typename T>
-int launch_spatial_bwd(const void* qkv, const void* dout, void* dqkv, void* stats, int G, int S,
-                       int H, int inner, int n_valid, float scale, cudaStream_t st) {
-  auto in = static_cast<const T*>(qkv);
+template <typename T, bool kPacked>
+int launch_spatial_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                       void* dk, void* dv, void* stats, int G, int S, int H, int inner,
+                       int n_valid, float scale, cudaStream_t st) {
+  auto qp = static_cast<const T*>(q);
+  auto kp = static_cast<const T*>(k);
+  auto vp = static_cast<const T*>(v);
   auto g = static_cast<const T*>(dout);
-  auto o = static_cast<T*>(dqkv);
+  auto dqp = static_cast<T*>(dq);
+  auto dkp = static_cast<T*>(dk);
+  auto dvp = static_cast<T*>(dv);
   auto sts = static_cast<float*>(stats);
   switch (inner / H) {
-    case 16: launch_spatial_bwd_dh<T, 16>(in, g, o, sts, G, S, H, inner, n_valid, scale, st); break;
-    case 32: launch_spatial_bwd_dh<T, 32>(in, g, o, sts, G, S, H, inner, n_valid, scale, st); break;
-    case 64: launch_spatial_bwd_dh<T, 64>(in, g, o, sts, G, S, H, inner, n_valid, scale, st); break;
+    case 16:
+      launch_spatial_bwd_dh<T, 16, kPacked>(qp, kp, vp, g, dqp, dkp, dvp, sts, G, S, H, inner,
+                                            n_valid, scale, st);
+      break;
+    case 32:
+      launch_spatial_bwd_dh<T, 32, kPacked>(qp, kp, vp, g, dqp, dkp, dvp, sts, G, S, H, inner,
+                                            n_valid, scale, st);
+      break;
+    case 64:
+      launch_spatial_bwd_dh<T, 64, kPacked>(qp, kp, vp, g, dqp, dkp, dvp, sts, G, S, H, inner,
+                                            n_valid, scale, st);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
@@ -498,10 +522,28 @@ int istvt_spatial_attn_bwd(const void* qkv, const void* dout, void* dqkv, void* 
                            int G, int S, int H, int inner, int n_valid, float scale,
                            void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  int rc = dt == kBF16 ? launch_spatial_bwd<__nv_bfloat16>(qkv, dout, dqkv, stats, G, S, H,
-                                                           inner, n_valid, scale, st)
-                       : launch_spatial_bwd<float>(qkv, dout, dqkv, stats, G, S, H, inner,
-                                                   n_valid, scale, st);
+  int rc = dt == kBF16
+               ? launch_spatial_bwd<__nv_bfloat16, true>(qkv, nullptr, nullptr, dout, dqkv,
+                                                         nullptr, nullptr, stats, G, S, H, inner,
+                                                         n_valid, scale, st)
+               : launch_spatial_bwd<float, true>(qkv, nullptr, nullptr, dout, dqkv, nullptr,
+                                                 nullptr, stats, G, S, H, inner, n_valid, scale,
+                                                 st);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q, k, v, dout (G, S, inner) -> dq, dk, dv (G, S, inner); keys >= n_valid masked;
+// stats f32 (G, H, S, 3) scratch; S <= 384, inner / H in {16, 32, 64}.
+int istvt_frame_attn_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                         void* dk, void* dv, void* stats, int dt, int G, int S, int H, int inner,
+                         int n_valid, float scale, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  int rc = dt == kBF16 ? launch_spatial_bwd<__nv_bfloat16, false>(q, k, v, dout, dq, dk, dv,
+                                                                  stats, G, S, H, inner, n_valid,
+                                                                  scale, st)
+                       : launch_spatial_bwd<float, false>(q, k, v, dout, dq, dk, dv, stats, G, S,
+                                                          H, inner, n_valid, scale, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

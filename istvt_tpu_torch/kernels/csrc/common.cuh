@@ -98,4 +98,48 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return __fmul_rn(x, cdf);
 }
 
+// Where the attention cores find row r of q, k and v (or of dq, dk and dv; P is a const
+// or a mutable element pointer). `at(row0, col)` moves all three to row row0 and
+// column col, e.g. to the first token of frame f and the first column of head h.
+//   PackedRows: one [q | k | v] tensor of 3 inner columns (the serving and training
+//     paths). Its addresses are those the cores computed before the kernel API's
+//     entries came, so the generated code of #1, #2, #9 and #10 stays as it was.
+//   SplitRows: three tensors with rows of rs elements (the kernel API's unpacked
+//     entries #13, #14, #15: rs = H dh).
+// rows<kPacked>(q, k, v, inner) makes the one or the other; a packed caller passes its
+// qkv as q (k and v are not read).
+template <typename P>
+struct PackedRows {
+  P base;
+  int inner;
+  __device__ __forceinline__ PackedRows at(size_t row0, int col) const {
+    return {base + row0 * (3 * inner) + col, inner};
+  }
+  __device__ __forceinline__ P q(int r) const { return base + static_cast<size_t>(r) * (3 * inner); }
+  __device__ __forceinline__ P k(int r) const { return q(r) + inner; }
+  __device__ __forceinline__ P v(int r) const { return q(r) + 2 * inner; }
+};
+
+template <typename P>
+struct SplitRows {
+  P qb, kb, vb;
+  int rs;
+  __device__ __forceinline__ SplitRows at(size_t row0, int col) const {
+    const size_t o = row0 * rs + col;
+    return {qb + o, kb + o, vb + o, rs};
+  }
+  __device__ __forceinline__ P q(int r) const { return qb + static_cast<size_t>(r) * rs; }
+  __device__ __forceinline__ P k(int r) const { return kb + static_cast<size_t>(r) * rs; }
+  __device__ __forceinline__ P v(int r) const { return vb + static_cast<size_t>(r) * rs; }
+};
+
+template <bool kPacked, typename P>
+__device__ __forceinline__ auto rows(P q, P k, P v, int inner) {
+  if constexpr (kPacked) {
+    return PackedRows<P>{q, inner};
+  } else {
+    return SplitRows<P>{q, k, v, inner};
+  }
+}
+
 }  // namespace istvt

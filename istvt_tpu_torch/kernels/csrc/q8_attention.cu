@@ -31,6 +31,14 @@
 // stays on the FMA pipes in f32; moving QK^T and PV to the bf16 tensor cores
 // is later work. The bodies are device functions in q8_attention.cuh, which
 // q8_layer.cu (#9) runs inside its persistent kernel.
+//
+// The spatial core also serves the kernel API's unpacked entries, on separate
+// q, k, v tensors (SplitRows) and without a mask (n_valid = S):
+//   * istvt_tpu/kernels/attention.py fused_frame_attention_mh (_attn_kernel_mh):
+//     q, k, v (G, S, H dh), every head of a frame;
+//   * fused_frame_attention (_attn_kernel): q, k, v (G, S, dh), the same with H = 1.
+// Both compute _mh_attention_vmem's math (f32 scores, exact softmax, the
+// probabilities cast to v's dtype before PV), which is #10's.
 #include "q8_attention.cuh"
 
 namespace istvt {
@@ -53,6 +61,16 @@ __global__ void __launch_bounds__(256) spatial_attn_kernel(
   __shared__ __align__(16) float smem[spatial_smem_floats(DH)];
   spatial_attn_tile<T, DH>(qkv, out, S, inner, n_valid, scale, blockIdx.x, blockIdx.y,
                            blockIdx.z, smem);
+}
+
+// (v) on separate q, k, v: block = (query tile of 32, head, frame), no mask.
+template <typename T, int DH>
+__global__ void __launch_bounds__(256) frame_attn_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, int S, int inner, float scale) {
+  __shared__ __align__(16) float smem[spatial_smem_floats(DH)];
+  spatial_attn_tile_rows<T, DH>(SplitRows<const T*>{q, k, v, inner}, out, S, inner, S, scale,
+                                blockIdx.x, blockIdx.y, blockIdx.z, smem);
 }
 
 template <typename T>
@@ -89,6 +107,24 @@ int launch_spatial(const void* qkv, void* out, int G, int S, int H, int inner, i
   return 0;
 }
 
+template <typename T>
+int launch_frame(const void* q, const void* k, const void* v, void* out, int G, int S, int H,
+                 int inner, float scale, cudaStream_t st) {
+  dim3 grid((S + kQT - 1) / kQT, H, G);
+  auto qp = static_cast<const T*>(q);
+  auto kp = static_cast<const T*>(k);
+  auto vp = static_cast<const T*>(v);
+  auto o = static_cast<T*>(out);
+  switch (inner / H) {
+    case 16: frame_attn_kernel<T, 16><<<grid, 256, 0, st>>>(qp, kp, vp, o, S, inner, scale); break;
+    case 32: frame_attn_kernel<T, 32><<<grid, 256, 0, st>>>(qp, kp, vp, o, S, inner, scale); break;
+    case 64: frame_attn_kernel<T, 64><<<grid, 256, 0, st>>>(qp, kp, vp, o, S, inner, scale); break;
+    case 128: frame_attn_kernel<T, 128><<<grid, 256, 0, st>>>(qp, kp, vp, o, S, inner, scale); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
 }  // namespace istvt
 
 using namespace istvt;
@@ -113,6 +149,17 @@ int istvt_spatial_attn(const void* qkv, void* out, int dt, int G, int S, int H, 
   int rc = dt == kBF16
                ? launch_spatial<__nv_bfloat16>(qkv, out, G, S, H, inner, n_valid, scale, st)
                : launch_spatial<float>(qkv, out, G, S, H, inner, n_valid, scale, st);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q, k, v (G, S, inner) -> out (G, S, inner), no mask; S <= 384, inner / H in
+// {16, 32, 64, 128}.
+int istvt_frame_attn(const void* q, const void* k, const void* v, void* out, int dt, int G, int S,
+                     int H, int inner, float scale, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  int rc = dt == kBF16 ? launch_frame<__nv_bfloat16>(q, k, v, out, G, S, H, inner, scale, st)
+                       : launch_frame<float>(q, k, v, out, G, S, H, inner, scale, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -98,23 +98,23 @@ __host__ __device__ constexpr int spatial_smem_floats(int dh) {
   return dh * (kQT + 4) + 32 * (dh + 1);
 }
 
-template <typename T, int DH>
-__device__ __forceinline__ void spatial_attn_tile(const T* qkv, T* out, int S, int inner,
-                                                  int n_valid, float scale, int q_tile, int h,
-                                                  int f, float* smem) {
+// The tile on q / k / v rows `src` (any Rows above); out has rows of `inner` elements.
+template <typename T, int DH, typename Rows>
+__device__ __forceinline__ void spatial_attn_tile_rows(const Rows& src, T* out, int S, int inner,
+                                                       int n_valid, float scale, int q_tile,
+                                                       int h, int f, float* smem) {
   constexpr int DPL = DH >= 32 ? DH / 32 : 1;
   constexpr int kQS = kQT + 4, kKS = DH + 1;  // row strides of Qs [DH][kQS], KV [32][kKS]
   float* Qs = smem;
   float* KV = smem + DH * kQS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = q_tile * kQT;
-  const int i3 = 3 * inner;
-  const T* base = qkv + static_cast<size_t>(f) * S * i3 + h * DH;
+  const Rows base = src.at(static_cast<size_t>(f) * S, h * DH);
   const int nch = (S + 31) / 32;
 
   for (int idx = tid; idx < kQT * DH; idx += 256) {
     const int qq = idx / DH, d = idx % DH, row = q0 + qq;
-    Qs[d * kQS + qq] = row < S ? to_f(base[static_cast<size_t>(row) * i3 + d]) : 0.f;
+    Qs[d * kQS + qq] = row < S ? to_f(base.q(row)[d]) : 0.f;
   }
 
   float sc[kQW][kMaxCh];
@@ -124,7 +124,7 @@ __device__ __forceinline__ void spatial_attn_tile(const T* qkv, T* out, int S, i
       __syncthreads();
       for (int idx = tid; idx < 32 * DH; idx += 256) {
         const int kk = idx / DH, d = idx % DH, key = m * 32 + kk;
-        KV[kk * kKS + d] = key < S ? to_f(base[static_cast<size_t>(key) * i3 + inner + d]) : 0.f;
+        KV[kk * kKS + d] = key < S ? to_f(base.k(key)[d]) : 0.f;
       }
       __syncthreads();
       float a[kQW] = {0.f, 0.f, 0.f, 0.f};
@@ -178,8 +178,7 @@ __device__ __forceinline__ void spatial_attn_tile(const T* qkv, T* out, int S, i
       __syncthreads();
       for (int idx = tid; idx < 32 * DH; idx += 256) {
         const int kk = idx / DH, d = idx % DH, key = m * 32 + kk;
-        KV[kk * kKS + d] =
-            key < S ? to_f(base[static_cast<size_t>(key) * i3 + 2 * inner + d]) : 0.f;
+        KV[kk * kKS + d] = key < S ? to_f(base.v(key)[d]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -207,6 +206,15 @@ __device__ __forceinline__ void spatial_attn_tile(const T* qkv, T* out, int S, i
       if (d < DH) out[(static_cast<size_t>(f) * S + row) * inner + h * DH + d] = from_f<T>(o[qq][e]);
     }
   }
+}
+
+// The packed form, as #1, #2, #9 and #10 call it: qkv (G, S, 3 inner).
+template <typename T, int DH>
+__device__ __forceinline__ void spatial_attn_tile(const T* qkv, T* out, int S, int inner,
+                                                  int n_valid, float scale, int q_tile, int h,
+                                                  int f, float* smem) {
+  spatial_attn_tile_rows<T, DH>(PackedRows<const T*>{qkv, inner}, out, S, inner, n_valid, scale,
+                                q_tile, h, f, smem);
 }
 
 }  // namespace istvt

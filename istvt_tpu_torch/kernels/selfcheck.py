@@ -37,19 +37,49 @@ tools/q8_layer_diag.py). So #9 is held in f32 as a free-running chain is
 #1 -> #2 -> #3 compute is held bit for bit by
 tests/test_torch_kernels_gpu.py.
 
-Case names are the wrappers' launch-count names (kernels/_lib.LAUNCHES).
+The kernel API's entries (#13's unpacked entry, #14-#17, #24 sepconv_bn)
+are on no model path; their cases take the slice's attention shapes (#14
+folds the heads into G = 2 x 7 x 8 = 112), the temporal ones also at
+S = n_valid (362, the shape tests/test_tpu_smoke.py:109 holds JAX to), and
+sepconv_bn the Xception stem's four stride-1 units over 12 frames (2 clips
+x 6): block1's 147^2 x 64 -> 128 (no pre-ReLU) and 128 -> 128, block2's
+74^2 x 128 -> 256, block3's 37^2 x 256 -> 728 (SMALL: 13 x 11 up to 4 x 4,
+channels off the kernel's 32 / 64 tiles). They are held by the float
+criteria; #16 and #17 follow JAX's bf16 roundings, so in bf16 they agree
+with their plain versions almost bit for bit.
+
+Case names are the wrappers' launch-count names (kernels/_lib.LAUNCHES),
+one case each; a few kernels have more cases at other shapes,
+"name@shape", which count under `counter(case)`.
 """
 from __future__ import annotations
 
 import torch
 
-from istvt_tpu_torch.kernels import attention, linear, mlp, quant
+from istvt_tpu_torch.kernels import _lib, attention, conv, linear, mlp, quant
 
 # the serving slice at the paper geometry, and the small geometry of the
-# JAX package's kernel tests (tests/test_quant.py:207; dim_head 16)
+# JAX package's kernel tests (tests/test_quant.py:207; dim_head 16);
+# units: sepconv_bn's cases, (H, W, Cin, Cout, relu_in) over `frames`
 SLICE = dict(b=2, t1=7, s=368, n_valid=362, d=728, inner=512, heads=8,
-             hid=2912)
-SMALL = dict(b=2, t1=4, s=32, n_valid=26, d=128, inner=64, heads=4, hid=256)
+             hid=2912, frames=12,
+             units={"block1.0": (147, 147, 64, 128, False),
+                    "block1.1": (147, 147, 128, 128, True),
+                    "block2.0": (74, 74, 128, 256, True),
+                    "block3.0": (37, 37, 256, 728, True)})
+SMALL = dict(b=2, t1=4, s=32, n_valid=26, d=128, inner=64, heads=4, hid=256,
+             frames=2,
+             units={"block1.0": (13, 11, 16, 24, False),
+                    "block1.1": (13, 11, 24, 24, True),
+                    "block2.0": (7, 6, 24, 40, True),
+                    "block3.0": (4, 4, 40, 72, True)})
+# the kernel API's sepconv_bn case (the unit chip_smoke.py's kernel API
+# phase runs) and the cases at other shapes
+SEPCONV_UNIT = "block2.0"
+VARIANTS = ("fused_temporal_attention@n_valid",
+            "fused_temporal_attention_bwd@n_valid",
+            *(f"sepconv_bn@{u}" for u in SLICE["units"] if u != SEPCONV_UNIT))
+CASES = tuple(_lib.LAUNCHES) + VARIANTS
 INT8_CASES = ("ln_qkv_q8_temporal_attention",
               "mm_q8_ln_qkv_q8_spatial_attention",
               "matmul_q8_res_ln_ff_q8_full", "ln_matmul_q8",
@@ -57,13 +87,22 @@ INT8_CASES = ("ln_qkv_q8_temporal_attention",
               "matmul_q8_bias_residual/no_r", "ln_ff_residual_q8",
               "st_layer_q8", "ln_ff_residual_q8_full")
 BWD_CASES = ("temporal_attention_packed/bwd", "spatial_attention_packed/bwd",
-             "ln_matmul/bwd", "ln_ff_residual/bwd")
+             "ln_matmul/bwd", "ln_ff_residual/bwd",
+             "fused_frame_attention_bwd", "fused_temporal_attention_bwd")
+# kernels that follow JAX's bf16 roundings op for op: the share of their
+# bf16 outputs equal to the plain version's bit for bit is reported
+BITWISE_CASES = ("fused_temporal_attention", "fused_temporal_attention_bwd")
 FREE_RUNNING_CASES = ("st_layer_q8",)
 F32_TOL_INT8, F32_TOL_FLOAT, F32_TOL_FREE_RUNNING = 2e-3, 1e-5, 1e-2
 
 
+def counter(case: str) -> str:
+    """The launch counter of a case: its name up to any '@shape'."""
+    return case.split("@")[0]
+
+
 def slice_cases(device, geometry=SLICE, seed: int = 0):
-    """{kernel name: (wrapper, plain, make_args(dtype))}."""
+    """{case name (CASES): (wrapper, plain, make_args(dtype))}."""
     g = torch.Generator().manual_seed(seed)
     b, t1, s, n_valid = (geometry[k] for k in ("b", "t1", "s", "n_valid"))
     d, inner, heads, hid = (geometry[k] for k in ("d", "inner", "heads",
@@ -109,6 +148,24 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
     # the draws above stay those of the other cases)
     wqs2, wss2 = q8(d, 3 * inner)
     wos2, sos2 = q8(inner, d)
+    # the kernel API: unpacked q, k, v (and out-grads), drawn after the rest
+    dh = inner // heads
+    fq, fk, fv = (rn(b * t1 * heads, s, dh) for _ in range(3))
+    mq, mk, mv, mg = (rn(b * t1, s, inner) for _ in range(4))
+    tq, tk, tv, tg = (rn(b, t1, s, inner) for _ in range(4))
+    units = {}
+    for name, (uh, uw, cin, cout, relu_in) in geometry["units"].items():
+        bn = (torch.rand(cout, generator=g) + 0.5, rn(cout, scale=0.1),
+              rn(cout, scale=0.05), torch.rand(cout, generator=g) + 0.5)
+        units[name] = (rn(geometry["frames"], uh, uw, cin, scale=0.5),
+                       init(9, 9, cin), init(cin, cin, cout),
+                       *conv.fold_bn(*bn), relu_in)
+
+    def unit_case(name):
+        x, dw, pw, a, b_, relu_in = units[name]
+        return (conv.sepconv_bn, conv.sepconv_bn_plain,
+                lambda dt: [*on(dt, x), *on(torch.float32, dw, pw, a, b_),
+                            relu_in])
 
     def on(dt, *ts):
         return [t.to(device, dt) for t in ts]
@@ -119,7 +176,7 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
         h1 = mlp.ln_ff_residual_h1_plain(xr, s_, b_, w1_, b1_, w2_, b2_)[1]
         return [xr, s_, b_, w1_, h1, w2_, *on(dt, g_rows)]
 
-    return {
+    cases = {
         "ln_qkv_q8_temporal_attention": (
             quant.ln_qkv_q8_temporal_attention, quant.ln_qkv_q8_temporal_plain,
             lambda dt: [*on(dt, x, ln_s, ln_b), wqt, wst, heads]),
@@ -203,7 +260,41 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
         "fused_ff": (
             mlp.fused_ff, mlp.fused_ff_plain,
             lambda dt: on(dt, ff_rows, w1, b1f, w2, b2f)),
+        "fused_frame_attention": (
+            attention.fused_frame_attention,
+            attention.fused_frame_attention_plain,
+            lambda dt: on(dt, fq, fk, fv)),
+        "fused_frame_attention_mh": (
+            attention.fused_frame_attention_mh,
+            attention.fused_frame_attention_mh_plain,
+            lambda dt: [*on(dt, mq, mk, mv), heads]),
+        "fused_frame_attention_bwd": (
+            attention.fused_frame_attention_bwd,
+            attention.fused_frame_attention_bwd_plain,
+            lambda dt: [*on(dt, mq, mk, mv, mg), heads]),
+        "fused_temporal_attention": (
+            attention.fused_temporal_attention,
+            attention.fused_temporal_attention_plain,
+            lambda dt: [*on(dt, tq, tk, tv), heads]),
+        "fused_temporal_attention@n_valid": (
+            attention.fused_temporal_attention,
+            attention.fused_temporal_attention_plain,
+            lambda dt: [*(t[:, :, :n_valid].contiguous()
+                          for t in on(dt, tq, tk, tv)), heads]),
+        "fused_temporal_attention_bwd": (
+            attention.fused_temporal_attention_bwd,
+            attention.fused_temporal_attention_bwd_plain,
+            lambda dt: [*on(dt, tq, tk, tv, tg), heads]),
+        "fused_temporal_attention_bwd@n_valid": (
+            attention.fused_temporal_attention_bwd,
+            attention.fused_temporal_attention_bwd_plain,
+            lambda dt: [*(t[:, :, :n_valid].contiguous()
+                          for t in on(dt, tq, tk, tv, tg)), heads]),
+        "sepconv_bn": unit_case(SEPCONV_UNIT),
+        **{f"sepconv_bn@{u}": unit_case(u) for u in units
+           if u != SEPCONV_UNIT},
     }
+    return {c: cases[c] for c in CASES}
 
 
 def outputs(out) -> tuple:
@@ -215,6 +306,7 @@ def f32_tol(case: str) -> float:
     """The f32 criterion of a case: atol = rtol, for a backward case the
     bound on max|diff| / max|plain| of every output, for a free-running
     case the bound on rel-L2 (with max|diff| < 0.02 max|plain|)."""
+    case = counter(case)
     if case in FREE_RUNNING_CASES:
         return F32_TOL_FREE_RUNNING
     return F32_TOL_INT8 if case in INT8_CASES else F32_TOL_FLOAT
@@ -229,7 +321,7 @@ def f32_close(case: str, got, want) -> tuple:
     tol, ok, err = f32_tol(case), True, 0.0
     for g, w in zip(outputs(got), outputs(want)):
         diff = (g.float() - w.float()).abs().max().item()
-        if case in BWD_CASES:
+        if counter(case) in BWD_CASES:
             e = diff / max(w.float().abs().max().item(), 1e-30)
             ok = ok and e <= tol
         else:
@@ -253,3 +345,12 @@ def bf16_close(got, want, rel_l2: float = 1e-2, max_frac: float = 0.02):
         ok = ok and rel < rel_l2 and mx < max_frac * scale
         worst = max(worst, (rel, mx, scale))
     return (ok,) + worst
+
+
+def bit_equal_share(got, want) -> float:
+    """The share of elements, over every output, equal bit for bit."""
+    same = total = 0
+    for g, w in zip(outputs(got), outputs(want)):
+        same += int((g == w).sum().item())
+        total += w.numel()
+    return same / max(total, 1)

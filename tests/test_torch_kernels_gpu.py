@@ -4,7 +4,10 @@ the small geometry of the JAX kernel tests (dim_head 16, S = 32): every
 launch counter of kernels/_lib.LAUNCHES, the training slice's backward
 kernels and h1-stash forward and the int8 A/B modes' kernels included;
 the one-kernel layer #9 at more shapes and against the #1 -> #2 -> #3
-chain; then small models on the card against the CPU.
+chain; the kernel API's entries (#13's unpacked entry, #14-#17, #24) against
+their plain versions, the packed cores they share device code with, and the
+differentiable wrappers' backward on the card; then small models on the
+card against the CPU.
 
 Needs an NVIDIA GPU with nvcc: marked `gpu`, and skipped (inside the
 fixture, not at import) where torch sees no CUDA device. Run on the card:
@@ -14,12 +17,12 @@ import pytest
 import torch
 
 from istvt_tpu_torch.core.precision import highest
-from istvt_tpu_torch.kernels import _lib, attention, linear, selfcheck
+from istvt_tpu_torch.kernels import _lib, attention, conv, linear, selfcheck
 from istvt_tpu_torch.models.xception import to_store
 
 pytestmark = pytest.mark.gpu
 
-KERNELS = list(_lib.LAUNCHES)
+KERNELS = list(selfcheck.CASES)
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +45,8 @@ def test_kernel_f32_matches_plain(cases, name):
     with highest():
         got, want = kern(*args), plain(*args)
     torch.cuda.synchronize()
-    assert _lib.LAUNCHES == {**before, name: before[name] + 1}
+    n = selfcheck.counter(name)
+    assert _lib.LAUNCHES == {**before, n: before[n] + 1}
     ok, err = selfcheck.f32_close(name, got, want)
     assert ok, f"max|diff| {err}"
 
@@ -277,3 +281,95 @@ def test_st_layer_q8_rejects_what_the_kernel_cannot_take(cuda):
         quant.st_layer_q8(x, *cpu_v)
     with pytest.raises(ValueError, match="B, T1, S, D"):
         quant.st_layer_q8(x[0], *rest)
+
+
+def test_unpacked_spatial_entries_equal_the_packed_core(cuda):
+    """#15 and #13's unpacked entry run the packed cores' device code on
+    separate tensors: on the same numbers they equal spatial_attention_packed
+    (n_valid = S) and spatial_attention_packed_bwd bit for bit, f32 and
+    bf16."""
+    g = torch.Generator().manual_seed(0)
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(14, 368, 3 * 512, generator=g).to(cuda, dt)
+        go = torch.randn(14, 368, 512, generator=g).to(cuda, dt)
+        q, k, v = (t.contiguous() for t in qkv.split(512, dim=-1))
+        assert torch.equal(attention.fused_frame_attention_mh(q, k, v, 8),
+                           attention.spatial_attention_packed(qkv, 8))
+        for n_valid in (-1, 362):
+            got = attention.fused_frame_attention_bwd(q, k, v, go, 8, n_valid)
+            want = attention.spatial_attention_packed_bwd(qkv, go, 8, n_valid)
+            assert torch.equal(torch.cat(got, dim=-1), want), (dt, n_valid)
+        torch.cuda.synchronize()
+
+
+def test_kernel_api_wrappers_backward_on_card(cuda):
+    """spatial_attention_pallas and temporal_attention_pallas on the card:
+    forward #15 / #16, backward #13 / #17 (one launch each), the gradients
+    against autograd through JAX's XLA references in f32 at max|diff| <=
+    2e-4 max|ref| (the kernels' math, summed in another order); sepconv_bn's
+    backward is autograd through its reference and launches nothing."""
+    g = torch.Generator().manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    cases = (
+        (attention.spatial_attention_pallas, attention._spatial_reference,
+         [rnd(2, 3, 40, 2, 32) for _ in range(4)],
+         {"fused_frame_attention_mh": 1, "fused_frame_attention_bwd": 1}),
+        (lambda a, b, c: attention.temporal_attention_pallas(a, b, c, 2),
+         lambda a, b, c: attention._temporal_reference(a, b, c, 2),
+         [rnd(2, 7, 40, 64) for _ in range(4)],
+         {"fused_temporal_attention": 1, "fused_temporal_attention_bwd": 1}))
+    with highest():
+        for fn, ref, (q, k, v, go), launches in cases:
+            _lib.reset_launches()
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves)
+            got = torch.autograd.grad(out, leaves, go)
+            torch.cuda.synchronize()
+            assert _lib.LAUNCHES == {**dict.fromkeys(_lib.LAUNCHES, 0),
+                                     **launches}
+            want = attention._reference_grads(ref, (q, k, v), go)
+            assert (out - ref(q, k, v)).abs().max() <= 1e-5
+            for a, b in zip(got, want):
+                assert (a - b).abs().max() <= 2e-4 * b.abs().max()
+        x = rnd(2, 20, 30, 48).requires_grad_()
+        dw, pw, a, b = rnd(9, 48), rnd(48, 80), rnd(80), rnd(80)
+        _lib.reset_launches()
+        out = conv.sepconv_bn(x, dw, pw, a, b, True)
+        (gx,) = torch.autograd.grad(out.square().sum(), x)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["sepconv_bn"] == 1
+        ref = conv._sepconv_bn_reference(x, dw, pw, a, b, True)
+        (gr,) = torch.autograd.grad(ref.square().sum(), x)
+        assert (out - ref).abs().max() <= 1e-5 * (1 + ref.abs().max())
+        assert (gx - gr).abs().max() <= 1e-5 * gr.abs().max()
+
+
+def test_kernel_api_rejects_what_the_kernels_cannot_take(cuda):
+    q = torch.zeros(4, 392, 64, device=cuda)                 # S > 384
+    with pytest.raises(NotImplementedError, match="S <= 384"):
+        attention.fused_frame_attention(q, q, q)
+    q = torch.zeros(4, 64, 96, device=cuda)                  # dh 48
+    with pytest.raises(NotImplementedError, match="dim_head"):
+        attention.fused_frame_attention_mh(q, q, q, 2)
+    q = torch.zeros(4, 64, 256, device=cuda)                 # #13: dh 128
+    with pytest.raises(NotImplementedError, match="dim_head"):
+        attention.fused_frame_attention_bwd(q, q, q, q, 2)
+    t = torch.zeros(1, 9, 8, 64, device=cuda)                # T1 > 8
+    with pytest.raises(NotImplementedError, match="T1 <= 8"):
+        attention.fused_temporal_attention(t, t, t, 2)
+    with pytest.raises(NotImplementedError, match="T1 <= 8"):
+        attention.fused_temporal_attention_bwd(t, t, t, t, 2)
+    t = torch.zeros(1, 7, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="want"):
+        attention.fused_temporal_attention(t, t.cpu(), t, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.fused_temporal_attention(t, t.transpose(2, 3), t, 2)
+    x = torch.zeros(1, 8, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="Cin"):
+        conv.sepconv_bn(x, torch.zeros(9, 8, device=cuda),
+                        torch.zeros(8, 8, device=cuda),
+                        torch.ones(8, device=cuda),
+                        torch.zeros(8, device=cuda))

@@ -43,7 +43,10 @@ def test_config_copy_matches_jax():
 
 def test_cpu_tensors_take_plain_path_and_count_nothing():
     cases = selfcheck.slice_cases(torch.device("cpu"))
-    assert list(cases) == list(_lib.LAUNCHES)   # one case per counter
+    assert list(cases) == list(selfcheck.CASES)
+    # one case per counter, and the rest ("name@shape") count under one
+    assert [c for c in cases if "@" not in c] == list(_lib.LAUNCHES)
+    assert {selfcheck.counter(c) for c in cases} == set(_lib.LAUNCHES)
     _lib.reset_launches()
     kern, plain, make = cases["ln_qkv_q8_temporal_attention"]
     args = make(torch.float32)
