@@ -19,7 +19,14 @@ path reaches. In phases; any failure raises and exits non-zero:
 
   1. device   - a CUDA device is required; prints nvidia-smi's name and
                 power limit and the torch / CUDA versions
-  2. build    - nvcc builds every kernel from istvt_tpu_torch/kernels/csrc
+  2. build    - nvcc builds every kernel from istvt_tpu_torch/kernels/csrc;
+                from cuobjdump -sass of the library, every bf16
+                instantiation of the kernels that run the spatial attention
+                core or its backward (#2 and #10's spatial_attn_kernel,
+                #14 / #15's frame_attn_kernel, #9's st_layer_q8_kernel,
+                both passes of #13) has tensor-core instructions (HMMA /
+                HGMMA) and no f32 one but #9's has any
+                (selfcheck.tensor_core_check)
   3. kernels  - each of the 24 kernels (kernels/selfcheck.CASES: one case
                 per launch counter -- #20 and #5 with and without their
                 residual; the training slice's four backward kernels and
@@ -143,7 +150,11 @@ from istvt_tpu_torch.interpret import (  # noqa: E402
 from istvt_tpu_torch.kernels import _lib, selfcheck  # noqa: E402
 from istvt_tpu_torch.models import istvt  # noqa: E402
 from istvt_tpu_torch.serve_daemon import ServeDaemon  # noqa: E402
-from torch_forward_ms import forward_times  # noqa: E402
+from torch_forward_ms import INT8_MODES as TOOL_MODES  # noqa: E402
+from torch_forward_ms import PACKED, forward_times, set_mode  # noqa: E402
+from torch_train_ms import (TRAIN_BATCH, build_trainer,  # noqa: E402
+                            paper_trainer, train_times, warm_up)
+from kernel_ms import median_ms  # noqa: E402
 
 # the two paths, by their cli/serve.py flags, at the CLI's default paper
 # geometry (300^2 x 6, depth 12)
@@ -226,11 +237,10 @@ SERVE_PER_LAYER = {
               "spatial_attention_packed": 1, "matmul_bias_residual": 1,
               "matmul_bias_residual/no_r": 1, "ln_ff_residual": 1},
 }
-# the int8 A/B modes after the int8 path: (q8_ff, q8_attn) and launches
-# per layer of one forward (models/istvt.py:258-356)
-INT8_MODES = {"boundary": ("full", "boundary"), "mixed": ("mixed", "ingest"),
-              "bf16_ff": ("bf16", "ingest"), "layer": ("full", "layer"),
-              "ff_int8": ("int8", "ingest")}
+# the int8 A/B modes after the int8 path: (q8_ff, q8_attn)
+# (torch_forward_ms.INT8_MODES, 'ingest' being the int8 path itself) and
+# launches per layer of one forward (models/istvt.py:258-356)
+INT8_MODES = {m: v for m, v in TOOL_MODES.items() if m != "ingest"}
 _Q8_BLOCKS = {"ln_matmul_q8": 2, "temporal_attention_packed": 1,
               "spatial_attention_packed": 1, "matmul_q8_bias_residual": 1,
               "matmul_q8_bias_residual/no_r": 1}
@@ -249,8 +259,6 @@ MODE_PER_LAYER = {
 SAME_AS_INGEST = ("boundary", "layer")
 CHAIN_KERNELS = ("quant_rows_kernel", "gemm_q8_kernel", "temporal_attn_kernel",
                  "spatial_attn_kernel")
-# the paths whose model reads pack_params' (in, out) copies
-PACKED = ("float", "mixed", "bf16_ff")
 
 # launches per layer of one float fused train step (dropout 0): the
 # forward's kernels, except that the FF branch runs its h1-stash variant,
@@ -262,9 +270,6 @@ TRAIN_PER_LAYER = {
     "temporal_attention_packed/bwd": 1, "spatial_attention_packed/bwd": 1,
     "ln_matmul/bwd": 2, "ln_ff_residual/bwd": 1,
 }
-TRAIN_FLAGS = ["--dataset", "synthetic", "--use_pallas", "--bf16",
-               "--dropout", "0"]
-TRAIN_BATCH, TRAIN_STEPS = 16, 5
 
 # kernels whose path runs in f32 (the interpretability path; the kernel API
 # phase's sepconv_bn): phase 3 times them in f32 as well as in bf16
@@ -308,20 +313,6 @@ def _tally(want_nonzero):
 
 # ---------------------------------------------------------------------------
 # 3. kernels vs plain
-
-
-def _median_ms(fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
 
 
 def _ops(name, args):
@@ -503,21 +494,21 @@ def check_kernels(dev):
             extra["bf16_bit_equal"] = selfcheck.bit_equal_share(out16,
                                                                 want16)
         torch.cuda.synchronize()
-        ms_plain_a = _median_ms(lambda: plain(*args16))
-        ms_kern_a = _median_ms(lambda: kern(*args16))
-        ms_kern_b = _median_ms(lambda: kern(*args16))
-        ms_plain_b = _median_ms(lambda: plain(*args16))
+        ms_plain_a = median_ms(lambda: plain(*args16))
+        ms_kern_a = median_ms(lambda: kern(*args16))
+        ms_kern_b = median_ms(lambda: kern(*args16))
+        ms_plain_b = median_ms(lambda: plain(*args16))
         ms, plain_ms = min(ms_kern_a, ms_kern_b), min(ms_plain_a, ms_plain_b)
         lib = _library_call(counter, args16)
-        lib_ms = None if lib is None else _median_ms(lib)
+        lib_ms = None if lib is None else median_ms(lib)
         bound_ms, bound_by = _bound_ms(counter, args16, out16)
         if counter == "sepconv_bn":
-            extra["cudnn_ms"] = _median_ms(_cudnn_sepconv(args16))
+            extra["cudnn_ms"] = median_ms(_cudnn_sepconv(args16))
         if counter in F32_PATH:
             # its path runs in f32 (the FMA GEMM): time that too
             with highest():
-                f32_ms = [_median_ms(lambda: kern(*args)),
-                          _median_ms(lambda: plain(*args))]
+                f32_ms = [median_ms(lambda: kern(*args)),
+                          median_ms(lambda: plain(*args))]
             phase("kernels", f"{name}: f32 median ms kernel {f32_ms[0]:.4f} "
                   f"plain {f32_ms[1]:.4f} (informative)")
         crit = ("rel-L2 < " if name in selfcheck.FREE_RUNNING_CASES
@@ -670,10 +661,7 @@ def mode_phases(predictor, dev, card, profile):
     model = predictor.model
     ingest = predictor.predict(clips)["logits"]
     for mode, (q8_ff, q8_attn) in INT8_MODES.items():
-        model.cfg = dataclasses.replace(model.cfg, q8_ff=q8_ff,
-                                        q8_attn=q8_attn)
-        if mode in PACKED:
-            istvt.pack_params(model)
+        set_mode(model, mode)
         predictor.predict(clips)                               # warm-up
         torch.cuda.synchronize()
         _lib.reset_launches()
@@ -713,10 +701,7 @@ def mode_phases(predictor, dev, card, profile):
 
 
 def _trainer(flags, bf16=True):
-    args = cli_train.build_parser().parse_args(
-        [f for f in TRAIN_FLAGS if bf16 or f != "--bf16"] + flags)
-    cli_train.check_args(args)
-    return cli_train.build(args)
+    return build_trainer(cli_train, flags, bf16)
 
 
 def _profile_step(trainer, ts, batch, card, profile):
@@ -733,28 +718,15 @@ def _profile_step(trainer, ts, batch, card, profile):
 
 
 def train_phase(card, profile):
-    """TRAIN_STEPS timed B=16 steps after one warm-up step, counted."""
+    """TRAIN_STEPS timed B=16 steps after one warm-up step, counted
+    (tools/torch_train_ms.train_times)."""
     t0 = time.perf_counter()
-    trainer, loader, _ = _trainer(
-        ["--batch_size", str(TRAIN_BATCH), "--epochs", "1",
-         "--dataset_len", str(TRAIN_BATCH * (TRAIN_STEPS + 1))])
-    ts = trainer.init_state()
-    batches = list(loader)           # made before the timed steps
+    trainer, ts, batches = paper_trainer(cli_train)
     phase("train", f"model + {len(batches)} synthetic batches built in "
           f"{time.perf_counter() - t0:.1f} s")
-    float(trainer.step_fn(ts, batches[0])["loss"])        # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    warm_up(trainer, ts, batches[0])
     _lib.reset_launches()
-    times, losses = [], []
-    for batch in batches[1:]:
-        t0 = time.perf_counter()
-        m = trainer.step_fn(ts, batch)
-        losses.append(float(m["loss"]))   # waits for the step's kernels
-        times.append(1e3 * (time.perf_counter() - t0))
-        if not np.isfinite([losses[-1], float(m["grad_norm"])]).all():
-            raise SystemExit(f"train step {ts.step}: non-finite {m}")
-    torch.cuda.synchronize()
+    times, losses = train_times(trainer, ts, batches[1:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     depth = trainer.model.cfg.depth
     counts = _tally({n: k * depth * len(times)
@@ -1114,6 +1086,14 @@ def main():
     _lib.load()
     phase("build", f"nvcc sm_90a build + load {time.perf_counter() - t0:.1f} s "
           f"(log: {os.path.relpath(_lib.BUILD_DIR / 'build.log')})")
+    for kernel, dtype, found, ok in selfcheck.tensor_core_check(
+            _lib.sass_tensor_ops()):
+        phase("build", f"{kernel} {dtype}: tensor-core instructions "
+              f"{sorted(found.values())} ({'ok' if ok else 'FAIL'}: "
+              f"{'each' if dtype == 'bf16' else 'none'} wanted)")
+        if not ok:
+            raise SystemExit(f"{kernel} in {dtype} is not on the pipes it "
+                             f"should be")
 
     # 3. kernels
     rows = check_kernels(dev)

@@ -190,6 +190,29 @@ def build(force: bool = False) -> Path:
     return LIB_PATH
 
 
+def tensor_ops_of_sass(sass: str) -> Dict[str, int]:
+    """{kernel function (mangled name): its tensor-core instructions} in
+    `cuobjdump -sass` output: HMMA (mma.sync) and HGMMA (wgmma) count; the
+    int8 IMMA does not."""
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts.setdefault(fn, 0)
+        elif fn is not None and ("HMMA." in line or "HGMMA." in line):
+            counts[fn] += 1
+    return counts
+
+
+def sass_tensor_ops(lib: Path = LIB_PATH) -> Dict[str, int]:
+    """tensor_ops_of_sass of the built library (cuobjdump beside nvcc)."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return tensor_ops_of_sass(subprocess.run(
+        [str(tool), "-sass", str(lib)], check=True, capture_output=True,
+        text=True).stdout)
+
+
 def load():
     """The bound library (built on first call)."""
     global _lib

@@ -16,7 +16,9 @@ a torch.autograd.Function whose backward is temporal_attention_packed_bwd
 (TPU kernel fused_temporal_attention_packed_bwd) or
 spatial_attention_packed_bwd (TPU kernel fused_frame_attention_bwd).
 A CUDA tensor launches the core (or raises on a shape the core does not
-take); a CPU tensor runs the plain version. The int8 ingest kernels
+take); a CPU tensor runs the plain version. The spatial core and its
+backward run on the bf16 tensor cores for bf16 activations and on the FMA
+pipes for f32 ones (chosen by dtype when the kernels are compiled). The int8 ingest kernels
 (kernels/quant.py) run the same cores and plain helpers on their own
 packed qkv, through `temporal_core` / `spatial_core`, which count nothing:
 each wrapper counts its own launches only.

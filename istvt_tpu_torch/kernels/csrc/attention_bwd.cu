@@ -23,23 +23,34 @@
 //
 // What bounds them on the H100: the temporal backward is tiny arithmetic (7x7 per
 // location and head) and bound by reading qkv and dO once and writing dqkv once
-// (~337 MB at B=16 bf16). The spatial backward is 5 S^2 dh products per (frame, head),
-// about 0.08 TFLOP per B=16 layer, bound by operations. The TPU kernel held the whole
-// S x S f32 score tile of a frame in VMEM (542 KB), which does not fit the 227 KB of
-// shared memory of a block.
+// (~337 MB at B=16 bf16). The spatial backward is 5 S^2 dh products per (frame,
+// head), about 0.08 TFLOP per B=16 layer (9.5 GFLOP at the 2-clip slice: 0.0097 ms at
+// 989 TFLOP/s of bf16, against 0.0110 ms for its bytes, so bytes bound it). The TPU
+// kernel held the whole S x S f32 score tile of a frame in VMEM (542 KB), which does
+// not fit the 227 KB of shared memory of a block.
 //
 // What the design does about it: the temporal backward keeps one (clip, location,
 // head) in one warp's registers, lane = feature dim, like the forward core. The
 // spatial backward is two flash-style passes that recompute the probabilities, so
-// nothing S x S is stored and no two blocks write the same output (no atomics):
-// (a) per 32-query tile, each lane holding the score and dP rows of its key slots in
-// registers as the forward core does: the exact softmax, rowsum(P o dP), dS and dQ,
-// and per query row the softmax max, sum and rowsum; (b) per 32-key tile, streaming
-// 32-query chunks: P from the stored max / sum (the scores are summed in the same
-// order as in (a), so P and dS are bit-identical to (a)'s), then dK and dV. Both stay
-// on the FMA pipes in f32 (the f32 check needs no TF32); moving them to the bf16
-// tensor cores is later work. dim_head <= 64 (the shared memory of pass (b)).
-#include "common.cuh"
+// nothing S x S is stored and no two blocks write the same output (no atomics): (a)
+// per query tile, the exact softmax, rowsum(P o dP), dS and dQ, and per query row the
+// softmax max, sum and rowsum; (b) per key tile, streaming query chunks: P from the
+// stored max / sum (the scores summed in the same order as in (a), so P and dS are
+// (a)'s), then dK and dV. By activation dtype:
+//   * bf16, on the tensor cores (attention_tc.cuh): 128 rows a block (8 warps x 16,
+//     their rows held as mma A fragments), the other side streaming through shared
+//     memory in 64-row chunks, two stages by cp.async; every product is mma.sync
+//     m16n8k16 with f32 accumulators, P and dS going from the accumulators into the
+//     next product as A fragments. Pass (a) sweeps the keys three times (max and sum;
+//     rowsum(P o dP) from QK^T and dO V^T; dS and dQ += dS K), pass (b) the queries
+//     once (K Q^T and V dO^T, then dV += round(P)^T dO and dK += dS^T Q), 10 S^2 dh
+//     products in all against the 5 the math needs; the exp and IEEE division per
+//     score, kept so that P rounds as the reference's does, cost beyond that.
+//   * f32, on the FMA pipes (the f32 check needs no TF32): (a) per 32-query tile,
+//     each lane holding the score and dP rows of its key slots in registers as the
+//     f32 forward core does; (b) per 32-key tile, streaming 32-query chunks.
+// dim_head <= 64 in both (pass (b)'s registers: K, V, dK and dV of 16 rows a warp).
+#include "attention_tc.cuh"
 
 namespace istvt {
 
@@ -182,11 +193,15 @@ __device__ __forceinline__ float masked_score(float dot, float scale, int key, i
 // owns keys 32 m + lane. Writes dQ and stats[(frame, head, row)] = (max, sum, rowsum).
 // kPacked: q is the packed qkv (G, S, 3 inner) and dq the packed dqkv; else q, k, v,
 // dq, dk, dv are (G, S, inner) tensors of their own.
-template <typename T, int DH, bool kPacked>
-__global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats, int S, int H,
-    int inner, int n_valid, float scale) {
+template <int DH, bool kPacked>
+__device__ __forceinline__ void spatial_bwd_dq_fma(const float* __restrict__ q,
+                                                   const float* __restrict__ k,
+                                                   const float* __restrict__ v,
+                                                   const float* __restrict__ dout,
+                                                   float* __restrict__ dq,
+                                                   float* __restrict__ stats, int S, int H,
+                                                   int inner, int n_valid, float scale) {
+  using T = float;
   constexpr int DPL = DH >= 32 ? DH / 32 : 1;
   __shared__ __align__(16) float Qs[DH][kSQ + 4];  // Q tile, transposed
   __shared__ __align__(16) float Gs[DH][kSQ + 4];  // dO tile, transposed
@@ -331,11 +346,16 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
 
 // (b) Block = (key tile of 32, head, frame); warp w owns keys 4w..4w+3; query chunks
 // of 32 stream through shared memory, lane = query. Writes dK and dV.
-template <typename T, int DH, bool kPacked>
-__global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, T* __restrict__ dk_out, T* __restrict__ dv_out,
-    const float* __restrict__ stats, int S, int H, int inner, int n_valid, float scale) {
+template <int DH, bool kPacked>
+__device__ __forceinline__ void spatial_bwd_dkv_fma(const float* __restrict__ q,
+                                                    const float* __restrict__ k,
+                                                    const float* __restrict__ v,
+                                                    const float* __restrict__ dout,
+                                                    float* __restrict__ dk_out,
+                                                    float* __restrict__ dv_out,
+                                                    const float* __restrict__ stats, int S,
+                                                    int H, int inner, int n_valid, float scale) {
+  using T = float;
   constexpr int DPL = DH >= 32 ? DH / 32 : 1;
   __shared__ __align__(16) float Ks[DH][kSQ + 4];  // K tile, transposed
   __shared__ __align__(16) float Vs[DH][kSQ + 4];  // V tile, transposed
@@ -438,6 +458,277 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
   }
 }
 
+// The bf16 passes, on the tensor cores (attention_tc.cuh): 128 query (a) or key (b)
+// rows a block, 16 a warp as mma A fragments, the other side streaming through shared
+// memory in chunks of tc_chunk(DH) rows, two stages by cp.async.
+//
+// The f32 score of (query, key) in both passes: the mma's sum of the same 16-wide
+// k-steps of bf16 products, Q K^T in (a) and K Q^T in (b), x scale, -1e30 for masked
+// keys; p = exp(s - max) / sum and dS from the same f32 operations, so (b) recomputes
+// (a)'s P and dS.
+
+// (a), bf16: sweep 1 (K chunks) each row's max and sum; sweep 2 (K, V chunks)
+// rowsum(P o dP) from P and dP = dO V^T; sweep 3 (K, V chunks) dS = round((P o (dP -
+// rowsum)) s) as an A fragment, dQ += dS K. Writes dQ and stats (max, sum, rowsum).
+template <int DH, bool kPacked>
+__device__ __forceinline__ void spatial_bwd_dq_tc(const bf16* q, const bf16* k, const bf16* v,
+                                                  const bf16* dout, bf16* dq, float* stats,
+                                                  int S, int H, int inner, int n_valid,
+                                                  float scale) {
+  constexpr int KC = tc_chunk(DH), LD = DH + 8;
+  __shared__ __align__(16) bf16 smem[2 * 2 * KC * LD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, f = blockIdx.z;
+  const auto base = rows<kPacked>(q, k, v, inner).at(static_cast<size_t>(f) * S, h * DH);
+  const bf16* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
+  const int nch = (S + KC - 1) / KC;
+  const TcKvStage<DH, decltype(base)> stage{base, smem, nch, S};
+  stage(0);
+  const int r0 = blockIdx.x * kTcQT + 16 * warp + g;
+  const bool in0 = r0 < S, in1 = r0 + 8 < S;
+  unsigned qf[DH / 16][4], gf[DH / 16][4];
+  tc_rows_frag<DH>(qf, in0 ? base.q(r0) : nullptr, in1 ? base.q(r0 + 8) : nullptr, t);
+  tc_rows_frag<DH>(gf, in0 ? gbase + static_cast<size_t>(r0) * inner : nullptr,
+                   in1 ? gbase + static_cast<size_t>(r0 + 8) * inner : nullptr, t);
+  float mx[2], sm[2];
+  tc_softmax_stats<DH>(stage, qf, nch, S, n_valid, scale, mx, sm);
+
+  // P (f32) and dP of 16 keys at chunk offset x0 of staged chunk i
+  auto p_dp = [&](int i, int c, int x0, float (&pr)[2][4], float (&dp)[2][4]) {
+    const bf16* kt = stage.at(i);
+    const bf16* vt = kt + KC * LD;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pr[j][e] = dp[j][e] = 0.f;
+    tc_mma_abt<DH>(pr, qf, kt, x0, lane);
+    tc_mask(pr, c * KC + x0, t, S, n_valid, scale);
+    tc_mma_abt<DH>(dp, gf, vt, x0, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pr[j][e] = __fdiv_rn(expf(pr[j][e] - mx[e >> 1]), sm[e >> 1]);
+  };
+  // sweep 2: rowsum(P o dP) per row, each thread over its columns, then the quad
+  float pdp[2] = {0.f, 0.f};
+  for (int c = 0; c < nch; ++c) {
+    stage(nch + c + 1);  // the last one is sweep 3's first chunk
+    cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < KC / 16; ++p) {
+      float pr[2][4], dp[2][4];
+      p_dp(nch + c, c, 16 * p, pr, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pdp[e >> 1] = __fadd_rn(pdp[e >> 1], __fmul_rn(pr[j][e], dp[j][e]));
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    pdp[r] = __fadd_rn(pdp[r], __shfl_xor_sync(0xffffffffu, pdp[r], 1));
+    pdp[r] = __fadd_rn(pdp[r], __shfl_xor_sync(0xffffffffu, pdp[r], 2));
+  }
+  // sweep 3: dS and dQ += dS K
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      stage(2 * nch + c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < KC / 16; ++p) {
+      float pr[2][4], dp[2][4];
+      p_dp(2 * nch + c, c, 16 * p, pr, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = __fmul_rn(__fmul_rn(pr[j][e], __fsub_rn(dp[j][e], pdp[e >> 1])), scale);
+      unsigned da[4];
+      tc_c_to_a(da, dp);
+      tc_mma_ab<DH>(o, da, stage.at(2 * nch + c), 16 * p, lane);
+    }
+    __syncthreads();
+  }
+  const auto ob = rows<kPacked>(dq, dq, dq, inner).at(static_cast<size_t>(f) * S, h * DH);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= S) continue;
+    if (t == 0) {
+      float* st = stats + ((static_cast<size_t>(f) * H + h) * S + row) * 3;
+      st[0] = mx[half];
+      st[1] = sm[half];
+      st[2] = pdp[half];
+    }
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<unsigned*>(ob.q(row) + 8 * n + 2 * t) =
+          pack_bf16(o[n][2 * half], o[n][2 * half + 1]);
+  }
+}
+
+// (b), bf16: block = (key tile of 128, head, frame), warp w's 16 keys as A fragments
+// of K and V; query chunks stream Q, dO and their stats rows through shared memory.
+// Per 16 queries: S^T = K Q^T and dP^T = V dO^T, P^T from the stored max and sum,
+// dS^T, then dV += round(P)^T dO and dK += dS^T Q. Writes dK and dV.
+template <int DH>
+__host__ __device__ constexpr int tc_qg_stage_bytes() {
+  return 2 * tc_chunk(DH) * (DH + 8) * 2 + 3 * tc_chunk(DH) * 4;
+}
+
+template <int DH, typename Rows>
+struct TcBwdQgStage {
+  const Rows& base;
+  const bf16* gbase;
+  const float* fstats;
+  unsigned char* smem;
+  int S, inner;
+  // staged chunk i: rows i QC.. of Q ([QC][DH + 8]), dO (after it) and stats (QC x 3 f32)
+  __device__ __forceinline__ void operator()(int i) const {
+    constexpr int QC = tc_chunk(DH), LD = DH + 8, SEG = DH / 8;
+    bf16* buf = reinterpret_cast<bf16*>(smem + (i & 1) * tc_qg_stage_bytes<DH>());
+    const int r0 = i * QC;
+    for (int idx = threadIdx.x; idx < QC * SEG; idx += 256) {
+      const int qq = idx / SEG, c = (idx % SEG) * 8, r = r0 + qq;
+      const bool in = r < S;
+      const int rr = in ? r : 0;
+      cp_async16(buf + qq * LD + c, base.q(rr) + c, in);
+      cp_async16(buf + (QC + qq) * LD + c, gbase + static_cast<size_t>(rr) * inner + c, in);
+    }
+    float* st = reinterpret_cast<float*>(buf + 2 * QC * LD);
+    for (int idx = threadIdx.x; idx < 3 * QC; idx += 256) {
+      const bool in = r0 + idx / 3 < S;
+      cp_async4(st + idx, fstats + (in ? 3 * r0 + idx : 0), in);
+    }
+    cp_async_commit();
+  }
+  __device__ __forceinline__ const bf16* at(int i) const {
+    return reinterpret_cast<const bf16*>(smem + (i & 1) * tc_qg_stage_bytes<DH>());
+  }
+};
+
+template <int DH, bool kPacked>
+__device__ __forceinline__ void spatial_bwd_dkv_tc(const bf16* q, const bf16* k, const bf16* v,
+                                                   const bf16* dout, bf16* dk_out, bf16* dv_out,
+                                                   const float* stats, int S, int H, int inner,
+                                                   int n_valid, float scale) {
+  constexpr int QC = tc_chunk(DH), LD = DH + 8;
+  __shared__ __align__(16) unsigned char smem[2 * tc_qg_stage_bytes<DH>()];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, f = blockIdx.z;
+  const auto base = rows<kPacked>(q, k, v, inner).at(static_cast<size_t>(f) * S, h * DH);
+  const bf16* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
+  const float* fstats = stats + (static_cast<size_t>(f) * H + h) * S * 3;
+  const int nch = (S + QC - 1) / QC;
+  const TcBwdQgStage<DH, decltype(base)> stage{base, gbase, fstats, smem, S, inner};
+  stage(0);
+  const int k0 = blockIdx.x * kTcQT + 16 * warp + g;  // keys k0, k0 + 8
+  const bool in0 = k0 < S, in1 = k0 + 8 < S;
+  unsigned kf[DH / 16][4], vf[DH / 16][4];
+  tc_rows_frag<DH>(kf, in0 ? base.k(k0) : nullptr, in1 ? base.k(k0 + 8) : nullptr, t);
+  tc_rows_frag<DH>(vf, in0 ? base.v(k0) : nullptr, in1 ? base.v(k0 + 8) : nullptr, t);
+  float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      stage(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qt = stage.at(c);
+    const bf16* gt = qt + QC * LD;
+    const float* st = reinterpret_cast<const float*>(qt + 2 * QC * LD);
+#pragma unroll
+    for (int p = 0; p < QC / 16; ++p) {
+      float sc[2][4] = {}, dp[2][4] = {};
+      tc_mma_abt<DH>(sc, kf, qt, 16 * p, lane);
+      tc_mma_abt<DH>(dp, vf, gt, 16 * p, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 16 * p + 8 * j + 2 * t + (e & 1);  // query in the chunk
+          const int key = k0 + 8 * (e >> 1);
+          float s = __fmul_rn(sc[j][e], scale);
+          if (key >= n_valid) s = __fadd_rn(s, -1e30f);
+          float pr = 0.f;
+          if (c * QC + qi < S) pr = __fdiv_rn(expf(s - st[3 * qi]), st[3 * qi + 1]);
+          sc[j][e] = pr;
+          dp[j][e] = __fmul_rn(__fmul_rn(pr, __fsub_rn(dp[j][e], st[3 * qi + 2])), scale);
+        }
+      unsigned pa[4], da[4];
+      tc_c_to_a(pa, sc);
+      tc_c_to_a(da, dp);
+      tc_mma_ab<DH>(dv, pa, gt, 16 * p, lane);
+      tc_mma_ab<DH>(dk, da, qt, 16 * p, lane);
+    }
+    __syncthreads();
+  }
+  // packed: dk_out is the dqkv (dk, dv at columns inner and 2 inner of its rows)
+  const auto ob =
+      rows<kPacked>(dk_out, dk_out, dv_out, inner).at(static_cast<size_t>(f) * S, h * DH);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + 8 * half;
+    if (key >= S) continue;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      *reinterpret_cast<unsigned*>(ob.k(key) + 8 * n + 2 * t) =
+          pack_bf16(dk[n][2 * half], dk[n][2 * half + 1]);
+      *reinterpret_cast<unsigned*>(ob.v(key) + 8 * n + 2 * t) =
+          pack_bf16(dv[n][2 * half], dv[n][2 * half + 1]);
+    }
+  }
+}
+
+// The two passes by activation dtype: f32 on the FMA pipes, bf16 on the tensor cores.
+template <typename T>
+__host__ __device__ constexpr int spatial_bwd_tile() {
+  return std::is_same<T, float>::value ? kSQ : kTcQT;
+}
+
+template <typename T, int DH, bool kPacked>
+__global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats, int S, int H,
+    int inner, int n_valid, float scale) {
+  if constexpr (std::is_same<T, float>::value)
+    spatial_bwd_dq_fma<DH, kPacked>(q, k, v, dout, dq, stats, S, H, inner, n_valid, scale);
+  else
+    spatial_bwd_dq_tc<DH, kPacked>(q, k, v, dout, dq, stats, S, H, inner, n_valid, scale);
+}
+
+template <typename T, int DH, bool kPacked>
+__global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, T* __restrict__ dk_out, T* __restrict__ dv_out,
+    const float* __restrict__ stats, int S, int H, int inner, int n_valid, float scale) {
+  if constexpr (std::is_same<T, float>::value)
+    spatial_bwd_dkv_fma<DH, kPacked>(q, k, v, dout, dk_out, dv_out, stats, S, H, inner, n_valid,
+                                     scale);
+  else
+    spatial_bwd_dkv_tc<DH, kPacked>(q, k, v, dout, dk_out, dv_out, stats, S, H, inner, n_valid,
+                                    scale);
+}
+
 template <typename T>
 int launch_temporal_bwd(const void* qkv, const void* dout, void* dqkv, int B, int T1, int S,
                         int H, int inner, float scale, cudaStream_t st) {
@@ -461,7 +752,7 @@ template <typename T, int DH, bool kPacked>
 void launch_spatial_bwd_dh(const T* q, const T* k, const T* v, const T* g, T* dq, T* dk, T* dv,
                            float* stats, int G, int S, int H, int inner, int n_valid, float scale,
                            cudaStream_t st) {
-  dim3 grid((S + kSQ - 1) / kSQ, H, G);
+  dim3 grid((S + spatial_bwd_tile<T>() - 1) / spatial_bwd_tile<T>(), H, G);
   spatial_attn_bwd_dq_kernel<T, DH, kPacked><<<grid, 256, 0, st>>>(q, k, v, g, dq, stats, S, H,
                                                                    inner, n_valid, scale);
   spatial_attn_bwd_dkv_kernel<T, DH, kPacked><<<grid, 256, 0, st>>>(

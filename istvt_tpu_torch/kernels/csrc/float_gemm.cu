@@ -53,7 +53,7 @@
 // wgmma, a deeper pipeline, a persistent schedule, split-K for the weight gradients
 // (the 728 x 1536 dW grid is 72 tiles, under one wave of 132 SMs), and fusing LN into
 // the A load.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace istvt {
 
@@ -131,35 +131,6 @@ constexpr int kWS = kBN + 8;  // bf16 per row of a K-major tile [k][x]: 272 B
 // bf16 per stage of an operand's tile, K-major or X-major
 __host__ __device__ constexpr int tile_elems(bool k_major) {
   return k_major ? kBK * kWS : kBM * kAS;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = full ? 16 : 0;  // 0: write 16 zero bytes, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One k-step's 128 x 32 tile of an operand into shared memory, 2 chunks of 16 B a

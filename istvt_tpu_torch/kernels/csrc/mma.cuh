@@ -1,0 +1,67 @@
+// The bf16 tensor-core building blocks that the float GEMM (float_gemm.cu) and the
+// spatial attention cores (q8_attention.cuh, attention_bwd.cu) share: 16-byte
+// cp.async copies into shared memory, ldmatrix fragment loads and the
+// mma.sync m16n8k16 product with f32 accumulators.
+//
+// Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for
+// lane = 4 g + t: A (16 x 16, row-major) a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
+// a2 = (g, 8 + 2t..), a3 = (g + 8, 8 + 2t..); B (16 x 8) b0 = (2t..2t+1, g),
+// b1 = (8 + 2t.., g); C / D (16 x 8, f32) c0, c1 = (g, 2t..2t+1), c2, c3 =
+// (g + 8, 2t..). So the C fragments of two neighbouring n8 tiles, rounded to bf16 in
+// pairs, are the A fragment of the next product (C -> A without shared memory).
+#pragma once
+
+#include "common.cuh"
+
+namespace istvt {
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 16 : 0;  // 0: write 16 zero bytes, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16 (nearest even) in one register, lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+}  // namespace istvt

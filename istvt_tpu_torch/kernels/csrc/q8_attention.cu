@@ -18,19 +18,31 @@
 //     the PV product.
 //
 // What bounds them on the H100: the temporal core is tiny (7x7 scores per
-// location and head) and bound by reading qkv once; the spatial core is
-// about 0.37 TFLOP per B=16 forward of f32 FMA work. The TPU kernel held the
-// whole S x S f32 score tile of a frame in VMEM (368^2 x 4 B = 542 KB), which
-// does not fit in the 227 KB of shared memory a block can use. What the
-// design does about it: queries are tiled 32 to a block (4 per warp) and each
-// lane keeps the full score row of its key slots in registers (12 chunks of
-// 32 keys, S <= 384), so the exact softmax of the reference (normalise, then
-// cast, then PV) is kept without an online rescale; keys and values stream
-// through a 32-key shared-memory chunk, Q sits transposed in shared memory
-// so a warp's 4 queries load as one broadcast float4. This first version
-// stays on the FMA pipes in f32; moving QK^T and PV to the bf16 tensor cores
-// is later work. The bodies are device functions in q8_attention.cuh, which
-// q8_layer.cu (#9) runs inside its persistent kernel.
+// location and head) and bound by reading qkv once. The spatial core does 4 S^2 dh
+// operations per (frame, head) (0.37 TFLOP per B=16 forward; 3.8 GFLOP at the
+// 2-clip slice, whose bytes take 0.0063 ms at 3.35 TB/s and whose operations 0.0039
+// ms at 989 TFLOP/s of bf16, so bytes bound it). The TPU kernel held the whole S x S
+// f32 score tile of a frame in VMEM (368^2 x 4 B = 542 KB), which does not fit in the
+// 227 KB of shared memory a block can use. What the design does about it (both tiles
+// in q8_attention.cuh, chosen by the activation dtype at compile time):
+//   * bf16, on the tensor cores: 128 queries a block (8 warps x 16 rows, their q
+//     held as mma A fragments), so one staging of a frame-head's K and V serves 128
+//     queries; K and V stream through shared memory in 64-key chunks (32 at dim_head
+//     128), two stages by cp.async, and every product is mma.sync m16n8k16 (bf16
+//     operands, f32 accumulators, ldmatrix fragments). The exact softmax of the
+//     reference (normalise, cast, then PV) is kept without an online rescale of the
+//     output: a first sweep over the keys gives each row's max and sum, a second
+//     recomputes QK^T and feeds p = round(exp(s - max) / sum) straight from the
+//     accumulators into PV as the A fragment. The extra QK^T is S^2 dh products; the
+//     exp and the IEEE division per score (kept, so p rounds as the reference's
+//     does) and the two barriers per chunk are what it spends beyond the bound.
+//   * f32, on the FMA pipes (so the f32 check holds at 1e-5, which TF32 would not):
+//     queries tiled 32 to a block (4 per warp), each lane keeping the full score
+//     row of its key slots in registers (12 chunks of 32 keys, S <= 384), keys and
+//     values streaming through a 32-key shared-memory chunk, Q transposed in shared
+//     memory so a warp's 4 queries load as one broadcast float4.
+// The bodies are device functions in q8_attention.cuh, which q8_layer.cu (#9) runs
+// inside its persistent kernel.
 //
 // The spatial core also serves the kernel API's unpacked entries, on separate
 // q, k, v tensors (SplitRows) and without a mask (n_valid = S):
@@ -53,24 +65,25 @@ __global__ void __launch_bounds__(256) temporal_attn_kernel(
   temporal_attn_item<T, DPL>(qkv, out, T1, S, H, inner, dh, scale, item, threadIdx.x & 31);
 }
 
-// (v) Block = (query tile of 32, head, frame).
+// (v) Block = (query tile of spatial_q_tile<T>(), head, frame).
 template <typename T, int DH>
 __global__ void __launch_bounds__(256) spatial_attn_kernel(
     const T* __restrict__ qkv, T* __restrict__ out, int S, int inner, int n_valid,
     float scale) {
-  __shared__ __align__(16) float smem[spatial_smem_floats(DH)];
+  __shared__ __align__(16) unsigned char smem[spatial_smem_bytes<T>(DH)];
   spatial_attn_tile<T, DH>(qkv, out, S, inner, n_valid, scale, blockIdx.x, blockIdx.y,
-                           blockIdx.z, smem);
+                           blockIdx.z, reinterpret_cast<float*>(smem));
 }
 
-// (v) on separate q, k, v: block = (query tile of 32, head, frame), no mask.
+// (v) on separate q, k, v: block = (query tile, head, frame), no mask.
 template <typename T, int DH>
 __global__ void __launch_bounds__(256) frame_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int S, int inner, float scale) {
-  __shared__ __align__(16) float smem[spatial_smem_floats(DH)];
+  __shared__ __align__(16) unsigned char smem[spatial_smem_bytes<T>(DH)];
   spatial_attn_tile_rows<T, DH>(SplitRows<const T*>{q, k, v, inner}, out, S, inner, S, scale,
-                                blockIdx.x, blockIdx.y, blockIdx.z, smem);
+                                blockIdx.x, blockIdx.y, blockIdx.z,
+                                reinterpret_cast<float*>(smem));
 }
 
 template <typename T>
@@ -94,7 +107,7 @@ template <typename T>
 int launch_spatial(const void* qkv, void* out, int G, int S, int H, int inner, int n_valid,
                    float scale, cudaStream_t st) {
   const int dh = inner / H;
-  dim3 grid((S + kQT - 1) / kQT, H, G);
+  dim3 grid((S + spatial_q_tile<T>() - 1) / spatial_q_tile<T>(), H, G);
   auto in = static_cast<const T*>(qkv);
   auto o = static_cast<T*>(out);
   switch (dh) {
@@ -110,7 +123,7 @@ int launch_spatial(const void* qkv, void* out, int G, int S, int H, int inner, i
 template <typename T>
 int launch_frame(const void* q, const void* k, const void* v, void* out, int G, int S, int H,
                  int inner, float scale, cudaStream_t st) {
-  dim3 grid((S + kQT - 1) / kQT, H, G);
+  dim3 grid((S + spatial_q_tile<T>() - 1) / spatial_q_tile<T>(), H, G);
   auto qp = static_cast<const T*>(q);
   auto kp = static_cast<const T*>(k);
   auto vp = static_cast<const T*>(v);

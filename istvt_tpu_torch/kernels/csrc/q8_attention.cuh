@@ -4,7 +4,9 @@
 // persistent kernel reads here what it wrote earlier in the same launch).
 #pragma once
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "attention_tc.cuh"
 
 namespace istvt {
 
@@ -87,22 +89,44 @@ __device__ __forceinline__ void temporal_attn_item(const T* qkv, T* out, int T1,
   }
 }
 
-// (v) Spatial attention of one (query tile of 32, head, frame) by 256 threads; warp w
-// owns queries 4w..4w+3. smem: spatial_smem_floats(DH) floats, 16-byte aligned (Q
-// transposed, then one 32-key chunk of K or V). A block may start its next tile on
-// the same memory: Q is rewritten only after every warp has passed the barrier
-// before the tile's last V chunk, and K / V only after a barrier.
-constexpr int kQT = 32, kQW = 4, kMaxCh = 12;  // S <= 12 * 32 = 384
-
+// (v) Spatial attention of one (query tile, head, frame) by 256 threads (8 warps):
+// for each query row, f32 scores q.k (bf16 products on the tensor cores), x scale,
+// -1e30 added for keys >= n_valid, the exact softmax in f32, p rounded to T, PV
+// summed in f32, the output rounded to T (JAX's _mh_attention_vmem). Two tiles, one
+// per activation dtype, chosen at compile time (the bf16 one never gives way to the
+// f32 one):
+//   * T = bf16: 128 queries a tile, 16 rows a warp, on the tensor cores
+//     (spatial_attn_tile_tc);
+//   * T = float: 32 queries a tile, 4 rows a warp, on the FMA pipes
+//     (spatial_attn_tile_fma), so the f32 check holds at 1e-5 (TF32 would not).
+// smem: spatial_smem_bytes<T>(DH) bytes, 16-byte aligned. A block may start its next
+// tile on the same memory (the persistent ST layer #9 does): each tile's last
+// shared-memory read is followed by a barrier that every warp passes before the next
+// tile writes there, and no copy into shared memory is left in flight.
+constexpr int kQT = 32, kQW = 4, kMaxCh = 12;  // f32: S <= 12 * 32 = 384
 __host__ __device__ constexpr int spatial_smem_floats(int dh) {
   return dh * (kQT + 4) + 32 * (dh + 1);
 }
 
-// The tile on q / k / v rows `src` (any Rows above); out has rows of `inner` elements.
-template <typename T, int DH, typename Rows>
-__device__ __forceinline__ void spatial_attn_tile_rows(const Rows& src, T* out, int S, int inner,
-                                                       int n_valid, float scale, int q_tile,
-                                                       int h, int f, float* smem) {
+template <typename T>
+__host__ __device__ constexpr int spatial_smem_bytes(int dh) {
+  return std::is_same<T, float>::value ? 4 * spatial_smem_floats(dh) : tc_smem_bytes(dh);
+}
+
+// Queries per tile: the grid's (and #9's tile walk's) unit.
+template <typename T>
+__host__ __device__ constexpr int spatial_q_tile() {
+  return std::is_same<T, float>::value ? kQT : kTcQT;
+}
+
+// The f32 tile: warp w owns queries 4w..4w+3 of 32, lane the keys 32 m + lane. smem:
+// Q transposed, then one 32-key chunk of K or V; Q is rewritten only after every warp
+// has passed the barrier before the tile's last V chunk.
+template <int DH, typename Rows>
+__device__ __forceinline__ void spatial_attn_tile_fma(const Rows& src, float* out, int S,
+                                                      int inner, int n_valid, float scale,
+                                                      int q_tile, int h, int f, float* smem) {
+  using T = float;
   constexpr int DPL = DH >= 32 ? DH / 32 : 1;
   constexpr int kQS = kQT + 4, kKS = DH + 1;  // row strides of Qs [DH][kQS], KV [32][kKS]
   float* Qs = smem;
@@ -205,6 +229,84 @@ __device__ __forceinline__ void spatial_attn_tile_rows(const Rows& src, T* out, 
       const int d = lane + 32 * e;
       if (d < DH) out[(static_cast<size_t>(f) * S + row) * inner + h * DH + d] = from_f<T>(o[qq][e]);
     }
+  }
+}
+
+// The bf16 tile: warp w owns query rows 16 w..16 w + 15 of 128, held as mma A
+// fragments. Keys stream through shared memory in chunks of tc_chunk(DH), two stages
+// by cp.async, so the next chunk lands while this one computes. Sweep 1 (K chunks):
+// QK^T, each row's max and sum of exp. Sweep 2 (K and V chunks): QK^T again, p =
+// round_bf16(exp(s - max) / sum) as the A fragment of PV (JAX's order: normalise,
+// round, then PV; the second QK^T costs S^2 dh more products, no rescale of O).
+template <int DH, typename Rows>
+__device__ __forceinline__ void spatial_attn_tile_tc(const Rows& src, bf16* out, int S,
+                                                     int inner, int n_valid, float scale,
+                                                     int q_tile, int h, int f, bf16* smem) {
+  constexpr int KC = tc_chunk(DH), LD = DH + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const Rows base = src.at(static_cast<size_t>(f) * S, h * DH);
+  const int nch = (S + KC - 1) / KC;
+  const TcKvStage<DH, Rows> stage{base, smem, nch, S};
+  stage(0);
+  const int r0 = q_tile * kTcQT + 16 * warp + g;
+  unsigned qf[DH / 16][4];
+  tc_rows_frag<DH>(qf, r0 < S ? base.q(r0) : nullptr, r0 + 8 < S ? base.q(r0 + 8) : nullptr, t);
+  float mx[2], sm[2];  // rows r0, r0 + 8
+  tc_softmax_stats<DH>(stage, qf, nch, S, n_valid, scale, mx, sm);
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      stage(nch + c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kt = stage.at(nch + c);
+    const bf16* vt = kt + KC * LD;
+#pragma unroll
+    for (int p = 0; p < KC / 16; ++p) {
+      float s[2][4] = {};
+      tc_mma_abt<DH>(s, qf, kt, 16 * p, lane);
+      tc_mask(s, c * KC + 16 * p, t, S, n_valid, scale);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = __fdiv_rn(expf(s[j][e] - mx[e >> 1]), sm[e >> 1]);
+      unsigned pa[4];
+      tc_c_to_a(pa, s);
+      tc_mma_ab<DH>(o, pa, vt, 16 * p, lane);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= S) continue;
+    bf16* orow = out + (static_cast<size_t>(f) * S + row) * inner + h * DH;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<unsigned*>(orow + 8 * n + 2 * t) =
+          pack_bf16(o[n][2 * half], o[n][2 * half + 1]);
+  }
+}
+
+// The tile on q / k / v rows `src` (any Rows above); out has rows of `inner` elements.
+template <typename T, int DH, typename Rows>
+__device__ __forceinline__ void spatial_attn_tile_rows(const Rows& src, T* out, int S, int inner,
+                                                       int n_valid, float scale, int q_tile,
+                                                       int h, int f, float* smem) {
+  if constexpr (std::is_same<T, float>::value) {
+    spatial_attn_tile_fma<DH>(src, out, S, inner, n_valid, scale, q_tile, h, f, smem);
+  } else {
+    spatial_attn_tile_tc<DH>(src, out, S, inner, n_valid, scale, q_tile, h, f,
+                             reinterpret_cast<bf16*>(smem));
   }
 }
 

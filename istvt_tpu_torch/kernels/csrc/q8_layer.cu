@@ -27,10 +27,13 @@
 // far beyond the 50 MB L2, so the intermediates round-trip device memory as the chain's
 // do; walking clip groups, or the FF in row chunks, so that they stay in L2 is later
 // work. One
-// dynamic shared-memory buffer serves the largest phase (the spatial core's, 17.5 KB
-// at dim_head 64; under the 48 KB that needs no opt-in). The kernel's registers are
-// those of its hungriest phase; __launch_bounds__ caps them at 128 so that two blocks
-// of 256 threads share an SM, as the separate kernels' blocks did.
+// dynamic shared-memory buffer serves the largest phase (the spatial core's: 36 KB at
+// dim_head 64 in bf16, its tensor-core tile's two stages of K and V chunks; 17.5 KB in
+// f32; under the 48 KB that needs no opt-in). The spatial phase walks (query tile of
+// spatial_q_tile<T>(), head, frame) tiles, 128 queries in bf16 and 32 in f32. The
+// kernel's registers are those of its hungriest phase; __launch_bounds__ caps them at
+// 128 so that two blocks of 256 threads share an SM, as the separate kernels' blocks
+// did.
 #include <cooperative_groups.h>
 
 #include "q8_attention.cuh"
@@ -130,7 +133,8 @@ __global__ void __launch_bounds__(kThreads, 2) st_layer_q8_kernel(const LayerQ8 
   gemm_q8_phase<T, float, false>(p.q, p.wqs, p.rs, p.wss, no_bias, no_res, qkv, R, I3, D, smem);
   grid.sync();
   // 8. spatial core: masked softmax over n_valid keys, P cast to x's dtype before PV
-  const int nqt = (p.S + kQT - 1) / kQT, s_tiles = nqt * p.H * p.B * p.T1;
+  constexpr int QT = spatial_q_tile<T>();
+  const int nqt = (p.S + QT - 1) / QT, s_tiles = nqt * p.H * p.B * p.T1;
   for (int t = blockIdx.x; t < s_tiles; t += gridDim.x)
     spatial_attn_tile<T, DH>(qkv, a, p.S, I, p.n_valid, p.scale, t % nqt, (t / nqt) % p.H,
                              t / (nqt * p.H), reinterpret_cast<float*>(smem));
@@ -160,8 +164,9 @@ __global__ void __launch_bounds__(kThreads, 2) st_layer_q8_kernel(const LayerQ8 
 template <typename T, int DH>
 int launch_layer(const LayerQ8& p, cudaStream_t st) {
   auto kern = st_layer_q8_kernel<T, DH>;
-  constexpr int smem_bytes =
-      4 * (kGemmSmemInts > spatial_smem_floats(DH) ? kGemmSmemInts : spatial_smem_floats(DH));
+  constexpr int smem_bytes = 4 * kGemmSmemInts > spatial_smem_bytes<T>(DH)
+                                 ? 4 * kGemmSmemInts
+                                 : spatial_smem_bytes<T>(DH);
   static_assert(smem_bytes <= 48 * 1024, "above 48 KB needs cudaFuncSetAttribute");
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);

@@ -354,3 +354,34 @@ def bit_equal_share(got, want) -> float:
         same += int((g == w).sum().item())
         total += w.numel()
     return same / max(total, 1)
+
+
+# The kernels that run the spatial attention core or its backward: the
+# bf16 instantiations must use the tensor cores, the f32 ones must not
+# (their 1e-5 check would then test the FMA pipes' f32, as it should).
+# Patterns are the Itanium-mangled template heads of csrc's kernels.
+TENSOR_CORE_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
+                       "st_layer_q8_kernel", "spatial_attn_bwd_dq_kernel",
+                       "spatial_attn_bwd_dkv_kernel")
+FMA_ONLY_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
+                    "spatial_attn_bwd_dq_kernel",
+                    "spatial_attn_bwd_dkv_kernel")
+
+
+def tensor_core_check(counts) -> list:
+    """Rows (kernel, dtype, {mangled name: tensor-core instructions}, ok)
+    for each entry of TENSOR_CORE_KERNELS in bf16 (ok: every instantiation
+    has some) and FMA_ONLY_KERNELS in f32 (ok: none has any); `counts` is
+    _lib.sass_tensor_ops()."""
+    rows = []
+    for kernels, dtype, tag in ((TENSOR_CORE_KERNELS, "bf16",
+                                 "I13__nv_bfloat16"),
+                                (FMA_ONLY_KERNELS, "f32", "If")):
+        for k in kernels:
+            head = f"{len(k)}{k}{tag}"
+            found = {n: c for n, c in counts.items() if head in n}
+            ok = bool(found) and (all(found.values()) if dtype == "bf16"
+                                  else not any(found.values()))
+            rows.append((k, dtype, found, ok))
+    return rows
+

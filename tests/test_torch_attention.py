@@ -82,3 +82,41 @@ def test_core_limits_raise_with_a_message():
     for t1, inner, heads in ((9, 512, 8), (7, 2048, 8)):
         with pytest.raises(NotImplementedError, match="temporal attention"):
             ta.check_temporal(t1, inner, heads)
+
+
+# a cuobjdump -sass excerpt in its layout: the spatial kernels' bf16 and f32
+# instantiations, #9's with int8 IMMA only in f32
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN5istvt19spatial_attn_kernelI13__nv_bfloat16Li64EEEvPKT_PS2_iiif
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0a30*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;
+        /*0a40*/                   HMMA.16816.F32.BF16 R28, R4, R22, R28 ;
+\t\tFunction : _ZN5istvt19spatial_attn_kernelIfLi64EEEvPKT_PS1_iiif
+        /*0100*/                   FFMA R4, R2, R3, R4 ;
+\t\tFunction : _ZN5istvt18st_layer_q8_kernelIfLi64EEEvNS_7LayerQ8E
+        /*0200*/                   IMMA.16832.S8.S8 R8, R12, R16, R8 ;
+\t\tFunction : _ZN5istvt18st_layer_q8_kernelI13__nv_bfloat16Li64EEEvNS_7LayerQ8E
+        /*0200*/                   IMMA.16832.S8.S8 R8, R12, R16, R8 ;
+        /*0300*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+"""
+
+
+def test_tensor_core_check_reads_the_sass():
+    """The tensor-core check of chip_smoke.py's build phase and the card
+    test, on a canned cuobjdump listing: HMMA / HGMMA count, IMMA does
+    not; a bf16 kernel with none, an f32 one with some, or a kernel not
+    in the library at all fails."""
+    counts = _lib.tensor_ops_of_sass(_SASS)
+    assert sorted(counts.values()) == [0, 0, 1, 2]
+    rows = {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(counts)}
+    assert rows[("spatial_attn_kernel", "bf16")]
+    assert rows[("spatial_attn_kernel", "f32")]
+    assert rows[("st_layer_q8_kernel", "bf16")]
+    assert not rows[("frame_attn_kernel", "bf16")]          # not built
+    fma = counts.copy()
+    fma["_ZN5istvt19spatial_attn_kernelI13__nv_bfloat16Li16EEEvPKT_PS2_iiif"] = 0
+    fma["_ZN5istvt19spatial_attn_kernelIfLi16EEEvPKT_PS1_iiif"] = 3
+    rows = {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(fma)}
+    assert not rows[("spatial_attn_kernel", "bf16")]
+    assert not rows[("spatial_attn_kernel", "f32")]

@@ -53,6 +53,17 @@ DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch in this file: the suite runs its files
+    in parallel workers, where torch's default of a thread per core
+    oversubscribes the CPU several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel_l2(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)

@@ -62,6 +62,17 @@ _J_FEAT = jax.jit(jlrp.generate_feature_relevance,
                   static_argnames=("cfg", "index"))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch in this file: the suite runs its files
+    in parallel workers, where torch's default of a thread per core
+    oversubscribes the CPU several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel_l2(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)

@@ -67,6 +67,17 @@ TINY = dict(num_frames=2, image_size=72, feat_hw=5, depth=2, num_classes=1,
 TINY_HEADS = ISTVTConfig(**TINY).heads
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch in this file: the suite runs its files
+    in parallel workers, where torch's default of a thread per core
+    oversubscribes the CPU several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     params, state = jistvt.init(jax.random.PRNGKey(0), JaxConfig(**TINY))

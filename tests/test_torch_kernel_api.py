@@ -51,6 +51,17 @@ DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch in this file: the suite runs its files
+    in parallel workers, where torch's default of a thread per core
+    oversubscribes the CPU several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(a, dt="f32"):
     """numpy f32 -> (torch, jax) in the dtype (bf16 rounded once, the same
     on both sides)."""

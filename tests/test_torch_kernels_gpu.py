@@ -6,8 +6,11 @@ kernels and h1-stash forward and the int8 A/B modes' kernels included;
 the one-kernel layer #9 at more shapes and against the #1 -> #2 -> #3
 chain; the kernel API's entries (#13's unpacked entry, #14-#17, #24) against
 their plain versions, the packed cores they share device code with, and the
-differentiable wrappers' backward on the card; then small models on the
-card against the CPU.
+differentiable wrappers' backward on the card; the spatial attention core
+and its backward #13 at more shapes (S off the 16-row mma tile, masked
+keys, every dim_head, 112 frames), bf16 on the tensor cores and f32 on the
+FMA pipes, and from the built library's SASS that each runs on the pipes
+it should; then small models on the card against the CPU.
 
 Needs an NVIDIA GPU with nvcc: marked `gpu`, and skipped (inside the
 fixture, not at import) where torch sees no CUDA device. Run on the card:
@@ -60,6 +63,92 @@ def test_kernel_bf16_matches_plain(cases, name):
     assert selfcheck.outputs(got)[0].dtype == torch.bfloat16
     ok, rel, mx, scale = selfcheck.bf16_close(got, want)
     assert ok, (rel, mx, scale)
+
+
+# (S, n_valid, dim_head, frames) of the spatial core's extra cases: the
+# model's S = 368 with 362 valid keys, S = 384 (the limit), S off the
+# 16-row mma tile with masked keys, every dim_head, and the B=16 forward's
+# 112 frames; #13 at the dim_heads it takes (16, 32, 64)
+SPATIAL_SHAPES = [(368, 362, 64, 14), (384, 384, 64, 6), (97, 90, 64, 6),
+                  (361, 300, 64, 6), (368, 362, 16, 6), (368, 362, 32, 6),
+                  (368, 362, 128, 6), (97, 61, 128, 6), (361, 355, 16, 6),
+                  (368, 362, 64, 112)]
+SPATIAL_BWD_SHAPES = [c for c in SPATIAL_SHAPES if c[2] <= 64]
+
+
+def _spatial_qkv(cuda, s, dh, frames, heads=4, grad=False):
+    g = torch.Generator().manual_seed(1000 * s + dh + frames)
+    qkv = torch.randn(frames, s, 3 * heads * dh, generator=g)
+    go = torch.randn(frames, s, heads * dh, generator=g) if grad else None
+    return heads, qkv.to(cuda), None if go is None else go.to(cuda)
+
+
+@pytest.mark.parametrize("s, n_valid, dh, frames", SPATIAL_SHAPES)
+def test_spatial_core_matches_plain_at_more_shapes(cuda, record_property, s,
+                                                   n_valid, dh, frames):
+    """The spatial core (#10's, and so #2's, #9's, #14's and #15's) against
+    its plain version: bf16 (the tensor cores) by the bf16 criterion, the
+    share of elements equal bit for bit recorded; f32 (the FMA pipes) at
+    atol = rtol = 1e-5."""
+    heads, qkv, _ = _spatial_qkv(cuda, s, dh, frames)
+    with highest():
+        got = attention.spatial_attention_packed(qkv, heads, n_valid)
+        want = attention.spatial_packed_plain(qkv, heads, n_valid)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, atol=1e-5, rtol=1e-5), \
+        (got - want).abs().max()
+    x = qkv.bfloat16()
+    got = attention.spatial_attention_packed(x, heads, n_valid)
+    want = attention.spatial_packed_plain(x, heads, n_valid)
+    torch.cuda.synchronize()
+    ok, rel, mx, scale = selfcheck.bf16_close(got, want)
+    share = selfcheck.bit_equal_share(got, want)
+    record_property("bf16_bit_equal", share)
+    record_property("bf16_rel_l2", rel)
+    assert ok, (rel, mx, scale, share)
+
+
+@pytest.mark.parametrize("s, n_valid, dh, frames", SPATIAL_BWD_SHAPES)
+def test_spatial_bwd_matches_plain_at_more_shapes(cuda, record_property, s,
+                                                  n_valid, dh, frames):
+    """#13 (packed) against its plain version at the same shapes: bf16 by
+    the bf16 criterion per output, the share equal bit for bit recorded;
+    f32 at max|diff| <= 1e-5 max|plain| per output."""
+    heads, qkv, go = _spatial_qkv(cuda, s, dh, frames, grad=True)
+    with highest():
+        got = attention.spatial_attention_packed_bwd(qkv, go, heads, n_valid)
+        want = attention.spatial_packed_bwd_plain(qkv, go, heads, n_valid)
+    torch.cuda.synchronize()
+    inner = heads * dh
+    for a, b in zip(got.split(inner, dim=-1), want.split(inner, dim=-1)):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    x, gb = qkv.bfloat16(), go.bfloat16()
+    got = attention.spatial_attention_packed_bwd(x, gb, heads, n_valid)
+    want = attention.spatial_packed_bwd_plain(x, gb, heads, n_valid)
+    torch.cuda.synchronize()
+    got3, want3 = got.split(inner, dim=-1), want.split(inner, dim=-1)
+    ok, rel, mx, scale = selfcheck.bf16_close(got3, want3)
+    share = selfcheck.bit_equal_share(got3, want3)
+    record_property("bf16_bit_equal", share)
+    record_property("bf16_rel_l2", rel)
+    assert ok, (rel, mx, scale, share)
+
+
+@pytest.mark.parametrize("kernel, dtype", [
+    *((k, "bf16") for k in selfcheck.TENSOR_CORE_KERNELS),
+    *((k, "f32") for k in selfcheck.FMA_ONLY_KERNELS)])
+def test_spatial_attention_on_the_tensor_cores(cuda, kernel, dtype):
+    """From the built library (cuobjdump -sass): every bf16 instantiation
+    of the kernels that run the spatial core (#10 and #2's
+    spatial_attn_kernel, #14 / #15's frame_attn_kernel, #9's
+    st_layer_q8_kernel) or #13 (both passes) has tensor-core instructions
+    (HMMA / HGMMA; #9's int8 IMMA does not count), and no f32
+    instantiation of those but #9 has any."""
+    _lib.load()
+    rows = selfcheck.tensor_core_check(_lib.sass_tensor_ops())
+    (found, ok), = [(f, o) for k, d, f, o in rows
+                    if k == kernel and d == dtype]
+    assert ok, found
 
 
 def test_f8_cast_same_on_card_and_cpu(cuda):

@@ -41,6 +41,17 @@ SIZES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch in this file: the suite runs its files
+    in parallel workers, where torch's default of a thread per core
+    oversubscribes the CPU several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _q8(rng, d_in, d_out):
     wq, ws = jq.quantize_weight(
         jnp.asarray(rng.randn(d_in, d_out) * 0.05, jnp.float32))

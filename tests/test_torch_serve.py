@@ -29,6 +29,17 @@ TINY = ISTVTConfig(num_frames=2, image_size=72, feat_hw=5, depth=1,
 CLIP = (2, 72, 72, 3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch in this file: the suite runs its files
+    in parallel workers, where torch's default of a thread per core
+    oversubscribes the CPU several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def predictor():
     model = model_selection("istvt", cfg=TINY, device=CPU)

@@ -77,6 +77,17 @@ LR, TOTAL = 1e-4, 100
 BATCH = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch in this file: the suite runs its files
+    in parallel workers, where torch's default of a thread per core
+    oversubscribes the CPU several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _keep_grads():
     """An identity transformation whose state is the last gradients."""
     return optax.GradientTransformation(

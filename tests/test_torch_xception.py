@@ -15,6 +15,17 @@ from istvt_tpu_torch.core import precision as tprecision
 from istvt_tpu_torch.models import xception as tx
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch in this file: the suite runs its files
+    in parallel workers, where torch's default of a thread per core
+    oversubscribes the CPU several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def stem():
     """JAX Xception params with non-trivial eval BN statistics, the port

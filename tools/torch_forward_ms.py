@@ -1,19 +1,23 @@
 """Median B=16 forward time of a port serving path on one NVIDIA GPU.
 
     python3 tools/torch_forward_ms.py [--root DIR] [--path int8|float]
+                                      [--mode MODE]
 
 Imports istvt_tpu_torch from DIR (default: the checkout holding this
 script), builds the path's paper-geometry model (300^2 x 6, depth 12,
 seed 0) with its cli/serve.build_predictor (flags --int8, or --bf16 for the
-float path) and times it with `forward_times`, the one B=16 timing that
+float path), switches an int8 model to the A/B mode MODE (`set_mode`: the
+ISTVTConfig q8_ff / q8_attn pair of INT8_MODES; default 'ingest', the
+CLI's) and times it with `forward_times`, the one B=16 timing that
 chip_smoke.py's timing phase also calls. Prints one JSON line: root, path,
-median and quartile ms, clips/s, and the card's name and power limit. Run
-parent, change, change, parent in one call to compare two commits on one
-card.
+mode, median and quartile ms, clips/s, and the card's name and power
+limit. Run parent, change, change, parent in one call to compare two
+commits on one card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -23,6 +27,22 @@ import numpy as np
 import torch
 
 BATCH, ITERS, WARMUP = 16, 20, 2
+# the int8 path's A/B modes: (q8_ff, q8_attn); 'ingest' is cli/serve.py's
+INT8_MODES = {"ingest": ("full", "ingest"), "boundary": ("full", "boundary"),
+              "mixed": ("mixed", "ingest"), "bf16_ff": ("bf16", "ingest"),
+              "layer": ("full", "layer"), "ff_int8": ("int8", "ingest")}
+# the modes (and the float path) whose model reads pack_params' copies
+PACKED = ("float", "mixed", "bf16_ff")
+
+
+def set_mode(model, mode):
+    """Switch an int8 model (quantize_params done) to an A/B mode in place,
+    packing the float copies its feed-forward reads."""
+    from istvt_tpu_torch.models import istvt
+    q8_ff, q8_attn = INT8_MODES[mode]
+    model.cfg = dataclasses.replace(model.cfg, q8_ff=q8_ff, q8_attn=q8_attn)
+    if mode in PACKED:
+        istvt.pack_params(model)
 
 
 def forward_times(model, clip):
@@ -53,7 +73,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=here)
     ap.add_argument("--path", choices=("int8", "float"), default="int8")
+    ap.add_argument("--mode", default="ingest",
+                    help="the int8 path's A/B modes, comma-separated, timed "
+                         f"in turn on one model ({', '.join(INT8_MODES)})")
     args = ap.parse_args()
+    modes = args.mode.split(",")
+    if any(m not in INT8_MODES for m in modes):
+        ap.error(f"--mode: each of {', '.join(INT8_MODES)}")
+    if args.path == "float" and modes != ["ingest"]:
+        ap.error("--mode is the int8 path's")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
 
@@ -64,17 +92,22 @@ def main():
     cli = cli_serve.build_parser().parse_args(
         ["--int8"] if args.path == "int8" else ["--bf16"])
     model = cli_serve.build_predictor(cli, torch.device("cuda")).model
-    times = forward_times(
-        model, (cli.seq_len, cli.input_size, cli.input_size, 3))
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    q1, med, q3 = np.percentile(times, [25, 50, 75])
-    print(json.dumps({"root": os.path.relpath(root, here), "path": args.path,
-                      "median_ms": med, "q1_ms": q1, "q3_ms": q3,
-                      "clips_per_s": BATCH * 1e3 / med, "card": card}),
-          flush=True)
+    for mode in modes:
+        if args.path == "int8" and mode != "ingest":
+            set_mode(model, mode)
+        times = forward_times(
+            model, (cli.seq_len, cli.input_size, cli.input_size, 3))
+        q1, med, q3 = np.percentile(times, [25, 50, 75])
+        print(json.dumps({"root": os.path.relpath(root, here),
+                          "path": args.path,
+                          "mode": mode if args.path == "int8" else None,
+                          "median_ms": med, "q1_ms": q1, "q3_ms": q3,
+                          "clips_per_s": BATCH * 1e3 / med, "card": card}),
+              flush=True)
 
 
 if __name__ == "__main__":

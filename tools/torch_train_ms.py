@@ -1,0 +1,100 @@
+"""Median bf16 train-step time of the port's float fused path on one
+NVIDIA GPU.
+
+    python3 tools/torch_train_ms.py [--root DIR]
+
+Imports istvt_tpu_torch from DIR (default: the checkout holding this
+script), builds a trainer through cli/train.py's code path (check_args,
+build: --dataset synthetic --use_pallas --bf16 --dropout 0, the paper
+geometry 300^2 x 6, depth 12, B=16) and times TRAIN_STEPS steps after one
+warm-up step (`warm_up`) with `train_times`, the timing chip_smoke.py's
+train phase also calls: the host clock around each step, ending in the loss read.
+Prints one JSON line: root, the step times, their median, the peak device
+memory, the losses and the card's name and power limit. Run parent,
+change, change, parent in one call to compare two commits on one card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+TRAIN_FLAGS = ["--dataset", "synthetic", "--use_pallas", "--bf16",
+               "--dropout", "0"]
+TRAIN_BATCH, TRAIN_STEPS = 16, 5
+
+
+def build_trainer(cli_train, flags, bf16=True):
+    """(trainer, loader, extra) of cli_train.build for TRAIN_FLAGS + flags
+    (without --bf16 unless bf16), after its check_args."""
+    args = cli_train.build_parser().parse_args(
+        [f for f in TRAIN_FLAGS if bf16 or f != "--bf16"] + flags)
+    cli_train.check_args(args)
+    return cli_train.build(args)
+
+
+def paper_trainer(cli_train):
+    """A B=TRAIN_BATCH trainer, its state and TRAIN_STEPS + 1 batches made
+    before any step."""
+    trainer, loader, _ = build_trainer(
+        cli_train, ["--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+                    "--dataset_len", str(TRAIN_BATCH * (TRAIN_STEPS + 1))])
+    return trainer, trainer.init_state(), list(loader)
+
+
+def warm_up(trainer, ts, batch):
+    """One untimed step; peak memory is counted from after it."""
+    float(trainer.step_fn(ts, batch)["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def train_times(trainer, ts, batches):
+    """(ms per step, losses) of one step per batch: the host clock around
+    the step and its loss read. Raises on a non-finite loss or gradient
+    norm."""
+    times, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        m = trainer.step_fn(ts, batch)
+        losses.append(float(m["loss"]))       # waits for the step's kernels
+        times.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite([losses[-1], float(m["grad_norm"])]).all():
+            raise SystemExit(f"train step {ts.step}: non-finite {m}")
+    torch.cuda.synchronize()
+    return times, losses
+
+
+def main():
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=here)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    from istvt_tpu_torch.cli import train as cli_train
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this script times the GPU")
+    trainer, ts, batches = paper_trainer(cli_train)
+    warm_up(trainer, ts, batches[0])
+    times, losses = train_times(trainer, ts, batches[1:])
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(json.dumps({"root": os.path.relpath(root, here), "ms": times,
+                      "median_ms": float(np.median(times)),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "losses": losses, "card": card}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
