@@ -25,8 +25,10 @@ path reaches. In phases; any failure raises and exits non-zero:
                 core or its backward (#2 and #10's spatial_attn_kernel,
                 #14 / #15's frame_attn_kernel, #9's st_layer_q8_kernel,
                 both passes of #13) has tensor-core instructions (HMMA /
-                HGMMA) and no f32 one but #9's has any
-                (selfcheck.tensor_core_check)
+                HGMMA), every instantiation of the bf16 float GEMM
+                (gemm_bf16_wgmma_kernel: #6's fc2, #18-#23) has wgmma
+                (HGMMA), and no f32 one but #9's has any, nor the f32 FMA
+                GEMM (selfcheck.tensor_core_check)
   3. kernels  - each of the 24 kernels (kernels/selfcheck.CASES: one case
                 per launch counter -- #20 and #5 with and without their
                 residual; the training slice's four backward kernels and
@@ -44,7 +46,13 @@ path reaches. In phases; any failure raises and exits non-zero:
                 rel-L2 < 1e-2 and max|diff| < 0.02 max|plain| (#16, #17:
                 and the share of bf16 elements equal bit for bit); median
                 kernel / plain / library-call ms and the card's least time
-                (bound); for #24 also the stem's cuDNN composition's ms
+                (bound); for #24 also the stem's cuDNN composition's ms;
+                then the float GEMM alone (kernels/linear.gemm) at each of
+                its callers' shapes at the slice (selfcheck.gemm_shapes:
+                #18, #20 and its backward, #21 / #6 / #22 fc1 and fc2, #19,
+                #23's four) vs its plain f32 version by the bf16 criterion,
+                with its device ms (tools/kernel_ms.device_ms), TFLOP/s,
+                the bound and torch.matmul's device ms on the same operands
   then for each serving path, int8 first:
   4. serving  - the model behind the HTTP ServeDaemon: float32 and uint8
                 POSTs, a 16-clip batch and two concurrent requests, all
@@ -113,7 +121,8 @@ run launched fails the script; a kernel's cases at other shapes under
 `variants`); the last line is {"ok": true, "device":
 {...}}. With --profile PATH, torch.profiler tables of one B=16 forward of
 each serving path and int8 mode, of one B=16 train step and of one B=1
-generate_lrp call with and without use_pallas are written to PATH.
+generate_lrp call with and without use_pallas are written to PATH, each
+with its device time summed by kernel family.
 """
 from __future__ import annotations
 
@@ -154,7 +163,7 @@ from torch_forward_ms import INT8_MODES as TOOL_MODES  # noqa: E402
 from torch_forward_ms import PACKED, forward_times, set_mode  # noqa: E402
 from torch_train_ms import (TRAIN_BATCH, build_trainer,  # noqa: E402
                             paper_trainer, train_times, warm_up)
-from kernel_ms import median_ms  # noqa: E402
+from kernel_ms import gemm_rows, median_ms  # noqa: E402
 
 # the two paths, by their cli/serve.py flags, at the CLI's default paper
 # geometry (300^2 x 6, depth 12)
@@ -530,6 +539,29 @@ def check_kernels(dev):
     return rows
 
 
+def gemm_phase(dev):
+    """Phase 3's GEMM table: kernels/linear.gemm at every float caller's
+    shape at the slice (selfcheck.gemm_shapes) against its plain f32
+    version (the bf16 criterion), its device ms and torch.matmul's on the
+    same operands (a yardstick the port never calls), the bound and the
+    share of the bf16 peak."""
+    for name, layout, m, n, k, ms, mm, tflops, bound, ops, _ in gemm_rows(
+            selfcheck, dev):
+        with highest():
+            want = selfcheck.gemm_plain(ops)
+        got = selfcheck.gemm_results(ops)
+        torch.cuda.synchronize()
+        ok, rel, mx, scale = selfcheck.bf16_close(got, want)
+        phase("gemm", f"{name}: {layout} {m} x {n} x {k} "
+              f"{ops['out'].dtype}: device ms {ms:.4f} ({tflops:.1f} "
+              f"TFLOP/s, {tflops / (PEAK_OPS['bf16'] / 1e12):.1%} of peak), "
+              f"torch.matmul {mm:.4f}, bound {bound:.4f}; vs plain rel-L2 "
+              f"{rel:.3e} max|diff| {mx:.3e} of max|plain| {scale:.3e} "
+              f"({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise SystemExit(f"GEMM {name} disagrees with its plain version")
+
+
 # ---------------------------------------------------------------------------
 # 4. serving through the HTTP daemon
 
@@ -617,6 +649,29 @@ def e2e_phase(path, predictor):
                          f"reference")
 
 
+def _write_profile(prof, title, profile, rows=40):
+    """Append a profile's table and its device time by kernel family (the
+    port's kernels by their template's name, every other CUDA kernel and
+    copy under 'other') to the file `profile`."""
+    fam = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        name = (e.key.split("istvt::", 1)[1].split("<")[0].split("(")[0]
+                if "istvt::" in e.key else "other")
+        fam[name] = fam.get(name, 0.0) + us / 1e3
+    with open(profile, "a") as f:
+        f.write(title + "\n")
+        f.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=rows) + "\n")
+        f.write(f"device ms, all kernels and copies: {sum(fam.values()):.3f}; "
+                f"by family: " + json.dumps(
+                    {k: round(v, 3) for k, v in sorted(
+                        fam.items(), key=lambda kv: -kv[1])}) + "\n")
+
+
 def timing_phase(path, model, dev, card, profile):
     """B=16 forward (tools/torch_forward_ms.forward_times); optional
     profile of one more."""
@@ -631,10 +686,7 @@ def timing_phase(path, model, dev, card, profile):
             with torch.inference_mode():
                 model(x)
             torch.cuda.synchronize()
-        with open(profile, "a") as f:
-            f.write(f"{card}, {path} path, B=16 forward\n")
-            f.write(prof.key_averages().table(sort_by="cuda_time_total",
-                                              row_limit=40) + "\n")
+        _write_profile(prof, f"{card}, {path} path, B=16 forward", profile)
         phase("timing", f"{path}: profile table appended to {profile}")
 
 
@@ -710,10 +762,8 @@ def _profile_step(trainer, ts, batch, card, profile):
                               ProfilerActivity.CUDA]) as prof:
         float(trainer.step_fn(ts, batch)["loss"])
         torch.cuda.synchronize()
-    with open(profile, "a") as f:
-        f.write(f"{card}, float fused path, B={TRAIN_BATCH} bf16 train step\n")
-        f.write(prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=50) + "\n")
+    _write_profile(prof, f"{card}, float fused path, B={TRAIN_BATCH} bf16 "
+                   f"train step", profile, rows=50)
     phase("train", f"profile table appended to {profile}")
 
 
@@ -818,11 +868,8 @@ def _profile_lrp(model, clip, card, profile):
                               ProfilerActivity.CUDA]) as prof:
         generate_lrp(model, clip)
         torch.cuda.synchronize()
-    with open(profile, "a") as f:
-        f.write(f"{card}, generate_lrp B=1 f32, use_pallas="
-                f"{model.cfg.use_pallas}\n")
-        f.write(prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=40) + "\n")
+    _write_profile(prof, f"{card}, generate_lrp B=1 f32, use_pallas="
+                   f"{model.cfg.use_pallas}", profile)
 
 
 def lrp_phase(model, clip, card, profile):
@@ -1086,17 +1133,22 @@ def main():
     _lib.load()
     phase("build", f"nvcc sm_90a build + load {time.perf_counter() - t0:.1f} s "
           f"(log: {os.path.relpath(_lib.BUILD_DIR / 'build.log')})")
+    sass = _lib.sass_text()
     for kernel, dtype, found, ok in selfcheck.tensor_core_check(
-            _lib.sass_tensor_ops()):
-        phase("build", f"{kernel} {dtype}: tensor-core instructions "
+            _lib.tensor_ops_of_sass(sass),
+            _lib.tensor_ops_of_sass(sass, ("HGMMA.",))):
+        what = ("HGMMA" if kernel in selfcheck.WGMMA_KERNELS
+                and dtype == "bf16" else "tensor-core")
+        phase("build", f"{kernel} {dtype}: {what} instructions "
               f"{sorted(found.values())} ({'ok' if ok else 'FAIL'}: "
               f"{'each' if dtype == 'bf16' else 'none'} wanted)")
         if not ok:
             raise SystemExit(f"{kernel} in {dtype} is not on the pipes it "
                              f"should be")
 
-    # 3. kernels
+    # 3. kernels, then the float GEMM alone at its callers' shapes
     rows = check_kernels(dev)
+    gemm_phase(dev)
     if args.profile:
         open(args.profile, "w").close()
 

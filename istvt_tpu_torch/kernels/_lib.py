@@ -79,9 +79,9 @@ _SIGNATURES = {
     # x, x_dt, s, b, y, R, D, stream
     "istvt_ln_rows": [_P, _I, _P, _P, _P, _I, _I, _P],
     # a, b, dt, layout, out, out_f32, bias, res, gelu, out2, aux, part, mode,
-    # M, N, K, stream
+    # M, N, K, splits, kslice, ws, stream
     "istvt_gemm": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                   _I, _P],
+                   _I, _I, _I, _P, _P],
     # x, dt, s, dy, res, dx, part, R, D, blocks, stream
     "istvt_ln_bwd_rows": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # part, nout, P, N, out, stream
@@ -190,27 +190,31 @@ def build(force: bool = False) -> Path:
     return LIB_PATH
 
 
-def tensor_ops_of_sass(sass: str) -> Dict[str, int]:
-    """{kernel function (mangled name): its tensor-core instructions} in
-    `cuobjdump -sass` output: HMMA (mma.sync) and HGMMA (wgmma) count; the
-    int8 IMMA does not."""
+# SASS opcodes of the tensor cores' float products: HMMA (mma.sync) and HGMMA
+# (wgmma); the int8 IMMA is not one of them
+TENSOR_OPS = ("HMMA.", "HGMMA.")
+
+
+def tensor_ops_of_sass(sass: str, ops=TENSOR_OPS) -> Dict[str, int]:
+    """{kernel function (mangled name): its instructions of the opcodes
+    `ops`} in `cuobjdump -sass` output (by default every bf16 tensor-core
+    product, HMMA and HGMMA; ("HGMMA.",) counts wgmma alone)."""
     counts: Dict[str, int] = {}
     fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts.setdefault(fn, 0)
-        elif fn is not None and ("HMMA." in line or "HGMMA." in line):
+        elif fn is not None and any(op in line for op in ops):
             counts[fn] += 1
     return counts
 
 
-def sass_tensor_ops(lib: Path = LIB_PATH) -> Dict[str, int]:
-    """tensor_ops_of_sass of the built library (cuobjdump beside nvcc)."""
+def sass_text(lib: Path = LIB_PATH) -> str:
+    """`cuobjdump -sass` of the built library (cuobjdump beside nvcc)."""
     tool = Path(_nvcc()).parent / "cuobjdump"
-    return tensor_ops_of_sass(subprocess.run(
-        [str(tool), "-sass", str(lib)], check=True, capture_output=True,
-        text=True).stdout)
+    return subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
 
 
 def load():

@@ -28,32 +28,44 @@
 // (out-projection) and 350 GFLOP (FF) per layer forward, and 3x / 5x that for the
 // LN->GEMM / FF backward, against 989 TFLOP/s of bf16 tensor cores, so they are bound
 // by operations; the rows passes move bytes only. The TPU kernels kept the normalised
-// rows, the (N, 4D) FF hidden and the backward's dy / dh1 in VMEM; this first version
-// writes them to device memory in the dtype JAX rounds them to (the activation dtype,
-// or f32 where the JAX kernel keeps f32), so the numbers are the same at the cost of
-// extra round trips. In f32 (the attention-map path's dtype) the GEMMs run on the FMA
+// rows, the (N, 4D) FF hidden and the backward's dy / dh1 in VMEM; here they go
+// through device memory in the dtype JAX rounds them to (the activation dtype, or f32
+// where the JAX kernel keeps f32), so the numbers are the same at the cost of extra
+// round trips. In f32 (the attention-map path's dtype) the GEMMs run on the FMA
 // pipes, 67 TFLOP/s at most.
 //
-// What the design does about it: the bf16 GEMM runs on the tensor cores through
-// mma.sync m16n8k16 (f32 accumulate) with a 128x128x32 block tile, 8 warps of 64x32,
-// and a two-stage cp.async pipeline in shared memory. Each operand is read from its
-// stored layout with ldmatrix, transposing where the mma wants the other order, so no
-// transposed copy is ever made: NN (forward: A (M, K), W (K, N)), NT (dY = G W^T: the
-// (K_out, N_out) = (N, K) weight is already the column-major B the mma wants, so
-// ldmatrix without .trans) and TN (dW = Y^T G: A stored (K, M), ldmatrix.trans on A).
-// K = 728 and N = 728 are not multiples of the tile: cp.async zero-fills the K tail and
-// the M / N edges in shared memory (16-byte chunks, so every operand's contiguous
-// extent must be a multiple of 8) and the epilogue masks the stores. The epilogue (+
-// bias, stash, tanh-GELU, + residual; or the GELU derivative) runs on the accumulator
-// registers in the JAX order, in f32, with one rounding. Column sums over rows (db1,
-// ds, db) are written per block as partials and added by a second pass in a fixed
-// order, not with atomics, so every result is deterministic. Float32 inputs run a
-// plain FMA tile (64x64, 4x4 outputs a thread) with the same layouts and epilogues: no
-// TF32, so f32 results stay within rounding of the f32 reference. Not yet used: TMA,
-// wgmma, a deeper pipeline, a persistent schedule, split-K for the weight gradients
-// (the 728 x 1536 dW grid is 72 tiles, under one wave of 132 SMs), and fusing LN into
+// What the design does about it: the bf16 GEMM is warp-specialised on Hopper's
+// asynchronous units (wgmma.cuh). A block of 384 threads owns one SM and walks over
+// 128 x 128 output tiles (persistent: one block per SM, the tiles taken in turn):
+// warpgroup 2 gives up its registers (setmaxnreg) and one of its threads starts TMA
+// loads of 64-deep A and B tiles into a ring of kStages stages in dynamic shared
+// memory, running ahead into the next tile while the consumers finish one (an mbarrier
+// pair per stage: "full" completes on the tiles' bytes, "empty" when all 8 consumer
+// warps are done with the stage); warpgroups 0 and 1 take the registers and run wgmma
+// m64n128k16 (bf16 in, f32 sums) on 64 rows each, straight from shared memory. Each
+// operand is read in its stored layout, no transposed copy: the TMA box and the
+// 128-byte swizzle match the wgmma descriptor of that operand's major (NN: A K-major, B
+// N-major; NT: both K-major, the (N, K) weight as stored; TN: A M-major, B N-major,
+// through wgmma's transpose bits). TMA zero-fills the K tail (728 = 11 * 64 + 24) and
+// the M / N edges, and the epilogue masks its stores. The epilogue (+ bias, stash,
+// tanh-GELU, + residual; or the GELU derivative) runs on the wgmma accumulator
+// registers in the JAX order, in f32, with one rounding; its bias goes to shared
+// memory and its residual or GELU input to registers before the tile's main loop, so
+// their latency hides under it. Column sums over rows (db1, ds, db) are written per
+// 128-row tile and added by a second pass in a fixed order, not with atomics, so every
+// result is deterministic. The weight gradients (TN, K = the rows) are split along K
+// where whole tiles would leave the SMs under a wave (kernels/linear.plan_splitk):
+// each slice writes an f32 partial and colsum adds them in slice order. Float32 inputs
+// run a plain FMA tile (64x64, 4x4 outputs a thread) with the same layouts and
+// epilogues: no TF32, so f32 results stay within rounding of the f32 reference.
+// Measured on the H100 and left out (PERF.md): a 128 x 256 tile (slower but
+// for TN), two blocks an SM (the wgmma needs more than the 80 registers a thread that
+// leaves), a fifth stage, a second wgmma group in flight. Not yet used: an epilogue
+// that overlaps the next tile's products (consumer warpgroups on alternate tiles),
+// TMA stores, clusters and multicast (each block reads its A and B tiles from L2,
+// about 32 KB per 64-deep step of a tile, which L2's bandwidth caps), fusing LN into
 // the A load.
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace istvt {
 
@@ -102,7 +114,7 @@ struct Epi {
   void* out2;         // (M, N) in the input dtype: kEpiStash the pre-activation,
                       // kEpiGeluBwd gelu(aux)
   const void* aux;    // (M, N) in the input dtype (kEpiGeluBwd)
-  float* part;        // (gridDim.y, N) column sums of the f32 result per block row
+  float* part;        // (M tiles, N) column sums of the f32 result per tile of rows
                       // (kEpiGeluBwd)
   int gelu;
 };
@@ -124,150 +136,266 @@ __device__ __forceinline__ float epi_value(const Epi& e, float v, size_t o, int 
   return v;
 }
 
-// (ii) bf16 tensor-core GEMM.
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kAS = kBK + 8;  // bf16 per row of an X-major tile [x][k]: 80 B, no conflicts
-constexpr int kWS = kBN + 8;  // bf16 per row of a K-major tile [k][x]: 272 B
-// bf16 per stage of an operand's tile, K-major or X-major
-__host__ __device__ constexpr int tile_elems(bool k_major) {
-  return k_major ? kBK * kWS : kBM * kAS;
-}
+// (ii) bf16 GEMM on wgmma (see the header): 128 x 128 x 64 block tiles, kStages
+// TMA-filled stages, warpgroups 0-1 consume, warpgroup 2 produces.
+constexpr int kBM = 128, kBN = 128, kBK = 64, kGemmThreads = 384;
+// the ring's depth, and the registers a thread of the producer / consumer warpgroups
+// keeps after setmaxnreg (of the block's 384 x 168 at launch)
+constexpr int kStages = 4, kProducerRegs = 40, kConsumerRegs = 232;
 
-// One k-step's 128 x 32 tile of an operand into shared memory, 2 chunks of 16 B a
-// thread; chunks past X or K are zero-filled. X-major: G is (X, K) row-major, tile
-// [x][k] (stride kAS). K-major: G is (K, X) row-major, tile [k][x] (stride kWS).
-template <bool KMajor>
-__device__ __forceinline__ void load_op(__nv_bfloat16* S, const __nv_bfloat16* __restrict__ G,
-                                        int X, int K, int x0, int k0, int tid) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + i * 256;
-    if (KMajor) {
-      const int r = idx >> 4, c = (idx & 15) * 8, gk = k0 + r, gx = x0 + c;
-      const bool in = gk < K && gx < X;
-      cp_async16(S + r * kWS + c, in ? G + static_cast<size_t>(gk) * X + gx : G, in);
-    } else {
-      const int r = idx >> 2, c = (idx & 3) * 8, gx = x0 + r, gk = k0 + c;
-      const bool in = gx < X && gk < K;
-      cp_async16(S + r * kAS + c, in ? G + static_cast<size_t>(gx) * K + gk : G, in);
-    }
+// Dynamic shared memory of a block: the A and B rings, the full / empty barriers, the
+// column-sum scratch [8 warps][kBN], the bias tile [kBN], and 1 KB to align the rings
+// to the swizzle atom.
+constexpr int kGemmSmem = kStages * (kBM + kBN) * kBK * 2 + 2 * kStages * 8 + 9 * kBN * 4 + 1024;
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b, bool vec);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float a, float b, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    p[1] = b;
+  }
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a, float b,
+                                                          bool vec) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = from_f<__nv_bfloat16>(a);
+    p[1] = from_f<__nv_bfloat16>(b);
   }
 }
 
-// The mma A fragment of rows x0..x0+15, k kk..kk+15 (matrices: rows 0-7 / 8-15 by
-// k 0-7, then by k 8-15).
-template <bool KMajor>
-__device__ __forceinline__ void frag_a(unsigned (&r)[4], const __nv_bfloat16* S, int x0, int kk,
-                                       int lane) {
-  if (KMajor)
-    ldsm_x4_trans(r, &S[(kk + ((lane >> 4) << 3) + (lane & 7)) * kWS + x0 + ((lane >> 3) & 1) * 8]);
-  else
-    ldsm_x4(r, &S[(x0 + (lane & 15)) * kAS + kk + (lane >> 4) * 8]);
+// epi_value of the bf16 GEMM on the pair of columns (col, col + 1) at the even flat
+// index o: the same arithmetic in the same order, the pair of bias values `b` (read
+// only if e.bias is set) and of the side tensor's values `side` (res for kEpiStd /
+// kEpiStash, aux for kEpiGeluBwd; read only where they are set) given, the side
+// output stored as a pair.
+template <int EPI>
+__device__ __forceinline__ float2 epi_pair(const Epi& e, float v0, float v1, size_t o, float2 b,
+                                           float2 side) {
+  if (EPI == kEpiGeluBwd) {
+    float val0, d0, val1, d1;
+    gelu_tanh_and_grad(side.x, val0, d0);
+    gelu_tanh_and_grad(side.y, val1, d1);
+    static_cast<__nv_bfloat162*>(e.out2)[o >> 1] = __floats2bfloat162_rn(val0, val1);
+    return make_float2(__fmul_rn(v0, d0), __fmul_rn(v1, d1));
+  }
+  if (e.bias != nullptr) {
+    v0 = __fadd_rn(v0, b.x);
+    v1 = __fadd_rn(v1, b.y);
+  }
+  if (EPI == kEpiStash)
+    static_cast<__nv_bfloat162*>(e.out2)[o >> 1] = __floats2bfloat162_rn(v0, v1);
+  if (e.gelu) {
+    v0 = gelu_tanh(v0);
+    v1 = gelu_tanh(v1);
+  }
+  if (e.res != nullptr) {
+    v0 = __fadd_rn(v0, side.x);
+    v1 = __fadd_rn(v1, side.y);
+  }
+  return make_float2(v0, v1);
 }
 
-// The mma B fragments of columns x0..x0+15 (two n8 blocks), k kk..kk+15 (matrices:
-// n 0-7 by k 0-7 / 8-15, then n 8-15 by k 0-7 / 8-15).
-template <bool KMajor>
-__device__ __forceinline__ void frag_b(unsigned (&r)[4], const __nv_bfloat16* S, int x0, int kk,
-                                       int lane) {
-  if (KMajor)
-    ldsm_x4_trans(r, &S[(kk + (lane & 15)) * kWS + x0 + (lane >> 4) * 8]);
-  else
-    ldsm_x4(r, &S[(x0 + ((lane >> 4) << 3) + (lane & 7)) * kAS + kk + ((lane >> 3) & 1) * 8]);
-}
+// The output tiles of one launch, in the order the blocks take them: the N tile
+// fastest, then the M tile, then the split-K slice z (so the blocks in flight share
+// their A rows and the weight stays in L2).
+struct TileGrid {
+  int tn, tm, splits, kslice, nk;
+  __device__ __forceinline__ int count() const { return tn * tm * splits; }
+  // tile -> the block's output rows m0.., columns n0.., M tile mt, slice z, k-tiles [kb, ke)
+  __device__ __forceinline__ void at(int tile, int& m0, int& n0, int& mt, int& z, int& kb,
+                                     int& ke) const {
+    const int nt = tile % tn;
+    mt = (tile / tn) % tm;
+    z = tile / (tn * tm);
+    m0 = mt * kBM;
+    n0 = nt * kBN;
+    kb = z * kslice;
+    ke = min(nk, kb + kslice);
+  }
+};
 
+// out (M, N) (+ z M N for split-K slice z's partial) = epilogue(A @ B), A's and B's
+// k-tiles [z kslice, (z + 1) kslice) for slice z. Persistent: each block walks the
+// tiles blockIdx.x, + gridDim.x, ...; the producer runs ahead into the next tile's
+// loads while the consumers finish a tile's epilogue.
 template <int L, typename OutT, int EPI>
-__global__ void __launch_bounds__(256) gemm_bf16_kernel(
-    const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-    OutT* __restrict__ out, Epi epi, int M, int N, int K) {
-  constexpr bool kAk = L == kTN, kBk = L != kNT;  // is each operand stored K-major?
-  __shared__ __align__(16) __nv_bfloat16 As[2][tile_elems(kAk)];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][tile_elems(kBk)];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, 64 x 32 each
-  const int g = lane >> 2, t = lane & 3;    // mma group / thread-in-group
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nk = (K + kBK - 1) / kBK;
-  load_op<kAk>(As[0], A, M, K, m0, 0, tid);
-  load_op<kBk>(Bs[0], B, N, K, n0, 0, tid);
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_op<kAk>(As[cur ^ 1], A, M, K, m0, (kt + 1) * kBK, tid);
-      load_op<kBk>(Bs[cur ^ 1], B, N, K, n0, (kt + 1) * kBK, tid);
+__global__ void __launch_bounds__(kGemmThreads, 1) gemm_bf16_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_b,
+    OutT* __restrict__ out, Epi epi, int M, int N, TileGrid grid) {
+  constexpr bool kAm = L == kTN;  // A stored (K, M): M-major
+  constexpr bool kBn = L != kNT;  // B stored (K, N): N-major
+  constexpr int kAStage = kBM * kBK, kBStage = kBN * kBK;  // elements
+  constexpr unsigned kTxBytes = (kAStage + kBStage) * 2;  // the full boxes, edges too
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* Bs = As + kStages * kAStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * kBStage);
+  uint64_t* empty = full + kStages;
+  float* red = reinterpret_cast<float*>(empty + kStages);
+  float* sbias = red + 8 * kBN;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int tiles = grid.count();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
     }
-    asm volatile("cp.async.commit_group;\n" ::);  // (possibly empty) group of step kt + 1
-    asm volatile("cp.async.wait_group 1;\n" ::);  // step kt's tiles have landed
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      unsigned af[4][4], bfr[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) frag_a<kAk>(af[mi], As[cur], wm * 64 + mi * 16, kk, lane);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) frag_b<kBk>(bfr[nj], Bs[cur], wn * 32 + nj * 16, kk, lane);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], af[mi], bfr[ni >> 1][(ni & 1) * 2], bfr[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-    __syncthreads();  // every warp is done with `cur` before step kt + 2 refills it
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  float csum[4][2];
+  if (wg == 2) {
+    // producer: one thread keeps the ring full, across tiles
+    regs_dealloc<kProducerRegs>();
+    if (t == 0) {
+      int it = 0;  // k-steps so far: stage it % kStages, pass it / kStages
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int m0, n0, mt, z, kb, ke;
+        grid.at(tile, m0, n0, mt, z, kb, ke);
+        for (int kt = kb; kt < ke; ++kt, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], kTxBytes);
+          const int k0 = kt * kBK;
+          __nv_bfloat16* a = As + s * kAStage;
+          __nv_bfloat16* b = Bs + s * kBStage;
+          if (kAm) {  // two 64-wide M slabs of 64 K-rows
+            tma_load_2d(a, &tma_a, &full[s], m0, k0);
+            tma_load_2d(a + 64 * kBK, &tma_a, &full[s], m0 + 64, k0);
+          } else {  // 128 rows of 64 K
+            tma_load_2d(a, &tma_a, &full[s], k0, m0);
+          }
+          if (kBn) {
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) csum[ni][0] = csum[ni][1] = 0.f;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + g + 8 * h;
-      if (row >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + wn * 32 + ni * 8 + t * 2 + e;
-          if (col < N) {
-            const size_t o = static_cast<size_t>(row) * N + col;
-            const float v = epi_value<__nv_bfloat16, EPI>(epi, acc[mi][ni][2 * h + e], o, col);
-            out[o] = from_f<OutT>(v);
-            if (EPI == kEpiGeluBwd) csum[ni][e] += v;
+            for (int j = 0; j < kBN / 64; ++j)
+              tma_load_2d(b + j * 64 * kBK, &tma_b, &full[s], n0 + 64 * j, k0);
+          } else {
+            tma_load_2d(b, &tma_b, &full[s], k0, n0);
           }
         }
       }
     }
-  }
-  if (EPI == kEpiGeluBwd) {
-    // column sums of this block's 128 rows: over the 8 mma groups of a warp
-    // (lane bits 2-4), then over the two warp rows, in a fixed order
+  } else {
+    // consumers: warpgroup wg owns rows m0 + 64 wg .. + 63 of each tile
+    regs_alloc<kConsumerRegs>();
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+    const int c = threadIdx.x;      // 0..255 over the consumers
+    const bool vec = (N & 1) == 0;  // the pair at an even column is 8- / 4-byte aligned
+    const __nv_bfloat162* side_g = static_cast<const __nv_bfloat162*>(
+        EPI == kEpiGeluBwd ? epi.aux : epi.res);
+    // the warpgroup's 64 A rows (K-major) or its 64-wide M slab (M-major): 8 KB in
+    const unsigned a_base = smem_u32(As) + wg * 64 * kBK * 2;
+    const unsigned b_base = smem_u32(Bs);
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0, mt, z, kb, ke;
+      grid.at(tile, m0, n0, mt, z, kb, ke);
+      // the epilogue's operands, read now so that their latency hides under the
+      // main loop: the tile's bias columns into shared memory (once both warpgroups
+      // are past the last tile's epilogue), and (N even) this thread's pairs of res
+      // or aux into registers
+      bar_sync(256);
+      if (epi.bias != nullptr && c < kBN) sbias[c] = n0 + c < N ? epi.bias[n0 + c] : 0.f;
+      __nv_bfloat162 side[16][2];
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+      for (int i = 0; i < 16; ++i)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + wg * 64 + warp * 16 + g + 8 * h;
+          const int col = n0 + i * 8 + 2 * q;
+          side[i][h] = __floats2bfloat162_rn(0.f, 0.f);
+          if (vec && side_g != nullptr && row < M && col < N)
+            side[i][h] = side_g[(static_cast<size_t>(row) * N + col) >> 1];
+        }
+      bar_sync(256);  // sbias is written
+
+      float acc[64];
 #pragma unroll
-        for (int off = 4; off < 32; off <<= 1)
-          csum[ni][e] += __shfl_xor_sync(0xffffffffu, csum[ni][e], off);
-    float* red = reinterpret_cast<float*>(&As[0][0]);  // [2][128]; the tiles are done
-    if (g == 0)
+      for (int r = 0; r < 64; ++r) acc[r] = 0.f;
+      for (int kt = kb; kt < ke; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const unsigned a = a_base + s * kAStage * 2;
+          const unsigned b = b_base + s * kBStage * 2;
+          const uint64_t da = kAm ? wgmma_desc(a + kk * 2048, 8192, 1024)
+                                  : wgmma_desc(a + kk * 32, 16, 1024);
+          const uint64_t db = kBn ? wgmma_desc(b + kk * 2048, 8192, 1024)
+                                  : wgmma_desc(b + kk * 32, 16, 1024);
+          wgmma_m64n128k16<kAm, kBn>(acc, da, db);
+        }
+        wgmma_commit();
+        fence_regs(acc);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+      }
+
+      // epilogue on the accumulators: thread (warp, g, q) holds rows 16 warp + g (+ 8),
+      // columns 8 i + 2 q (+ 1)
+      OutT* dst = out + static_cast<size_t>(z) * M * N;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) red[wm * kBN + wn * 32 + ni * 8 + t * 2 + e] = csum[ni][e];
-    __syncthreads();
-    if (tid < kBN && n0 + tid < N)
-      epi.part[static_cast<size_t>(blockIdx.y) * N + n0 + tid] = red[tid] + red[kBN + tid];
+      for (int i = 0; i < 16; ++i) {
+        const int col = n0 + i * 8 + 2 * q;
+        float csum[2] = {0.f, 0.f};  // kEpiGeluBwd: the column pair's sum over h
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + wg * 64 + warp * 16 + g + 8 * h;
+          if (row >= M || col >= N) continue;
+          const size_t o = static_cast<size_t>(row) * N + col;
+          const float a0 = acc[4 * i + 2 * h], a1 = acc[4 * i + 2 * h + 1];
+          if (vec) {  // N even, so col + 1 < N too
+            const int cl = col - n0;
+            const float2 v = epi_pair<EPI>(epi, a0, a1, o, make_float2(sbias[cl], sbias[cl + 1]),
+                                           __bfloat1622float2(side[i][h]));
+            store_pair<OutT>(dst + o, v.x, v.y, true);
+            csum[0] += v.x;
+            csum[1] += v.y;
+          } else {
+            const float v0 = epi_value<__nv_bfloat16, EPI>(epi, a0, o, col);
+            if (col + 1 < N) {
+              const float v1 = epi_value<__nv_bfloat16, EPI>(epi, a1, o + 1, col + 1);
+              store_pair<OutT>(dst + o, v0, v1, false);
+              csum[1] += v1;
+            } else {
+              dst[o] = from_f<OutT>(v0);
+            }
+            csum[0] += v0;
+          }
+        }
+        if constexpr (EPI == kEpiGeluBwd) {
+          // column sums of the tile's 128 rows: over the 8 row groups of a warp
+          // (lane bits 2-4) here, then over the 8 consumer warps in order below
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1)
+              csum[e] += __shfl_xor_sync(0xffffffffu, csum[e], off);
+            if (g == 0) red[(wg * 4 + warp) * kBN + i * 8 + 2 * q + e] = csum[e];
+          }
+        }
+      }
+      if constexpr (EPI == kEpiGeluBwd) {
+        bar_sync(256);
+        if (c < kBN && n0 + c < N) {
+          float v = 0.f;
+#pragma unroll
+          for (int w = 0; w < 8; ++w) v += red[w * kBN + c];
+          epi.part[static_cast<size_t>(mt) * N + n0 + c] = v;
+        }
+      }
+    }
   }
 }
 
@@ -437,29 +565,113 @@ __global__ void __launch_bounds__(256) colsum_kernel(const float* __restrict__ p
   out[i] = v;
 }
 
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point query (the
+// library does not link libcuda); null if it is not found.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                            cudaEnableDefault, &q);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major bf16 (rows, cols) matrix read in boxes of 64 columns x
+// box_rows rows with the 128-byte swizzle, out-of-bounds elements read as zeros
+// (TMA's conditions: base 16-byte aligned, cols a multiple of 8); false if refused.
+bool tile_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The card's SMs: the persistent GEMM's grid.
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
+}
+
+template <int L, typename OutT, int EPI>
+int launch_wgmma(const void* a, const void* b, OutT* out, const Epi& epi, int M, int N, int K,
+                 int splits, int kslice, cudaStream_t st) {
+  CUtensorMap ma, mb;
+  const bool ok = (L == kTN ? tile_map(&ma, a, K, M, 64) : tile_map(&ma, a, M, K, kBM)) &&
+                  (L == kNT ? tile_map(&mb, b, N, K, kBN) : tile_map(&mb, b, K, N, 64));
+  if (!ok || sm_count() < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = gemm_bf16_wgmma_kernel<L, OutT, EPI>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const TileGrid grid{(N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits, kslice,
+                      (K + kBK - 1) / kBK};
+  const int tiles = grid.tn * grid.tm * splits;
+  if (tiles == 0) return 0;
+  kern<<<tiles < sm_count() ? tiles : sm_count(), kGemmThreads, kGemmSmem, st>>>(ma, mb, out, epi,
+                                                                                  M, N, grid);
+  return 0;
+}
+
 // The GELU-backward epilogue exists for the NT layout with an output in the input
 // dtype only (ln_ff_residual_bwd's dh1), the stash for NN with an output in the input
-// dtype only (ln_ff_residual_h1's fc1); other combinations are refused.
+// dtype only (ln_ff_residual_h1's fc1); split-K (splits > 1 slices of kslice k-tiles,
+// f32 partials in ws, kernels/linear.plan_splitk) for an f32 output without epilogue
+// only (the weight gradients); other combinations are refused.
 template <int L>
 int launch_bf16(const void* a, const void* b, void* out, int out_f32, int mode, const Epi& epi,
-                int M, int N, int K, cudaStream_t st) {
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  auto A = static_cast<const __nv_bfloat16*>(a);
-  auto B = static_cast<const __nv_bfloat16*>(b);
+                int M, int N, int K, int splits, int kslice, void* ws, cudaStream_t st) {
+  const int nk = (K + kBK - 1) / kBK;
   auto O = static_cast<__nv_bfloat16*>(out);
+  if (splits > 1) {
+    const long n = static_cast<long>(M) * N;
+    if (mode != kEpiStd || epi.bias != nullptr || epi.res != nullptr || epi.out2 != nullptr ||
+        epi.gelu || !out_f32 || ws == nullptr || kslice < 1 || (splits - 1) * kslice >= nk ||
+        splits * kslice < nk || n > 0x7fffffffL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int rc = launch_wgmma<L, float, kEpiStd>(a, b, static_cast<float*>(ws), epi, M, N,
+                                                        K, splits, kslice, st);
+    if (rc != 0) return rc;
+    colsum_kernel<<<static_cast<int>((n + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(ws), 1, splits, static_cast<int>(n), static_cast<float*>(out));
+    return 0;
+  }
+  kslice = nk > 0 ? nk : 1;
   if (mode == kEpiGeluBwd) {
     if (L != kNT || out_f32 || epi.part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    gemm_bf16_kernel<kNT, __nv_bfloat16, kEpiGeluBwd><<<grid, 256, 0, st>>>(A, B, O, epi, M, N, K);
-  } else if (epi.out2 != nullptr) {
-    if (L != kNN || out_f32) return static_cast<int>(cudaErrorInvalidValue);
-    gemm_bf16_kernel<kNN, __nv_bfloat16, kEpiStash><<<grid, 256, 0, st>>>(A, B, O, epi, M, N, K);
-  } else if (out_f32) {
-    gemm_bf16_kernel<L, float, kEpiStd><<<grid, 256, 0, st>>>(A, B, static_cast<float*>(out), epi,
-                                                              M, N, K);
-  } else {
-    gemm_bf16_kernel<L, __nv_bfloat16, kEpiStd><<<grid, 256, 0, st>>>(A, B, O, epi, M, N, K);
+    return launch_wgmma<kNT, __nv_bfloat16, kEpiGeluBwd>(a, b, O, epi, M, N, K, 1, kslice, st);
   }
-  return 0;
+  if (epi.out2 != nullptr) {
+    if (L != kNN || out_f32) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma<kNN, __nv_bfloat16, kEpiStash>(a, b, O, epi, M, N, K, 1, kslice, st);
+  }
+  if (out_f32)
+    return launch_wgmma<L, float, kEpiStd>(a, b, static_cast<float*>(out), epi, M, N, K, 1,
+                                                kslice, st);
+  return launch_wgmma<L, __nv_bfloat16, kEpiStd>(a, b, O, epi, M, N, K, 1, kslice, st);
 }
 
 template <int L>
@@ -530,22 +742,35 @@ int istvt_ln_rows(const void* x, int x_dt, const void* s, const void* b, void* y
 // + res (dt, or null);
 // mode 1 (layout NT, out in dt only): acc * gelu'(aux), gelu(aux) -> out2, with aux,
 // out2 (M, N) in dt, and part (f32 (ceil(M / tile), N)) the per-block-row column sums
-// of the f32 result (tile 128 rows for bf16, 64 for f32).
+// of the f32 result (tile 128 rows for bf16, 64 for f32). splits > 1 (bf16 inputs, out
+// f32, mode 0 without bias, res, gelu or out2): K is cut into `splits` slices of
+// `kslice` 64-deep k-tiles (the last one shorter), each slice's product goes to its
+// (M, N) f32 partial in ws (splits, M, N), and the partials are added into out in
+// slice order; with splits = 1 kslice and ws are not read.
 int istvt_gemm(const void* a, const void* b, int dt, int layout, void* out, int out_f32,
                const void* bias, const void* res, int gelu, void* out2, const void* aux,
-               void* part, int mode, int M, int N, int K, void* stream) {
+               void* part, int mode, int M, int N, int K, int splits, int kslice, void* ws,
+               void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const Epi epi{static_cast<const float*>(bias), res, out2, aux, static_cast<float*>(part),
                 gelu};
   int rc = 0;
+  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dt == kBF16) {
     switch (layout) {
-      case kNN: rc = launch_bf16<kNN>(a, b, out, out_f32, mode, epi, M, N, K, st); break;
-      case kNT: rc = launch_bf16<kNT>(a, b, out, out_f32, mode, epi, M, N, K, st); break;
-      case kTN: rc = launch_bf16<kTN>(a, b, out, out_f32, mode, epi, M, N, K, st); break;
+      case kNN:
+        rc = launch_bf16<kNN>(a, b, out, out_f32, mode, epi, M, N, K, splits, kslice, ws, st);
+        break;
+      case kNT:
+        rc = launch_bf16<kNT>(a, b, out, out_f32, mode, epi, M, N, K, splits, kslice, ws, st);
+        break;
+      case kTN:
+        rc = launch_bf16<kTN>(a, b, out, out_f32, mode, epi, M, N, K, splits, kslice, ws, st);
+        break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
+    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
     auto A = static_cast<const float*>(a);
     auto B = static_cast<const float*>(b);
     auto O = static_cast<float*>(out);

@@ -1,7 +1,7 @@
-// The bf16 tensor-core building blocks that the float GEMM (float_gemm.cu) and the
-// spatial attention cores (q8_attention.cuh, attention_bwd.cu) share: 16-byte
-// cp.async copies into shared memory, ldmatrix fragment loads and the
-// mma.sync m16n8k16 product with f32 accumulators.
+// The bf16 tensor-core building blocks of the spatial attention cores
+// (q8_attention.cuh, attention_bwd.cu): 16-byte cp.async copies into shared memory,
+// ldmatrix fragment loads and the mma.sync m16n8k16 product with f32 accumulators.
+// (The float GEMM runs wgmma instead: wgmma.cuh.)
 //
 // Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for
 // lane = 4 g + t: A (16 x 16, row-major) a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),

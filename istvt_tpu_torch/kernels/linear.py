@@ -16,6 +16,9 @@ wrappers are torch.autograd.Functions whose backward runs the same way.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Tuple
+
 import torch
 
 from istvt_tpu_torch.kernels import _lib
@@ -229,7 +232,9 @@ def gemm(a, b, out, *, layout: str = "nn", bias32=None, res=None,
     pre-activation into out2, tanh-GELU, + res; or, with aux (the pre-GELU
     hidden; layout 'nt', out in a's dtype), out = acc * gelu'(aux),
     gelu(aux) into out2 and the per-block column sums of the f32 result
-    into part, (ceil(M / gemm_row_tile), N) f32."""
+    into part, (ceil(M / gemm_row_tile), N) f32. A bf16 'tn' product into
+    f32 without epilogue (a weight gradient) is split along K as
+    plan_splitk says, its partials in a scratch tensor made here."""
     code = _LAYOUT[layout]
     b = b.to(a.dtype).contiguous()
     if layout == "tn":
@@ -248,24 +253,96 @@ def gemm(a, b, out, *, layout: str = "nn", bias32=None, res=None,
     if out.numel() != m * n or not out.is_contiguous():
         raise ValueError(f"GEMM output {tuple(out.shape)}, want ({m}, {n}) "
                          f"contiguous")
-    for t in (a, b, res, out, out2, aux):
+    for t in (a, b, bias32, res, out, out2, aux, part):
         if t is not None and (not t.is_cuda or t.data_ptr() % 16):
             raise ValueError("GEMM operands must be 16-byte aligned CUDA "
                              "tensors")
     out_f32 = out.dtype == torch.float32
     if not out_f32 and out.dtype != a.dtype:
         raise TypeError(f"GEMM output {out.dtype} for {a.dtype} inputs")
+    splits, kslice, ws = 1, 0, None
+    if (layout == "tn" and out_f32 and a.dtype == torch.bfloat16
+            and bias32 is None and res is None and not gelu and out2 is None
+            and aux is None):
+        plan = plan_splitk(m, n, k, _sm_count(a.device.index))
+        if plan.splits > 1:
+            splits, kslice = plan.splits, plan.kslice
+            ws = torch.empty(plan.part_shape, dtype=torch.float32,
+                             device=a.device)
     _lib.check(_lib.load().istvt_gemm(
         a.data_ptr(), b.data_ptr(), _lib.DTYPE_CODE[a.dtype], code,
         out.data_ptr(), int(out_f32), _lib.ptr(bias32), _lib.ptr(res),
         int(gelu), _lib.ptr(out2), _lib.ptr(aux), _lib.ptr(part),
-        int(aux is not None), m, n, k, _lib.stream()), "gemm")
+        int(aux is not None), m, n, k, splits, kslice, _lib.ptr(ws),
+        _lib.stream()), "gemm")
+
+
+# The bf16 GEMM's output tile (csrc/float_gemm.cu kBM, kBN, kBK): rows,
+# columns and the depth of one k-step.
+GEMM_TILE = (128, 128, 64)
+# The planner's model of the persistent GEMM (one block an SM, taking the
+# tiles in turn): the time of one 64-deep k-step of a tile, a tile's fill
+# and epilogue in k-steps, and the card's memory rate for the f32 partials.
+# The H100 measured 0.55 us a k-step where both operands are aligned
+# (PERF.md); with that figure the model's dW shapes get the same splits, or
+# (#23's at 2 clips) one more.
+_KSTEP_S = 0.43e-6
+_BLOCK_KSTEPS = 6
+_HBM_BPS = 3.35e12
+_MAX_SPLITS = 16
+
+
+class SplitK(NamedTuple):
+    """A split-K plan of one (M, N, K) GEMM: `splits` slices of `kslice`
+    k-tiles (the last one shorter); `bounds` the K rows [begin, end) of each
+    slice in order; `part_shape` the f32 partials, (splits, M, N)."""
+    splits: int
+    kslice: int
+    bounds: Tuple[Tuple[int, int], ...]
+    part_shape: Tuple[int, int, int]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_splitk(m: int, n: int, k: int, sms: int) -> SplitK:
+    """How to split a weight-gradient GEMM (M, N) over K rows between `sms`
+    SMs: the number of slices whose modelled time is least, where a launch
+    takes one tile time per wave (tiles / sms, rounded up; a tile's time its
+    k-steps plus its fill and epilogue) and every slice beyond one also
+    writes and reads an f32 (M, N) partial. So a grid under a wave (72 tiles
+    of 128 x 128 for the 728 x 1536 dW on 132 SMs), or a second wave of a
+    few tiles (138 for 728 x 2912), is split until the waves are nearly
+    full, as long as the partials cost less than the time saved."""
+    bm, bn, bk = GEMM_TILE
+    tiles, ksteps = _cdiv(m, bm) * _cdiv(n, bn), _cdiv(k, bk)
+    part_ksteps = 8 * m * n / _HBM_BPS / _KSTEP_S     # one partial, k-steps
+    best = None
+    for want in range(1, min(_MAX_SPLITS, max(ksteps, 1)) + 1):
+        kslice = _cdiv(ksteps, want)
+        splits = _cdiv(ksteps, kslice) if ksteps else 1
+        cost = (_cdiv(tiles * splits, sms) * (kslice + _BLOCK_KSTEPS)
+                + (splits > 1) * splits * part_ksteps)
+        if best is None or cost < best[0]:
+            best = (cost, splits, kslice)
+    _, splits, kslice = best
+    bounds = tuple((z * kslice * bk, min(k, (z + 1) * kslice * bk))
+                   for z in range(splits))
+    return SplitK(splits, kslice, bounds, (splits, m, n))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device() if index is None else index
+    ).multi_processor_count
 
 
 def gemm_row_tile(dtype) -> int:
-    """Rows per block of the GEMM (bf16 tensor-core tile 128, f32 64): the
-    row count of a column-sum partial."""
-    return 128 if dtype == torch.bfloat16 else 64
+    """Rows per block of the GEMM (bf16 tensor-core tile GEMM_TILE[0], f32
+    64): the row count of a column-sum partial."""
+    return GEMM_TILE[0] if dtype == torch.bfloat16 else 64
 
 
 def colsum(part):

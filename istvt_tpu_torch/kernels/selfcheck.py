@@ -356,32 +356,163 @@ def bit_equal_share(got, want) -> float:
     return same / max(total, 1)
 
 
-# The kernels that run the spatial attention core or its backward: the
-# bf16 instantiations must use the tensor cores, the f32 ones must not
-# (their 1e-5 check would then test the FMA pipes' f32, as it should).
-# Patterns are the Itanium-mangled template heads of csrc's kernels.
+# ---------------------------------------------------------------------------
+# The float GEMM (kernels/linear.gemm) alone, at the shapes of its callers and
+# at edges: bf16 operands in their stored layout, one of its epilogues.
+
+# epilogues of a GEMM case: + bias, tanh-GELU, + res in the std epilogue;
+# "stash" is bias + GELU with the pre-activation stored (layout nn, bf16
+# out); "gelu_bwd" acc * gelu'(aux) with gelu(aux) and the column-sum
+# partials (layout nt, bf16 out)
+GEMM_EPILOGUES = ("plain", "bias", "bias_gelu", "bias_res", "bias_gelu_res",
+                  "stash", "gelu_bwd")
+
+
+def gemm_shapes(geometry=SLICE) -> dict:
+    """{name: (layout, M, N, K, epilogue, out dtype)}: every GEMM launch of
+    the float path at `geometry`'s rows R = b * t1 * s (#22's fused_ff at
+    its unpadded b * t1 * n_valid rows), with the epilogue and output
+    dtype its caller gives it."""
+    b, t1, s, n_valid = (geometry[k] for k in ("b", "t1", "s", "n_valid"))
+    d, inner, hid = geometry["d"], geometry["inner"], geometry["hid"]
+    r, fr, bf, f32 = b * t1 * s, b * t1 * n_valid, torch.bfloat16, \
+        torch.float32
+    return {
+        "#18 QKV": ("nn", r, 3 * inner, d, "plain", bf),
+        "#20 out-projection + r": ("nn", r, d, inner, "bias_res", bf),
+        "#20 out-projection": ("nn", r, d, inner, "bias", bf),
+        "#21 fc1": ("nn", r, hid, d, "bias_gelu", bf),
+        "#21_h1 fc1 (stash)": ("nn", r, hid, d, "stash", bf),
+        "#21 / #6 fc2": ("nn", r, d, hid, "bias_res", bf),
+        "#22 fc1": ("nn", fr, hid, d, "bias_gelu", bf),
+        "#22 fc2": ("nn", fr, d, hid, "bias", bf),
+        "#19 dy": ("nt", r, d, 3 * inner, "plain", f32),
+        "#19 dW": ("tn", d, 3 * inner, r, "plain", f32),
+        "#20 backward dx": ("nt", r, inner, d, "plain", bf),
+        "#20 backward dW": ("tn", inner, d, r, "plain", f32),
+        "#23 dh1 (gelu_bwd)": ("nt", r, hid, d, "gelu_bwd", bf),
+        "#23 dw2": ("tn", hid, d, r, "plain", f32),
+        "#23 dw1": ("tn", d, hid, r, "plain", f32),
+        "#23 dy": ("nt", r, d, hid, "plain", f32),
+    }
+
+
+def gemm_operands(layout, m, n, k, epilogue, out_dtype, device, seed=0):
+    """The arguments of one linear.gemm call: {"a", "b", "out", "layout",
+    and the epilogue's keywords}; a drawn N(0, 1) like activations, b like
+    a layer's init U(+-1/sqrt(k)) (for tn, where both are activations or
+    gradients, N(0, 1) too), bias N(0, 0.02), res and aux N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(*((k, m) if layout == "tn" else (m, k)), generator=g)
+    b_shape = (n, k) if layout == "nt" else (k, n)
+    b = (torch.randn(*b_shape, generator=g) if layout == "tn"
+         else (torch.rand(*b_shape, generator=g) * 2 - 1) * k ** -0.5)
+    bf = torch.bfloat16
+    ops = {"a": a.to(device, bf), "b": b.to(device, bf), "layout": layout,
+           "out": torch.empty(m, n, dtype=out_dtype, device=device)}
+    if epilogue != "plain" and epilogue != "gelu_bwd":
+        ops["bias32"] = (torch.randn(n, generator=g) * 0.02).to(device)
+    if "res" in epilogue:
+        ops["res"] = torch.randn(m, n, generator=g).to(device, bf)
+    if "gelu" in epilogue or epilogue == "stash":
+        ops["gelu"] = True
+    if epilogue == "stash":
+        ops["out2"] = torch.empty(m, n, dtype=bf, device=device)
+    if epilogue == "gelu_bwd":
+        del ops["gelu"]
+        ops["aux"] = torch.randn(m, n, generator=g).to(device, bf)
+        ops["out2"] = torch.empty(m, n, dtype=bf, device=device)
+        ops["part"] = torch.empty(-(-m // linear.gemm_row_tile(bf)), n,
+                                  dtype=torch.float32, device=device)
+    return ops
+
+
+def run_gemm(ops):
+    """linear.gemm on the operands of gemm_operands."""
+    linear.gemm(**ops)
+
+
+def gemm_results(ops) -> tuple:
+    """The outputs of a run_gemm call: out (, out2) (, part)."""
+    return tuple(ops[k] for k in ("out", "out2", "part") if k in ops)
+
+
+def gemm_plain(ops) -> tuple:
+    """The plain f32 version of run_gemm on the same operands, with the
+    outputs of gemm_results: the product of the bf16 values in f32, the
+    epilogue in the JAX order (kernels/linear._matmul_bias_reference,
+    kernels/mlp._ff_reference and _ln_ff_bwd_kernel), each output rounded
+    once to its dtype."""
+    a, b, layout, out = ops["a"].float(), ops["b"].float(), ops["layout"], \
+        ops["out"]
+    acc = a.t() @ b if layout == "tn" else a @ b.t() if layout == "nt" \
+        else a @ b
+    if "aux" in ops:
+        val, dval = mlp._gelu_tanh_and_grad(ops["aux"].float())
+        o = acc * dval
+        m, n = o.shape
+        tile = linear.gemm_row_tile(ops["a"].dtype)
+        pad = torch.zeros(-(-m // tile) * tile - m, n, device=o.device)
+        part = torch.cat([o, pad]).reshape(-1, tile, n).sum(1)
+        return o.to(out.dtype), val.to(ops["out2"].dtype), part
+    v = acc
+    if ops.get("bias32") is not None:
+        v = v + ops["bias32"]
+    pre = v
+    if ops.get("gelu"):
+        v = mlp._gelu_tanh(v)
+    if ops.get("res") is not None:
+        v = v + ops["res"].float()
+    if "out2" in ops:
+        return v.to(out.dtype), pre.to(ops["out2"].dtype)
+    return (v.to(out.dtype),)
+
+
+def gemm_flops_bytes(ops) -> tuple:
+    """(operations, bytes) of a GEMM case: 2 M N K, and each input read and
+    each output written once."""
+    (m, n), layout = ops["out"].shape, ops["layout"]
+    k = ops["a"].shape[0 if layout == "tn" else 1]
+    tensors = [t for t in ops.values() if torch.is_tensor(t)]
+    return 2 * m * n * k, sum(t.numel() * t.element_size() for t in tensors)
+
+
+# The kernels that run the spatial attention core or its backward, and the
+# float GEMM: the bf16 instantiations must use the tensor cores, the f32
+# ones must not (their 1e-5 check would then test the FMA pipes' f32, as it
+# should); every instantiation of the bf16 GEMM must run wgmma (HGMMA), not
+# mma.sync alone. Patterns are the Itanium-mangled template heads of csrc's
+# kernels: the attention kernels' first template parameter is the
+# activation type; the GEMMs' names say it (their parameters start with the
+# layout), so every instantiation of the name counts.
 TENSOR_CORE_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
                        "st_layer_q8_kernel", "spatial_attn_bwd_dq_kernel",
-                       "spatial_attn_bwd_dkv_kernel")
+                       "spatial_attn_bwd_dkv_kernel", "gemm_bf16_wgmma_kernel")
 FMA_ONLY_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
                     "spatial_attn_bwd_dq_kernel",
-                    "spatial_attn_bwd_dkv_kernel")
+                    "spatial_attn_bwd_dkv_kernel", "gemm_f32_kernel")
+WGMMA_KERNELS = ("gemm_bf16_wgmma_kernel",)
+_NAMED_DTYPE = ("gemm_bf16_wgmma_kernel", "gemm_f32_kernel")
 
 
-def tensor_core_check(counts) -> list:
+def tensor_core_check(counts, wgmma=None) -> list:
     """Rows (kernel, dtype, {mangled name: tensor-core instructions}, ok)
     for each entry of TENSOR_CORE_KERNELS in bf16 (ok: every instantiation
-    has some) and FMA_ONLY_KERNELS in f32 (ok: none has any); `counts` is
-    _lib.sass_tensor_ops()."""
+    has some; for WGMMA_KERNELS, every instantiation has HGMMA, counted in
+    `wgmma`) and FMA_ONLY_KERNELS in f32 (ok: none has any); `counts` is
+    _lib.tensor_ops_of_sass(sass), `wgmma` tensor_ops_of_sass(sass,
+    ("HGMMA.",)) of the built library's sass (_lib.sass_text; without
+    `wgmma` the WGMMA_KERNELS rows fail)."""
     rows = []
     for kernels, dtype, tag in ((TENSOR_CORE_KERNELS, "bf16",
                                  "I13__nv_bfloat16"),
                                 (FMA_ONLY_KERNELS, "f32", "If")):
         for k in kernels:
-            head = f"{len(k)}{k}{tag}"
-            found = {n: c for n, c in counts.items() if head in n}
+            head = f"{len(k)}{k}" + ("I" if k in _NAMED_DTYPE else tag)
+            source = (wgmma or {}) if (dtype == "bf16"
+                                       and k in WGMMA_KERNELS) else counts
+            found = {n: c for n, c in source.items() if head in n}
             ok = bool(found) and (all(found.values()) if dtype == "bf16"
                                   else not any(found.values()))
             rows.append((k, dtype, found, ok))
     return rows
-

@@ -10,7 +10,9 @@ differentiable wrappers' backward on the card; the spatial attention core
 and its backward #13 at more shapes (S off the 16-row mma tile, masked
 keys, every dim_head, 112 frames), bf16 on the tensor cores and f32 on the
 FMA pipes, and from the built library's SASS that each runs on the pipes
-it should; then small models on the card against the CPU.
+it should; the float GEMM (wgmma) alone at every caller's shape and at
+edges of each layout, every epilogue, both output dtypes and split-K; then
+small models on the card against the CPU.
 
 Needs an NVIDIA GPU with nvcc: marked `gpu`, and skipped (inside the
 fixture, not at import) where torch sees no CUDA device. Run on the card:
@@ -142,13 +144,84 @@ def test_spatial_attention_on_the_tensor_cores(cuda, kernel, dtype):
     of the kernels that run the spatial core (#10 and #2's
     spatial_attn_kernel, #14 / #15's frame_attn_kernel, #9's
     st_layer_q8_kernel) or #13 (both passes) has tensor-core instructions
-    (HMMA / HGMMA; #9's int8 IMMA does not count), and no f32
-    instantiation of those but #9 has any."""
+    (HMMA / HGMMA; #9's int8 IMMA does not count), every instantiation of
+    the bf16 float GEMM has wgmma (HGMMA), and no f32 instantiation of
+    those but #9 has any, nor the f32 FMA GEMM."""
     _lib.load()
-    rows = selfcheck.tensor_core_check(_lib.sass_tensor_ops())
+    sass = _lib.sass_text()
+    rows = selfcheck.tensor_core_check(
+        _lib.tensor_ops_of_sass(sass),
+        _lib.tensor_ops_of_sass(sass, ("HGMMA.",)))
     (found, ok), = [(f, o) for k, d, f, o in rows
                     if k == kernel and d == dtype]
     assert ok, found
+
+
+# the float GEMM alone: every caller's launch at the slice, and edges of
+# each layout (M of 1, 7, 129 rows; K of 8, 24 and the model's 728 / 2912,
+# whose k-tail the TMA zero-fills; N of 8 and off the 128-wide tile) with
+# every epilogue in both output dtypes; tn at K = 5152 and 41216, which
+# plan_splitk splits (3 and 5 slices on 132 SMs)
+_GEMM_EDGES = {"nn": [(1, 8, 8), (7, 728, 24), (129, 1536, 728),
+                      (5068, 728, 2912)],
+               "nt": [(1, 8, 8), (7, 1536, 24), (129, 728, 2912),
+                      (5068, 8, 728)],
+               "tn": [(8, 8, 8), (136, 728, 24), (728, 1536, 5152),
+                      (512, 728, 41216)]}
+GEMM_CASES = [*selfcheck.gemm_shapes().values(), *(
+    (layout, m, n, k, epi, dt)
+    for layout, shapes in _GEMM_EDGES.items() for m, n, k in shapes
+    for epi, dt in [*((e, d) for e in selfcheck.GEMM_EPILOGUES[:5]
+                      for d in (torch.bfloat16, torch.float32)),
+                    *((("stash", torch.bfloat16),) if layout == "nn" else ()),
+                    *((("gelu_bwd", torch.bfloat16),) if layout == "nt"
+                      else ())])]
+
+
+@pytest.mark.parametrize(
+    "layout, m, n, k, epilogue, out_dtype", GEMM_CASES,
+    ids=[f"{c[0]}-{c[1]}x{c[2]}x{c[3]}-{c[4]}-{str(c[5])[6:]}"
+         for c in GEMM_CASES])
+def test_gemm_matches_plain_at_more_shapes(cuda, record_property, layout, m,
+                                           n, k, epilogue, out_dtype):
+    """The bf16 wgmma GEMM (kernels/linear.gemm) against its plain f32
+    version (selfcheck.gemm_plain) by the bf16 criterion, every output
+    (out, the stash or gelu(aux), the column-sum partials); the split-K
+    plan of a tn product recorded."""
+    ops = selfcheck.gemm_operands(layout, m, n, k, epilogue, out_dtype, cuda,
+                                  seed=m + 3 * n + 7 * k)
+    selfcheck.run_gemm(ops)
+    with highest():
+        want = selfcheck.gemm_plain(ops)
+    torch.cuda.synchronize()
+    got = selfcheck.gemm_results(ops)
+    ok, rel, mx, scale = selfcheck.bf16_close(got, want)
+    record_property("rel_l2", rel)
+    if layout == "tn":
+        record_property("splits", linear.plan_splitk(
+            m, n, k, torch.cuda.get_device_properties(cuda).
+            multi_processor_count).splits)
+    assert ok, (rel, mx, scale)
+
+
+def test_gemm_raises_what_it_cannot_take(cuda):
+    """No other route: a bf16 GEMM that the wgmma kernel does not take
+    raises (the wrapper's checks, or the C entry's refusal through
+    _lib.check), it is never computed another way."""
+    bf = torch.bfloat16
+    a, b = (torch.zeros(64, 64, device=cuda, dtype=bf) for _ in range(2))
+    out = torch.empty(64, 64, device=cuda, dtype=bf)
+    with pytest.raises(RuntimeError, match="gemm"):       # stash on nt
+        linear.gemm(a, b, out, layout="nt", out2=torch.empty_like(out))
+    with pytest.raises(RuntimeError, match="gemm"):       # f32 dh1
+        linear.gemm(a, b, out.float(), layout="nt", aux=out, out2=out,
+                    part=torch.empty(1, 64, device=cuda))
+    with pytest.raises(ValueError, match="divisible by 8"):
+        linear.gemm(torch.zeros(64, 60, device=cuda, dtype=bf),
+                    torch.zeros(60, 64, device=cuda, dtype=bf), out)
+    with pytest.raises(ValueError, match="aligned"):
+        linear.gemm(torch.zeros(64 * 64 + 1, device=cuda, dtype=bf)[1:]
+                    .view(64, 64), b, out)
 
 
 def test_f8_cast_same_on_card_and_cpu(cuda):
