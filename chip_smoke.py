@@ -27,8 +27,10 @@ path reaches. In phases; any failure raises and exits non-zero:
                 both passes of #13) has tensor-core instructions (HMMA /
                 HGMMA), every instantiation of the bf16 float GEMM
                 (gemm_bf16_wgmma_kernel: #6's fc2, #18-#23) has wgmma
-                (HGMMA), and no f32 one but #9's has any, nor the f32 FMA
-                GEMM (selfcheck.tensor_core_check)
+                (HGMMA), every instantiation of the int8 GEMM
+                (gemm_q8_wgmma_kernel: #1-#8) has int8 wgmma (IGMMA), and
+                no f32 one but #9's has any, nor the f32 FMA GEMM
+                (selfcheck.tensor_core_check)
   3. kernels  - each of the 24 kernels (kernels/selfcheck.CASES: one case
                 per launch counter -- #20 and #5 with and without their
                 residual; the training slice's four backward kernels and
@@ -52,13 +54,24 @@ path reaches. In phases; any failure raises and exits non-zero:
                 #18, #20 and its backward, #21 / #6 / #22 fc1 and fc2, #19,
                 #23's four) vs its plain f32 version by the bf16 criterion,
                 with its device ms (tools/kernel_ms.device_ms), TFLOP/s,
-                the bound and torch.matmul's device ms on the same operands
+                the bound and torch.matmul's device ms on the same operands;
+                then the int8 GEMM alone (kernels/quant.gemm_q8) at each
+                int8 caller's shape at the slice (selfcheck.gemm_q8_shapes:
+                #1-#8's QKV, out-projections, fc1 and fc2 with their
+                epilogues) vs its plain version (the exact int8 dot, the
+                same f32 epilogue): bit for bit without GELU, atol = rtol
+                = 2e-3 with it; device ms, TOP/s and share of the int8
+                peak, the bound, and torch._int_mm's device ms on the same
+                codes (a yardstick the port never calls)
   then for each serving path, int8 first:
   4. serving  - the model behind the HTTP ServeDaemon: float32 and uint8
                 POSTs, a 16-clip batch and two concurrent requests, all
                 HTTP 200 with finite logits; counted from 0 just before,
                 each kernel of the path must have launched exactly its
-                launches per forward times the forwards, every other 0
+                launches per forward times the forwards, every other 0,
+                and no int8 wrapper built a K-major weight copy in a call
+                (the model holds them: _lib.KMAJOR_BUILDS 0; so in every
+                counted phase below)
   5. e2e      - 1-clip logits on the card (kernels, bf16) vs the same model
                 on the CPU (plain versions, f32): |dlogit| <= 5e-2
   6. timing   - B=16 forward, median ms and clips/s
@@ -163,7 +176,7 @@ from torch_forward_ms import INT8_MODES as TOOL_MODES  # noqa: E402
 from torch_forward_ms import PACKED, forward_times, set_mode  # noqa: E402
 from torch_train_ms import (TRAIN_BATCH, build_trainer,  # noqa: E402
                             paper_trainer, train_times, warm_up)
-from kernel_ms import gemm_rows, median_ms  # noqa: E402
+from kernel_ms import gemm_q8_rows, gemm_rows, median_ms  # noqa: E402
 
 # the two paths, by their cli/serve.py flags, at the CLI's default paper
 # geometry (300^2 x 6, depth 12)
@@ -266,8 +279,8 @@ MODE_PER_LAYER = {
 # quantization points), and the CUDA kernels (by name) that a 'layer'
 # forward must not launch: those of the #1-#3 chain that #9 replaces
 SAME_AS_INGEST = ("boundary", "layer")
-CHAIN_KERNELS = ("quant_rows_kernel", "gemm_q8_kernel", "temporal_attn_kernel",
-                 "spatial_attn_kernel")
+CHAIN_KERNELS = ("quant_rows_kernel", "gemm_q8_wgmma_kernel",
+                 "temporal_attn_kernel", "spatial_attn_kernel")
 
 # launches per layer of one float fused train step (dropout 0): the
 # forward's kernels, except that the FF branch runs its h1-stash variant,
@@ -310,11 +323,15 @@ TOTAL = dict.fromkeys(KERNELS, 0)
 
 def _tally(want_nonzero):
     """SystemExit unless every launch counter equals want_nonzero's entry
-    (0 where it has none); else add the counts to TOTAL."""
+    (0 where it has none) and no int8 wrapper built a K-major weight copy
+    in a call; else add the counts to TOTAL."""
     counts = dict(_lib.LAUNCHES)
     want = {n: want_nonzero.get(n, 0) for n in counts}
     if counts != want:
         raise SystemExit(f"launches {counts}, want {want}")
+    if _lib.KMAJOR_BUILDS["q8_kmajor"]:
+        raise SystemExit(f"a model path built {_lib.KMAJOR_BUILDS} K-major "
+                         f"weight copies in its calls")
     for n, k in counts.items():
         TOTAL[n] += k
     return counts
@@ -560,6 +577,35 @@ def gemm_phase(dev):
               f"({'ok' if ok else 'FAIL'})")
         if not ok:
             raise SystemExit(f"GEMM {name} disagrees with its plain version")
+
+
+def gemm_q8_phase(dev):
+    """Phase 3's int8 GEMM table: kernels/quant.gemm_q8 at every int8
+    caller's shape at the slice (selfcheck.gemm_q8_shapes) against its
+    plain version (bit for bit without GELU, 2e-3 with), its device ms,
+    TOP/s and share of the int8 peak, the bound, and torch._int_mm's
+    device ms on the same codes and weight, the faster of its row- and
+    column-major layouts (tools/kernel_ms.gemm_q8_rows)."""
+    tol = selfcheck.F32_TOL_INT8
+    for name, (m, n, k, out_dt, res_dt, _, gelu), ms, (lib_ms, lib_layout), \
+            tops, bound, ops in gemm_q8_rows(selfcheck, dev):
+        want = selfcheck.gemm_q8_plain(ops)
+        got = ops["out"]
+        torch.cuda.synchronize()
+        same = selfcheck.bit_equal_share(got, want)
+        ok = (torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+              if gelu else same == 1.0)
+        phase("gemm_q8", f"{name}: {m} x {n} x {k} -> {out_dt}"
+              + (f" + r {res_dt}" if res_dt is not None else "")
+              + f": device ms {ms:.4f} ({tops:.1f} TOP/s, "
+              f"{tops / (PEAK_OPS['int8'] / 1e12):.1%} of peak), "
+              f"torch._int_mm {lib_ms} (weight {lib_layout}), bound "
+              f"{bound:.4f}; vs plain: "
+              f"bit-equal share {same:.6f} ({'ok' if ok else 'FAIL'}: "
+              f"{'2e-3' if gelu else 'all equal'} wanted)")
+        if not ok:
+            raise SystemExit(f"int8 GEMM {name} disagrees with its plain "
+                             f"version")
 
 
 # ---------------------------------------------------------------------------
@@ -1134,21 +1180,29 @@ def main():
     phase("build", f"nvcc sm_90a build + load {time.perf_counter() - t0:.1f} s "
           f"(log: {os.path.relpath(_lib.BUILD_DIR / 'build.log')})")
     sass = _lib.sass_text()
+    igmma = [ln.strip() for ln in sass.splitlines()
+             if selfcheck.INT8_WGMMA_OP in ln]
+    phase("build", f"int8 wgmma in the SASS: {len(igmma)} instructions, "
+          f"e.g. {igmma[0] if igmma else None}")
     for kernel, dtype, found, ok in selfcheck.tensor_core_check(
             _lib.tensor_ops_of_sass(sass),
-            _lib.tensor_ops_of_sass(sass, ("HGMMA.",))):
+            _lib.tensor_ops_of_sass(sass, ("HGMMA.",)),
+            _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_WGMMA_OP,))):
         what = ("HGMMA" if kernel in selfcheck.WGMMA_KERNELS
-                and dtype == "bf16" else "tensor-core")
+                and dtype == "bf16" else "IGMMA" if dtype == "int8"
+                else "tensor-core")
         phase("build", f"{kernel} {dtype}: {what} instructions "
               f"{sorted(found.values())} ({'ok' if ok else 'FAIL'}: "
-              f"{'each' if dtype == 'bf16' else 'none'} wanted)")
+              f"{'none' if dtype == 'f32' else 'each'} wanted)")
         if not ok:
             raise SystemExit(f"{kernel} in {dtype} is not on the pipes it "
                              f"should be")
 
-    # 3. kernels, then the float GEMM alone at its callers' shapes
+    # 3. kernels, then the float and the int8 GEMM alone at their callers'
+    # shapes
     rows = check_kernels(dev)
     gemm_phase(dev)
+    gemm_q8_phase(dev)
     if args.profile:
         open(args.profile, "w").close()
 

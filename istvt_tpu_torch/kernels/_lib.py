@@ -68,9 +68,17 @@ LAUNCHES: Dict[str, int] = dict.fromkeys([
 ], 0)
 
 
+# K-major int8 weight copies (kernels/quant.kmajor) that an int8 wrapper
+# built on the card within a call, for want of the prebuilt ones a model
+# holds; a model path builds none.
+KMAJOR_BUILDS: Dict[str, int] = {"q8_kmajor": 0}
+
+
 def reset_launches():
+    """Zero every launch counter, and KMAJOR_BUILDS."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    KMAJOR_BUILDS["q8_kmajor"] = 0
 
 
 _P = ctypes.c_void_p
@@ -86,12 +94,14 @@ _SIGNATURES = {
     "istvt_ln_bwd_rows": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # part, nout, P, N, out, stream
     "istvt_colsum": [_P, _I, _I, _I, _P, _P],
-    # x, x_dt, s, b, q, rs, R, D, stream
-    "istvt_ln_quant_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
-    # x, x_dt, q, rs, R, D, stream
-    "istvt_quant_rows": [_P, _I, _P, _P, _I, _I, _P],
-    # a, w, rs, ws, bias, res, res_dt, out, out_dt, gelu, M, N, K, stream
-    "istvt_gemm_q8": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # x, x_dt, s, b, q, ldq, rs, R, D, stream
+    "istvt_ln_quant_rows": [_P, _I, _P, _P, _P, _I, _P, _I, _I, _P],
+    # x, x_dt, q, ldq, rs, R, D, stream
+    "istvt_quant_rows": [_P, _I, _P, _I, _P, _I, _I, _P],
+    # a, lda, w (K-major), ldw, rs, ws, bias, res, res_dt, out, out_dt, gelu,
+    # M, N, K, stream
+    "istvt_gemm_q8": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                      _I, _P],
     # ptrs (host array of 30 pointers), dt, B, T1, S, D, H, inner, hid,
     # n_valid, scale, stream
     "istvt_st_layer_q8": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -191,7 +201,7 @@ def build(force: bool = False) -> Path:
 
 
 # SASS opcodes of the tensor cores' float products: HMMA (mma.sync) and HGMMA
-# (wgmma); the int8 IMMA is not one of them
+# (wgmma); the int8 ones, IMMA (mma.sync) and IGMMA (wgmma), are not among them
 TENSOR_OPS = ("HMMA.", "HGMMA.")
 
 

@@ -33,6 +33,30 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
+// Stores the pair (a, b) at p, p + 1 in T: as one 8- / 4-byte store if vec (p then
+// has that alignment), else element by element.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b, bool vec);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float a, float b, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    p[1] = b;
+  }
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a, float b,
+                                                          bool vec) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = from_f<__nv_bfloat16>(a);
+    p[1] = from_f<__nv_bfloat16>(b);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

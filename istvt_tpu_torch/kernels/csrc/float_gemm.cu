@@ -138,7 +138,7 @@ __device__ __forceinline__ float epi_value(const Epi& e, float v, size_t o, int 
 
 // (ii) bf16 GEMM on wgmma (see the header): 128 x 128 x 64 block tiles, kStages
 // TMA-filled stages, warpgroups 0-1 consume, warpgroup 2 produces.
-constexpr int kBM = 128, kBN = 128, kBK = 64, kGemmThreads = 384;
+constexpr int kBM = kTileM, kBN = kTileN, kBK = 64, kGemmThreads = 384;
 // the ring's depth, and the registers a thread of the producer / consumer warpgroups
 // keeps after setmaxnreg (of the block's 384 x 168 at launch)
 constexpr int kStages = 4, kProducerRegs = 40, kConsumerRegs = 232;
@@ -147,28 +147,6 @@ constexpr int kStages = 4, kProducerRegs = 40, kConsumerRegs = 232;
 // column-sum scratch [8 warps][kBN], the bias tile [kBN], and 1 KB to align the rings
 // to the swizzle atom.
 constexpr int kGemmSmem = kStages * (kBM + kBN) * kBK * 2 + 2 * kStages * 8 + 9 * kBN * 4 + 1024;
-
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float a, float b, bool vec);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* p, float a, float b, bool vec) {
-  if (vec) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  } else {
-    p[0] = a;
-    p[1] = b;
-  }
-}
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a, float b,
-                                                          bool vec) {
-  if (vec) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  } else {
-    p[0] = from_f<__nv_bfloat16>(a);
-    p[1] = from_f<__nv_bfloat16>(b);
-  }
-}
 
 // epi_value of the bf16 GEMM on the pair of columns (col, col + 1) at the even flat
 // index o: the same arithmetic in the same order, the pair of bias values `b` (read
@@ -201,25 +179,6 @@ __device__ __forceinline__ float2 epi_pair(const Epi& e, float v0, float v1, siz
   }
   return make_float2(v0, v1);
 }
-
-// The output tiles of one launch, in the order the blocks take them: the N tile
-// fastest, then the M tile, then the split-K slice z (so the blocks in flight share
-// their A rows and the weight stays in L2).
-struct TileGrid {
-  int tn, tm, splits, kslice, nk;
-  __device__ __forceinline__ int count() const { return tn * tm * splits; }
-  // tile -> the block's output rows m0.., columns n0.., M tile mt, slice z, k-tiles [kb, ke)
-  __device__ __forceinline__ void at(int tile, int& m0, int& n0, int& mt, int& z, int& kb,
-                                     int& ke) const {
-    const int nt = tile % tn;
-    mt = (tile / tn) % tm;
-    z = tile / (tn * tm);
-    m0 = mt * kBM;
-    n0 = nt * kBN;
-    kb = z * kslice;
-    ke = min(nk, kb + kslice);
-  }
-};
 
 // out (M, N) (+ z M N for split-K slice z's partial) = epilogue(A @ B), A's and B's
 // k-tiles [z kslice, (z + 1) kslice) for slice z. Persistent: each block walks the
@@ -255,34 +214,25 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_bf16_wgmma_kernel(
   if (wg == 2) {
     // producer: one thread keeps the ring full, across tiles
     regs_dealloc<kProducerRegs>();
-    if (t == 0) {
-      int it = 0;  // k-steps so far: stage it % kStages, pass it / kStages
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        int m0, n0, mt, z, kb, ke;
-        grid.at(tile, m0, n0, mt, z, kb, ke);
-        for (int kt = kb; kt < ke; ++kt, ++it) {
-          const int s = it % kStages;
-          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-          mbar_arrive_expect_tx(&full[s], kTxBytes);
-          const int k0 = kt * kBK;
-          __nv_bfloat16* a = As + s * kAStage;
-          __nv_bfloat16* b = Bs + s * kBStage;
-          if (kAm) {  // two 64-wide M slabs of 64 K-rows
-            tma_load_2d(a, &tma_a, &full[s], m0, k0);
-            tma_load_2d(a + 64 * kBK, &tma_a, &full[s], m0 + 64, k0);
-          } else {  // 128 rows of 64 K
-            tma_load_2d(a, &tma_a, &full[s], k0, m0);
-          }
-          if (kBn) {
-#pragma unroll
-            for (int j = 0; j < kBN / 64; ++j)
-              tma_load_2d(b + j * 64 * kBK, &tma_b, &full[s], n0 + 64 * j, k0);
-          } else {
-            tma_load_2d(b, &tma_b, &full[s], k0, n0);
-          }
+    if (t == 0)
+      produce_ring<kStages>(grid, tiles, full, empty, kTxBytes, [&](int s, int m0, int n0, int kt) {
+        const int k0 = kt * kBK;
+        __nv_bfloat16* a = As + s * kAStage;
+        __nv_bfloat16* b = Bs + s * kBStage;
+        if (kAm) {  // two 64-wide M slabs of 64 K-rows
+          tma_load_2d(a, &tma_a, &full[s], m0, k0);
+          tma_load_2d(a + 64 * kBK, &tma_a, &full[s], m0 + 64, k0);
+        } else {  // 128 rows of 64 K
+          tma_load_2d(a, &tma_a, &full[s], k0, m0);
         }
-      }
-    }
+        if (kBn) {
+#pragma unroll
+          for (int j = 0; j < kBN / 64; ++j)
+            tma_load_2d(b + j * 64 * kBK, &tma_b, &full[s], n0 + 64 * j, k0);
+        } else {
+          tma_load_2d(b, &tma_b, &full[s], k0, n0);
+        }
+      });
   } else {
     // consumers: warpgroup wg owns rows m0 + 64 wg .. + 63 of each tile
     regs_alloc<kConsumerRegs>();
@@ -566,62 +516,18 @@ __global__ void __launch_bounds__(256) colsum_kernel(const float* __restrict__ p
 }
 
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point query (the
-// library does not link libcuda); null if it is not found.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                            cudaEnableDefault, &q);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                 : nullptr;
-  }();
-  return fn;
-}
-
-// The TMA map of a row-major bf16 (rows, cols) matrix read in boxes of 64 columns x
-// box_rows rows with the 128-byte swizzle, out-of-bounds elements read as zeros
-// (TMA's conditions: base 16-byte aligned, cols a multiple of 8); false if refused.
-bool tile_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The card's SMs: the persistent GEMM's grid.
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
-  }();
-  return n;
+// The TMA map of a row-major bf16 (rows, cols) matrix in boxes of 64 columns x box_rows
+// rows (wgmma.cuh's tile_map; cols a multiple of 8).
+bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, cols, box_rows);
 }
 
 template <int L, typename OutT, int EPI>
 int launch_wgmma(const void* a, const void* b, OutT* out, const Epi& epi, int M, int N, int K,
                  int splits, int kslice, cudaStream_t st) {
   CUtensorMap ma, mb;
-  const bool ok = (L == kTN ? tile_map(&ma, a, K, M, 64) : tile_map(&ma, a, M, K, kBM)) &&
-                  (L == kNT ? tile_map(&mb, b, N, K, kBN) : tile_map(&mb, b, K, N, 64));
+  const bool ok = (L == kTN ? bf16_map(&ma, a, K, M, 64) : bf16_map(&ma, a, M, K, kBM)) &&
+                  (L == kNT ? bf16_map(&mb, b, N, K, kBN) : bf16_map(&mb, b, K, N, 64));
   if (!ok || sm_count() < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto kern = gemm_bf16_wgmma_kernel<L, OutT, EPI>;
   static const cudaError_t attr =

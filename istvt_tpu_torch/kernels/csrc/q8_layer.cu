@@ -108,7 +108,7 @@ __global__ void __launch_bounds__(kThreads, 2) st_layer_q8_kernel(const LayerQ8 
   // --- temporal branch: LN -> int8 QKV -> self-subtract attention
   // (istvt_tpu/kernels/quant.py:720-761)
   // 1. LN + quant rows of x
-  for (int r = warp0; r < R; r += nwarps) ln_quant_row(x, p.st, p.bt, p.q, p.rs, r, D, lane);
+  for (int r = warp0; r < R; r += nwarps) ln_quant_row(x, p.st, p.bt, p.q, p.rs, r, D, D, lane);
   grid.sync();
   // 2. QKV_t, rounded to x's dtype
   gemm_q8_phase<T, float, false>(p.q, p.wqt, p.rs, p.wst, no_bias, no_res, qkv, R, I3, D, smem);
@@ -120,14 +120,14 @@ __global__ void __launch_bounds__(kThreads, 2) st_layer_q8_kernel(const LayerQ8 
   grid.sync();
   // --- spatial branch: out-proj -> LN -> int8 QKV -> per-frame attention (:763-786)
   // 4. quant rows of a_t
-  for (int r = warp0; r < R; r += nwarps) quant_row(a, p.q, p.rs, r, I, lane);
+  for (int r = warp0; r < R; r += nwarps) quant_row(a, p.q, p.rs, r, I, I, lane);
   grid.sync();
   // 5. out-proj_t + b into the f32 y
   gemm_q8_phase<float, float, false>(p.q, p.wot, p.rs, p.sot, p.bot, no_res, p.y, R, D, I, smem);
   grid.sync();
   // 6. LN + quant rows of y
   for (int r = warp0; r < R; r += nwarps)
-    ln_quant_row<float>(p.y, p.ss, p.bs, p.q, p.rs, r, D, lane);
+    ln_quant_row<float>(p.y, p.ss, p.bs, p.q, p.rs, r, D, D, lane);
   grid.sync();
   // 7. QKV_s, rounded to x's dtype
   gemm_q8_phase<T, float, false>(p.q, p.wqs, p.rs, p.wss, no_bias, no_res, qkv, R, I3, D, smem);
@@ -141,21 +141,21 @@ __global__ void __launch_bounds__(kThreads, 2) st_layer_q8_kernel(const LayerQ8 
   grid.sync();
   // --- out-proj + residual -> PreNorm fully-int8 FF (:788-833)
   // 9. quant rows of a_s
-  for (int r = warp0; r < R; r += nwarps) quant_row(a, p.q, p.rs, r, I, lane);
+  for (int r = warp0; r < R; r += nwarps) quant_row(a, p.q, p.rs, r, I, I, lane);
   grid.sync();
   // 10. out-proj_s + b + x into the f32 y
   gemm_q8_phase<float, T, false>(p.q, p.wos, p.rs, p.sos, p.bos, x, p.y, R, D, I, smem);
   grid.sync();
   // 11. LN + quant rows of y
   for (int r = warp0; r < R; r += nwarps)
-    ln_quant_row<float>(p.y, p.sf, p.bf, p.q, p.rs, r, D, lane);
+    ln_quant_row<float>(p.y, p.sf, p.bf, p.q, p.rs, r, D, D, lane);
   grid.sync();
   // 12. fc1 + b1 -> tanh-GELU, f32
   gemm_q8_phase<float, float, true>(p.q, p.w1q, p.rs, p.w1s, p.b1, no_res, p.hid, R, HD, D,
                                     smem);
   grid.sync();
   // 13. quant rows of the hidden (each needs its whole row: after the barrier)
-  for (int r = warp0; r < R; r += nwarps) quant_row<float>(p.hid, p.q, p.rs, r, HD, lane);
+  for (int r = warp0; r < R; r += nwarps) quant_row<float>(p.hid, p.q, p.rs, r, HD, HD, lane);
   grid.sync();
   // 14. fc2 + b2 + y, one rounding to x's dtype
   gemm_q8_phase<T, float, false>(p.q, p.w2q, p.rs, p.w2s, p.b2, p.y, out, R, D, HD, smem);

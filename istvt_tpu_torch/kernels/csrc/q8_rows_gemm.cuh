@@ -1,6 +1,7 @@
-// The int8 row passes and the W8A8 GEMM tile as device functions: q8_rows_gemm.cu
-// launches each as a kernel of its own (one row per warp, one 128 x 128 output tile
-// per block), q8_layer.cu walks them all inside one persistent kernel per ST layer.
+// The int8 row passes and the mma.sync W8A8 GEMM tile as device functions:
+// q8_rows_gemm.cu launches the row passes as kernels of their own (one row per warp;
+// its standalone GEMM is the wgmma one there), q8_layer.cu walks them all inside one
+// persistent kernel per ST layer.
 //
 // No pointer parameter here is __restrict__. In the persistent kernel the buffers
 // these functions read were written earlier in the same launch by other blocks, and
@@ -14,10 +15,12 @@
 namespace istvt {
 
 // (i) LayerNorm (two-pass statistics, eps 1e-5) + per-row int8 quant of row `row`,
-// by one warp. Mirrors kernels/linear._ln followed by _quant_rows.
+// by one warp, its codes at q + row * ldq. Mirrors kernels/linear._ln followed by
+// _quant_rows.
 template <typename T>
 __device__ __forceinline__ void ln_quant_row(const T* x, const float* s, const float* b,
-                                             int8_t* q, float* rs, int row, int D, int lane) {
+                                             int8_t* q, float* rs, int row, int D, int ldq,
+                                             int lane) {
   const T* xr = x + static_cast<size_t>(row) * D;
   // order-independent statistics, so the plain version yields the same int8 codes
   float mean, r;
@@ -26,21 +29,22 @@ __device__ __forceinline__ void ln_quant_row(const T* x, const float* s, const f
   for (int d = lane; d < D; d += 32)
     amax = fmaxf(amax, fabsf(ln_affine(to_f(xr[d]), mean, r, s[d], b[d])));
   const float rsv = row_scale(warp_max(amax));
-  int8_t* qr = q + static_cast<size_t>(row) * D;
+  int8_t* qr = q + static_cast<size_t>(row) * ldq;
   for (int d = lane; d < D; d += 32)
     qr[d] = quant_code(ln_affine(to_f(xr[d]), mean, r, s[d], b[d]), rsv);
   if (lane == 0) rs[row] = rsv;
 }
 
-// (ii) Per-row int8 quant alone (_quant_rows) of row `row`, by one warp.
+// (ii) Per-row int8 quant alone (_quant_rows) of row `row`, by one warp, its codes at
+// q + row * ldq.
 template <typename T>
 __device__ __forceinline__ void quant_row(const T* x, int8_t* q, float* rs, int row, int D,
-                                          int lane) {
+                                          int ldq, int lane) {
   const T* xr = x + static_cast<size_t>(row) * D;
   float amax = 0.f;
   for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(to_f(xr[d])));
   const float rsv = row_scale(warp_max(amax));
-  int8_t* qr = q + static_cast<size_t>(row) * D;
+  int8_t* qr = q + static_cast<size_t>(row) * ldq;
   for (int d = lane; d < D; d += 32) qr[d] = quant_code(to_f(xr[d]), rsv);
   if (lane == 0) rs[row] = rsv;
 }

@@ -1,24 +1,30 @@
-// Hopper's asynchronous building blocks for the float GEMM (float_gemm.cu), in
-// inline PTX: mbarriers, 2-D TMA loads, the wgmma shared-memory descriptor with the
-// 128-byte swizzle, wgmma m64n128k16 (bf16 in, f32 sums) and setmaxnreg.
+// Hopper's asynchronous building blocks for the two wgmma GEMMs, the float one
+// (float_gemm.cu) and the int8 one (q8_rows_gemm.cu), in inline PTX: mbarriers, 2-D
+// TMA loads, the wgmma shared-memory descriptor with the 128-byte swizzle, wgmma
+// m64n128k16 (bf16 in, f32 sums) and m64n128k32 (s8 in, s32 sums), setmaxnreg; and
+// what both GEMMs share around them: the persistent walk over the output tiles
+// (TileGrid), the producer thread's loop that keeps the TMA ring full (produce_ring),
+// and on the host the tensor maps (tile_map) and the card's SM count.
 //
 // Shared-memory layouts (PTX ISA, "Shared Memory Matrix Layout"; CUTLASS's
-// canonical GMMA layouts), 16-bit elements, 128-byte swizzle, each atom 1024-byte
-// aligned:
-//   * K-major (the K index contiguous): rows of 64 elements (128 B) at a stride of
-//     128 B, one row per M (or N) index; the descriptor's stride byte offset (SBO) is
-//     the stride between groups of 8 rows, 1024 B; its leading byte offset is unused.
-//     The k-th 16-deep slice starts 32 k bytes into the row.
-//   * MN-major (the M or N index contiguous): slabs of 64 K-rows x 64 elements, one
+// canonical GMMA layouts), 128-byte swizzle, each atom 1024-byte aligned:
+//   * K-major (the K index contiguous): rows of 128 B (64 bf16 or 128 int8 elements)
+//     at a stride of 128 B, one row per M (or N) index; the descriptor's stride byte
+//     offset (SBO) is the stride between groups of 8 rows, 1024 B; its leading byte
+//     offset is unused. The k-th slice of one wgmma (16 bf16 or 32 int8 deep: 32 B)
+//     starts 32 k bytes into the row, so both types take the same descriptors.
+//   * MN-major (the M or N index contiguous; bf16 only, wgmma transposes no 8-bit
+//     operand): slabs of 64 K-rows x 64 elements, one
 //     K index per 128-byte row; SBO is the stride between groups of 8 K-rows, 1024 B,
 //     and the leading byte offset (LBO) the stride between 64-wide slabs. The k-th
 //     16-deep slice starts 16 k rows (2048 k bytes) into the slab.
-// A TMA load with CU_TENSOR_MAP_SWIZZLE_128B and a box whose inner extent is 64
-// elements writes exactly these layouts.
+// A TMA load with CU_TENSOR_MAP_SWIZZLE_128B and a box whose inner extent is 128
+// bytes writes exactly these layouts.
 //
-// Fragment of the f32 accumulator of m64nNk16 (PTX ISA, "Register Fragments: wgmma
-// .m64nNk16"), thread t of the warpgroup, warp w = t / 32, lane = 4 g + q: d[4 i + 2 h
-// + e] = (row 16 w + g + 8 h, column 8 i + 2 q + e), i < N / 8.
+// Fragment of the f32 accumulator of m64nNk16 and of the s32 one of m64nNk32 (PTX ISA,
+// "Register Fragments: wgmma .m64nNk16 / .m64nNk32"), thread t of the warpgroup, warp
+// w = t / 32, lane = 4 g + q: d[4 i + 2 h + e] = (row 16 w + g + 8 h, column 8 i + 2 q
+// + e), i < N / 8.
 #pragma once
 
 #include <cuda.h>
@@ -117,6 +123,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 #define ISTVT_F8(i)                                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
@@ -144,6 +155,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 
 #undef ISTVT_F8
 
+#define ISTVT_R8(i)                                                                   \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),         \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (64 x 128, s32) += A (64 x 32) @ B (32 x 128), s8, both K-major in shared memory
+// (8-bit operands have no transpose bits). The sums are exact: a K = 2912 dot of codes
+// within +-127 stays below 2^26.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : ISTVT_R8(0), ISTVT_R8(8), ISTVT_R8(16), ISTVT_R8(24), ISTVT_R8(32), ISTVT_R8(40),
+        ISTVT_R8(48), ISTVT_R8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef ISTVT_R8
+
 // --- register budgets of warp-specialised warpgroups -----------------------------------
 
 template <int R>
@@ -158,6 +195,108 @@ __device__ __forceinline__ void regs_alloc() {
 // The consumers' named barrier (id 1; 0 is __syncthreads) over `n` threads.
 __device__ __forceinline__ void bar_sync(int n) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// --- the persistent tile walk and the producer ---------------------------------------
+
+// Both GEMMs' output tile.
+constexpr int kTileM = 128, kTileN = 128;
+
+// The output tiles of one launch, in the order the blocks take them: the N tile
+// fastest, then the M tile, then the split-K slice z (so the blocks in flight share
+// their A rows and the weight stays in L2).
+struct TileGrid {
+  int tn, tm, splits, kslice, nk;
+  __device__ __forceinline__ int count() const { return tn * tm * splits; }
+  // tile -> the block's output rows m0.., columns n0.., M tile mt, slice z, k-tiles [kb, ke)
+  __device__ __forceinline__ void at(int tile, int& m0, int& n0, int& mt, int& z, int& kb,
+                                     int& ke) const {
+    const int nt = tile % tn;
+    mt = (tile / tn) % tm;
+    z = tile / (tn * tm);
+    m0 = mt * kTileM;
+    n0 = nt * kTileN;
+    kb = z * kslice;
+    ke = min(nk, kb + kslice);
+  }
+};
+
+// The producer thread of a persistent block: walks the block's tiles blockIdx.x, +
+// gridDim.x, ... and, for each k-tile kt of each, waits until the ring's next stage s
+// is free, arms its full barrier with the stage's `tx_bytes` and calls load(s, m0, n0,
+// kt) to start the stage's TMA loads; it runs ahead into the next tile while the
+// consumers finish one.
+template <int kStages, typename Load>
+__device__ __forceinline__ void produce_ring(const TileGrid& grid, int tiles, uint64_t* full,
+                                             uint64_t* empty, unsigned tx_bytes,
+                                             const Load& load) {
+  int it = 0;  // k-steps so far: stage it % kStages, pass it / kStages
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int m0, n0, mt, z, kb, ke;
+    grid.at(tile, m0, n0, mt, z, kb, ke);
+    for (int kt = kb; kt < ke; ++kt, ++it) {
+      const int s = it % kStages;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      mbar_arrive_expect_tx(&full[s], tx_bytes);
+      load(s, m0, n0, kt);
+    }
+  }
+}
+
+// --- host: tensor maps and the grid -----------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point query (the
+// library does not link libcuda); null if it is not found.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                            cudaEnableDefault, &q);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major (rows, cols) matrix of `type` (elements of elem_bytes) with
+// rows ld elements apart, read in boxes of 128 bytes (128 / elem_bytes columns) x
+// box_rows rows with the 128-byte swizzle; elements past (rows, cols) read as zeros, so
+// a row's padding past cols is never read (TMA's conditions: base 16-byte aligned, ld
+// elem_bytes a multiple of 16); false if refused.
+inline bool tile_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                     const void* base, int rows, int cols, long ld, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The card's SMs: a persistent GEMM's grid.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
 }
 
 }  // namespace istvt

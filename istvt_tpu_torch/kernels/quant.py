@@ -45,6 +45,16 @@ for a CPU tensor it runs the plain PyTorch version beside it. There is no
 fallback from one to the other: a CUDA tensor that the kernel cannot take
 raises.
 
+Every wrapper but #9's runs its GEMMs on the int8 wgmma GEMM
+(csrc/q8_rows_gemm.cu, gemm_q8 below), which reads each weight as a
+K-major copy (kmajor(wq): the (K, N) codes transposed to (N, Kp), Kp = K
+rounded up to 16, no code changed) and the activation codes with rows Kp
+bytes apart. The model builds the copies once, when it is quantized or
+loaded (models/istvt.py), and passes them as the wrappers' last argument
+`wk` (one per int8 weight argument, in their order); a wrapper given none
+builds them on the card in the call (counted in _lib.KMAJOR_BUILDS). The
+plain versions read the (K, N) codes and ignore `wk`.
+
 Each mode rounds in its own places, as JAX does: the QKV of #1 and #4 in
 the activation dtype, the 728-wide intermediate of #2, #3 and #8 kept in
 f32, the GELU hidden of #6 in the activation dtype (fc2 then runs in that
@@ -105,6 +115,23 @@ def _q8_dot(q, wq):
     return (q.to(torch.float64) @ wq.to(torch.float64)).to(torch.float32)
 
 
+def padded_k(k: int) -> int:
+    """The row length in bytes of the int8 GEMM's activation codes and
+    K-major weight copies: K rounded up to 16, TMA's unit of a row stride
+    (728 -> 736; 512, 1536 and 2912 stay). The GEMM never reads the pad."""
+    return -(-k // 16) * 16
+
+
+def kmajor(wq):
+    """The int8 GEMM's copy of an int8 weight wq (K, N): its transpose, (N,
+    padded_k(K)) contiguous on wq's device, the pad columns zero. The same
+    codes; the GEMM reads it K-major, the only major 8-bit wgmma takes."""
+    k, n = wq.shape
+    out = torch.zeros((n, padded_k(k)), dtype=torch.int8, device=wq.device)
+    out[:, :k] = wq.t()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel A: LN -> int8 QKV -> self-subtract temporal attention
 
@@ -116,12 +143,13 @@ def ln_qkv_q8_temporal_plain(x, s, b, wq, ws, heads: int):
     return temporal_packed_plain(ln_matmul_q8_plain(x, s, b, wq, ws), heads)
 
 
-def ln_qkv_q8_temporal_attention(x, s, b, wq, ws, heads: int):
+def ln_qkv_q8_temporal_attention(x, s, b, wq, ws, heads: int, wk=None):
     """Fused LN -> int8 QKV -> self-subtract temporal attention:
-    x (B, T1, S, D) -> (B, T1, S, I). CPU tensors take the plain version."""
+    x (B, T1, S, D) -> (B, T1, S, I); wk: (kmajor(wq),) or None. CPU
+    tensors take the plain version."""
     if not x.is_cuda:
         return ln_qkv_q8_temporal_plain(x, s, b, wq, ws, heads)
-    out = temporal_core(_ln_matmul_q8_cuda(x, s, b, wq, ws), heads)
+    out = temporal_core(_ln_matmul_q8_cuda(x, s, b, wq, ws, wk), heads)
     _lib.LAUNCHES["ln_qkv_q8_temporal_attention"] += 1
     return out
 
@@ -139,13 +167,15 @@ def mm_q8_ln_qkv_q8_spatial_plain(a, woq, wos, bo, s, b, wq, ws,
 
 
 def mm_q8_ln_qkv_q8_spatial_attention(a, woq, wos, bo, s, b, wq, ws,
-                                      heads: int, n_valid: int = -1):
+                                      heads: int, n_valid: int = -1,
+                                      wk=None):
     """Fused t-out-proj (W8A8) -> LN -> int8 QKV -> spatial attention:
-    a (G, S, I_in) -> (G, S, I). CPU tensors take the plain version."""
+    a (G, S, I_in) -> (G, S, I); wk: (kmajor(woq), kmajor(wq)) or None.
+    CPU tensors take the plain version."""
     if not a.is_cuda:
         return mm_q8_ln_qkv_q8_spatial_plain(a, woq, wos, bo, s, b, wq, ws,
                                              heads, n_valid)
-    qkv = _matmul_q8_ln_matmul_q8_cuda(a, woq, wos, bo, s, b, wq, ws)
+    qkv = _matmul_q8_ln_matmul_q8_cuda(a, woq, wos, bo, s, b, wq, ws, wk)
     out = spatial_core(qkv, heads, a.shape[1] if n_valid < 0 else n_valid)
     _lib.LAUNCHES["mm_q8_ln_qkv_q8_spatial_attention"] += 1
     return out
@@ -168,10 +198,11 @@ def matmul_q8_res_ln_ff_q8_full_plain(a, r, wqo, wso, bo, s, b, w1q, w1s,
 
 
 def matmul_q8_res_ln_ff_q8_full(a, r, wqo, wso, bo, s, b, w1q, w1s, b1,
-                                w2q, w2s, b2):
+                                w2q, w2s, b2, wk=None):
     """y = a @ dq(wqo) + bo + r;  return y + FF_int8(LN(y)):
-    a (..., N, I_in), r (..., N, D) -> (..., N, D). CPU tensors take the
-    plain version."""
+    a (..., N, I_in), r (..., N, D) -> (..., N, D); wk: (kmajor(wqo),
+    kmajor(w1q), kmajor(w2q)) or None. CPU tensors take the plain
+    version."""
     if not a.is_cuda:
         return matmul_q8_res_ln_ff_q8_full_plain(a, r, wqo, wso, bo, s, b,
                                                  w1q, w1s, b1, w2q, w2s, b2)
@@ -181,12 +212,13 @@ def matmul_q8_res_ln_ff_q8_full(a, r, wqo, wso, bo, s, b, w1q, w1s, b1,
     _check_q8(wqo, wso, d_in, d)
     _check_q8(w1q, w1s, d, hdim)
     _check_q8(w2q, w2s, hdim, d)
+    wko, wk1, wk2 = _kmajor_of(wk, wqo, w1q, w2q)
     lib, st = _lib.load(), _lib.stream()
     q, rs = _quant(lib, st, a.reshape(-1, d_in))
     y = torch.empty((q.shape[0], d), dtype=torch.float32, device=a.device)
-    _gemm(lib, st, q, wqo, rs, wso, bo, r, y)
+    gemm_q8(q, wko, rs, wso, y, bias=bo, res=r)
     out = torch.empty(a.shape[:-1] + (d,), dtype=a.dtype, device=a.device)
-    _ff_q8_full_cuda(lib, st, y, s, b, w1q, w1s, b1, w2q, w2s, b2, out)
+    _ff_q8_full_cuda(lib, st, y, s, b, wk1, w1s, b1, wk2, w2s, b2, out)
     _lib.LAUNCHES["matmul_q8_res_ln_ff_q8_full"] += 1
     return out
 
@@ -204,26 +236,27 @@ def ln_matmul_q8_plain(x, s, b, wq, ws):
     return o.to(x.dtype).reshape(*lead, wq.shape[1])
 
 
-def _ln_matmul_q8_cuda(x, s, b, wq, ws):
+def _ln_matmul_q8_cuda(x, s, b, wq, ws, wk):
     """#4 on the card, counted by its caller: LN + row quant, then the
     W8A8 GEMM whose epilogue scales and rounds to x's dtype."""
     d, k = x.shape[-1], wq.shape[1]
     _lib.check_act(x, "x")
     _check_q8(wq, ws, d, k)
+    (wkq,) = _kmajor_of(wk, wq)
     lib, st = _lib.load(), _lib.stream()
     q, rs = _ln_quant(lib, st, x.reshape(-1, d), s, b)
     out = torch.empty(x.shape[:-1] + (k,), dtype=x.dtype, device=x.device)
-    _gemm(lib, st, q, wq, rs, ws, None, None, out)
+    gemm_q8(q, wkq, rs, ws, out)
     return out
 
 
-def ln_matmul_q8(x, s, b, wq, ws):
+def ln_matmul_q8(x, s, b, wq, ws, wk=None):
     """LayerNorm(x) @ dequant(wq, ws): x (..., N, D), wq int8 (D, K), ws
     (K,) -> (..., N, K) in x.dtype; the rows quantize after the LN, no
-    bias. CPU tensors take the plain version."""
+    bias; wk: (kmajor(wq),) or None. CPU tensors take the plain version."""
     if not x.is_cuda:
         return ln_matmul_q8_plain(x, s, b, wq, ws)
-    out = _ln_matmul_q8_cuda(x, s, b, wq, ws)
+    out = _ln_matmul_q8_cuda(x, s, b, wq, ws, wk)
     _lib.LAUNCHES["ln_matmul_q8"] += 1
     return out
 
@@ -243,11 +276,11 @@ def matmul_q8_bias_residual_plain(x, wq, ws, b, r=None):
     return o.to(x.dtype).reshape(*x.shape[:-1], k)
 
 
-def matmul_q8_bias_residual(x, wq, ws, b, r=None):
+def matmul_q8_bias_residual(x, wq, ws, b, r=None, wk=None):
     """x @ dequant(wq, ws) + b [+ r]: x (..., N, D_in), r (..., N, K) or
     None -> (..., N, K) in x.dtype, the int8 form of
-    kernels/linear.matmul_bias_residual. CPU tensors take the plain
-    version."""
+    kernels/linear.matmul_bias_residual; wk: (kmajor(wq),) or None. CPU
+    tensors take the plain version."""
     if not x.is_cuda:
         return matmul_q8_bias_residual_plain(x, wq, ws, b, r)
     d_in, k = x.shape[-1], wq.shape[1]
@@ -255,10 +288,10 @@ def matmul_q8_bias_residual(x, wq, ws, b, r=None):
     if r is not None:
         _check_res(r, x, k)
     _check_q8(wq, ws, d_in, k)
-    lib, st = _lib.load(), _lib.stream()
-    q, rs = _quant(lib, st, x.reshape(-1, d_in))
+    (wkq,) = _kmajor_of(wk, wq)
+    q, rs = _quant(_lib.load(), _lib.stream(), x.reshape(-1, d_in))
     out = torch.empty(x.shape[:-1] + (k,), dtype=x.dtype, device=x.device)
-    _gemm(lib, st, q, wq, rs, ws, b, r, out)
+    gemm_q8(q, wkq, rs, ws, out, bias=b, res=r)
     _lib.LAUNCHES["matmul_q8_bias_residual" if r is not None
                   else "matmul_q8_bias_residual/no_r"] += 1
     return out
@@ -278,30 +311,32 @@ def matmul_q8_ln_matmul_q8_plain(a, wq1, ws1, b1, s, b, wq2, ws2):
     return o.to(a.dtype).reshape(*a.shape[:-1], wq2.shape[1])
 
 
-def _matmul_q8_ln_matmul_q8_cuda(a, wq1, ws1, b1, s, b, wq2, ws2):
+def _matmul_q8_ln_matmul_q8_cuda(a, wq1, ws1, b1, s, b, wq2, ws2, wk):
     """#8 on the card, counted by its caller: row quant, W8A8 + b1 into an
     f32 intermediate, LN + row quant of it, W8A8 rounded to a's dtype."""
     d_in, d_mid, k = a.shape[-1], wq1.shape[1], wq2.shape[1]
     _lib.check_act(a, "a")
     _check_q8(wq1, ws1, d_in, d_mid)
     _check_q8(wq2, ws2, d_mid, k)
+    wk1, wk2 = _kmajor_of(wk, wq1, wq2)
     lib, st = _lib.load(), _lib.stream()
     q, rs = _quant(lib, st, a.reshape(-1, d_in))
     y = torch.empty((q.shape[0], d_mid), dtype=torch.float32,
                     device=a.device)
-    _gemm(lib, st, q, wq1, rs, ws1, b1, None, y)
+    gemm_q8(q, wk1, rs, ws1, y, bias=b1)
     q2, rs2 = _ln_quant(lib, st, y, s, b)
     out = torch.empty(a.shape[:-1] + (k,), dtype=a.dtype, device=a.device)
-    _gemm(lib, st, q2, wq2, rs2, ws2, None, None, out)
+    gemm_q8(q2, wk2, rs2, ws2, out)
     return out
 
 
-def matmul_q8_ln_matmul_q8(a, wq1, ws1, b1, s, b, wq2, ws2):
+def matmul_q8_ln_matmul_q8(a, wq1, ws1, b1, s, b, wq2, ws2, wk=None):
     """LN(a @ dequant(wq1, ws1) + b1) @ dequant(wq2, ws2): a (..., N,
-    D_in) -> (..., N, K) in a.dtype. CPU tensors take the plain version."""
+    D_in) -> (..., N, K) in a.dtype; wk: (kmajor(wq1), kmajor(wq2)) or
+    None. CPU tensors take the plain version."""
     if not a.is_cuda:
         return matmul_q8_ln_matmul_q8_plain(a, wq1, ws1, b1, s, b, wq2, ws2)
-    out = _matmul_q8_ln_matmul_q8_cuda(a, wq1, ws1, b1, s, b, wq2, ws2)
+    out = _matmul_q8_ln_matmul_q8_cuda(a, wq1, ws1, b1, s, b, wq2, ws2, wk)
     _lib.LAUNCHES["matmul_q8_ln_matmul_q8"] += 1
     return out
 
@@ -323,10 +358,10 @@ def ln_ff_residual_q8_plain(x, s, b, w1q, w1s, b1, w2, b2):
     return (o + xf).to(x.dtype).reshape(*lead, d)
 
 
-def ln_ff_residual_q8(x, s, b, w1q, w1s, b1, w2, b2):
+def ln_ff_residual_q8(x, s, b, w1q, w1s, b1, w2, b2, wk=None):
     """x + fc2(gelu_tanh(fc1_q8(LN x))): x (..., N, D), w1q int8 (D, H),
-    w2 (H, D) float in the (in, out) layout -> (..., N, D) in x.dtype.
-    CPU tensors take the plain version."""
+    w2 (H, D) float in the (in, out) layout -> (..., N, D) in x.dtype; wk:
+    (kmajor(w1q),) or None. CPU tensors take the plain version."""
     if not x.is_cuda:
         return ln_ff_residual_q8_plain(x, s, b, w1q, w1s, b1, w2, b2)
     d, hdim = x.shape[-1], w1q.shape[1]
@@ -335,11 +370,11 @@ def ln_ff_residual_q8(x, s, b, w1q, w1s, b1, w2, b2):
     if tuple(w2.shape) != (hdim, d):
         raise ValueError(f"fc2 weight {tuple(w2.shape)}, expected "
                          f"({hdim}, {d})")
-    lib, st = _lib.load(), _lib.stream()
+    (wk1,) = _kmajor_of(wk, w1q)
     flat = x.reshape(-1, d)
-    q, rs = _ln_quant(lib, st, flat, s, b)
+    q, rs = _ln_quant(_lib.load(), _lib.stream(), flat, s, b)
     hid = torch.empty((q.shape[0], hdim), dtype=x.dtype, device=x.device)
-    _gemm(lib, st, q, w1q, rs, w1s, b1, None, hid, gelu=True)
+    gemm_q8(q, wk1, rs, w1s, hid, bias=b1, gelu=True)
     out = torch.empty_like(x)
     gemm(hid, w2, out, bias32=_lib.f32(b2), res=flat)
     _lib.LAUNCHES["ln_ff_residual_q8"] += 1
@@ -364,22 +399,23 @@ def ln_ff_residual_q8_full_plain(x, s, b, w1q, w1s, b1, w2q, w2s, b2):
     return (o + xf).to(x.dtype).reshape(*lead, d)
 
 
-def _ff_q8_full_cuda(lib, st, x, s, b, w1q, w1s, b1, w2q, w2s, b2, out):
+def _ff_q8_full_cuda(lib, st, x, s, b, wk1, w1s, b1, wk2, w2s, b2, out):
     """#7's launches on a CUDA (R, D) x into out (R's rows, x's or another
-    float dtype): LN + row quant, fc1 + b1 + GELU into an f32 hidden, row
-    quant of it, fc2 + b2 + x (read in x's dtype) rounded once to out's."""
+    float dtype), the weights as K-major copies: LN + row quant, fc1 + b1 +
+    GELU into an f32 hidden, row quant of it, fc2 + b2 + x (read in x's
+    dtype) rounded once to out's."""
     q, rs = _ln_quant(lib, st, x, s, b)
-    hid = torch.empty((x.shape[0], w1q.shape[1]), dtype=torch.float32,
+    hid = torch.empty((x.shape[0], wk1.shape[0]), dtype=torch.float32,
                       device=x.device)
-    _gemm(lib, st, q, w1q, rs, w1s, b1, None, hid, gelu=True)
+    gemm_q8(q, wk1, rs, w1s, hid, bias=b1, gelu=True)
     q2, rs2 = _quant(lib, st, hid)
-    _gemm(lib, st, q2, w2q, rs2, w2s, b2, x, out)
+    gemm_q8(q2, wk2, rs2, w2s, out, bias=b2, res=x)
 
 
-def ln_ff_residual_q8_full(x, s, b, w1q, w1s, b1, w2q, w2s, b2):
+def ln_ff_residual_q8_full(x, s, b, w1q, w1s, b1, w2q, w2s, b2, wk=None):
     """x + fc2_q8(gelu_tanh(fc1_q8(LN x))): x (..., N, D), w1q int8 (D, H),
-    w2q int8 (H, D) -> (..., N, D) in x.dtype. CPU tensors take the plain
-    version."""
+    w2q int8 (H, D) -> (..., N, D) in x.dtype; wk: (kmajor(w1q),
+    kmajor(w2q)) or None. CPU tensors take the plain version."""
     if not x.is_cuda:
         return ln_ff_residual_q8_full_plain(x, s, b, w1q, w1s, b1, w2q, w2s,
                                             b2)
@@ -387,9 +423,10 @@ def ln_ff_residual_q8_full(x, s, b, w1q, w1s, b1, w2q, w2s, b2):
     _lib.check_act(x, "x")
     _check_q8(w1q, w1s, d, hdim)
     _check_q8(w2q, w2s, hdim, d)
+    wk1, wk2 = _kmajor_of(wk, w1q, w2q)
     out = torch.empty_like(x)
-    _ff_q8_full_cuda(_lib.load(), _lib.stream(), x.reshape(-1, d), s, b, w1q,
-                     w1s, b1, w2q, w2s, b2, out)
+    _ff_q8_full_cuda(_lib.load(), _lib.stream(), x.reshape(-1, d), s, b, wk1,
+                     w1s, b1, wk2, w2s, b2, out)
     _lib.LAUNCHES["ln_ff_residual_q8_full"] += 1
     return out
 
@@ -506,43 +543,123 @@ def _check_res(r, x, k):
                          f"match x {tuple(x.shape)} {x.dtype}, K={k}")
 
 
+def _codes(x):
+    """Empty int8 codes for the rows of a CUDA (R, D) x: an (R, D) view of
+    an (R, padded_k(D)) buffer, as the int8 GEMM reads them."""
+    rows, d = x.shape
+    buf = torch.empty((rows, padded_k(d)), dtype=torch.int8, device=x.device)
+    return buf[:, :d]
+
+
 def _ln_quant(lib, st, x, s, b):
     """LayerNorm + per-row int8 quant of the rows of a CUDA (R, D) x:
-    (int8 codes (R, D), f32 row scales (R,))."""
+    (int8 codes (R, D) with rows padded_k(D) apart, f32 row scales
+    (R,))."""
     rows, d = x.shape
-    q = torch.empty((rows, d), dtype=torch.int8, device=x.device)
+    q = _codes(x)
     rs = torch.empty((rows,), dtype=torch.float32, device=x.device)
     s32, b32 = _lib.f32(s), _lib.f32(b)
     _lib.check(lib.istvt_ln_quant_rows(x.data_ptr(), _lib.DTYPE_CODE[x.dtype],
                                        s32.data_ptr(), b32.data_ptr(),
-                                       q.data_ptr(), rs.data_ptr(), rows, d,
-                                       st), "ln_quant_rows")
+                                       q.data_ptr(), q.stride(0),
+                                       rs.data_ptr(), rows, d, st),
+               "ln_quant_rows")
     return q, rs
 
 
 def _quant(lib, st, x):
-    """Per-row int8 quant of the rows of a CUDA (R, D) x."""
+    """Per-row int8 quant of the rows of a CUDA (R, D) x, laid out as
+    _ln_quant's."""
     rows, d = x.shape
-    q = torch.empty((rows, d), dtype=torch.int8, device=x.device)
+    q = _codes(x)
     rs = torch.empty((rows,), dtype=torch.float32, device=x.device)
     _lib.check(lib.istvt_quant_rows(x.data_ptr(), _lib.DTYPE_CODE[x.dtype],
-                                    q.data_ptr(), rs.data_ptr(), rows, d, st),
+                                    q.data_ptr(), q.stride(0), rs.data_ptr(),
+                                    rows, d, st),
                "quant_rows")
     return q, rs
 
 
-def _gemm(lib, st, q, wq, rs, ws, bias, res, out, gelu: bool = False):
-    """out = epilogue(q @ wq): acc * rs * ws (+ bias) (+ res) (GELU),
-    rounded once to out's dtype; the row tail past a 128-row tile is
-    masked in the kernel."""
-    m, k = q.shape
-    n = wq.shape[1]
+def kmajor_given(*copies):
+    """Prebuilt K-major copies as a wrapper's `wk`, or None where one is
+    missing (the wrapper then builds them)."""
+    return None if any(c is None for c in copies) else copies
+
+
+def _kmajor_of(wk, *wqs):
+    """The K-major copies of the int8 weights wqs (checked, on the card):
+    wk's, in wqs' order, or, where wk is None, built now on the card (each
+    counted in _lib.KMAJOR_BUILDS)."""
+    if wk is None:
+        _lib.KMAJOR_BUILDS["q8_kmajor"] += len(wqs)
+        return tuple(kmajor(wq) for wq in wqs)
+    wk = tuple(wk)
+    if len(wk) != len(wqs):
+        raise ValueError(f"{len(wk)} K-major copies for {len(wqs)} int8 "
+                         f"weights")
+    for c, wq in zip(wk, wqs):
+        want = (wq.shape[1], padded_k(wq.shape[0]))
+        if c.dtype != torch.int8 or tuple(c.shape) != want:
+            raise ValueError(f"K-major copy {tuple(c.shape)} {c.dtype} of an "
+                             f"int8 weight {tuple(wq.shape)}: expected "
+                             f"{want} int8, kmajor(wq)")
+        if c.device != wq.device:
+            raise ValueError(f"K-major copy on {c.device}, its weight on "
+                             f"{wq.device}")
+    return wk
+
+
+def check_gemm_q8(q, wk, out):
+    """Raise ValueError unless the int8 GEMM takes these operands: codes q
+    (M, K) int8 with rows padded_k(K) bytes apart, the K-major weight wk
+    (N, padded_k(K)) int8 contiguous, out (M, N) contiguous, K and N
+    divisible by 4, all 16-byte aligned CUDA tensors."""
+    (m, k), n = q.shape, wk.shape[0]
+    kp = padded_k(k)
+    if k % 4 or n % 4:
+        raise ValueError(f"int8 GEMM: K = {k} and N = {n} must be divisible "
+                         f"by 4")
+    if q.dtype != torch.int8 or q.stride() != (kp, 1):
+        raise ValueError(f"int8 codes {tuple(q.shape)} {q.dtype}, stride "
+                         f"{q.stride()}: the GEMM reads int8 rows {kp} bytes "
+                         f"apart (padded_k({k}))")
+    if wk.dtype != torch.int8 or tuple(wk.shape) != (n, kp) or \
+            wk.stride() != (kp, 1):
+        raise ValueError(f"K-major weight {tuple(wk.shape)} {wk.dtype}, "
+                         f"stride {wk.stride()}: expected contiguous "
+                         f"({n}, {kp}) int8, kmajor(wq)")
+    if out.numel() != m * n or not out.is_contiguous():
+        raise ValueError(f"int8 GEMM output {tuple(out.shape)}, want ({m}, "
+                         f"{n}) contiguous")
+    for name, t in (("int8 codes", q), ("K-major weight", wk),
+                    ("output", out)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} on {t.device}: the int8 GEMM takes "
+                             f"CUDA tensors")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def gemm_q8(q, wk, rs, ws, out, *, bias=None, res=None, gelu: bool = False):
+    """out (M, N) = epilogue(q @ wk^T) on the card, the int8 wgmma GEMM:
+    acc * rs * ws (+ bias) (+ res, read in its dtype) (-> tanh-GELU), in
+    f32, rounded once to out's dtype (f32 or bf16). q: (M, K) int8 codes
+    laid out as _ln_quant's; wk: kmajor(wq) of the (K, N) weight; rs (M,),
+    ws and bias (N,); res (M, N) or None. Counts no launch: the wrappers
+    above do."""
+    check_gemm_q8(q, wk, out)
+    (m, k), n = q.shape, wk.shape[0]
+    if out.dtype not in _lib.DTYPE_CODE:
+        raise TypeError(f"int8 GEMM output {out.dtype}")
+    if res is not None and (res.dtype not in _lib.DTYPE_CODE or
+                            res.numel() != m * n or not res.is_contiguous()):
+        raise ValueError(f"residual {tuple(res.shape)} {res.dtype}: want "
+                         f"({m}, {n}) contiguous f32 or bf16")
     ws32 = _lib.f32(ws)
     b32 = None if bias is None else _lib.f32(bias)
     res_dt = _lib.DTYPE_CODE[res.dtype] if res is not None else 0
-    _lib.check(lib.istvt_gemm_q8(q.data_ptr(), wq.data_ptr(), rs.data_ptr(),
-                                 ws32.data_ptr(), _lib.ptr(b32),
-                                 _lib.ptr(res), res_dt, out.data_ptr(),
-                                 _lib.DTYPE_CODE[out.dtype], int(gelu),
-                                 m, n, k, st),
-               "gemm_q8")
+    _lib.check(_lib.load().istvt_gemm_q8(
+        q.data_ptr(), q.stride(0), wk.data_ptr(), wk.stride(0), rs.data_ptr(),
+        ws32.data_ptr(), _lib.ptr(b32), _lib.ptr(res), res_dt,
+        out.data_ptr(), _lib.DTYPE_CODE[out.dtype], int(gelu), m, n, k,
+        _lib.stream()), "gemm_q8")

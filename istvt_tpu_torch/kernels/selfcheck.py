@@ -50,9 +50,17 @@ with their plain versions almost bit for bit.
 
 Case names are the wrappers' launch-count names (kernels/_lib.LAUNCHES),
 one case each; a few kernels have more cases at other shapes,
-"name@shape", which count under `counter(case)`.
+"name@shape", which count under `counter(case)`. The int8 wrappers that
+run the int8 GEMM are given the K-major weight copies (quant.kmajor) made
+here, once, as a model holds them.
+
+The GEMMs alone are tabled below the cases: the float GEMM (gemm_shapes)
+and the int8 GEMM (gemm_q8_shapes), each at every caller's shape, with
+their operands, plain versions and counts of work.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -119,6 +127,11 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
         wq, ws = quant.quantize_weight(init(d_in, d_in, d_out))
         return wq.to(device), ws.to(device)
 
+    def with_wk(wrapper, *wqs):
+        """The int8 wrapper given the K-major copies of wqs, made once."""
+        return functools.partial(wrapper,
+                                 wk=tuple(quant.kmajor(w) for w in wqs))
+
     ln_s, ln_b = rn(d, scale=0.1) + 1.0, rn(d, scale=0.02)
     bo, b1, b2 = rn(d, scale=0.02), rn(hid, scale=0.02), rn(d, scale=0.02)
     wqt, wst = q8(d, 3 * inner)
@@ -178,36 +191,39 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
 
     cases = {
         "ln_qkv_q8_temporal_attention": (
-            quant.ln_qkv_q8_temporal_attention, quant.ln_qkv_q8_temporal_plain,
+            with_wk(quant.ln_qkv_q8_temporal_attention, wqt),
+            quant.ln_qkv_q8_temporal_plain,
             lambda dt: [*on(dt, x, ln_s, ln_b), wqt, wst, heads]),
         "mm_q8_ln_qkv_q8_spatial_attention": (
-            quant.mm_q8_ln_qkv_q8_spatial_attention,
+            with_wk(quant.mm_q8_ln_qkv_q8_spatial_attention, woq, wqs),
             quant.mm_q8_ln_qkv_q8_spatial_plain,
             lambda dt: [*on(dt, a_t), woq, wos, *on(dt, bo, ln_s, ln_b),
                         wqs, wss, heads, n_valid]),
         "matmul_q8_res_ln_ff_q8_full": (
-            quant.matmul_q8_res_ln_ff_q8_full,
+            with_wk(quant.matmul_q8_res_ln_ff_q8_full, woq, w1q, w2q),
             quant.matmul_q8_res_ln_ff_q8_full_plain,
             lambda dt: [*on(dt, a_s, x.reshape(b, t1 * s, d)), woq, wos,
                         *on(dt, bo, ln_s, ln_b), w1q, w1s, *on(dt, b1),
                         w2q, w2s, *on(dt, b2)]),
         "ln_matmul_q8": (
-            quant.ln_matmul_q8, quant.ln_matmul_q8_plain,
+            with_wk(quant.ln_matmul_q8, wqt), quant.ln_matmul_q8_plain,
             lambda dt: [*on(dt, stream, ln_s, ln_b), wqt, wst]),
         "matmul_q8_ln_matmul_q8": (
-            quant.matmul_q8_ln_matmul_q8, quant.matmul_q8_ln_matmul_q8_plain,
+            with_wk(quant.matmul_q8_ln_matmul_q8, woq, wqs),
+            quant.matmul_q8_ln_matmul_q8_plain,
             lambda dt: [*on(dt, a_s), woq, wos, *on(dt, bo, ln_s, ln_b),
                         wqs, wss]),
         "matmul_q8_bias_residual": (
-            quant.matmul_q8_bias_residual,
+            with_wk(quant.matmul_q8_bias_residual, woq),
             quant.matmul_q8_bias_residual_plain,
             lambda dt: [*on(dt, a_s), woq, wos, *on(dt, bo, stream)]),
         "matmul_q8_bias_residual/no_r": (
-            quant.matmul_q8_bias_residual,
+            with_wk(quant.matmul_q8_bias_residual, woq),
             quant.matmul_q8_bias_residual_plain,
             lambda dt: [*on(dt, a_s), woq, wos, *on(dt, bo)]),
         "ln_ff_residual_q8": (
-            quant.ln_ff_residual_q8, quant.ln_ff_residual_q8_plain,
+            with_wk(quant.ln_ff_residual_q8, w1q),
+            quant.ln_ff_residual_q8_plain,
             lambda dt: [*on(dt, stream, ln_s, ln_b), w1q, w1s,
                         *on(dt, b1, w2, b2f)]),
         "st_layer_q8": (
@@ -217,7 +233,8 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
                         *on(dt, bo, ln_s, ln_b), w1q, w1s, *on(dt, b1), w2q,
                         w2s, *on(dt, b2), heads, n_valid]),
         "ln_ff_residual_q8_full": (
-            quant.ln_ff_residual_q8_full, quant.ln_ff_residual_q8_full_plain,
+            with_wk(quant.ln_ff_residual_q8_full, w1q, w2q),
+            quant.ln_ff_residual_q8_full_plain,
             lambda dt: [*on(dt, stream, ln_s, ln_b), w1q, w1s, *on(dt, b1),
                         w2q, w2s, *on(dt, b2)]),
         "temporal_attention_packed": (
@@ -477,6 +494,104 @@ def gemm_flops_bytes(ops) -> tuple:
     return 2 * m * n * k, sum(t.numel() * t.element_size() for t in tensors)
 
 
+# ---------------------------------------------------------------------------
+# The int8 GEMM (quant.gemm_q8) alone, at the shapes of its callers: the
+# activation codes with rows padded_k(K) apart, the weight as its K-major
+# copy, one epilogue of acc * rs * ws (+ bias) (+ res) (-> GELU).
+
+
+def gemm_q8_shapes(geometry=SLICE, dtype=torch.bfloat16) -> dict:
+    """{name: (M, N, K, out dtype, residual dtype or None, bias, gelu)}:
+    every int8 GEMM launch of the int8 wrappers at `geometry`'s rows R =
+    b * t1 * s, for activations in `dtype`, with the epilogue its caller
+    gives it (kernels/quant.py): the QKV of #1 / #4 and the spatial QKV of
+    #2 / #8 in the activation dtype; their t-out-projection + b into an
+    f32 intermediate; #3's s-out-projection + b + r (r in the activation
+    dtype) into an f32 y; the fc1 + b1 + GELU of #3 / #7 (f32 hidden) and
+    of #6 (hidden in the activation dtype); the fc2 + b2 + residual of #3
+    (over its f32 y) and of #7 (over x); #5's out-projection + b with and
+    without r."""
+    b, t1, s = (geometry[k] for k in ("b", "t1", "s"))
+    d, inner, hid = geometry["d"], geometry["inner"], geometry["hid"]
+    r, f32, t = b * t1 * s, torch.float32, dtype
+    return {
+        "#1 / #4 QKV": (r, 3 * inner, d, t, None, False, False),
+        "#2 / #8 t-out-projection": (r, d, inner, f32, None, True, False),
+        "#2 / #8 spatial QKV": (r, 3 * inner, d, t, None, False, False),
+        "#3 s-out-projection + r": (r, d, inner, f32, t, True, False),
+        "#3 / #7 fc1 (GELU)": (r, hid, d, f32, None, True, True),
+        "#3 fc2 + y": (r, d, hid, t, f32, True, False),
+        "#7 fc2 + x": (r, d, hid, t, t, True, False),
+        "#5 out-projection + r": (r, d, inner, t, t, True, False),
+        "#5 out-projection": (r, d, inner, t, None, True, False),
+        "#6 fc1 (GELU)": (r, hid, d, t, None, True, True),
+    }
+
+
+def gemm_q8_operands(m, n, k, out_dtype, res_dtype, bias, gelu, device,
+                     seed=0, pad=0):
+    """The arguments of one quant.gemm_q8 call, with the (K, N) weight
+    beside its copy: {"q", "wq", "wk", "rs", "ws", "out", and "bias",
+    "res", "gelu" where the epilogue has them}. Activations N(0, 1)
+    quantized per row, the weight like a layer's init U(+-1/sqrt(k))
+    quantized per column, bias N(0, 0.02), res N(0, 1). The codes' and the
+    copy's pad bytes (past K in each row) are set to `pad`; the GEMM must
+    not read them."""
+    g = torch.Generator().manual_seed(seed)
+    q, rs = quant._quant_rows(torch.randn(m, k, generator=g))
+    wq, ws = quant.quantize_weight((torch.rand(k, n, generator=g) * 2 - 1)
+                                   * k ** -0.5)
+    kp = quant.padded_k(k)
+    buf = torch.full((m, kp), pad, dtype=torch.int8)
+    buf[:, :k] = q
+    wk = quant.kmajor(wq)
+    wk[:, k:] = pad
+    ops = {"q": buf.to(device)[:, :k], "wq": wq.to(device),
+           "wk": wk.to(device), "rs": rs.reshape(m).to(device),
+           "ws": ws.to(device),
+           "out": torch.empty(m, n, dtype=out_dtype, device=device)}
+    if bias:
+        ops["bias"] = (torch.randn(n, generator=g) * 0.02).to(device)
+    if res_dtype is not None:
+        ops["res"] = torch.randn(m, n, generator=g).to(device, res_dtype)
+    if gelu:
+        ops["gelu"] = True
+    return ops
+
+
+def run_gemm_q8(ops):
+    """quant.gemm_q8 on the operands of gemm_q8_operands."""
+    quant.gemm_q8(ops["q"], ops["wk"], ops["rs"], ops["ws"], ops["out"],
+                  bias=ops.get("bias"), res=ops.get("res"),
+                  gelu=ops.get("gelu", False))
+
+
+def gemm_q8_plain(ops):
+    """The plain version of run_gemm_q8 from the (K, N) weight: the exact
+    int8 dot (quant._q8_dot), then the kernels' f32 epilogue in their
+    order, * rs * ws (+ bias) (+ res) (-> tanh-GELU), one rounding to the
+    output's dtype."""
+    v = quant._q8_dot(ops["q"], ops["wq"]) * ops["rs"][:, None] * ops["ws"]
+    if "bias" in ops:
+        v = v + ops["bias"]
+    if "res" in ops:
+        v = v + ops["res"].float()
+    if ops.get("gelu"):
+        v = mlp._gelu_tanh(v)
+    return v.to(ops["out"].dtype)
+
+
+def gemm_q8_ops_bytes(ops) -> tuple:
+    """(operations, bytes) of an int8 GEMM case: 2 M N K int8 operations;
+    the codes (M K), the weight (K N), the scales, bias and residual read
+    and the output written once each."""
+    (m, k), n = ops["q"].shape, ops["wq"].shape[1]
+    tensors = [ops[key] for key in ("rs", "ws", "bias", "res", "out")
+               if key in ops]
+    return 2 * m * n * k, m * k + k * n + sum(
+        t.numel() * t.element_size() for t in tensors)
+
+
 # The kernels that run the spatial attention core or its backward, and the
 # float GEMM: the bf16 instantiations must use the tensor cores, the f32
 # ones must not (their 1e-5 check would then test the FMA pipes' f32, as it
@@ -492,27 +607,37 @@ FMA_ONLY_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
                     "spatial_attn_bwd_dq_kernel",
                     "spatial_attn_bwd_dkv_kernel", "gemm_f32_kernel")
 WGMMA_KERNELS = ("gemm_bf16_wgmma_kernel",)
+# the int8 GEMM: every instantiation (whatever its output and residual
+# types) must run int8 wgmma, IGMMA in the SASS
+INT8_WGMMA_KERNELS = ("gemm_q8_wgmma_kernel",)
+INT8_WGMMA_OP = "IGMMA."
 _NAMED_DTYPE = ("gemm_bf16_wgmma_kernel", "gemm_f32_kernel")
 
 
-def tensor_core_check(counts, wgmma=None) -> list:
+def tensor_core_check(counts, wgmma=None, igmma=None) -> list:
     """Rows (kernel, dtype, {mangled name: tensor-core instructions}, ok)
     for each entry of TENSOR_CORE_KERNELS in bf16 (ok: every instantiation
     has some; for WGMMA_KERNELS, every instantiation has HGMMA, counted in
-    `wgmma`) and FMA_ONLY_KERNELS in f32 (ok: none has any); `counts` is
-    _lib.tensor_ops_of_sass(sass), `wgmma` tensor_ops_of_sass(sass,
-    ("HGMMA.",)) of the built library's sass (_lib.sass_text; without
-    `wgmma` the WGMMA_KERNELS rows fail)."""
+    `wgmma`), FMA_ONLY_KERNELS in f32 (ok: none has any) and
+    INT8_WGMMA_KERNELS in int8 (ok: every instantiation has IGMMA, counted
+    in `igmma`); `counts` is _lib.tensor_ops_of_sass(sass), `wgmma`
+    tensor_ops_of_sass(sass, ("HGMMA.",)) and `igmma`
+    tensor_ops_of_sass(sass, (INT8_WGMMA_OP,)) of the built library's sass
+    (_lib.sass_text; without `wgmma` or `igmma` their rows fail)."""
     rows = []
     for kernels, dtype, tag in ((TENSOR_CORE_KERNELS, "bf16",
                                  "I13__nv_bfloat16"),
-                                (FMA_ONLY_KERNELS, "f32", "If")):
+                                (FMA_ONLY_KERNELS, "f32", "If"),
+                                (INT8_WGMMA_KERNELS, "int8", "I")):
         for k in kernels:
             head = f"{len(k)}{k}" + ("I" if k in _NAMED_DTYPE else tag)
-            source = (wgmma or {}) if (dtype == "bf16"
-                                       and k in WGMMA_KERNELS) else counts
+            source = counts
+            if dtype == "bf16" and k in WGMMA_KERNELS:
+                source = wgmma or {}
+            elif dtype == "int8":
+                source = igmma or {}
             found = {n: c for n, c in source.items() if head in n}
-            ok = bool(found) and (all(found.values()) if dtype == "bf16"
-                                  else not any(found.values()))
+            ok = bool(found) and (not any(found.values()) if dtype == "f32"
+                                  else all(found.values()))
             rows.append((k, dtype, found, ok))
     return rows

@@ -57,7 +57,9 @@ falls back silently.
 Module and state_dict names are the reference's (network/vivit/vivit.py,
 module.py), so `istvt_tpu.compat.torch_import.istvt_from_torch` loads a
 port state_dict; the int8 copies are extra buffers (`qkv_wq`, ...) that
-`quantize_params` attaches, and the float path's (in, out) weight copies
+`quantize_params` attaches, beside each its K-major copy for the int8
+GEMM (`qkv_wk`, ...: non-persistent, rebuilt by `quantize_params` and by
+every state_dict load), and the float path's (in, out) weight copies
 are non-persistent buffers (`qkv_w`, ...) that `pack_params` attaches for
 eval (the int8 modes q8_ff='mixed' and 'bf16' read the feed-forward's
 too; every other int8 mode reads the int8 copies only). Train mode never
@@ -92,17 +94,27 @@ _ROADMAP = "ROADMAP.md queue 1"
 class _ServingBuffers(nn.Module):
     """Optional serving copies of the weights, held as buffers (None until
     filled): the int8 copies, which quantize_params or a state_dict that
-    carries them fills, and the float path's (in, out) copies, which
-    pack_params fills and no state_dict holds."""
+    carries them fills; the int8 GEMM's K-major copies of those
+    (kernels/quant.kmajor), built from them there and held by no
+    state_dict; and the float path's (in, out) copies, which pack_params
+    fills and no state_dict holds."""
 
     q8_names: tuple = ()
+    kmajor_names: tuple = ()    # (K-major copy, its int8 weight) pairs
     packed_names: tuple = ()
 
     def _register_copies(self):
         for n in self.q8_names:
             self.register_buffer(n, None)
+        for n, _ in self.kmajor_names:
+            self.register_buffer(n, None, persistent=False)
         for n in self.packed_names:
             self.register_buffer(n, None, persistent=False)
+
+    def build_kmajor(self):
+        """(Re)build the K-major copy of each int8 weight, on its device."""
+        for n, src in self.kmajor_names:
+            setattr(self, n, quant.kmajor(getattr(self, src)))
 
     def has_q8(self) -> bool:
         return all(getattr(self, n) is not None for n in self.q8_names)
@@ -131,6 +143,9 @@ class _ServingBuffers(nn.Module):
             if v is not None and getattr(self, n) is None:
                 setattr(self, n, torch.empty_like(v, device=dev))
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        if self.has_q8():
+            with torch.no_grad():
+                self.build_kmajor()
 
 
 def _io(*linears):
@@ -142,6 +157,7 @@ class TemporalAttention(_ServingBuffers):
     """Self-subtract temporal attention (reference module.py:174-208)."""
 
     q8_names = ("qkv_wq", "qkv_ws", "out_wq", "out_ws")
+    kmajor_names = (("qkv_wk", "qkv_wq"), ("out_wk", "out_wq"))
     packed_names = ("qkv_w", "out_w")
 
     def __init__(self, dim, inner, device=None):
@@ -160,6 +176,7 @@ class SpatialAttention(_ServingBuffers):
     """Per-frame spatial attention (reference module.py:66-93)."""
 
     q8_names = ("qkv_wq", "qkv_ws", "out_wq", "out_ws")
+    kmajor_names = (("qkv_wk", "qkv_wq"), ("out_wk", "out_wq"))
     packed_names = ("qkv_w", "out_w")
 
     def __init__(self, dim, inner, device=None):
@@ -177,6 +194,7 @@ class FeedForward(_ServingBuffers):
     """GELU MLP dim -> hidden -> dim (reference module.py:23-34)."""
 
     q8_names = ("w1q", "w1s", "w2q", "w2s")
+    kmajor_names = (("w1k", "w1q"), ("w2k", "w2q"))
     packed_names = ("w1", "w2")
 
     def __init__(self, dim, hidden, device=None):
@@ -256,6 +274,7 @@ class DSTTr(nn.Module):
         at, asp, ff = pt.fn, ps.fn, pf.fn
         cfg = self.cfg
         heads = cfg.heads
+        given = quant.kmajor_given      # the int8 GEMM's K-major copies
         if cfg.quantize != "int8":
             out_t = temporal_block_fused(pt, x, heads, s)
             x = spatial_block_fused(ps, out_t, heads, s, residual=x,
@@ -270,14 +289,16 @@ class DSTTr(nn.Module):
             if cfg.q8_ff == "mixed":
                 return quant.ln_ff_residual_q8(
                     x, pf.norm.weight, pf.norm.bias, ff.w1q, ff.w1s,
-                    ff.net[0].bias, ff.w2, ff.net[3].bias)
+                    ff.net[0].bias, ff.w2, ff.net[3].bias,
+                    wk=given(ff.w1k))
             if cfg.q8_ff == "bf16":
                 return ln_ff_residual(x, pf.norm.weight, pf.norm.bias, ff.w1,
                                       ff.net[0].bias, ff.w2, ff.net[3].bias)
             # any other value: the fully-int8 FF (models/istvt.py:350-356)
             return quant.ln_ff_residual_q8_full(
                 x, pf.norm.weight, pf.norm.bias, ff.w1q, ff.w1s,
-                ff.net[0].bias, ff.w2q, ff.w2s, ff.net[3].bias)
+                ff.net[0].bias, ff.w2q, ff.w2s, ff.net[3].bias,
+                wk=given(ff.w1k, ff.w2k))
         bq, nq, d = x.shape
         t1 = nq // s
         inner = at.qkv_wq.shape[1] // 3
@@ -294,26 +315,29 @@ class DSTTr(nn.Module):
         if cfg.q8_attn == "ingest":
             a_t = quant.ln_qkv_q8_temporal_attention(
                 x.reshape(bq, t1, s, d), pt.norm.weight, pt.norm.bias,
-                at.qkv_wq, at.qkv_ws, heads)
+                at.qkv_wq, at.qkv_ws, heads, wk=given(at.qkv_wk))
             a_s = quant.mm_q8_ln_qkv_q8_spatial_attention(
                 a_t.reshape(bq * t1, s, inner), at.out_wq, at.out_ws,
                 at.to_out[0].bias, ps.norm.weight, ps.norm.bias,
-                asp.qkv_wq, asp.qkv_ws, heads, n_valid)
+                asp.qkv_wq, asp.qkv_ws, heads, n_valid,
+                wk=given(at.out_wk, asp.qkv_wk))
         else:
             qkv_t = quant.ln_matmul_q8(x, pt.norm.weight, pt.norm.bias,
-                                       at.qkv_wq, at.qkv_ws)
+                                       at.qkv_wq, at.qkv_ws,
+                                       wk=given(at.qkv_wk))
             a_t = temporal_attention_packed(
                 qkv_t.reshape(bq, t1, s, 3 * inner), heads)
             qkv_s = quant.matmul_q8_ln_matmul_q8(
                 a_t.reshape(bq, nq, inner), at.out_wq, at.out_ws,
                 at.to_out[0].bias, ps.norm.weight, ps.norm.bias,
-                asp.qkv_wq, asp.qkv_ws)
+                asp.qkv_wq, asp.qkv_ws, wk=given(at.out_wk, asp.qkv_wk))
             a_s = spatial_attention_packed(
                 qkv_s.reshape(bq * t1, s, 3 * inner), heads, n_valid)
         return quant.matmul_q8_res_ln_ff_q8_full(
             a_s.reshape(bq, nq, inner), x, asp.out_wq, asp.out_ws,
             asp.to_out[0].bias, pf.norm.weight, pf.norm.bias,
-            ff.w1q, ff.w1s, ff.net[0].bias, ff.w2q, ff.w2s, ff.net[3].bias)
+            ff.w1q, ff.w1s, ff.net[0].bias, ff.w2q, ff.w2s, ff.net[3].bias,
+            wk=given(asp.out_wk, ff.w1k, ff.w2k))
 
     def run_layer_unfused(self, layer, x, s: int, bias_t=None, bias_s=None,
                           need_attn: bool = False):
@@ -510,7 +534,8 @@ def quantize_params(model: ISTVT) -> ISTVT:
     """Attach the int8 serving weights in place (models/istvt.quantize_params):
     per-output-column int8 copies of every ST layer's projection and FF
     weights, in the JAX (in, out) layout; the temporal q|k and v weights
-    are packed into one (D, 3I) matrix. Float weights stay."""
+    are packed into one (D, 3I) matrix; and the int8 GEMM's K-major copy of
+    each (kernels/quant.kmajor). Float weights stay."""
     for pt, ps, pf in model.vit.transformer.layers:
         at, asp, ff = pt.fn, ps.fn, pf.fn
         packed = torch.cat([at.to_qk.weight.t(), at.to_v.weight.t()], dim=1)
@@ -521,6 +546,8 @@ def quantize_params(model: ISTVT) -> ISTVT:
             asp.to_out[0].weight.t())
         ff.w1q, ff.w1s = quant.quantize_weight(ff.net[0].weight.t())
         ff.w2q, ff.w2s = quant.quantize_weight(ff.net[3].weight.t())
+        for m in (at, asp, ff):
+            m.build_kmajor()
     return model
 
 

@@ -23,7 +23,8 @@ def model_selection(modelname: str, num_out_classes: int = 1,
     if modelname != "istvt":
         raise NotImplementedError(
             f"model '{modelname}' is not ported yet; available: "
-            f"{available_models()} (ROADMAP.md queue 1, 'Rest of the zoo')")
+            f"{available_models()} (ROADMAP.md queue 1, "
+            f"'Rest of the model zoo')")
     from istvt_tpu_torch.models import istvt
     cfg = cfg or ISTVTConfig(num_classes=num_out_classes)
     return istvt.init(cfg, torch.Generator().manual_seed(seed), device)

@@ -34,7 +34,7 @@ import torch
 from istvt_tpu_torch.kernels.attention import (spatial_attention_packed,
                                                temporal_attention_packed)
 from istvt_tpu_torch.kernels.linear import ln_matmul, matmul_bias_residual
-from istvt_tpu_torch.kernels.quant import (ln_matmul_q8,
+from istvt_tpu_torch.kernels.quant import (kmajor_given, ln_matmul_q8,
                                            matmul_q8_bias_residual)
 from istvt_tpu_torch.nn.layers import linear
 
@@ -154,12 +154,13 @@ def temporal_block_q8(pre, x, heads: int, tokens_per_frame: int):
     b, n, _ = x.shape
     inner = at.out_wq.shape[0]
     qkv = ln_matmul_q8(x, pre.norm.weight, pre.norm.bias, at.qkv_wq,
-                       at.qkv_ws)
+                       at.qkv_ws, wk=kmajor_given(at.qkv_wk))
     out = temporal_attention_packed(
         qkv.reshape(b, n // tokens_per_frame, tokens_per_frame, 3 * inner),
         heads)
     return matmul_q8_bias_residual(out.reshape(b, n, inner), at.out_wq,
-                                   at.out_ws, at.to_out[0].bias, None)
+                                   at.out_ws, at.to_out[0].bias, None,
+                                   wk=kmajor_given(at.out_wk))
 
 
 def spatial_block_q8(pre, x, heads: int, tokens_per_frame: int, residual,
@@ -171,9 +172,10 @@ def spatial_block_q8(pre, x, heads: int, tokens_per_frame: int, residual,
     b, n, _ = x.shape
     inner = asp.out_wq.shape[0]
     qkv = ln_matmul_q8(x, pre.norm.weight, pre.norm.bias, asp.qkv_wq,
-                       asp.qkv_ws)
+                       asp.qkv_ws, wk=kmajor_given(asp.qkv_wk))
     out = spatial_attention_packed(
         qkv.reshape(b * (n // tokens_per_frame), tokens_per_frame,
                     3 * inner), heads, n_valid)
     return matmul_q8_bias_residual(out.reshape(b, n, inner), asp.out_wq,
-                                   asp.out_ws, asp.to_out[0].bias, residual)
+                                   asp.out_ws, asp.to_out[0].bias, residual,
+                                   wk=kmajor_given(asp.out_wk))

@@ -11,8 +11,13 @@ and its backward #13 at more shapes (S off the 16-row mma tile, masked
 keys, every dim_head, 112 frames), bf16 on the tensor cores and f32 on the
 FMA pipes, and from the built library's SASS that each runs on the pipes
 it should; the float GEMM (wgmma) alone at every caller's shape and at
-edges of each layout, every epilogue, both output dtypes and split-K; then
-small models on the card against the CPU.
+edges of each layout, every epilogue, both output dtypes and split-K; the
+int8 GEMM (s8 wgmma) alone at every caller's shape at the slice and at the
+B=16 forward's rows, at M off its tile and in every (output, residual,
+GELU) combination its callers use, bit for bit against its plain version
+without GELU, with its padding never read and its weight copies built
+in a call where none is given; then small models on the card against the
+CPU.
 
 Needs an NVIDIA GPU with nvcc: marked `gpu`, and skipped (inside the
 fixture, not at import) where torch sees no CUDA device. Run on the card:
@@ -22,7 +27,8 @@ import pytest
 import torch
 
 from istvt_tpu_torch.core.precision import highest
-from istvt_tpu_torch.kernels import _lib, attention, conv, linear, selfcheck
+from istvt_tpu_torch.kernels import (_lib, attention, conv, linear, quant,
+                                     selfcheck)
 from istvt_tpu_torch.models.xception import to_store
 
 pytestmark = pytest.mark.gpu
@@ -224,6 +230,101 @@ def test_gemm_raises_what_it_cannot_take(cuda):
                     .view(64, 64), b, out)
 
 
+# the int8 GEMM alone: every caller's launch at the slice and at the B=16
+# forward's rows (activations in bf16, and at the slice in f32 too: the f32
+# instantiations), then each caller's (N, K, epilogue) at M of 1, 129 and
+# 5,153 rows (off the 128-row tile)
+_Q8_SHAPES = {**selfcheck.gemm_q8_shapes(),
+              **{f"{n} f32": s for n, s in selfcheck.gemm_q8_shapes(
+                  dtype=torch.float32).items()},
+              **{f"{n} B=16": s for n, s in selfcheck.gemm_q8_shapes(
+                  {**selfcheck.SLICE, "b": 16}).items()},
+              **{f"{n} M={m}": (m, *s[1:]) for n, s in
+                 selfcheck.gemm_q8_shapes().items() for m in (1, 129, 5153)}}
+
+
+@pytest.mark.parametrize("shape", _Q8_SHAPES.values(), ids=_Q8_SHAPES.keys())
+def test_gemm_q8_matches_plain(cuda, record_property, shape):
+    """The int8 wgmma GEMM (quant.gemm_q8) against its plain version (the
+    exact int8 dot in float64, the same f32 epilogue in the same order):
+    equal bit for bit without GELU (exact int32 sums, the same IEEE f32
+    operations), within atol = rtol = 2e-3 with it (tanhf against torch's
+    tanh); the share of equal elements recorded."""
+    m, n, k, out_dtype, res_dtype, bias, gelu = shape
+    ops = selfcheck.gemm_q8_operands(*shape, cuda, seed=m + 3 * n + 7 * k)
+    selfcheck.run_gemm_q8(ops)
+    want = selfcheck.gemm_q8_plain(ops)
+    torch.cuda.synchronize()
+    got = ops["out"]
+    share = selfcheck.bit_equal_share(got, want)
+    record_property("bit_equal", share)
+    if gelu:
+        tol = selfcheck.F32_TOL_INT8
+        assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    else:
+        assert share == 1.0, (share, (got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("k", [728, 20, 512])
+def test_gemm_q8_never_reads_the_pad_bytes(cuda, k):
+    """Codes and K-major weight with their pad bytes (past K in each row;
+    512 has none) set to 127 give the same bits as with zeros there, and
+    as the plain version: the tensor maps end at K."""
+    outs = []
+    for pad in (0, 127):
+        ops = selfcheck.gemm_q8_operands(300, 256, k, torch.float32,
+                                         torch.bfloat16, True, False, cuda,
+                                         seed=5, pad=pad)
+        selfcheck.run_gemm_q8(ops)
+        outs.append(ops["out"])
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[1], selfcheck.gemm_q8_plain(ops))
+
+
+def test_int8_wrappers_build_missing_copies_in_the_call(cuda):
+    """An int8 wrapper given no K-major copies builds them on the card in
+    the call (counted in _lib.KMAJOR_BUILDS, one per int8 weight) and
+    returns the same bits as with the prebuilt ones; given them, it builds
+    none."""
+    cases = selfcheck.slice_cases(cuda, selfcheck.SMALL)
+    for name in selfcheck.INT8_CASES:
+        if name == "st_layer_q8":
+            continue
+        kern, _, make = cases[name]
+        args = make(torch.bfloat16)
+        _lib.reset_launches()
+        given = kern(*args)
+        assert _lib.KMAJOR_BUILDS["q8_kmajor"] == 0, name
+        built = kern.func(*args)
+        torch.cuda.synchronize()
+        assert _lib.KMAJOR_BUILDS["q8_kmajor"] == len(kern.keywords["wk"])
+        assert torch.equal(given, built), name
+
+
+def test_gemm_q8_refuses_what_it_cannot_take(cuda):
+    """No other route: codes at another row stride, a weight that is not
+    its K-major copy, a host tensor, N not divisible by 4, or a wrapper
+    given a wrong copy: ValueError."""
+    ops = selfcheck.gemm_q8_operands(64, 64, 728, torch.float32, None, False,
+                                     False, cuda)
+    q, wk, rs, ws, out = (ops[n] for n in ("q", "wk", "rs", "ws", "out"))
+    with pytest.raises(ValueError, match="bytes apart"):
+        quant.gemm_q8(q.contiguous(), wk, rs, ws, out)
+    with pytest.raises(ValueError, match="K-major"):
+        quant.gemm_q8(q, ops["wq"].t().contiguous(), rs, ws, out)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.gemm_q8(q, wk.cpu(), rs, ws, out)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        quant.gemm_q8(q, wk[:62].contiguous(), rs, ws[:62],
+                      out[:, :62].contiguous())
+    kern, _, make = selfcheck.slice_cases(cuda, selfcheck.SMALL)[
+        "ln_matmul_q8"]
+    x, s, b, wq, ws = make(torch.float32)
+    with pytest.raises(ValueError, match="K-major copy"):   # not (N, Kp)
+        quant.ln_matmul_q8(x, s, b, wq, ws, wk=(wq.contiguous(),))
+
+
 def test_f8_cast_same_on_card_and_cpu(cuda):
     """The f8 stem store rounds the same on the card as on the CPU, NaN
     past the +-464 tie included."""
@@ -336,7 +437,8 @@ def test_int8_mode_on_card_matches_cpu(cuda, q8_ff, q8_attn):
     float copies): the card's logits (kernels, bf16) against the CPU's
     (plain versions, f32) within 5e-2, each mode's kernels launched once
     per layer (ln_matmul_q8 twice in the q8 blocks; st_layer_q8 alone for
-    q8_attn='layer'), every other counter 0."""
+    q8_attn='layer'), every other counter 0, and no K-major weight copy
+    built in a call."""
     import copy
 
     from istvt_tpu_torch.core import tree
@@ -375,6 +477,7 @@ def test_int8_mode_on_card_matches_cpu(cuda, q8_ff, q8_attn):
                          spatial_attention_packed=1)
     assert counts == {**dict.fromkeys(counts, 0),
                       **{n: k * cfg.depth for n, k in per_layer.items()}}
+    assert _lib.KMAJOR_BUILDS["q8_kmajor"] == 0     # the model's copies
     assert (got - want).abs().max() <= 5e-2, (got, want)
 
 

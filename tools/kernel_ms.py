@@ -1,7 +1,7 @@
 """Median times of port kernels at the serving slice on one NVIDIA GPU.
 
     python3 tools/kernel_ms.py [--root DIR] [--cases NAME,...|spatial|gemm]
-                               [--gemm] [--batch B]
+                               [--gemm | --gemm-q8] [--batch B]
 
 Imports istvt_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels and times each case of its
@@ -21,8 +21,16 @@ B clips (default 2, the slice; 16 for the B=16 forward and step), and
 torch.matmul on the same operands as the yardstick: one JSON line per
 shape with device ms, TFLOP/s and the bound (with --nt, an nn shape also
 timed with its weight stored (N, K), as layout nt: what the weight's
-layout costs). Run parent, change, change, parent in one call to compare
-two commits on one card.
+layout costs). With --gemm-q8 it times the int8 GEMM alone the same way,
+at every int8 caller's shape (selfcheck.gemm_q8_shapes: #1-#8's QKV,
+out-projections, fc1 and fc2 with their epilogues), on operands made by
+this checkout's selfcheck and quant helpers: the GEMM of the package
+under DIR (quant.gemm_q8 on the padded codes and the K-major weight copy;
+for a package without it, the mma.sync GEMM's quant._gemm on dense codes
+and the (K, N) weight), with torch._int_mm on the same codes and weight
+as the yardstick, and the share of outputs equal bit for bit to the plain
+version. Run parent, change, change, parent in one call to compare two
+commits on one card.
 """
 from __future__ import annotations
 
@@ -44,8 +52,8 @@ GEMM_CASES = ("ln_matmul", "matmul_bias_residual", "matmul_bias_residual/no_r",
               "ln_ff_residual", "ln_ff_residual/h1", "ln_ff_residual/bwd",
               "ln_matmul/bwd", "fused_ff", "ln_ff_residual_q8")
 CASE_SETS = {"spatial": SPATIAL_CASES, "gemm": GEMM_CASES}
-# published H100 SXM peaks: bf16 dense operations/s, bytes/s
-PEAK_BF16, HBM_BPS = 989e12, 3.35e12
+# published H100 SXM peaks: bf16 and int8 dense operations/s, bytes/s
+PEAK_BF16, PEAK_INT8, HBM_BPS = 989e12, 1979e12, 3.35e12
 # the card's spin ahead of a device_ms run: about 2 ms at 1.7 GHz
 SPIN_CYCLES = 3_500_000
 
@@ -85,16 +93,77 @@ def device_ms(fn, reps=10, iters=10):
     return float(np.median(times))
 
 
-def gemm_selfcheck():
-    """This checkout's kernels/selfcheck.py, loaded by path: its GEMM table
-    and operands (the kernels it calls are those of whichever
-    istvt_tpu_torch is on sys.path)."""
+def _own_module(name):
+    """This checkout's istvt_tpu_torch/kernels/<name>.py, loaded by path
+    (what it imports comes from whichever istvt_tpu_torch is on
+    sys.path)."""
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__))), "istvt_tpu_torch", "kernels", "selfcheck.py")
-    spec = importlib.util.spec_from_file_location("_gemm_selfcheck", path)
+        __file__))), "istvt_tpu_torch", "kernels", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_own_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def gemm_selfcheck():
+    """This checkout's kernels/selfcheck.py: its GEMM tables and operands
+    (the kernels it calls are those of whichever istvt_tpu_torch is on
+    sys.path)."""
+    return _own_module("selfcheck")
+
+
+def int_mm_ms(ops):
+    """torch._int_mm's device ms on an int8 GEMM case's codes (a dense
+    (M, K) copy) and its weight, int32 out, no epilogue: the faster of the
+    weight as stored, (K, N) row-major, and column-major (the K-major
+    copy's layout); (ms, "row-major" or "column-major"), or (None, None)
+    where this torch refuses both."""
+    a = ops["q"].contiguous()
+    best = (None, None)
+    for layout, b in (("row-major", ops["wq"]),
+                      ("column-major", ops["wq"].t().contiguous().t())):
+        try:
+            torch._int_mm(a, b)
+        except RuntimeError:
+            continue
+        ms = device_ms(lambda: torch._int_mm(a, b))
+        if best[0] is None or ms < best[0]:
+            best = (ms, layout)
+    return best
+
+
+def gemm_q8_rows(sc, device, batch=2, run=None):
+    """Yields (name, (M, N, K, out dtype, residual dtype, bias, gelu),
+    kernel device ms, int_mm_ms(ops), TOP/s, bound ms, operands) for each
+    int8 GEMM shape of `batch` clips (the operands made afresh for each
+    shape; ops["out"] then holds the kernel's result).
+    run(ops) gives the call to time (default: sc.run_gemm_q8)."""
+    for name, shape in sc.gemm_q8_shapes({**sc.SLICE, "b": batch}).items():
+        ops = sc.gemm_q8_operands(*shape, device)
+        call = run(ops) if run else (lambda: sc.run_gemm_q8(ops))
+        ms = device_ms(call)
+        lib_ms = int_mm_ms(ops)
+        n_ops, n_bytes = sc.gemm_q8_ops_bytes(ops)
+        bound = 1e3 * max(n_ops / PEAK_INT8, n_bytes / HBM_BPS)
+        yield name, shape, ms, lib_ms, n_ops / ms / 1e9, bound, ops
+
+
+def package_gemm_q8(quant, lib):
+    """run(ops) for gemm_q8_rows: the int8 GEMM of the package whose
+    kernels/quant is `quant` (and kernels/_lib `lib`)."""
+    if hasattr(quant, "gemm_q8"):
+        return lambda ops: lambda: quant.gemm_q8(
+            ops["q"], ops["wk"], ops["rs"], ops["ws"], ops["out"],
+            bias=ops.get("bias"), res=ops.get("res"),
+            gelu=ops.get("gelu", False))
+
+    def run(ops):
+        q = ops["q"].contiguous()
+        return lambda: quant._gemm(lib.load(), lib.stream(), q, ops["wq"],
+                                   ops["rs"], ops["ws"], ops.get("bias"),
+                                   ops.get("res"), ops["out"],
+                                   gelu=ops.get("gelu", False))
+    return run
 
 
 def gemm_rows(sc, device, batch=2, nt=False):
@@ -126,6 +195,8 @@ def main():
     ap.add_argument("--root", default=here)
     ap.add_argument("--cases", default="spatial")
     ap.add_argument("--gemm", action="store_true")
+    ap.add_argument("--gemm-q8", action="store_true",
+                    help="time the int8 GEMM alone at its callers' shapes")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--nt", action="store_true",
                     help="with --gemm: time each nn shape also with its "
@@ -134,7 +205,7 @@ def main():
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
 
-    from istvt_tpu_torch.kernels import _lib, selfcheck
+    from istvt_tpu_torch.kernels import _lib, quant, selfcheck
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script times the GPU")
@@ -144,6 +215,20 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     tag = os.path.relpath(root, here)
+    if args.gemm_q8:
+        sc = gemm_selfcheck()
+        sc.quant = _own_module("quant")   # operands and plain version
+        for name, (m, n, k, *_), ms, (lib_ms, lib_layout), tops, bound, \
+                ops in gemm_q8_rows(sc, torch.device("cuda"), args.batch,
+                                    package_gemm_q8(quant, _lib)):
+            share = sc.bit_equal_share(ops["out"], sc.gemm_q8_plain(ops))
+            print(json.dumps({"root": tag, "gemm_q8": name,
+                              "batch": args.batch, "mnk": [m, n, k],
+                              "ms": ms, "int_mm_ms": lib_ms,
+                              "int_mm_layout": lib_layout, "tops": tops,
+                              "bound_ms": bound, "bit_equal": share,
+                              "card": card}), flush=True)
+        return
     if args.gemm:
         for name, layout, m, n, k, ms, mm, tflops, bound, _, nt_ms in \
                 gemm_rows(gemm_selfcheck(), torch.device("cuda"), args.batch,
