@@ -28,9 +28,13 @@ path reaches. In phases; any failure raises and exits non-zero:
                 HGMMA), every instantiation of the bf16 float GEMM
                 (gemm_bf16_wgmma_kernel: #6's fc2, #18-#23) has wgmma
                 (HGMMA), every instantiation of the int8 GEMM
-                (gemm_q8_wgmma_kernel: #1-#8) has int8 wgmma (IGMMA), and
-                no f32 one but #9's has any, nor the f32 FMA GEMM
-                (selfcheck.tensor_core_check)
+                (gemm_q8_wgmma_kernel: #1-#8) and of the one-launch layer
+                (st_layer_q8_kernel: #9, whose GEMM phases run the same
+                body) has int8 wgmma (IGMMA) and no int8 mma.sync (IMMA),
+                and no f32 one but #9's has any, nor the f32 FMA GEMM
+                (selfcheck.tensor_core_check); from ptxas's report
+                (build/build.log), those int8 kernels hold at most 168
+                registers with no byte spilled
   3. kernels  - each of the 24 kernels (kernels/selfcheck.CASES: one case
                 per launch counter -- #20 and #5 with and without their
                 residual; the training slice's four backward kernels and
@@ -1184,19 +1188,37 @@ def main():
              if selfcheck.INT8_WGMMA_OP in ln]
     phase("build", f"int8 wgmma in the SASS: {len(igmma)} instructions, "
           f"e.g. {igmma[0] if igmma else None}")
+    imma = _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_MMA_SYNC_OP,))
     for kernel, dtype, found, ok in selfcheck.tensor_core_check(
             _lib.tensor_ops_of_sass(sass),
             _lib.tensor_ops_of_sass(sass, ("HGMMA.",)),
-            _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_WGMMA_OP,))):
+            _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_WGMMA_OP,)), imma):
         what = ("HGMMA" if kernel in selfcheck.WGMMA_KERNELS
                 and dtype == "bf16" else "IGMMA" if dtype == "int8"
                 else "tensor-core")
         phase("build", f"{kernel} {dtype}: {what} instructions "
-              f"{sorted(found.values())} ({'ok' if ok else 'FAIL'}: "
-              f"{'none' if dtype == 'f32' else 'each'} wanted)")
+              f"{sorted(found.values())}"
+              + (f", IMMA {sum(imma.get(n, 0) for n in found)}"
+                 if dtype == "int8" else "")
+              + f" ({'ok' if ok else 'FAIL'}: "
+              f"{'none' if dtype == 'f32' else 'each'} wanted"
+              + (", no IMMA" if dtype == "int8" else "") + ")")
         if not ok:
             raise SystemExit(f"{kernel} in {dtype} is not on the pipes it "
                              f"should be")
+    # the int8 wgmma kernels at the launch budget with nothing spilled
+    report = _lib.ptxas_report((_lib.BUILD_DIR / "build.log").read_text())
+    for kernel in selfcheck.INT8_WGMMA_KERNELS:
+        got = {n: r for n, r in report.items() if kernel in n}
+        spilled = {n: r for n, r in got.items()
+                   if r.get("spill_stores") or r.get("spill_loads")
+                   or r.get("registers", 0) > 168}
+        phase("build", f"{kernel}: ptxas, {len(got)} instantiations, "
+              f"registers {sorted(r.get('registers') for r in got.values())}"
+              f", spilled {len(spilled)} (ok: none wanted)")
+        if not got or spilled:
+            raise SystemExit(f"{kernel} spills or exceeds 168 registers: "
+                             f"{spilled}")
 
     # 3. kernels, then the float and the int8 GEMM alone at their callers'
     # shapes

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -103,9 +104,9 @@ _SIGNATURES = {
     "istvt_gemm_q8": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                       _I, _P],
     # ptrs (host array of 30 pointers), dt, B, T1, S, D, H, inner, hid,
-    # n_valid, scale, stream
+    # n_valid, scale, stamps (or null), stream
     "istvt_st_layer_q8": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          ctypes.c_float, _P],
+                          ctypes.c_float, _P, _P],
     # qkv, out, dt, B, T1, S, H, inner, scale, stream
     "istvt_temporal_attn": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # qkv, out, dt, G, S, H, inner, n_valid, scale, stream
@@ -225,6 +226,36 @@ def sass_text(lib: Path = LIB_PATH) -> str:
     tool = Path(_nvcc()).parent / "cuobjdump"
     return subprocess.run([str(tool), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """{function (mangled name): {"registers", "stack_frame",
+    "spill_stores", "spill_loads"}} from nvcc's `-Xptxas -v` report
+    (build/build.log): each kernel's registers, its bytes of local-memory
+    stack frame, and the bytes it spills there and loads back; a
+    non-inlined device function has no "registers"."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props is not None:
+            out.setdefault(props, {}).update(stack_frame=int(m.group(1)),
+                                             spill_stores=int(m.group(2)),
+                                             spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
 
 
 def load():

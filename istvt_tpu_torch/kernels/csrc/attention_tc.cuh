@@ -18,6 +18,17 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTcWarps = 8, kTcQT = 16 * kTcWarps;  // 128 rows a tile, 16 a warp
 
+// The block that runs a spatial tile: its kThreads threads (kWarps warps, each with
+// 16 query rows of a bf16 tile or 4 of an f32 one), meeting at __syncthreads. 256 in
+// the standalone kernels (TileThreads<256>, every template's default); 384 in the
+// persistent ST layer #9, whose block is the int8 GEMM's.
+template <int N>
+struct TileThreads {
+  static constexpr int kThreads = N, kWarps = N / 32;
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+using Tile256 = TileThreads<256>;
+
 // Rows per staged chunk; a chunk's rows hold DH + 8 bf16 (the 16-byte pad keeps
 // ldmatrix free of bank conflicts). The shared memory of the forward tile and of the
 // backward's pass (a): two stages of a K and a V chunk.
@@ -27,12 +38,13 @@ __host__ __device__ constexpr int tc_smem_bytes(int dh) {
 }
 
 // Rows r0..r0+KC-1 of K (and of V at [KC][DH + 8] after it) of one (frame, head) into
-// a shared-memory stage [KC][DH + 8] by cp.async; rows >= S are zero-filled.
-template <int DH, typename Rows>
+// a shared-memory stage [KC][DH + 8] by cp.async, by the block's NT threads; rows >= S
+// are zero-filled.
+template <int DH, int NT = 256, typename Rows>
 __device__ __forceinline__ void tc_stage_kv(const Rows& base, bf16* buf, int r0, int S,
                                             bool with_v) {
   constexpr int KC = tc_chunk(DH), LD = DH + 8, SEG = DH / 8;  // 16-byte pieces a row
-  for (int idx = threadIdx.x; idx < KC * SEG; idx += 256) {
+  for (int idx = threadIdx.x; idx < KC * SEG; idx += NT) {
     const int kk = idx / SEG, c = (idx % SEG) * 8, r = r0 + kk;
     const bool in = r < S;
     const int rr = in ? r : 0;  // a valid address for the zero fill
@@ -43,8 +55,8 @@ __device__ __forceinline__ void tc_stage_kv(const Rows& base, bf16* buf, int r0,
 
 // The K / V staging of a query tile's sweeps over the keys, chunk i into stage i & 1:
 // K chunk i for i < nch (the softmax's max and sum), then K and V chunk (i - nch) %
-// nch for every later sweep.
-template <int DH, typename Rows>
+// nch for every later sweep; by the block's NT threads.
+template <int DH, typename Rows, int NT = 256>
 struct TcKvStage {
   const Rows& base;
   bf16* smem;
@@ -52,8 +64,8 @@ struct TcKvStage {
   static constexpr int kStage = 2 * tc_chunk(DH) * (DH + 8);
   __device__ __forceinline__ void operator()(int i) const {
     const bool v = i >= nch;
-    tc_stage_kv<DH>(base, smem + (i & 1) * kStage, (v ? (i - nch) % nch : i) * tc_chunk(DH), S,
-                    v);
+    tc_stage_kv<DH, NT>(base, smem + (i & 1) * kStage, (v ? (i - nch) % nch : i) * tc_chunk(DH),
+                        S, v);
     cp_async_commit();
   }
   __device__ __forceinline__ const bf16* at(int i) const { return smem + (i & 1) * kStage; }
@@ -160,8 +172,9 @@ __device__ __forceinline__ void tc_row_stats_merge(float& mx, float& sm) {
 // Sweep 1 of a query tile: K chunks 0..nch-1 (staged chunk i into stage i & 1 by
 // stage(i); chunk 0 already in flight) against the warp's rows qf: each row's max and
 // sum of exp, the same in the four threads of its quad. Stages chunk nch (the
-// caller's next sweep) on its last step; ends on a barrier.
-template <int DH, typename Stage>
+// caller's next sweep) on its last step; ends on a barrier. Tile: the block's
+// TileThreads.
+template <int DH, typename Stage, typename Tile = Tile256>
 __device__ __forceinline__ void tc_softmax_stats(const Stage& stage,
                                                  const unsigned (&qf)[DH / 16][4], int nch,
                                                  int S, int n_valid, float scale,
@@ -173,7 +186,7 @@ __device__ __forceinline__ void tc_softmax_stats(const Stage& stage,
   for (int c = 0; c < nch; ++c) {
     stage(c + 1);
     cp_async_wait<1>();
-    __syncthreads();
+    Tile::sync();
     const bf16* kt = stage.at(c);
     float s[KC / 16][2][4];
 #pragma unroll
@@ -196,7 +209,7 @@ __device__ __forceinline__ void tc_softmax_stats(const Stage& stage,
           for (int e = 0; e < 2; ++e) v[4 * p + 2 * j + e] = s[p][j][2 * r + e];
       tc_row_stats(mx[r], sm[r], v);
     }
-    __syncthreads();
+    Tile::sync();
   }
   tc_row_stats_merge(mx[0], sm[0]);
   tc_row_stats_merge(mx[1], sm[1]);

@@ -1,6 +1,7 @@
 // Hopper's asynchronous building blocks for the two wgmma GEMMs, the float one
-// (float_gemm.cu) and the int8 one (q8_rows_gemm.cu), in inline PTX: mbarriers, 2-D
-// TMA loads, the wgmma shared-memory descriptor with the 128-byte swizzle, wgmma
+// (float_gemm.cu) and the int8 one (q8_rows_gemm.cuh, whose body the standalone kernel
+// and #9's GEMM phases run), in inline PTX: mbarriers, 2-D TMA loads, the proxy
+// fences, the wgmma shared-memory descriptor with the 128-byte swizzle, wgmma
 // m64n128k16 (bf16 in, f32 sums) and m64n128k32 (s8 in, s32 sums), setmaxnreg; and
 // what both GEMMs share around them: the persistent walk over the output tiles
 // (TileGrid), the producer thread's loop that keeps the TMA ring full (produce_ring),
@@ -49,6 +50,12 @@ __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// End a barrier's life, so that its word may be initialised anew (#9 runs one ring per
+// GEMM phase on the same shared memory).
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Arrive once and add `bytes` to the transaction count the phase waits for.
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -95,6 +102,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// Order this thread's earlier generic-proxy accesses (ordinary loads and stores) of
+// global / shared memory before later async-proxy ones (TMA), its own or, through a
+// barrier, another thread's: TMA must not read codes, or overwrite shared memory, from
+// before the generic writes that the barrier orders first.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // --- wgmma -------------------------------------------------------------------------

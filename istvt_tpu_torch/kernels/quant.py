@@ -45,11 +45,11 @@ for a CPU tensor it runs the plain PyTorch version beside it. There is no
 fallback from one to the other: a CUDA tensor that the kernel cannot take
 raises.
 
-Every wrapper but #9's runs its GEMMs on the int8 wgmma GEMM
-(csrc/q8_rows_gemm.cu, gemm_q8 below), which reads each weight as a
-K-major copy (kmajor(wq): the (K, N) codes transposed to (N, Kp), Kp = K
-rounded up to 16, no code changed) and the activation codes with rows Kp
-bytes apart. The model builds the copies once, when it is quantized or
+Every wrapper runs its GEMMs on the int8 wgmma GEMM (csrc/q8_rows_gemm.cu,
+gemm_q8 below; #9 the same device code inside its one launch), which reads
+each weight as a K-major copy (kmajor(wq): the (K, N) codes transposed to
+(N, Kp), Kp = K rounded up to 16, no code changed) and the activation
+codes with rows Kp bytes apart. The model builds the copies once, when it is quantized or
 loaded (models/istvt.py), and passes them as the wrappers' last argument
 `wk` (one per int8 weight argument, in their order); a wrapper given none
 builds them on the card in the call (counted in _lib.KMAJOR_BUILDS). The
@@ -457,25 +457,63 @@ def st_layer_q8_plain(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss,
     return out.reshape(x.shape)
 
 
-# csrc/q8_layer.cu's LayerQ8: the pointers in the order the C entry reads
-# them (the weights in _st_layer_q8_impl's argument order)
+# csrc/q8_layer.cu's istvt_st_layer_q8: the pointers in the order it reads
+# them (the weights in _st_layer_q8_impl's argument order, each int8 weight
+# as its K-major copy)
 _LAYER_PTRS = ("x", "out", "st", "bt", "wqt", "wst", "wot", "sot", "bot",
                "ss", "bs", "wqs", "wss", "wos", "sos", "bos", "sf", "bf",
                "w1q", "w1s", "b1", "w2q", "w2s", "b2", "q", "rs", "qkv", "a",
                "y", "hid")
+# the kernel's phase stamps: its start and the end of each of its 14 phases
+LAYER_STAMPS = 15
+
+
+def layer_code_strides(d: int, inner: int, hdim: int) -> tuple:
+    """The row strides in bytes of #9's int8 codes, by the width of the row
+    pass that writes them (D: phases 1, 6, 11; inner: 4, 9; hdim: 13):
+    padded_k of each, since its GEMM phase reads them by TMA."""
+    return padded_k(d), padded_k(inner), padded_k(hdim)
+
+
+def layer_workspace(rows: int, d: int, inner: int, hdim: int, dtype,
+                    device) -> dict:
+    """#9's workspace for `rows` rows: the int8 codes q (rows of the widest
+    of layer_code_strides, each pass writing its own stride), their row
+    scales rs, the packed qkv and the attention output a in the activation
+    dtype, the f32 stream y and the f32 FF hidden hid; flat, uninitialised."""
+    def empty(n, dt):
+        return torch.empty(n, dtype=dt, device=device)
+    return {"q": empty(rows * max(layer_code_strides(d, inner, hdim)),
+                       torch.int8),
+            "rs": empty(rows, torch.float32),
+            "qkv": empty(rows * 3 * inner, dtype),
+            "a": empty(rows * inner, dtype),
+            "y": empty(rows * d, torch.float32),
+            "hid": empty(rows * hdim, torch.float32)}
 
 
 def st_layer_q8(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss, wos,
                 sos, bos, sf, bf, w1q, w1s, b1, w2q, w2s, b2, heads: int,
-                n_valid: int = -1):
+                n_valid: int = -1, wk=None, stamps=None):
     """One full int8 ST layer, x = FF(attn_s(attn_t(x)) + x) with every
     PreNorm and residual: x (B, T1, S, D) -> (B, T1, S, D) in x.dtype. The
     arguments are _st_layer_q8_impl's: per branch its LayerNorm, int8
     weights with their column scales and the out-projection's (fc1's,
-    fc2's) bias. On the card one launch: a persistent kernel that walks
-    the layer's phases with its intermediates in a workspace allocated
-    here (889 MB at B=16 in bf16). CPU tensors take the plain version."""
+    fc2's) bias; wk: the six int8 weights' K-major copies (kmajor(wqt),
+    kmajor(wot), kmajor(wqs), kmajor(wos), kmajor(w1q), kmajor(w2q)) or None,
+    checked on any device. On the card one launch: a persistent kernel that
+    walks the layer's phases with its intermediates in a workspace
+    allocated here (layer_workspace: 889 MB at B=16 in bf16); `stamps`, an
+    int64 CUDA tensor of LAYER_STAMPS elements (dim_head 64 only), runs the
+    kernel's stamped instantiation instead, which writes there the
+    %globaltimer ns at its start and at the end of each phase
+    (tools/kernel_ms.py --layer-phases). CPU tensors take the plain
+    version."""
+    if wk is not None:
+        _kmajor_of(wk, wqt, wot, wqs, wos, w1q, w2q)
     if not x.is_cuda:
+        if stamps is not None:
+            raise ValueError("phase stamps are the card kernel's")
         return st_layer_q8_plain(x, st, bt, wqt, wst, wot, sot, bot, ss, bs,
                                  wqs, wss, wos, sos, bos, sf, bf, w1q, w1s,
                                  b1, w2q, w2s, b2, heads, n_valid)
@@ -497,24 +535,25 @@ def st_layer_q8(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss, wos,
     for name, v in vecs.items():
         if v.device != x.device:
             raise ValueError(f"{name} on {v.device}, x on {x.device}")
-    rows = bsz * t1 * s_len
-    dev = x.device
-    ptr = {"x": x, "out": torch.empty_like(x), "wqt": wqt, "wot": wot,
-           "wqs": wqs, "wos": wos, "w1q": w1q, "w2q": w2q,
+    if stamps is not None and (
+            not stamps.is_cuda or stamps.dtype != torch.int64 or
+            stamps.numel() < LAYER_STAMPS or inner // heads != 64):
+        raise ValueError(f"stamps: an int64 CUDA tensor of {LAYER_STAMPS} "
+                         f"elements, at dim_head 64")
+    wkqt, wkot, wkqs, wkos, wk1, wk2 = _kmajor_of(wk, wqt, wot, wqs, wos,
+                                                  w1q, w2q)
+    ptr = {"x": x, "out": torch.empty_like(x), "wqt": wkqt, "wot": wkot,
+           "wqs": wkqs, "wos": wkos, "w1q": wk1, "w2q": wk2,
            **{n: _lib.f32(v) for n, v in vecs.items()},
-           "q": torch.empty(rows * max(d, inner, hdim), dtype=torch.int8,
-                            device=dev),
-           "rs": torch.empty(rows, dtype=torch.float32, device=dev),
-           "qkv": torch.empty(rows * i3, dtype=x.dtype, device=dev),
-           "a": torch.empty(rows * inner, dtype=x.dtype, device=dev),
-           "y": torch.empty(rows * d, dtype=torch.float32, device=dev),
-           "hid": torch.empty(rows * hdim, dtype=torch.float32, device=dev)}
+           **layer_workspace(bsz * t1 * s_len, d, inner, hdim, x.dtype,
+                             x.device)}
     arr = (ctypes.c_void_p * len(_LAYER_PTRS))(
         *(ptr[n].data_ptr() for n in _LAYER_PTRS))
     _lib.check(_lib.load().istvt_st_layer_q8(
         ctypes.addressof(arr), _lib.DTYPE_CODE[x.dtype], bsz, t1, s_len, d,
         heads, inner, hdim, s_len if n_valid < 0 else n_valid,
-        (inner // heads) ** -0.5, _lib.stream()), "st_layer_q8")
+        (inner // heads) ** -0.5, _lib.ptr(stamps), _lib.stream()),
+        "st_layer_q8")
     _lib.LAUNCHES["st_layer_q8"] += 1
     return ptr["out"]
 
@@ -606,6 +645,9 @@ def _kmajor_of(wk, *wqs):
         if c.device != wq.device:
             raise ValueError(f"K-major copy on {c.device}, its weight on "
                              f"{wq.device}")
+        if not c.is_contiguous() or (c.is_cuda and c.data_ptr() % 16):
+            raise ValueError("K-major copy: not contiguous and 16-byte "
+                             "aligned, as kmajor(wq) is")
     return wk
 
 

@@ -227,7 +227,8 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
             lambda dt: [*on(dt, stream, ln_s, ln_b), w1q, w1s,
                         *on(dt, b1, w2, b2f)]),
         "st_layer_q8": (
-            quant.st_layer_q8, quant.st_layer_q8_plain,
+            with_wk(quant.st_layer_q8, wqt, woq, wqs2, wos2, w1q, w2q),
+            quant.st_layer_q8_plain,
             lambda dt: [*on(dt, x, ln_s, ln_b), wqt, wst, woq, wos,
                         *on(dt, bo, ln_s, ln_b), wqs2, wss2, wos2, sos2,
                         *on(dt, bo, ln_s, ln_b), w1q, w1s, *on(dt, b1), w2q,
@@ -607,23 +608,28 @@ FMA_ONLY_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
                     "spatial_attn_bwd_dq_kernel",
                     "spatial_attn_bwd_dkv_kernel", "gemm_f32_kernel")
 WGMMA_KERNELS = ("gemm_bf16_wgmma_kernel",)
-# the int8 GEMM: every instantiation (whatever its output and residual
-# types) must run int8 wgmma, IGMMA in the SASS
-INT8_WGMMA_KERNELS = ("gemm_q8_wgmma_kernel",)
+# the int8 GEMM and the one-launch layer #9, whose GEMM phases run its body:
+# every instantiation (whatever its output and residual types, dtype or
+# dim_head) must run int8 wgmma, IGMMA in the SASS, and, where the int8
+# mma.sync counts (IMMA) are given, none of those
+INT8_WGMMA_KERNELS = ("gemm_q8_wgmma_kernel", "st_layer_q8_kernel")
 INT8_WGMMA_OP = "IGMMA."
+INT8_MMA_SYNC_OP = "IMMA."
 _NAMED_DTYPE = ("gemm_bf16_wgmma_kernel", "gemm_f32_kernel")
 
 
-def tensor_core_check(counts, wgmma=None, igmma=None) -> list:
+def tensor_core_check(counts, wgmma=None, igmma=None, imma=None) -> list:
     """Rows (kernel, dtype, {mangled name: tensor-core instructions}, ok)
     for each entry of TENSOR_CORE_KERNELS in bf16 (ok: every instantiation
     has some; for WGMMA_KERNELS, every instantiation has HGMMA, counted in
     `wgmma`), FMA_ONLY_KERNELS in f32 (ok: none has any) and
     INT8_WGMMA_KERNELS in int8 (ok: every instantiation has IGMMA, counted
-    in `igmma`); `counts` is _lib.tensor_ops_of_sass(sass), `wgmma`
-    tensor_ops_of_sass(sass, ("HGMMA.",)) and `igmma`
-    tensor_ops_of_sass(sass, (INT8_WGMMA_OP,)) of the built library's sass
-    (_lib.sass_text; without `wgmma` or `igmma` their rows fail)."""
+    in `igmma`, and, with `imma`, none has IMMA); `counts` is
+    _lib.tensor_ops_of_sass(sass), `wgmma` tensor_ops_of_sass(sass,
+    ("HGMMA.",)), `igmma` tensor_ops_of_sass(sass, (INT8_WGMMA_OP,)) and
+    `imma` tensor_ops_of_sass(sass, (INT8_MMA_SYNC_OP,)) of the built
+    library's sass (_lib.sass_text; without `wgmma` or `igmma` their rows
+    fail)."""
     rows = []
     for kernels, dtype, tag in ((TENSOR_CORE_KERNELS, "bf16",
                                  "I13__nv_bfloat16"),
@@ -639,5 +645,7 @@ def tensor_core_check(counts, wgmma=None, igmma=None) -> list:
             found = {n: c for n, c in source.items() if head in n}
             ok = bool(found) and (not any(found.values()) if dtype == "f32"
                                   else all(found.values()))
+            if dtype == "int8" and imma is not None:
+                ok = ok and not any(imma.get(n, 0) for n in found)
             rows.append((k, dtype, found, ok))
     return rows

@@ -310,7 +310,9 @@ class DSTTr(nn.Module):
                 ps.norm.weight, ps.norm.bias, asp.qkv_wq, asp.qkv_ws,
                 asp.out_wq, asp.out_ws, asp.to_out[0].bias, pf.norm.weight,
                 pf.norm.bias, ff.w1q, ff.w1s, ff.net[0].bias, ff.w2q, ff.w2s,
-                ff.net[3].bias, heads, n_valid)
+                ff.net[3].bias, heads, n_valid,
+                wk=given(at.qkv_wk, at.out_wk, asp.qkv_wk, asp.out_wk, ff.w1k,
+                         ff.w2k))
             return x.reshape(bq, nq, d)
         if cfg.q8_attn == "ingest":
             a_t = quant.ln_qkv_q8_temporal_attention(

@@ -114,14 +114,15 @@ _WRAPPERS = {n: quant for n in ("ln_qkv_q8_temporal_attention",
                                 "mm_q8_ln_qkv_q8_spatial_attention",
                                 "matmul_q8_res_ln_ff_q8_full", "ln_matmul_q8",
                                 "matmul_q8_ln_matmul_q8", "ln_ff_residual_q8",
-                                "ln_ff_residual_q8_full")}
+                                "ln_ff_residual_q8_full", "st_layer_q8")}
 _NN_WRAPPERS = ("ln_matmul_q8", "matmul_q8_bias_residual")
 
 
 @pytest.mark.parametrize("q8_ff, q8_attn", [("full", "ingest"),
                                             ("full", "boundary"),
                                             ("mixed", "ingest"),
-                                            ("int8", "ingest")])
+                                            ("int8", "ingest"),
+                                            ("full", "layer")])
 def test_model_paths_hand_the_wrappers_their_copies(monkeypatch, q8_ff,
                                                     q8_attn):
     """Every int8 wrapper call of a forward gets `wk`: the model's own
@@ -262,14 +263,121 @@ def test_wrappers_take_wk_on_the_cpu_and_count_nothing():
     cases = selfcheck.slice_cases(torch.device("cpu"), selfcheck.SMALL)
     _lib.reset_launches()
     for name in selfcheck.INT8_CASES:
-        if name == "st_layer_q8":
-            continue
         kern, plain, make = cases[name]
         assert "wk" in kern.keywords, name
         args = make(torch.float32)
         assert torch.equal(kern(*args), plain(*args)), name
     assert not any(_lib.LAUNCHES.values())
     assert _lib.KMAJOR_BUILDS == {"q8_kmajor": 0}
+
+
+def _layer_case(geometry=selfcheck.SMALL):
+    """st_layer_q8's selfcheck case on the CPU: (wrapper given its K-major
+    copies, plain version, arguments in f32)."""
+    kern, plain, make = selfcheck.slice_cases(torch.device("cpu"),
+                                              geometry)["st_layer_q8"]
+    return kern, plain, make(torch.float32)
+
+
+def test_st_layer_q8_takes_its_copies_on_the_cpu():
+    """#9 on CPU tensors, given the six K-major copies (the QKV_t, out_t,
+    QKV_s, out_s, fc1 and fc2 weights', in that order) or none, returns its
+    plain version's numbers; no launch, no copy built."""
+    kern, plain, args = _layer_case()
+    assert [tuple(c.shape) for c in kern.keywords["wk"]] == [
+        (192, 128), (128, 64), (192, 128), (128, 64), (256, 128), (128, 256)]
+    _lib.reset_launches()
+    want = plain(*args)
+    assert torch.equal(kern(*args), want)
+    assert torch.equal(kern.func(*args), want)
+    assert not any(_lib.LAUNCHES.values())
+    assert _lib.KMAJOR_BUILDS == {"q8_kmajor": 0}
+
+
+@pytest.mark.parametrize("case, match", [
+    ("transposed back", "K-major copy"), ("unpadded", "K-major copy"),
+    ("five copies", "6 int8 weights"), ("fc1's for fc2", "K-major copy"),
+    ("not contiguous", "contiguous")])
+def test_st_layer_q8_refuses_a_wrong_copy(case, match):
+    """A `wk` that is not the six weights' kmajor copies raises, on any
+    device, before anything runs."""
+    kern, _, args = _layer_case(selfcheck.SLICE)
+    wk = list(kern.keywords["wk"])
+    if case == "transposed back":
+        wk[0] = args[3].clone()                     # (728, 1536): (K, N)
+    elif case == "unpadded":
+        wk[4] = wk[4][:, :728].contiguous()         # fc1's (2912, 736)
+    elif case == "five copies":
+        wk = wk[:5]
+    elif case == "fc1's for fc2":
+        wk[5] = wk[4]
+    else:
+        wk[1] = wk[1].t().contiguous().t()          # the right shape, strided
+    with pytest.raises(ValueError, match=match):
+        kern.func(*args, wk=tuple(wk))
+
+
+def test_st_layer_q8_phase_stamps_are_the_cards():
+    """The stamped instantiation exists on the card only."""
+    kern, _, args = _layer_case()
+    with pytest.raises(ValueError, match="card"):
+        kern(*args, stamps=torch.zeros(quant.LAYER_STAMPS,
+                                       dtype=torch.int64))
+
+
+@pytest.mark.parametrize("geometry", [selfcheck.SLICE, selfcheck.SMALL,
+                                      {**selfcheck.SLICE, "b": 16}],
+                         ids=["slice", "small", "B=16"])
+def test_layer_codes_rows_are_tma_strides(geometry):
+    """Every row pass of #9 writes its codes with rows a multiple of 16
+    bytes apart, at least as wide as its rows (D, inner, hdim); the codes
+    buffer holds every pass's rows at its stride, and the rest of the
+    workspace is the intermediates' (rows x width, by dtype)."""
+    d, inner, hid = (geometry[k] for k in ("d", "inner", "hid"))
+    strides = quant.layer_code_strides(d, inner, hid)
+    assert all(st % 16 == 0 and st >= w and st - w < 16
+               for st, w in zip(strides, (d, inner, hid)))
+    rows = 3 * 5 * 7                          # a few rows, on the CPU
+    ws = quant.layer_workspace(rows, d, inner, hid, torch.bfloat16, "cpu")
+    assert ws["q"].dtype == torch.int8
+    assert ws["q"].numel() == rows * max(strides)
+    assert {k: (t.numel(), t.dtype) for k, t in ws.items() if k != "q"} == {
+        "rs": (rows, torch.float32), "qkv": (rows * 3 * inner, torch.bfloat16),
+        "a": (rows * inner, torch.bfloat16), "y": (rows * d, torch.float32),
+        "hid": (rows * hid, torch.float32)}
+    if geometry is selfcheck.SLICE:
+        assert strides == (736, 512, 2912)
+
+
+# nvcc -Xptxas -v's report in its layout (build/build.log): two kernels and a
+# device function that was not inlined
+_PTXAS = """
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN5istvt18st_layer_q8_kernelIfLi64ELb0EEEvNS_7LayerQ8ENS_9LayerMapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN5istvt18st_layer_q8_kernelIfLi64ELb0EEEvNS_7LayerQ8ENS_9LayerMapsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 3 barriers, 1608 bytes cmem[0]
+ptxas info    : Function properties for __internal_trig_reduction_slowpathd
+    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN5istvt20gemm_q8_wgmma_kernelIffLb1EEEv14CUtensorMap_stS1_PKfS3_S3_PKT0_PT_ii8TileGrid' for 'sm_90a'
+ptxas info    : Function properties for _ZN5istvt20gemm_q8_wgmma_kernelIffLb1EEEv14CUtensorMap_stS1_PKfS3_S3_PKT0_PT_ii8TileGrid
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers, 600 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_the_log():
+    """The spill check of the card test reads each kernel's registers, stack
+    frame and spilled bytes from the build log, and a device function's."""
+    r = _lib.ptxas_report(_PTXAS)
+    layer, gemm = (next(v for n, v in r.items() if k in n)
+                   for k in ("st_layer_q8_kernel", "gemm_q8_wgmma_kernel"))
+    assert layer == {"registers": 166, "stack_frame": 0, "spill_stores": 0,
+                     "spill_loads": 0}
+    assert gemm == {"registers": 168, "stack_frame": 8, "spill_stores": 12,
+                    "spill_loads": 16}
+    assert r["__internal_trig_reduction_slowpathd"] == {
+        "stack_frame": 40, "spill_stores": 0, "spill_loads": 0}
 
 
 # a cuobjdump -sass excerpt in its layout: two instantiations of the int8
@@ -316,3 +424,39 @@ def test_igmma_check_reads_the_sass():
     rows = {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(
         {}, None, _lib.tensor_ops_of_sass(none, (selfcheck.INT8_WGMMA_OP,)))}
     assert not rows[("gemm_q8_wgmma_kernel", "int8")]
+
+
+_LAYER_SASS = """
+\t\tFunction : _ZN5istvt20gemm_q8_wgmma_kernelIffLb0EEEv14CUtensorMap_stS1_PKfS3_S3_PKT0_PT_ii8TileGrid
+        /*0a30*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR4], R24, gsb0 ;
+\t\tFunction : _ZN5istvt18st_layer_q8_kernelIfLi64ELb0EEEvNS_7LayerQ8ENS_9LayerMapsE
+        /*0a30*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR4], R24, gsb0 ;
+\t\tFunction : _ZN5istvt18st_layer_q8_kernelI13__nv_bfloat16Li64ELb0EEEvNS_7LayerQ8ENS_9LayerMapsE
+        /*0a30*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR4], R24, gsb0 ;
+        /*0b30*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;
+"""
+
+
+def test_int8_wgmma_check_holds_the_layer_to_it():
+    """#9 is an int8 wgmma kernel in the tensor-core check: every
+    instantiation must have IGMMA and, given the IMMA counts, none of the
+    mma.sync int8 tile it ran before."""
+    def layer_row(sass, with_imma=True):
+        imma = (_lib.tensor_ops_of_sass(sass, (selfcheck.INT8_MMA_SYNC_OP,))
+                if with_imma else None)
+        return {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(
+            _lib.tensor_ops_of_sass(sass), None,
+            _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_WGMMA_OP,)),
+            imma)}
+    assert layer_row(_LAYER_SASS)[("st_layer_q8_kernel", "int8")]
+    assert layer_row(_LAYER_SASS)[("gemm_q8_wgmma_kernel", "int8")]
+    mixed = _LAYER_SASS.replace(
+        "HMMA.16816.F32.BF16", "IMMA.16832.S8.S8")
+    assert not layer_row(mixed)[("st_layer_q8_kernel", "int8")]
+    assert layer_row(mixed, with_imma=False)[("st_layer_q8_kernel", "int8")]
+    old = mixed.replace("IGMMA.64x128x32.S8.S8 R24, gdesc[UR4], R24, gsb0 ;"
+                        "\n\t\tFunction : _ZN5istvt18st_layer_q8_kernelI13",
+                        "FFMA R4, R2, R3, R4 ;\n"
+                        "\t\tFunction : _ZN5istvt18st_layer_q8_kernelI13")
+    assert not layer_row(old, with_imma=False)[("st_layer_q8_kernel",
+                                                "int8")]

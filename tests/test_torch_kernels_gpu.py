@@ -289,8 +289,6 @@ def test_int8_wrappers_build_missing_copies_in_the_call(cuda):
     none."""
     cases = selfcheck.slice_cases(cuda, selfcheck.SMALL)
     for name in selfcheck.INT8_CASES:
-        if name == "st_layer_q8":
-            continue
         kern, _, make = cases[name]
         args = make(torch.bfloat16)
         _lib.reset_launches()
@@ -526,6 +524,138 @@ def test_st_layer_q8_equals_the_ingest_chain(cuda):
         got = quant.st_layer_q8(*make(dt))
         torch.cuda.synchronize()
         assert torch.equal(got, want), (dt, (got - want).abs().max())
+
+
+def _ingest_chain(args, wk):
+    """#1 -> #2 -> #3 on st_layer_q8's arguments and K-major copies: the
+    chain #9 equals bit for bit."""
+    (x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss, wos, sos, bos, sf,
+     bf, w1q, w1s, b1, w2q, w2s, b2, heads, n_valid) = args
+    kqt, kot, kqs, kos, k1, k2 = wk
+    b, t1, s, d = x.shape
+    a_t = quant.ln_qkv_q8_temporal_attention(x, st, bt, wqt, wst, heads,
+                                             wk=(kqt,))
+    a_s = quant.mm_q8_ln_qkv_q8_spatial_attention(
+        a_t.reshape(b * t1, s, -1), wot, sot, bot, ss, bs, wqs, wss, heads,
+        n_valid, wk=(kot, kqs))
+    return quant.matmul_q8_res_ln_ff_q8_full(
+        a_s.reshape(b, t1 * s, -1), x.reshape(b, t1 * s, d), wos, sos, bos,
+        sf, bf, w1q, w1s, b1, w2q, w2s, b2, wk=(kos, k1, k2)).reshape(x.shape)
+
+
+# #9's geometries against the chain: the slice (5,152 rows, 362 of 368 keys
+# valid), the B=16 forward's 41,216 rows, B=1 (2,576 rows: 20 tiles and a
+# ragged one), every key valid, and the small dim_head-16 geometry
+_LAYER_GEOMETRIES = {"slice": selfcheck.SLICE,
+                     "B=16": {**selfcheck.SLICE, "b": 16},
+                     "B=1": {**selfcheck.SLICE, "b": 1},
+                     "n_valid=S": {**selfcheck.SLICE, "n_valid": 368},
+                     "small": selfcheck.SMALL}
+
+
+@pytest.mark.parametrize("geometry", _LAYER_GEOMETRIES.values(),
+                         ids=_LAYER_GEOMETRIES.keys())
+def test_st_layer_q8_equals_the_chain_at_more_shapes(cuda, geometry):
+    """#9, its GEMM phases on s8 wgmma inside the cooperative kernel, equals
+    #1 -> #2 -> #3 (the standalone wgmma GEMM) bit for bit in f32 and bf16,
+    both given the same K-major copies; one launch of #9, no copy built."""
+    kern, _, make = selfcheck.slice_cases(cuda, geometry)["st_layer_q8"]
+    for dt in (torch.float32, torch.bfloat16):
+        args = make(dt)
+        _lib.reset_launches()
+        got = kern(*args)
+        assert _lib.LAUNCHES["st_layer_q8"] == 1
+        want = _ingest_chain(args, kern.keywords["wk"])
+        torch.cuda.synchronize()
+        assert _lib.KMAJOR_BUILDS["q8_kmajor"] == 0
+        assert torch.equal(got, want), (dt, (got - want).abs().max())
+
+
+def test_st_layer_q8_back_to_back_calls_read_their_own_codes(cuda):
+    """Two calls queued back to back on different inputs (the second's
+    workspace is the first's memory again, from the caching allocator) each
+    equal the chain on their own input: no GEMM phase reads codes by TMA
+    from before the row pass that wrote them."""
+    kern, _, make = _layer_case(cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        args = make(dt)
+        x2 = torch.randn(args[0].shape, generator=torch.Generator()
+                         .manual_seed(9)).to(cuda, dt)
+        x2[:, :, args[-1]:] = 0
+        args2 = [x2, *args[1:]]
+        got = [kern(*args), kern(*args2)]
+        want = [_ingest_chain(a, kern.keywords["wk"]) for a in (args, args2)]
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (dt, (g - w).abs().max())
+        assert not torch.equal(got[0], got[1])
+
+
+def test_st_layer_q8_never_reads_the_pad_bytes(cuda):
+    """The K-major copies with their pad bytes (past K = 728 in each row of
+    the QKV and fc1 copies) set to 127 give the same bits: the tensor maps
+    end at K."""
+    kern, _, make = _layer_case(cuda, b=1)
+    args = make(torch.bfloat16)
+    padded = []
+    for c, w in zip(kern.keywords["wk"], (args[i] for i in (3, 5, 10, 12,
+                                                             17, 20))):
+        c = c.clone()
+        c[:, w.shape[0]:] = 127
+        padded.append(c)
+    assert sum(int((c == 127).sum()) for c in padded) > 0
+    got = kern.func(*args, wk=tuple(padded))
+    want = kern(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_st_layer_q8_phase_stamps(cuda):
+    """The stamped instantiation (tools/kernel_ms.py --layer-phases) returns
+    the same bits and 15 increasing %globaltimer stamps; dim_head 16 and
+    CPU tensors refuse stamps."""
+    kern, _, make = _layer_case(cuda, b=1)
+    args = make(torch.bfloat16)
+    stamps = torch.zeros(quant.LAYER_STAMPS, dtype=torch.int64, device=cuda)
+    got = kern(*args, stamps=stamps)
+    want = kern(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    t = stamps.cpu()
+    assert (t[1:] > t[:-1]).all(), t
+    small = selfcheck.slice_cases(cuda, selfcheck.SMALL)["st_layer_q8"]
+    with pytest.raises(ValueError, match="dim_head 64"):
+        small[0](*small[2](torch.bfloat16), stamps=stamps)
+
+
+def test_st_layer_q8_runs_int8_wgmma_without_spills(cuda):
+    """From the built library: every instantiation of #9 (f32 and bf16 at
+    dim_head 16, 64 and 64 stamped) has int8 wgmma (IGMMA) and no int8
+    mma.sync (IMMA), as the standalone int8 GEMM; ptxas reports each, and
+    each instantiation of the standalone GEMM, at the launch budget of 168
+    registers with no byte spilled."""
+    _lib.load()
+    sass = _lib.sass_text()
+    rows = selfcheck.tensor_core_check(
+        _lib.tensor_ops_of_sass(sass), None,
+        _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_WGMMA_OP,)),
+        _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_MMA_SYNC_OP,)))
+    found = {}
+    for kernel in selfcheck.INT8_WGMMA_KERNELS:
+        (found[kernel], ok), = [(f, o) for k, d, f, o in rows
+                                if k == kernel and d == "int8"]
+        assert ok, (kernel, found[kernel])
+    assert len(found["st_layer_q8_kernel"]) == 6
+    report = _lib.ptxas_report((_lib.BUILD_DIR / "build.log").read_text())
+    for kernel, n in (("gemm_q8_wgmma_kernel", 8), ("st_layer_q8_kernel", 6)):
+        got = {f: r for f, r in report.items() if kernel in f}
+        assert len(got) == n, sorted(got)
+        for name, r in got.items():
+            # the GEMM's setmaxnreg needs the whole 168 at launch
+            assert (r["registers"] == 168 if n == 8
+                    else r["registers"] <= 168), (name, r)
+            assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name,
+                                                                       r)
 
 
 def test_st_layer_q8_rejects_what_the_kernel_cannot_take(cuda):

@@ -1,18 +1,29 @@
 """Median times of port kernels at the serving slice on one NVIDIA GPU.
 
     python3 tools/kernel_ms.py [--root DIR] [--cases NAME,...|spatial|gemm]
-                               [--gemm | --gemm-q8] [--batch B]
+                               [--gemm | --gemm-q8 | --layer-phases]
+                               [--batch B]
 
 Imports istvt_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels and times each case of its
 kernels/selfcheck.slice_cases (`spatial`, the default: the kernels that run
 the spatial attention core or its backward: #2, #9, #10, #13 packed and
 unpacked, #14, #15; `gemm`: the kernels that run the float GEMM, #6, #18-#23)
-in bf16 and in f32 on the case's seeded inputs: the smaller of two medians
+in bf16 and in f32 on the case's seeded inputs, for B clips (default 2,
+the slice; 16 for the B=16 forward's shapes): the smaller of two medians
 of 20 CUDA-event timings of one call (chip_smoke.py's phase-3 timing), the
 warm-up outside them, and `device_ms`, the device time of one call with the
 host's launch overhead hidden. Prints one JSON line per case and dtype:
-root, case, dtype, ms, device_ms, and the card's name and power limit.
+root, case, dtype, batch, ms, device_ms, and the card's name and power
+limit.
+
+With --layer-phases it times the 14 phases of the one-launch int8 layer #9
+(kernels/quant.st_layer_q8) at the slice and at B=16, in bf16 and f32: the
+kernel's stamped instantiation (`stamps=`), in which block 0 reads
+%globaltimer at the start and after every grid barrier, run 10 times after
+a warm-up; one JSON line per batch and dtype with each phase's median µs
+(LAYER_PHASES, a phase's time including its closing barrier), their sum,
+and the unstamped call's device ms beside it.
 
 With --gemm it times instead the float GEMM alone (kernels/linear.gemm) at
 every caller's shape (selfcheck.gemm_shapes, taken from this script's
@@ -52,6 +63,12 @@ GEMM_CASES = ("ln_matmul", "matmul_bias_residual", "matmul_bias_residual/no_r",
               "ln_ff_residual", "ln_ff_residual/h1", "ln_ff_residual/bwd",
               "ln_matmul/bwd", "fused_ff", "ln_ff_residual_q8")
 CASE_SETS = {"spatial": SPATIAL_CASES, "gemm": GEMM_CASES}
+# #9's phases in the order of csrc/q8_layer.cu
+LAYER_PHASES = ("1 LN + quant x", "2 QKV_t GEMM", "3 temporal core",
+                "4 quant a_t", "5 out_t GEMM + b", "6 LN + quant y",
+                "7 QKV_s GEMM", "8 spatial core", "9 quant a_s",
+                "10 out_s GEMM + b + x", "11 LN + quant y",
+                "12 fc1 GEMM + GELU", "13 quant hidden", "14 fc2 GEMM + y")
 # published H100 SXM peaks: bf16 and int8 dense operations/s, bytes/s
 PEAK_BF16, PEAK_INT8, HBM_BPS = 989e12, 1979e12, 3.35e12
 # the card's spin ahead of a device_ms run: about 2 ms at 1.7 GHz
@@ -166,6 +183,20 @@ def package_gemm_q8(quant, lib):
     return run
 
 
+def layer_phase_us(kern, args, reps=10):
+    """Median µs of each of #9's phases over `reps` stamped launches of
+    kern (st_layer_q8 with its K-major copies) on args, after a warm-up."""
+    from istvt_tpu_torch.kernels import quant
+    stamps = torch.zeros(quant.LAYER_STAMPS, dtype=torch.int64,
+                         device=args[0].device)
+    kern(*args, stamps=stamps)
+    runs = []
+    for _ in range(reps):
+        kern(*args, stamps=stamps)
+        runs.append(np.diff(stamps.cpu().numpy()) / 1e3)
+    return np.median(np.stack(runs), axis=0)
+
+
 def gemm_rows(sc, device, batch=2, nt=False):
     """Yields (name, layout, m, n, k, kernel device ms, torch.matmul device
     ms, TFLOP/s, bound ms, operands, nt ms) for each GEMM shape of `batch`
@@ -197,6 +228,9 @@ def main():
     ap.add_argument("--gemm", action="store_true")
     ap.add_argument("--gemm-q8", action="store_true",
                     help="time the int8 GEMM alone at its callers' shapes")
+    ap.add_argument("--layer-phases", action="store_true",
+                    help="time each phase of the one-launch int8 layer #9 "
+                         "at the slice and at B=16")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--nt", action="store_true",
                     help="with --gemm: time each nn shape also with its "
@@ -239,7 +273,24 @@ def main():
                               "bound_ms": bound, "nt_ms": nt_ms,
                               "card": card}), flush=True)
         return
-    cases = selfcheck.slice_cases(torch.device("cuda"))
+    if args.layer_phases:
+        for batch in (2, 16):
+            kern, _, make = selfcheck.slice_cases(
+                torch.device("cuda"), {**selfcheck.SLICE, "b": batch})[
+                    "st_layer_q8"]
+            for dt in (torch.bfloat16, torch.float32):
+                call_args = make(dt)
+                us = layer_phase_us(kern, call_args)
+                dms = device_ms(lambda: kern(*call_args))
+                print(json.dumps({
+                    "root": tag, "layer_phases": dict(zip(
+                        LAYER_PHASES, us.round(3).tolist())),
+                    "batch": batch, "dtype": str(dt)[6:],
+                    "sum_us": float(us.sum()), "device_ms": dms,
+                    "card": card}), flush=True)
+        return
+    cases = selfcheck.slice_cases(torch.device("cuda"),
+                                  {**selfcheck.SLICE, "b": args.batch})
     names = CASE_SETS.get(args.cases, args.cases.split(","))
     for name in names:
         kern, _, make = cases[name]
@@ -248,8 +299,8 @@ def main():
             ms = min(median_ms(lambda: kern(*call_args)) for _ in range(2))
             dms = device_ms(lambda: kern(*call_args))
             print(json.dumps({"root": tag, "case": name, "dtype": str(dt)[6:],
-                              "ms": ms, "device_ms": dms, "card": card}),
-                  flush=True)
+                              "batch": args.batch, "ms": ms,
+                              "device_ms": dms, "card": card}), flush=True)
 
 
 if __name__ == "__main__":

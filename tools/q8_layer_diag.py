@@ -33,18 +33,21 @@ from istvt_tpu_torch.core.precision import highest  # noqa: E402
 from istvt_tpu_torch.kernels import quant, selfcheck  # noqa: E402
 
 
-def _chain(args):
-    """#1 -> #2 -> #3 (the ingest chain's wrappers) on #9's arguments."""
+def _chain(args, wk):
+    """#1 -> #2 -> #3 (the ingest chain's wrappers) on #9's arguments and
+    its six K-major weight copies."""
     (x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss, wos, sos, bos, sf,
      bf, w1q, w1s, b1, w2q, w2s, b2, heads, n_valid) = args
+    kqt, kot, kqs, kos, k1, k2 = wk
     b, t1, s, d = x.shape
-    a_t = quant.ln_qkv_q8_temporal_attention(x, st, bt, wqt, wst, heads)
+    a_t = quant.ln_qkv_q8_temporal_attention(x, st, bt, wqt, wst, heads,
+                                             wk=(kqt,))
     a_s = quant.mm_q8_ln_qkv_q8_spatial_attention(
         a_t.reshape(b * t1, s, -1), wot, sot, bot, ss, bs, wqs, wss, heads,
-        n_valid)
+        n_valid, wk=(kot, kqs))
     out = quant.matmul_q8_res_ln_ff_q8_full(
         a_s.reshape(b, t1 * s, -1), x.reshape(b, t1 * s, d), wos, sos, bos,
-        sf, bf, w1q, w1s, b1, w2q, w2s, b2)
+        sf, bf, w1q, w1s, b1, w2q, w2s, b2, wk=(kos, k1, k2))
     return out.reshape(x.shape), a_t
 
 
@@ -101,7 +104,7 @@ def main():
         for dt in (torch.float32, torch.bfloat16):
             a = make(dt)
             with highest():
-                chain, at_card = _chain(a)
+                chain, at_card = _chain(a, kern.keywords["wk"])
                 same = torch.equal(kern(*a), chain)
             if dt == torch.float32:
                 inner = at_card.shape[-1]
@@ -118,11 +121,10 @@ def main():
                       f"differ", flush=True)
             print(f"seed {seed} st_layer_q8 {dt}: equals #1 -> #2 -> #3 bit "
                   f"for bit: {same}", flush=True)
-    a = selfcheck.slice_cases(dev)["st_layer_q8"][2](torch.bfloat16)
-    ms = [_median_ms(lambda: quant.st_layer_q8(*a)),
-          _median_ms(lambda: _chain(a)),
-          _median_ms(lambda: quant.st_layer_q8(*a)),
-          _median_ms(lambda: _chain(a))]
+    kern, _, make = selfcheck.slice_cases(dev)["st_layer_q8"]
+    a, wk = make(torch.bfloat16), kern.keywords["wk"]
+    ms = [_median_ms(lambda: kern(*a)), _median_ms(lambda: _chain(a, wk)),
+          _median_ms(lambda: kern(*a)), _median_ms(lambda: _chain(a, wk))]
     print(f"bf16 slice median ms: st_layer_q8 {ms[0]:.4f} / {ms[2]:.4f}, "
           f"#1 -> #2 -> #3 {ms[1]:.4f} / {ms[3]:.4f}", flush=True)
 

@@ -97,7 +97,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     for mode in modes:
-        if args.path == "int8" and mode != "ingest":
+        if args.path == "int8":
             set_mode(model, mode)
         times = forward_times(
             model, (cli.seq_len, cli.input_size, cli.input_size, 3))
