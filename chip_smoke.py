@@ -34,13 +34,17 @@ path reaches. In phases; any failure raises and exits non-zero:
                 and no f32 one but #9's has any, nor the f32 FMA GEMM
                 (selfcheck.tensor_core_check); from ptxas's report
                 (build/build.log), those int8 kernels hold at most 168
-                registers with no byte spilled
+                registers with no byte spilled, and every head layout of
+                the temporal core #11 and its backward #12 is built (17
+                and 18 instantiations, selfcheck.TEMPORAL_KERNELS) with
+                none spilled
   3. kernels  - each of the 24 kernels (kernels/selfcheck.CASES: one case
                 per launch counter -- #20 and #5 with and without their
                 residual; the training slice's four backward kernels and
                 the h1-stash forward; fused_ff at the attention-map path's
                 5,068 unpadded rows; the kernel API's #13 unpacked entry,
-                #14-#17 and #24 -- and #16, #17 at S = 362 and #24 at the
+                #14-#17 and #24 -- and #16, #17 at S = 362, #11, #12 at
+                the B=16 forward's and step's 16 clips and #24 at the
                 stem's other stride-1 units) vs its plain PyTorch version
                 on the card at the slice's shapes (2 clips, T+1 = 7, S =
                 368, n_valid = 362; #24 12 frames): f32 at atol = rtol =
@@ -1218,6 +1222,16 @@ def main():
               f", spilled {len(spilled)} (ok: none wanted)")
         if not got or spilled:
             raise SystemExit(f"{kernel} spills or exceeds 168 registers: "
+                             f"{spilled}")
+    # the temporal cores: every head layout's instantiation, none spilled
+    for kernel, regs, spilled in selfcheck.spill_rows(
+            report, selfcheck.TEMPORAL_KERNELS):
+        want = selfcheck.TEMPORAL_KERNELS[kernel]
+        phase("build", f"{kernel}: ptxas, {len(regs)} instantiations (want "
+              f"{want}), registers {sorted(regs.values())}, spilled "
+              f"{len(spilled)} (ok: none wanted)")
+        if len(regs) != want or spilled:
+            raise SystemExit(f"{kernel}: {len(regs)} instantiations, spilled "
                              f"{spilled}")
 
     # 3. kernels, then the float and the int8 GEMM alone at their callers'

@@ -18,7 +18,9 @@ spatial_attention_packed_bwd (TPU kernel fused_frame_attention_bwd).
 A CUDA tensor launches the core (or raises on a shape the core does not
 take); a CPU tensor runs the plain version. The spatial core and its
 backward run on the bf16 tensor cores for bf16 activations and on the FMA
-pipes for f32 ones (chosen by dtype when the kernels are compiled). The int8 ingest kernels
+pipes for f32 ones (chosen by dtype when the kernels are compiled); the
+temporal core and its backward lay each head on a few lanes of a warp, in
+the layout temporal_plan picks (csrc/temporal.cuh). The int8 ingest kernels
 (kernels/quant.py) run the same cores and plain helpers on their own
 packed qkv, through `temporal_core` / `spatial_core`, which count nothing:
 each wrapper counts its own launches only.
@@ -213,6 +215,29 @@ def check_temporal(t1: int, inner: int, heads: int):
             f"(got T1={t1}, inner={inner}, heads={heads})")
 
 
+# The temporal cores' head layouts (csrc/temporal.cuh with_temporal_plan): the
+# wide form, one vector a lane, of 16 bytes in the forward (#11, #1, #9's phase
+# 3) and of TEMPORAL_BWD_VEC elements in the backward (#12), on a power of two
+# of lanes up to 32 (and 128 elements a head); the narrow form, single
+# elements on 32 lanes, 1, 2 or 4 a lane.
+TEMPORAL_VEC_BYTES = 16
+TEMPORAL_BWD_VEC = 4
+
+
+def temporal_plan(dtype, dh: int, backward: bool = False):
+    """(vec, lanes, chunks): how the temporal core (or, with backward, #12)
+    lays one head of dh elements on a warp's lanes: lane l holds elements
+    (c * lanes + l) * vec + [0, vec) for c < chunks. The wide form where dh
+    is a multiple of the vector (16 bytes of `dtype` in the forward,
+    TEMPORAL_BWD_VEC elements in the backward): chunks 1, lanes dh / vec up
+    to a power of two; else the narrow form: vec 1, lanes 32, chunks
+    ceil(dh / 32) up to a power of two."""
+    vw = TEMPORAL_BWD_VEC if backward else TEMPORAL_VEC_BYTES // dtype.itemsize
+    if dh % vw == 0:
+        return vw, 1 << (dh // vw - 1).bit_length(), 1
+    return 1, 32, 1 << (-(-dh // 32) - 1).bit_length()
+
+
 def check_spatial(s_len: int, inner: int, heads: int,
                   dims=(16, 32, 64, 128)):
     if s_len > 384 or inner % heads or inner // heads not in dims:
@@ -233,7 +258,8 @@ def temporal_core(qkv, heads: int):
                       device=qkv.device)
     _lib.check(_lib.load().istvt_temporal_attn(
         qkv.data_ptr(), out.data_ptr(), _lib.DTYPE_CODE[qkv.dtype], bsz, t1,
-        s_len, heads, inner, (inner // heads) ** -0.5, _lib.stream()),
+        s_len, heads, inner, (inner // heads) ** -0.5,
+        *temporal_plan(qkv.dtype, inner // heads), _lib.stream()),
         "temporal_attn")
     return out
 
@@ -274,7 +300,9 @@ def temporal_attention_packed_bwd(qkv, g, heads: int):
     _lib.check(_lib.load().istvt_temporal_attn_bwd(
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         _lib.DTYPE_CODE[qkv.dtype], bsz, t1, s_len, heads, inner,
-        (inner // heads) ** -0.5, _lib.stream()), "temporal_attn_bwd")
+        (inner // heads) ** -0.5,
+        *temporal_plan(qkv.dtype, inner // heads, backward=True),
+        _lib.stream()), "temporal_attn_bwd")
     _lib.LAUNCHES["temporal_attention_packed/bwd"] += 1
     return dqkv
 

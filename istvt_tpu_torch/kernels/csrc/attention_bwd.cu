@@ -23,14 +23,18 @@
 //
 // What bounds them on the H100: the temporal backward is tiny arithmetic (7x7 per
 // location and head) and bound by reading qkv and dO once and writing dqkv once
-// (~337 MB at B=16 bf16). The spatial backward is 5 S^2 dh products per (frame,
-// head), about 0.08 TFLOP per B=16 layer (9.5 GFLOP at the 2-clip slice: 0.0097 ms at
-// 989 TFLOP/s of bf16, against 0.0110 ms for its bytes, so bytes bound it). The TPU
-// kernel held the whole S x S f32 score tile of a frame in VMEM (542 KB), which does
-// not fit the 227 KB of shared memory of a block.
+// (295 MB at B=16 bf16, 0.088 ms at 3.35 TB/s). The spatial backward is 5 S^2 dh
+// products per (frame, head), about 0.08 TFLOP per B=16 layer (9.5 GFLOP at the
+// 2-clip slice: 0.0097 ms at 989 TFLOP/s of bf16, against 0.0110 ms for its bytes,
+// so bytes bound it). The TPU kernel held the whole S x S f32 score tile of a frame
+// in VMEM (542 KB), which does not fit the 227 KB of shared memory of a block.
 //
-// What the design does about it: the temporal backward keeps one (clip, location,
-// head) in one warp's registers, lane = feature dim, like the forward core. The
+// What the design does about it: the temporal backward takes whole (clip, location)
+// groups, L lanes a head, as the forward core does, each lane one vector of 4 elements
+// (16 bytes of f32, 8 of bf16); each lane stages its q, k, v and dO rows by cp.async
+// into its own slots of shared memory (all in flight at once), keeps only the dk / dv
+// accumulators in registers, finishes each score on one lane by a transposed reduction
+// and computes p and ds there once (temporal.cuh, temporal_attn_bwd_lane). The
 // spatial backward is two flash-style passes that recompute the probabilities, so
 // nothing S x S is stored and no two blocks write the same output (no atomics): (a)
 // per query tile, the exact softmax, rowsum(P o dP), dS and dQ, and per query row the
@@ -51,130 +55,25 @@
 //     f32 forward core does; (b) per 32-key tile, streaming 32-query chunks.
 // dim_head <= 64 in both (pass (b)'s registers: K, V, dK and dV of 16 rows a warp).
 #include "attention_tc.cuh"
+#include "temporal.cuh"
 
 namespace istvt {
 
-constexpr int kBwdTMax = 8;  // T + 1 <= 8
-
-// (i) Temporal backward: one warp per (clip, location, head); lane holds dims
-// lane + 32 e.
-template <typename T, int DPL>
-__global__ void __launch_bounds__(256) temporal_attn_bwd_kernel(
-    const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv, int B, int T1,
-    int S, int H, int inner, int dh, float scale) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long item = static_cast<long>(blockIdx.x) * 8 + warp;
-  if (item >= static_cast<long>(B) * S * H) return;
-  const int h = item % H;
-  const int s = (item / H) % S;
-  const int b = item / (static_cast<long>(H) * S);
-  const int i3 = 3 * inner;
-
-  float q[kBwdTMax][DPL], k[kBwdTMax][DPL], v[kBwdTMax][DPL], go[kBwdTMax][DPL];
-#pragma unroll
-  for (int t = 0; t < kBwdTMax; ++t) {
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      q[t][e] = k[t][e] = v[t][e] = go[t][e] = 0.f;
-      if (t < T1 && d < dh) {
-        const size_t tok = static_cast<size_t>(b * T1 + t) * S + s;
-        const T* base = qkv + tok * i3 + h * dh + d;
-        q[t][e] = to_f(base[0]);
-        k[t][e] = to_f(base[inner]);
-        v[t][e] = to_f(base[2 * inner]);
-        go[t][e] = to_f(dout[tok * inner + h * dh + d]);
-      }
-    }
-  }
-  // self-subtract in the activation dtype, rows 0 and 1 unchanged
-#pragma unroll
-  for (int t = kBwdTMax - 1; t >= 2; --t) {
-    if (t < T1) {
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        q[t][e] = round_to<T>(q[t][e] - q[t - 1][e]);
-        k[t][e] = round_to<T>(k[t][e] - k[t - 1][e]);
-      }
-    }
-  }
-  float dqs[kBwdTMax][DPL], dks[kBwdTMax][DPL], dv[kBwdTMax][DPL];
-#pragma unroll
-  for (int t = 0; t < kBwdTMax; ++t)
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) dqs[t][e] = dks[t][e] = dv[t][e] = 0.f;
-
-#pragma unroll
-  for (int i = 0; i < kBwdTMax; ++i) {
-    if (i >= T1) break;
-    float l[kBwdTMax], dp[kBwdTMax];
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBwdTMax; ++j) {
-      l[j] = -INFINITY;
-      dp[j] = 0.f;
-      if (j < T1) {
-        float a = 0.f, c = 0.f;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          a = __fadd_rn(a, __fmul_rn(q[i][e], k[j][e]));
-          c = __fadd_rn(c, __fmul_rn(go[i][e], v[j][e]));
-        }
-        l[j] = __fmul_rn(warp_sum(a), scale);
-        dp[j] = warp_sum(c);
-        m = fmaxf(m, l[j]);
-      }
-    }
-    float es[kBwdTMax], den = 0.f, pdp = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBwdTMax; ++j) {
-      es[j] = 0.f;
-      if (j < T1) {
-        es[j] = expf(l[j] - m);
-        den = __fadd_rn(den, es[j]);
-        pdp = __fadd_rn(pdp, __fmul_rn(es[j], dp[j]));
-      }
-    }
-    pdp = __fdiv_rn(pdp, den);
-    float dq[DPL];
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) dq[e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBwdTMax; ++j) {
-      if (j < T1) {
-        const float p = __fdiv_rn(es[j], den);
-        const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[j], pdp)), scale);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          dq[e] = __fadd_rn(dq[e], __fmul_rn(ds, k[j][e]));
-          dks[j][e] = round_to<T>(__fadd_rn(dks[j][e], round_to<T>(__fmul_rn(ds, q[i][e]))));
-          dv[j][e] = round_to<T>(__fadd_rn(dv[j][e], round_to<T>(__fmul_rn(p, go[i][e]))));
-        }
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) dqs[i][e] = round_to<T>(dq[e]);
-  }
-  // the transposed self-subtract: d[0] = ds[0], d[t] = ds[t] - ds[t + 1] for
-  // 1 <= t < T1 - 1, d[T1 - 1] = ds[T1 - 1], in the activation dtype
-#pragma unroll
-  for (int t = 0; t < kBwdTMax; ++t) {
-    if (t >= T1) break;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d >= dh) continue;
-      float gq = dqs[t][e], gk = dks[t][e];
-      if (t >= 1 && t + 1 < T1) {
-        gq = __fsub_rn(gq, dqs[t + 1][e]);
-        gk = __fsub_rn(gk, dks[t + 1][e]);
-      }
-      T* base = dqkv + (static_cast<size_t>(b * T1 + t) * S + s) * i3 + h * dh + d;
-      base[0] = from_f<T>(gq);
-      base[inner] = from_f<T>(gk);
-      base[2 * inner] = from_f<T>(dv[t][e]);
-    }
-  }
+// (i) Temporal backward: thread g of B S H L, as the forward (temporal.cuh); each
+// lane's q, k, v and dO rows staged in its own slots of dynamic shared memory (4 T1
+// slots of one vector a thread). No __launch_bounds__: with one, ptxas held the f32
+// L = 4 instantiation to 128 registers and spilled 12 bytes; without, every
+// instantiation takes the registers it needs and none spills.
+template <typename T, int V, int L, int C>
+__global__ void temporal_attn_bwd_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv, int T1, int S,
+    int H, int inner, int dh, float scale, long total) {
+  constexpr int W = TRow<T, V, L, C>::W;
+  extern __shared__ uint4 tslots[];
+  const long g = static_cast<long>(blockIdx.x) * kTemporalBwdThreads + threadIdx.x;
+  temporal_attn_bwd_lane<T, V, L, C>(qkv, dout, dqkv, T1, S, H, inner, dh, scale, g, g < total,
+                                     reinterpret_cast<uint32_t*>(tslots) + threadIdx.x * W,
+                                     kTemporalBwdThreads * W);
 }
 
 // (ii) Spatial backward. kSQ queries or keys per block tile, 4 per warp.
@@ -731,20 +630,28 @@ __global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
 
 template <typename T>
 int launch_temporal_bwd(const void* qkv, const void* dout, void* dqkv, int B, int T1, int S,
-                        int H, int inner, float scale, cudaStream_t st) {
-  const int dh = inner / H;
-  const long items = static_cast<long>(B) * S * H;
-  const int blocks = static_cast<int>((items + 7) / 8);
+                        int H, int inner, float scale, int vec, int lanes, int chunks,
+                        cudaStream_t st) {
+  const long total = static_cast<long>(B) * S * H * lanes;
+  const int blocks = static_cast<int>((total + kTemporalBwdThreads - 1) / kTemporalBwdThreads);
   auto in = static_cast<const T*>(qkv);
   auto g = static_cast<const T*>(dout);
   auto o = static_cast<T*>(dqkv);
-  if (dh <= 32)
-    temporal_attn_bwd_kernel<T, 1><<<blocks, 256, 0, st>>>(in, g, o, B, T1, S, H, inner, dh, scale);
-  else if (dh <= 64)
-    temporal_attn_bwd_kernel<T, 2><<<blocks, 256, 0, st>>>(in, g, o, B, T1, S, H, inner, dh, scale);
-  else
-    temporal_attn_bwd_kernel<T, 4><<<blocks, 256, 0, st>>>(in, g, o, B, T1, S, H, inner, dh, scale);
-  return 0;
+  cudaError_t err = cudaSuccess;
+  const int rc = with_temporal_plan<kTemporalBwdVec>(vec, lanes, chunks, [&](auto plan) {
+    using P = decltype(plan);
+    auto kern = temporal_attn_bwd_kernel<T, P::V, P::L, P::C>;
+    // 4 T1 slots of one vector (W words) a thread
+    constexpr int slot_bytes = 4 * TRow<T, P::V, P::L, P::C>::W;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             4 * kTMax * kTemporalBwdThreads * slot_bytes);
+    err = attr;
+    if (attr == cudaSuccess)
+      kern<<<blocks, kTemporalBwdThreads, 4 * T1 * kTemporalBwdThreads * slot_bytes, st>>>(
+          in, g, o, T1, S, H, inner, inner / H, scale, total);
+  });
+  return rc != 0 ? rc : static_cast<int>(err);
 }
 
 // Packed: q = qkv, dq = dqkv (k, v, dk, dv unused). Unpacked: six tensors of their own.
@@ -796,13 +703,15 @@ using namespace istvt;
 extern "C" {
 
 // qkv (B, T1, S, 3 inner), dout (B, T1, S, inner) -> dqkv (B, T1, S, 3 inner); dt 0 f32,
-// 1 bf16; T1 <= 8, inner / H <= 128.
+// 1 bf16; T1 <= 8, inner / H <= 128; (vec, lanes, chunks) as istvt_temporal_attn's.
 int istvt_temporal_attn_bwd(const void* qkv, const void* dout, void* dqkv, int dt, int B,
-                            int T1, int S, int H, int inner, float scale, void* stream) {
+                            int T1, int S, int H, int inner, float scale, int vec, int lanes,
+                            int chunks, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  int rc = dt == kBF16
-               ? launch_temporal_bwd<__nv_bfloat16>(qkv, dout, dqkv, B, T1, S, H, inner, scale, st)
-               : launch_temporal_bwd<float>(qkv, dout, dqkv, B, T1, S, H, inner, scale, st);
+  int rc = dt == kBF16 ? launch_temporal_bwd<__nv_bfloat16>(qkv, dout, dqkv, B, T1, S, H, inner,
+                                                            scale, vec, lanes, chunks, st)
+                       : launch_temporal_bwd<float>(qkv, dout, dqkv, B, T1, S, H, inner, scale,
+                                                    vec, lanes, chunks, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

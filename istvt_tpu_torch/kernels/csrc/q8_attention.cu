@@ -18,7 +18,10 @@
 //     the PV product.
 //
 // What bounds them on the H100: the temporal core is tiny (7x7 scores per
-// location and head) and bound by reading qkv once. The spatial core does 4 S^2 dh
+// location and head) and bound by reading qkv once and writing its output once; its
+// design (whole (clip, location) groups, L lanes a head on 16-byte vectors, scores
+// finished on one lane by a transposed reduction) is in temporal.cuh, with its note.
+// The spatial core does 4 S^2 dh
 // operations per (frame, head) (0.37 TFLOP per B=16 forward; 3.8 GFLOP at the
 // 2-clip slice, whose bytes take 0.0063 ms at 3.35 TB/s and whose operations 0.0039
 // ms at 989 TFLOP/s of bf16, so bytes bound it). The TPU kernel held the whole S x S
@@ -41,8 +44,8 @@
 //     row of its key slots in registers (12 chunks of 32 keys, S <= 384), keys and
 //     values streaming through a 32-key shared-memory chunk, Q transposed in shared
 //     memory so a warp's 4 queries load as one broadcast float4.
-// The bodies are device functions in q8_attention.cuh, which q8_layer.cu (#9) runs
-// inside its persistent kernel.
+// The bodies are device functions in q8_attention.cuh and temporal.cuh, which
+// q8_layer.cu (#9) runs inside its persistent kernel.
 //
 // The spatial core also serves the kernel API's unpacked entries, on separate
 // q, k, v tensors (SplitRows) and without a mask (n_valid = S):
@@ -55,14 +58,14 @@
 
 namespace istvt {
 
-// (iv) One warp per (clip, location, head).
-template <typename T, int DPL>
-__global__ void __launch_bounds__(256) temporal_attn_kernel(
-    const T* __restrict__ qkv, T* __restrict__ out, int B, int T1, int S, int H, int inner,
-    int dh, float scale) {
-  const long item = static_cast<long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
-  if (item >= static_cast<long>(B) * S * H) return;
-  temporal_attn_item<T, DPL>(qkv, out, T1, S, H, inner, dh, scale, item, threadIdx.x & 31);
+// (iv) Thread g of B S H L: lane g % L of head (g / L) % H of location (g / L H) % S
+// of clip g / (L H S) (temporal.cuh).
+template <typename T, int V, int L, int C>
+__global__ void __launch_bounds__(kTemporalThreads) temporal_attn_kernel(
+    const T* __restrict__ qkv, T* __restrict__ out, int T1, int S, int H, int inner, int dh,
+    float scale, long total) {
+  const long g = static_cast<long>(blockIdx.x) * kTemporalThreads + threadIdx.x;
+  temporal_attn_lane<T, V, L, C>(qkv, out, T1, S, H, inner, dh, scale, g, g < total);
 }
 
 // (v) Block = (query tile of spatial_q_tile<T>(), head, frame).
@@ -88,19 +91,16 @@ __global__ void __launch_bounds__(256) frame_attn_kernel(
 
 template <typename T>
 int launch_temporal(const void* qkv, void* out, int B, int T1, int S, int H, int inner,
-                    float scale, cudaStream_t st) {
-  const int dh = inner / H;
-  const long items = static_cast<long>(B) * S * H;
-  const int blocks = static_cast<int>((items + 7) / 8);
+                    float scale, int vec, int lanes, int chunks, cudaStream_t st) {
+  const long total = static_cast<long>(B) * S * H * lanes;
+  const int blocks = static_cast<int>((total + kTemporalThreads - 1) / kTemporalThreads);
   auto in = static_cast<const T*>(qkv);
   auto o = static_cast<T*>(out);
-  if (dh <= 32)
-    temporal_attn_kernel<T, 1><<<blocks, 256, 0, st>>>(in, o, B, T1, S, H, inner, dh, scale);
-  else if (dh <= 64)
-    temporal_attn_kernel<T, 2><<<blocks, 256, 0, st>>>(in, o, B, T1, S, H, inner, dh, scale);
-  else
-    temporal_attn_kernel<T, 4><<<blocks, 256, 0, st>>>(in, o, B, T1, S, H, inner, dh, scale);
-  return 0;
+  return with_temporal_plan<16 / sizeof(T)>(vec, lanes, chunks, [&](auto plan) {
+    using P = decltype(plan);
+    temporal_attn_kernel<T, P::V, P::L, P::C><<<blocks, kTemporalThreads, 0, st>>>(
+        in, o, T1, S, H, inner, inner / H, scale, total);
+  });
 }
 
 template <typename T>
@@ -144,12 +144,16 @@ using namespace istvt;
 
 extern "C" {
 
-// qkv (B, T1, S, 3 inner) -> out (B, T1, S, inner); dt 0 f32, 1 bf16; T1 <= 8, inner / H <= 128.
+// qkv (B, T1, S, 3 inner) -> out (B, T1, S, inner); dt 0 f32, 1 bf16; T1 <= 8, inner / H <= 128;
+// (vec, lanes, chunks): the head's layout (kernels/attention.temporal_plan), one that
+// with_temporal_plan instantiates.
 int istvt_temporal_attn(const void* qkv, void* out, int dt, int B, int T1, int S, int H,
-                        int inner, float scale, void* stream) {
+                        int inner, float scale, int vec, int lanes, int chunks, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  int rc = dt == kBF16 ? launch_temporal<__nv_bfloat16>(qkv, out, B, T1, S, H, inner, scale, st)
-                       : launch_temporal<float>(qkv, out, B, T1, S, H, inner, scale, st);
+  int rc = dt == kBF16 ? launch_temporal<__nv_bfloat16>(qkv, out, B, T1, S, H, inner, scale,
+                                                        vec, lanes, chunks, st)
+                       : launch_temporal<float>(qkv, out, B, T1, S, H, inner, scale, vec, lanes,
+                                                chunks, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

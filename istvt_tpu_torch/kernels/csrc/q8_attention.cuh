@@ -1,93 +1,16 @@
 // The two attention cores as device functions: q8_attention.cu launches each as a
 // kernel of its own, q8_layer.cu walks them inside one persistent kernel per ST
-// layer. As in q8_rows_gemm.cuh, no pointer parameter is __restrict__ (the
-// persistent kernel reads here what it wrote earlier in the same launch).
+// layer (the temporal core, temporal_attn_lane, is in temporal.cuh). As in
+// q8_rows_gemm.cuh, no pointer parameter is __restrict__ (the persistent kernel reads
+// here what it wrote earlier in the same launch).
 #pragma once
 
 #include <type_traits>
 
 #include "attention_tc.cuh"
+#include "temporal.cuh"
 
 namespace istvt {
-
-constexpr int kTMax = 8;  // T + 1 <= 8
-
-// (iv) Temporal attention of one (clip, location, head) `item` by one warp; lane
-// holds dims lane + 32 e.
-template <typename T, int DPL>
-__device__ __forceinline__ void temporal_attn_item(const T* qkv, T* out, int T1, int S, int H,
-                                                   int inner, int dh, float scale, long item,
-                                                   int lane) {
-  const int h = item % H;
-  const int s = (item / H) % S;
-  const int b = item / (static_cast<long>(H) * S);
-  const int i3 = 3 * inner;
-
-  float q[kTMax][DPL], k[kTMax][DPL], v[kTMax][DPL];
-#pragma unroll
-  for (int t = 0; t < kTMax; ++t) {
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      q[t][e] = k[t][e] = v[t][e] = 0.f;
-      if (t < T1 && d < dh) {
-        const T* base = qkv + (static_cast<size_t>(b * T1 + t) * S + s) * i3 + h * dh + d;
-        q[t][e] = to_f(base[0]);
-        k[t][e] = to_f(base[inner]);
-        v[t][e] = to_f(base[2 * inner]);
-      }
-    }
-  }
-  // self-subtract in the activation dtype, rows 0 and 1 unchanged; descending
-  // t so that q[t - 1] still holds the projected (unsubtracted) value
-#pragma unroll
-  for (int t = kTMax - 1; t >= 2; --t) {
-    if (t < T1) {
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        q[t][e] = round_to<T>(q[t][e] - q[t - 1][e]);
-        k[t][e] = round_to<T>(k[t][e] - k[t - 1][e]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kTMax; ++i) {
-    if (i >= T1) break;
-    float l[kTMax];
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTMax; ++j) {
-      l[j] = -INFINITY;
-      if (j < T1) {
-        float p = 0.f;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) p = __fadd_rn(p, __fmul_rn(q[i][e], k[j][e]));
-        l[j] = __fmul_rn(warp_sum(p), scale);
-        m = fmaxf(m, l[j]);
-      }
-    }
-    float den = 0.f;
-    float acc[DPL];
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTMax; ++j) {
-      if (j < T1) {
-        const float w = expf(l[j] - m);
-        den = __fadd_rn(den, w);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(w, v[j][e]));
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < dh)
-        out[(static_cast<size_t>(b * T1 + i) * S + s) * inner + h * dh + d] =
-            from_f<T>(__fdiv_rn(acc[e], den));
-    }
-  }
-}
 
 // (v) Spatial attention of one (query tile, head, frame) by the block's threads (Tile,
 // a TileThreads: 256 in the standalone kernels, 384 in #9):

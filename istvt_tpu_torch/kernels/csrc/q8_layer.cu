@@ -17,8 +17,9 @@
 // block of 384 threads on each SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
 // SMs, launched with cudaLaunchCooperativeKernel, which refuses a grid that cannot be
 // co-resident rather than deadlocking), walks the layer's 14 phases; in each, every
-// block strides over that phase's work items (rows, 128 x 128 GEMM tiles, temporal
-// (clip, location, head) items or spatial (query tile, head, frame) tiles), and a
+// block strides over that phase's work items (rows, 128 x 128 GEMM tiles, the
+// temporal core's threads (L lanes a head of a (clip, location), temporal.cuh) or
+// spatial (query tile, head, frame) tiles), and a
 // grid-wide barrier (cooperative_groups::this_grid().sync()) separates one phase from
 // the next. The intermediates live in a device workspace that the wrapper allocates
 // (int8 codes, row scales, the packed qkv and the attention output in x's dtype, the
@@ -54,7 +55,9 @@
 //   * the spatial phase: all 12 warps of the block run one tile (LayerTile: 192
 //     queries in bf16, 48 in f32; 128 and 32 in the standalone kernels' 256-thread
 //     blocks), so that the one block an SM keeps as many warps at it as the two
-//     standalone blocks did; the row and temporal phases stride over all 12 warps;
+//     standalone blocks did; the row phases stride over all 12 warps, the temporal
+//     phase over all 384 threads (the standalone kernel's layout and arithmetic, so
+//     its a_t equals #1's bit for bit);
 //   * registers: the kernel runs at the launch budget of 168 a thread (384 threads, one
 //     block an SM) in every phase, GEMM included, without setmaxnreg (the phases
 //     reconverge at every grid barrier; measured, moving registers to the consumers
@@ -156,7 +159,6 @@ __device__ __forceinline__ void gemm_phase(const CUtensorMap* ma, const CUtensor
 template <typename T, int DH, bool STAMP>
 __global__ void __launch_bounds__(kQThreads, 1)
     st_layer_q8_kernel(const LayerQ8 p, const __grid_constant__ LayerMaps m) {
-  constexpr int DPL = DH <= 32 ? 1 : DH / 32;
   extern __shared__ unsigned char smem_raw[];
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31;
@@ -193,10 +195,18 @@ __global__ void __launch_bounds__(kQThreads, 1)
   gemm_phase<T, float, false>(&m.a_d, &m.wqt, p.rs, p.wst, no_bias, no_res, qkv, p.rows, I3, D,
                               smem_raw, true);
   next_phase();
-  // 3. temporal core
-  const long items = static_cast<long>(p.B) * p.S * p.H;
-  for (long it = warp0; it < items; it += nwarps)
-    temporal_attn_item<T, DPL>(qkv, a, p.T1, p.S, p.H, I, DH, p.scale, it, lane);
+  // 3. temporal core: the standalone kernel's threads, kQThreads a block-step (the
+  // loop bound is uniform in a block, so every lane of a warp runs its shuffles)
+  {
+    using TP = typename TemporalWide<T, DH>::Plan;
+    const long total = static_cast<long>(p.B) * p.S * p.H * TP::L;
+    for (long g0 = static_cast<long>(blockIdx.x) * kQThreads; g0 < total;
+         g0 += static_cast<long>(gridDim.x) * kQThreads) {
+      const long g = g0 + threadIdx.x;
+      temporal_attn_lane<T, TP::V, TP::L, TP::C>(qkv, a, p.T1, p.S, p.H, I, DH, p.scale, g,
+                                                 g < total);
+    }
+  }
   next_phase();
   // --- spatial branch: out-proj -> LN -> int8 QKV -> per-frame attention (:763-786)
   // 4. quant rows of a_t

@@ -50,9 +50,11 @@ with their plain versions almost bit for bit.
 
 Case names are the wrappers' launch-count names (kernels/_lib.LAUNCHES),
 one case each; a few kernels have more cases at other shapes,
-"name@shape", which count under `counter(case)`. The int8 wrappers that
-run the int8 GEMM are given the K-major weight copies (quant.kmajor) made
-here, once, as a model holds them.
+"name@shape", which count under `counter(case)`: among them the temporal
+core #11 and its backward #12 at the B=16 forward's and train step's 16
+clips ("@b16", the main path's shape, drawn when made). The int8 wrappers
+that run the int8 GEMM are given the K-major weight copies (quant.kmajor)
+made here, once, as a model holds them.
 
 The GEMMs alone are tabled below the cases: the float GEMM (gemm_shapes)
 and the int8 GEMM (gemm_q8_shapes), each at every caller's shape, with
@@ -86,6 +88,8 @@ SMALL = dict(b=2, t1=4, s=32, n_valid=26, d=128, inner=64, heads=4, hid=256,
 SEPCONV_UNIT = "block2.0"
 VARIANTS = ("fused_temporal_attention@n_valid",
             "fused_temporal_attention_bwd@n_valid",
+            "temporal_attention_packed@b16",
+            "temporal_attention_packed/bwd@b16",
             *(f"sepconv_bn@{u}" for u in SLICE["units"] if u != SEPCONV_UNIT))
 CASES = tuple(_lib.LAUNCHES) + VARIANTS
 INT8_CASES = ("ln_qkv_q8_temporal_attention",
@@ -101,6 +105,8 @@ BWD_CASES = ("temporal_attention_packed/bwd", "spatial_attention_packed/bwd",
 # bf16 outputs equal to the plain version's bit for bit is reported
 BITWISE_CASES = ("fused_temporal_attention", "fused_temporal_attention_bwd")
 FREE_RUNNING_CASES = ("st_layer_q8",)
+# the clips of the "@b16" cases: the B=16 forward's and train step's batch
+B16 = 16
 F32_TOL_INT8, F32_TOL_FLOAT, F32_TOL_FREE_RUNNING = 2e-3, 1e-5, 1e-2
 
 
@@ -183,6 +189,15 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
     def on(dt, *ts):
         return [t.to(device, dt) for t in ts]
 
+    def b16(dt, grad=False):
+        """The temporal qkv (and its output grad) at the B=16 forward's and
+        train step's shape, from a generator of its own when a case is
+        made (so that no other case's draws move)."""
+        g16 = torch.Generator().manual_seed(seed + B16)
+        qkv = torch.randn(B16, t1, s, 3 * inner, generator=g16)
+        grads = [torch.randn(B16, t1, s, inner, generator=g16)] if grad else []
+        return on(dt, qkv, *grads)
+
     def ff_bwd_args(dt):
         xr, s_, b_, w1_, b1_, w2_, b2_ = on(dt, rows, ln_s, ln_b, w1, b1f, w2,
                                              b2f)
@@ -242,6 +257,10 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
             attention.temporal_attention_packed,
             attention.temporal_packed_plain,
             lambda dt: [*on(dt, qkv_t), heads]),
+        "temporal_attention_packed@b16": (
+            attention.temporal_attention_packed,
+            attention.temporal_packed_plain,
+            lambda dt: [*b16(dt), heads]),
         "spatial_attention_packed": (
             attention.spatial_attention_packed,
             attention.spatial_packed_plain,
@@ -262,6 +281,10 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
             attention.temporal_attention_packed_bwd,
             attention.temporal_packed_bwd_plain,
             lambda dt: [*on(dt, qkv_t, g_t), heads]),
+        "temporal_attention_packed/bwd@b16": (
+            attention.temporal_attention_packed_bwd,
+            attention.temporal_packed_bwd_plain,
+            lambda dt: [*b16(dt, grad=True), heads]),
         "spatial_attention_packed/bwd": (
             attention.spatial_attention_packed_bwd,
             attention.spatial_packed_bwd_plain,
@@ -648,4 +671,26 @@ def tensor_core_check(counts, wgmma=None, igmma=None, imma=None) -> list:
             if dtype == "int8" and imma is not None:
                 ok = ok and not any(imma.get(n, 0) for n in found)
             rows.append((k, dtype, found, ok))
+    return rows
+
+
+# the temporal core #11 and its backward #12: every head layout that
+# attention.temporal_plan can pick is an instantiation (csrc/temporal.cuh
+# with_temporal_plan: the forward's 16-byte wide form on 1-16 lanes in bf16
+# and 1-32 in f32, the backward's 4-element one on 1-32 lanes in both, and
+# the narrow form at 1, 2 and 4 elements a lane), each built with no spill
+TEMPORAL_KERNELS = {"temporal_attn_kernel": 17,
+                    "temporal_attn_bwd_kernel": 18}
+
+
+def spill_rows(report, kernels) -> list:
+    """Rows (kernel, {mangled name: registers}, [spilled names]) of every
+    instantiation of each kernel in `kernels` in `report`
+    (_lib.ptxas_report of build/build.log)."""
+    rows = []
+    for k in kernels:
+        got = {n: r for n, r in report.items() if f"{len(k)}{k}I" in n}
+        rows.append((k, {n: r.get("registers") for n, r in got.items()},
+                     [n for n, r in got.items()
+                      if r.get("spill_stores") or r.get("spill_loads")]))
     return rows

@@ -142,6 +142,127 @@ def test_spatial_bwd_matches_plain_at_more_shapes(cuda, record_property, s,
     assert ok, (rel, mx, scale, share)
 
 
+# (B, T1, S, heads, dim_head) of the temporal core's and #12's extra cases:
+# every dim_head the model geometries use (16, 32, 64, 128), T1 = 2, 3, 7
+# and 8, B S H not a multiple of a block's heads, and dim_heads off the
+# 16-byte vector: 20 and 100 (the narrow form in bf16, the wide in f32, 100
+# on 32 lanes), 7 and 33 (the narrow form in both, 1 and 2 elements a lane)
+TEMPORAL_SHAPES = [(2, 7, 368, 8, 64), (1, 2, 37, 3, 16), (2, 3, 45, 4, 32),
+                   (1, 8, 29, 2, 128), (2, 7, 61, 5, 20), (1, 7, 33, 3, 100),
+                   (1, 3, 19, 4, 7), (1, 8, 24, 2, 33)]
+
+
+def _temporal_qkv(cuda, b, t1, s, heads, dh, seed=0):
+    g = torch.Generator().manual_seed(seed + 1000 * dh + 10 * t1 + s)
+    qkv = torch.randn(b, t1, s, 3 * heads * dh, generator=g)
+    go = torch.randn(b, t1, s, heads * dh, generator=g)
+    return qkv.to(cuda), go.to(cuda)
+
+
+def _ids(shapes):
+    return ["x".join(map(str, c)) for c in shapes]
+
+
+@pytest.mark.parametrize("b, t1, s, heads, dh", TEMPORAL_SHAPES,
+                         ids=_ids(TEMPORAL_SHAPES))
+def test_temporal_core_matches_plain_at_more_shapes(cuda, b, t1, s, heads,
+                                                    dh):
+    """The temporal core (#11's, and so #1's and #9's phase 3) against its
+    plain version in the layout attention.temporal_plan picks: f32 at
+    atol = rtol = 1e-5, bf16 by the bf16 criterion; one launch each."""
+    qkv, _ = _temporal_qkv(cuda, b, t1, s, heads, dh)
+    before = _lib.LAUNCHES["temporal_attention_packed"]
+    with highest():
+        got = attention.temporal_attention_packed(qkv, heads)
+        want = attention.temporal_packed_plain(qkv, heads)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, atol=1e-5, rtol=1e-5), \
+        (got - want).abs().max()
+    x = qkv.bfloat16()
+    got = attention.temporal_attention_packed(x, heads)
+    want = attention.temporal_packed_plain(x, heads)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["temporal_attention_packed"] == before + 2
+    ok, rel, mx, scale = selfcheck.bf16_close(got, want)
+    assert ok, (rel, mx, scale)
+
+
+@pytest.mark.parametrize("b, t1, s, heads, dh", TEMPORAL_SHAPES,
+                         ids=_ids(TEMPORAL_SHAPES))
+def test_temporal_bwd_matches_plain_at_more_shapes(cuda, b, t1, s, heads,
+                                                   dh):
+    """#12 against its plain version at the same shapes: f32 at max|diff|
+    <= 1e-5 max|plain| for each of dq, dk, dv; bf16 by the bf16 criterion
+    per output."""
+    qkv, go = _temporal_qkv(cuda, b, t1, s, heads, dh)
+    inner = heads * dh
+    with highest():
+        got = attention.temporal_attention_packed_bwd(qkv, go, heads)
+        want = attention.temporal_packed_bwd_plain(qkv, go, heads)
+    torch.cuda.synchronize()
+    for a, w in zip(got.split(inner, dim=-1), want.split(inner, dim=-1)):
+        assert (a - w).abs().max() <= 1e-5 * w.abs().max()
+    x, gb = qkv.bfloat16(), go.bfloat16()
+    got = attention.temporal_attention_packed_bwd(x, gb, heads)
+    want = attention.temporal_packed_bwd_plain(x, gb, heads)
+    torch.cuda.synchronize()
+    ok, rel, mx, scale = selfcheck.bf16_close(got.split(inner, dim=-1),
+                                              want.split(inner, dim=-1))
+    assert ok, (rel, mx, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_temporal_cores_back_to_back_on_reused_outputs(cuda, dtype):
+    """#11 and #12 twice each, back to back, the second call on other
+    inputs and on the memory the first's output just gave back: each result
+    is its plain version's (by the dtype's criterion), and a repeat of the
+    first call gives its result bit for bit (nothing read from a stale
+    output, no order between threads)."""
+    b, t1, s, heads, dh = TEMPORAL_SHAPES[0]
+    (qa, ga), (qb, gb) = (
+        (t.to(dtype) for t in _temporal_qkv(cuda, b, t1, s, heads, dh,
+                                            seed=seed)) for seed in (0, 1))
+    inner = heads * dh
+    for kern, plain, args_a, args_b, parts in (
+            (attention.temporal_attention_packed,
+             attention.temporal_packed_plain, (qa, heads), (qb, heads), 1),
+            (attention.temporal_attention_packed_bwd,
+             attention.temporal_packed_bwd_plain, (qa, ga, heads),
+             (qb, gb, heads), 3)):
+        first = kern(*args_a).clone()
+        torch.cuda.synchronize()
+        got = kern(*args_b)
+        with highest():
+            want = plain(*args_b)
+        torch.cuda.synchronize()
+        got3, want3 = got.split(inner, dim=-1), want.split(inner, dim=-1)
+        assert len(got3) == parts
+        if dtype == torch.float32 and parts == 1:
+            assert torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+        elif dtype == torch.float32:
+            for a, w in zip(got3, want3):
+                assert (a - w).abs().max() <= 1e-5 * w.abs().max()
+        else:
+            ok, rel, mx, scale = selfcheck.bf16_close(got3, want3)
+            assert ok, (rel, mx, scale)
+        del got, got3
+        again = kern(*args_a)
+        torch.cuda.synchronize()
+        assert torch.equal(again, first)
+
+
+def test_temporal_kernels_build_without_spills(cuda):
+    """Every instantiation of #11 and #12 that attention.temporal_plan can
+    pick is in the built library (selfcheck.TEMPORAL_KERNELS), and ptxas
+    reports no spill for any (build/build.log)."""
+    _lib.load()
+    report = _lib.ptxas_report((_lib.BUILD_DIR / "build.log").read_text())
+    for kernel, regs, spilled in selfcheck.spill_rows(
+            report, selfcheck.TEMPORAL_KERNELS):
+        assert len(regs) == selfcheck.TEMPORAL_KERNELS[kernel], (kernel, regs)
+        assert not spilled, (kernel, spilled)
+
+
 @pytest.mark.parametrize("kernel, dtype", [
     *((k, "bf16") for k in selfcheck.TENSOR_CORE_KERNELS),
     *((k, "f32") for k in selfcheck.FMA_ONLY_KERNELS)])

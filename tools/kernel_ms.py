@@ -1,6 +1,7 @@
 """Median times of port kernels at the serving slice on one NVIDIA GPU.
 
-    python3 tools/kernel_ms.py [--root DIR] [--cases NAME,...|spatial|gemm]
+    python3 tools/kernel_ms.py [--root DIR]
+                               [--cases NAME,...|spatial|gemm|temporal]
                                [--gemm | --gemm-q8 | --layer-phases]
                                [--batch B]
 
@@ -8,9 +9,11 @@ Imports istvt_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels and times each case of its
 kernels/selfcheck.slice_cases (`spatial`, the default: the kernels that run
 the spatial attention core or its backward: #2, #9, #10, #13 packed and
-unpacked, #14, #15; `gemm`: the kernels that run the float GEMM, #6, #18-#23)
-in bf16 and in f32 on the case's seeded inputs, for B clips (default 2,
-the slice; 16 for the B=16 forward's shapes): the smaller of two medians
+unpacked, #14, #15; `gemm`: the kernels that run the float GEMM, #6,
+#18-#23; `temporal`: the temporal core #11, its backward #12 and #1, which
+runs the core after its GEMM) in bf16 and in f32 on the case's seeded
+inputs, for B clips (default 2, the slice; 16 for the B=16 forward's
+shapes): the smaller of two medians
 of 20 CUDA-event timings of one call (chip_smoke.py's phase-3 timing), the
 warm-up outside them, and `device_ms`, the device time of one call with the
 host's launch overhead hidden. Prints one JSON line per case and dtype:
@@ -62,7 +65,10 @@ SPATIAL_CASES = ("mm_q8_ln_qkv_q8_spatial_attention", "st_layer_q8",
 GEMM_CASES = ("ln_matmul", "matmul_bias_residual", "matmul_bias_residual/no_r",
               "ln_ff_residual", "ln_ff_residual/h1", "ln_ff_residual/bwd",
               "ln_matmul/bwd", "fused_ff", "ln_ff_residual_q8")
-CASE_SETS = {"spatial": SPATIAL_CASES, "gemm": GEMM_CASES}
+TEMPORAL_CASES = ("temporal_attention_packed", "temporal_attention_packed/bwd",
+                  "ln_qkv_q8_temporal_attention")
+CASE_SETS = {"spatial": SPATIAL_CASES, "gemm": GEMM_CASES,
+             "temporal": TEMPORAL_CASES}
 # #9's phases in the order of csrc/q8_layer.cu
 LAYER_PHASES = ("1 LN + quant x", "2 QKV_t GEMM", "3 temporal core",
                 "4 quant a_t", "5 out_t GEMM + b", "6 LN + quant y",

@@ -9,9 +9,12 @@ build: --dataset synthetic --use_pallas --bf16 --dropout 0, the paper
 geometry 300^2 x 6, depth 12, B=16) and times TRAIN_STEPS steps after one
 warm-up step (`warm_up`) with `train_times`, the timing chip_smoke.py's
 train phase also calls: the host clock around each step, ending in the loss read.
-Prints one JSON line: root, the step times, their median, the peak device
-memory, the losses and the card's name and power limit. Run parent,
-change, change, parent in one call to compare two commits on one card.
+Then `device_step_ms`: the card's time in kernels over PROFILED_STEPS more
+steps under torch.profiler, a step's share (the host clock spreads more
+between runs than the device does). Prints one JSON line: root, the step
+times, their median, the device ms a step, the peak device memory, the
+losses and the card's name and power limit. Run parent, change, change,
+parent in one call to compare two commits on one card.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 
 TRAIN_FLAGS = ["--dataset", "synthetic", "--use_pallas", "--bf16",
                "--dropout", "0"]
-TRAIN_BATCH, TRAIN_STEPS = 16, 5
+TRAIN_BATCH, TRAIN_STEPS, PROFILED_STEPS = 16, 5, 2
 
 
 def build_trainer(cli_train, flags, bf16=True):
@@ -71,6 +74,19 @@ def train_times(trainer, ts, batches):
     return times, losses
 
 
+def device_step_ms(trainer, ts, batches):
+    """ms of CUDA kernel time a step (torch.profiler's self device time,
+    summed over every kernel) over one step per batch."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            float(trainer.step_fn(ts, batch)["loss"])
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total if hasattr(e, "self_device_time_total")
+             else e.self_cuda_time_total for e in prof.key_averages())
+    return us / 1e3 / len(batches)
+
+
 def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser()
@@ -86,13 +102,15 @@ def main():
     trainer, ts, batches = paper_trainer(cli_train)
     warm_up(trainer, ts, batches[0])
     times, losses = train_times(trainer, ts, batches[1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dev_ms = device_step_ms(trainer, ts, batches[1:1 + PROFILED_STEPS])
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(json.dumps({"root": os.path.relpath(root, here), "ms": times,
                       "median_ms": float(np.median(times)),
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "device_ms": dev_ms, "peak_gib": peak,
                       "losses": losses, "card": card}), flush=True)
 
 
