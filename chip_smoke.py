@@ -2,17 +2,18 @@
 
     python3 chip_smoke.py [--profile PATH]
 
-Drives the port's two ISTVT serving paths, the int8 path's five A/B
-modes, its training path and its interpretability path at the paper
-geometry (300^2 x 6 frames, depth 12, 8 heads x 64, dim 728, FF 2912) with
-random weights from a seed: the int8 W8A8 path (`cli/serve.py --int8`,
-q8_ff='full', q8_attn='ingest'), then on the same weights the modes that
-ISTVTConfig.q8_ff / q8_attn choose (no CLI flag chooses them, as in the
-JAX package): ('full', 'boundary'), ('mixed', 'ingest'), ('bf16',
-'ingest'), ('full', 'layer') (one kernel a layer) and ('int8', 'ingest')
-(the fully-int8 FF); the float fused path in bf16 (`cli/serve.py
---bf16`), training on the float fused path in bf16 over f32 masters
-(`cli/train.py --dataset synthetic --use_pallas --bf16 --dropout 0`), and
+Drives the port's ISTVT serving paths (int8, float in bf16 and in f32),
+the int8 path's five A/B modes, its training path and its
+interpretability path at the paper geometry (300^2 x 6 frames, depth 12,
+8 heads x 64, dim 728, FF 2912) with random weights from a seed: the int8
+W8A8 path (`cli/serve.py --int8`, q8_ff='full', q8_attn='ingest'), then
+on the same weights the modes that ISTVTConfig.q8_ff / q8_attn choose (no
+CLI flag chooses them, as in the JAX package): ('full', 'boundary'),
+('mixed', 'ingest'), ('bf16', 'ingest'), ('full', 'layer') (one kernel a
+layer) and ('int8', 'ingest') (the fully-int8 FF); the float fused path
+in bf16 (`cli/serve.py --bf16`) and in f32 (`cli/serve.py`), training on
+the float fused path in bf16 over f32 masters (`cli/train.py --dataset
+synthetic --use_pallas --bf16 --dropout 0`), and
 the LRP relevance maps (`interpret/`, `cli/visualize.py`) in f32, then the
 kernel API (`istvt_tpu_torch.kernels`, `kernels/conv.py`), which no model
 path reaches. In phases; any failure raises and exits non-zero:
@@ -27,14 +28,19 @@ path reaches. In phases; any failure raises and exits non-zero:
                 both passes of #13) has tensor-core instructions (HMMA /
                 HGMMA), every instantiation of the bf16 float GEMM
                 (gemm_bf16_wgmma_kernel: #6's fc2, #18-#23) has wgmma
-                (HGMMA), every instantiation of the int8 GEMM
-                (gemm_q8_wgmma_kernel: #1-#8) and of the one-launch layer
-                (st_layer_q8_kernel: #9, whose GEMM phases run the same
-                body) has int8 wgmma (IGMMA) and no int8 mma.sync (IMMA),
-                and no f32 one but #9's has any, nor the f32 FMA GEMM
+                (HGMMA), every instantiation of the f32 float GEMM
+                (gemm_f32_wgmma_kernel: the same callers in f32) has TF32
+                wgmma (HGMMA.64x128x8.F32.TF32), every instantiation of the
+                int8 GEMM (gemm_q8_wgmma_kernel: #1-#8) and of the
+                one-launch layer (st_layer_q8_kernel: #9, whose GEMM phases
+                run the same body) has int8 wgmma (IGMMA) and no int8
+                mma.sync (IMMA), and no f32 attention kernel has any
                 (selfcheck.tensor_core_check); from ptxas's report
-                (build/build.log), those int8 kernels hold at most 168
-                registers with no byte spilled, and every head layout of
+                (build/build.log), the f32 GEMM holds exactly 168 registers
+                and those int8 kernels at most 168, with no byte spilled
+                (selfcheck.wgmma_register_rows), ptxas's notes that it
+                serialized a kernel's wgmma are printed, and every head
+                layout of
                 the temporal core #11 and its backward #12 is built (17
                 and 18 instantiations, selfcheck.TEMPORAL_KERNELS) with
                 none spilled
@@ -56,13 +62,21 @@ path reaches. In phases; any failure raises and exits non-zero:
                 rel-L2 < 1e-2 and max|diff| < 0.02 max|plain| (#16, #17:
                 and the share of bf16 elements equal bit for bit); median
                 kernel / plain / library-call ms and the card's least time
-                (bound); for #24 also the stem's cuDNN composition's ms;
+                (bound), and for the kernels that a CLI path runs in f32
+                (F32_PATH) the f32 kernel / plain ms and bound too; for #24
+                also the stem's cuDNN composition's ms;
                 then the float GEMM alone (kernels/linear.gemm) at each of
                 its callers' shapes at the slice (selfcheck.gemm_shapes:
                 #18, #20 and its backward, #21 / #6 / #22 fc1 and fc2, #19,
-                #23's four) vs its plain f32 version by the bf16 criterion,
-                with its device ms (tools/kernel_ms.device_ms), TFLOP/s,
-                the bound and torch.matmul's device ms on the same operands;
+                #23's four) with bf16 inputs vs its plain f32 version by
+                the bf16 criterion, with its device ms
+                (tools/kernel_ms.device_ms), TFLOP/s, the bound and
+                torch.matmul's device ms on the same operands; then the
+                same table with f32 inputs (three TF32 products) vs the
+                plain f32 product by selfcheck.gemm_f32_close (nn, nt atol
+                = rtol = 1e-5; tn max|diff| <= 1e-5 max|plain|), its share
+                of the TF32 bound and of the FMA pipes' time, and
+                torch.matmul in f32 with TF32 off;
                 then the int8 GEMM alone (kernels/quant.gemm_q8) at each
                 int8 caller's shape at the slice (selfcheck.gemm_q8_shapes:
                 #1-#8's QKV, out-projections, fc1 and fc2 with their
@@ -71,7 +85,7 @@ path reaches. In phases; any failure raises and exits non-zero:
                 = 2e-3 with it; device ms, TOP/s and share of the int8
                 peak, the bound, and torch._int_mm's device ms on the same
                 codes (a yardstick the port never calls)
-  then for each serving path, int8 first:
+  then for each serving path, int8 first, then float in bf16 and f32:
   4. serving  - the model behind the HTTP ServeDaemon: float32 and uint8
                 POSTs, a 16-clip batch and two concurrent requests, all
                 HTTP 200 with finite logits; counted from 0 just before,
@@ -80,11 +94,14 @@ path reaches. In phases; any failure raises and exits non-zero:
                 and no int8 wrapper built a K-major weight copy in a call
                 (the model holds them: _lib.KMAJOR_BUILDS 0; so in every
                 counted phase below)
-  5. e2e      - 1-clip logits on the card (kernels, bf16) vs the same model
-                on the CPU (plain versions, f32): |dlogit| <= 5e-2
+  5. e2e      - 1-clip logits on the card (kernels, bf16 or f32) vs the
+                same model on the CPU (plain versions, f32): |dlogit| <=
+                5e-2
   6. timing   - B=16 forward, median ms and clips/s
                 (tools/torch_forward_ms.forward_times: CUDA events, a
-                distinct input per iteration)
+                distinct input per iteration, in the path's input dtype),
+                counted from 0: each kernel exactly its launches per
+                forward times the forwards, every other 0
   after the int8 path, for each A/B mode on its weights (quantize_params
   as cli/serve.py --int8 runs it, then pack_params for 'mixed' / 'bf16'):
   4m. launches - one counted B=16 forward: each kernel exactly its
@@ -181,14 +198,15 @@ from istvt_tpu_torch.kernels import _lib, selfcheck  # noqa: E402
 from istvt_tpu_torch.models import istvt  # noqa: E402
 from istvt_tpu_torch.serve_daemon import ServeDaemon  # noqa: E402
 from torch_forward_ms import INT8_MODES as TOOL_MODES  # noqa: E402
-from torch_forward_ms import PACKED, forward_times, set_mode  # noqa: E402
+from torch_forward_ms import (ITERS, PACKED, PATH_FLAGS,  # noqa: E402
+                              WARMUP, forward_times, input_dtype, set_mode)
 from torch_train_ms import (TRAIN_BATCH, build_trainer,  # noqa: E402
                             paper_trainer, train_times, warm_up)
 from kernel_ms import gemm_q8_rows, gemm_rows, median_ms  # noqa: E402
 
-# the two paths, by their cli/serve.py flags, at the CLI's default paper
-# geometry (300^2 x 6, depth 12)
-PATHS = {"int8": ["--int8"], "float": ["--bf16"]}
+# the serving paths, by their cli/serve.py flags (int8, float in bf16, float
+# in f32), at the CLI's default paper geometry (300^2 x 6, depth 12)
+PATHS = PATH_FLAGS
 PAPER = ISTVTConfig()
 DEPTH = PAPER.depth
 CLIP = (PAPER.num_frames, PAPER.image_size, PAPER.image_size, 3)
@@ -267,6 +285,7 @@ SERVE_PER_LAYER = {
               "spatial_attention_packed": 1, "matmul_bias_residual": 1,
               "matmul_bias_residual/no_r": 1, "ln_ff_residual": 1},
 }
+SERVE_PER_LAYER["float32"] = SERVE_PER_LAYER["float"]
 # the int8 A/B modes after the int8 path: (q8_ff, q8_attn)
 # (torch_forward_ms.INT8_MODES, 'ingest' being the int8 path itself) and
 # launches per layer of one forward (models/istvt.py:258-356)
@@ -301,9 +320,18 @@ TRAIN_PER_LAYER = {
     "ln_matmul/bwd": 2, "ln_ff_residual/bwd": 1,
 }
 
-# kernels whose path runs in f32 (the interpretability path; the kernel API
-# phase's sepconv_bn): phase 3 times them in f32 as well as in bf16
-F32_PATH = ("fused_ff", "sepconv_bn")
+# kernels that a path runs in f32 (float serving and training without --bf16,
+# the interpretability path; the kernel API phase's sepconv_bn): phase 3
+# times them in f32 as well as in bf16
+F32_PATH = ({*SERVE_PER_LAYER["float"], *TRAIN_PER_LAYER}
+            | {"fused_ff", "sepconv_bn"})
+# the kernels whose products run on the float GEMM (in f32 three TF32
+# products a multiply-add); the other float products (the attention cores,
+# #24) run on the FMA pipes in f32
+GEMM_KERNELS = ("ln_matmul", "matmul_bias_residual",
+                "matmul_bias_residual/no_r", "ln_ff_residual",
+                "ln_ff_residual/h1", "ln_ff_residual/bwd", "ln_matmul/bwd",
+                "fused_ff", "ln_ff_residual_q8")
 
 # the kernel API phase: launches of one call of each entry point (forward
 # and backward of the differentiable ones)
@@ -312,11 +340,6 @@ API_LAUNCHES = {"fused_frame_attention_mh": 1, "fused_frame_attention_bwd": 1,
                 "fused_temporal_attention_bwd": 1, "fused_frame_attention": 1,
                 "sepconv_bn": 1}
 
-# published H100 SXM peaks (NVIDIA's data sheet): bytes/s, and dense
-# operations/s by the type of the inputs (f32: the FMA pipes, outside the
-# tensor cores)
-HBM_BPS = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 
 def phase(name, msg):
@@ -430,16 +453,33 @@ def _ops(name, args):
     return {"bf16": 2 * rows * args[-1 if name == "ln_matmul" else 1].numel()}
 
 
-def _bound_ms(name, args, out):
-    """The least time the card could take: the larger of the bytes the
-    function must move (each input read once, the output written once) over
-    the memory rate and its operations over the peak rate of their type."""
+def _ops_as_run(name, args, dtype):
+    """_ops by the type of operation that runs them for activations of
+    `dtype`: in f32 the float GEMM's products (GEMM_KERNELS) as
+    selfcheck.float_gemm_ops runs them, the others f32 on the FMA pipes."""
+    ops = _ops(name, args)
+    if dtype != torch.float32:
+        return ops
+    out = {}
+    for k, n in ops.items():
+        parts = {k: n}
+        if k == "bf16":
+            parts = (selfcheck.float_gemm_ops(n, dtype)
+                     if name in GEMM_KERNELS else {"f32": n})
+        for kk, nn in parts.items():
+            out[kk] = out.get(kk, 0) + nn
+    return out
+
+
+def _bound_ms(name, args, out, dtype=torch.bfloat16):
+    """The least time the card could take (selfcheck.bound_ms): the bytes
+    the function must move (each input read once, the output written once)
+    and its operations by type (_ops_as_run for activations of `dtype`)."""
     tensors = [t for t in args if torch.is_tensor(t)] + list(
         selfcheck.outputs(out))
-    t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BPS
-    t_ops = sum(n / PEAK_OPS[k] for k, n in _ops(name, args).items())
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return selfcheck.bound_ms(
+        _ops_as_run(name, args, dtype),
+        sum(t.numel() * t.element_size() for t in tensors))
 
 
 def _library_call(name, args):
@@ -539,12 +579,15 @@ def check_kernels(dev):
         if counter == "sepconv_bn":
             extra["cudnn_ms"] = median_ms(_cudnn_sepconv(args16))
         if counter in F32_PATH:
-            # its path runs in f32 (the FMA GEMM): time that too
+            # a path runs it in f32: time that too
             with highest():
                 f32_ms = [median_ms(lambda: kern(*args)),
                           median_ms(lambda: plain(*args))]
+            b32, by32 = _bound_ms(counter, args, got, torch.float32)
+            extra["f32"] = {"ms": f32_ms[0], "plain_ms": f32_ms[1],
+                            "bound_ms": b32, "bound_by": by32}
             phase("kernels", f"{name}: f32 median ms kernel {f32_ms[0]:.4f} "
-                  f"plain {f32_ms[1]:.4f} (informative)")
+                  f"plain {f32_ms[1]:.4f} bound {b32:.4f} ({by32})")
         crit = ("rel-L2 < " if name in selfcheck.FREE_RUNNING_CASES
                 else "") + str(selfcheck.f32_tol(name))
         phase("kernels", f"{name}: f32 max|diff| {err32:.3e} "
@@ -555,7 +598,8 @@ def check_kernels(dev):
               f"{ms_kern_a:.4f}/{ms_kern_b:.4f} plain "
               f"{ms_plain_a:.4f}/{ms_plain_b:.4f} library {lib_ms} "
               f"bound {bound_ms:.4f} ({bound_by})"
-              + "".join(f"; {k} {v:.4f}" for k, v in extra.items()))
+              + "".join(f"; {k} {v:.4f}" for k, v in extra.items()
+                        if k != "f32"))
         if not (ok32 and ok16):
             raise SystemExit(f"kernel {name} disagrees with its plain version")
         rows[name] = {"max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
@@ -565,26 +609,37 @@ def check_kernels(dev):
 
 
 def gemm_phase(dev):
-    """Phase 3's GEMM table: kernels/linear.gemm at every float caller's
-    shape at the slice (selfcheck.gemm_shapes) against its plain f32
-    version (the bf16 criterion), its device ms and torch.matmul's on the
-    same operands (a yardstick the port never calls), the bound and the
-    share of the bf16 peak."""
-    for name, layout, m, n, k, ms, mm, tflops, bound, ops, _ in gemm_rows(
-            selfcheck, dev):
-        with highest():
-            want = selfcheck.gemm_plain(ops)
-        got = selfcheck.gemm_results(ops)
-        torch.cuda.synchronize()
-        ok, rel, mx, scale = selfcheck.bf16_close(got, want)
-        phase("gemm", f"{name}: {layout} {m} x {n} x {k} "
-              f"{ops['out'].dtype}: device ms {ms:.4f} ({tflops:.1f} "
-              f"TFLOP/s, {tflops / (PEAK_OPS['bf16'] / 1e12):.1%} of peak), "
-              f"torch.matmul {mm:.4f}, bound {bound:.4f}; vs plain rel-L2 "
-              f"{rel:.3e} max|diff| {mx:.3e} of max|plain| {scale:.3e} "
-              f"({'ok' if ok else 'FAIL'})")
-        if not ok:
-            raise SystemExit(f"GEMM {name} disagrees with its plain version")
+    """Phase 3's GEMM tables: kernels/linear.gemm at every float caller's
+    shape at the slice (selfcheck.gemm_shapes), with bf16 inputs against
+    its plain f32 version by the bf16 criterion, then with f32 inputs (three
+    TF32 products) by selfcheck.gemm_f32_close; its device ms, torch.matmul's
+    on the same operands (TF32 off; a yardstick the port never calls), the
+    bound (selfcheck.gemm_bound_ms) and the share of it, in f32 also the
+    share of the FMA pipes' time."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, layout, m, n, k, ms, mm, tflops, (bound, by, fma), ops, _ \
+                in gemm_rows(selfcheck, dev, dtype=dtype):
+            with highest():
+                want = selfcheck.gemm_plain(ops)
+            got = selfcheck.gemm_results(ops)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                ok, err = selfcheck.gemm_f32_close(ops, got, want)
+                crit = (f"{'max|diff| / max|plain|' if layout == 'tn' else 'max|diff|'}"
+                        f" {err:.3e} ({'ok' if ok else 'FAIL'} at "
+                        f"{selfcheck.F32_TOL_FLOAT}); FMA pipes {fma:.4f} ms "
+                        f"({fma / ms:.1%} of it)")
+            else:
+                ok, rel, mx, scale = selfcheck.bf16_close(got, want)
+                crit = (f"rel-L2 {rel:.3e} max|diff| {mx:.3e} of max|plain| "
+                        f"{scale:.3e} ({'ok' if ok else 'FAIL'})")
+            phase("gemm", f"{name}: {str(dtype)[6:]} {layout} {m} x {n} x {k}"
+                  f" -> {ops['out'].dtype}: device ms {ms:.4f} ({tflops:.1f} "
+                  f"TFLOP/s), torch.matmul {mm:.4f}, bound {bound:.4f} ({by},"
+                  f" {bound / ms:.1%} of it); vs plain {crit}")
+            if not ok:
+                raise SystemExit(f"GEMM {name} in {dtype} disagrees with its "
+                                 f"plain version")
 
 
 def gemm_q8_phase(dev):
@@ -606,7 +661,7 @@ def gemm_q8_phase(dev):
         phase("gemm_q8", f"{name}: {m} x {n} x {k} -> {out_dt}"
               + (f" + r {res_dt}" if res_dt is not None else "")
               + f": device ms {ms:.4f} ({tops:.1f} TOP/s, "
-              f"{tops / (PEAK_OPS['int8'] / 1e12):.1%} of peak), "
+              f"{tops / (selfcheck.PEAK_OPS['int8'] / 1e12):.1%} of peak), "
               f"torch._int_mm {lib_ms} (weight {lib_layout}), bound "
               f"{bound:.4f}; vs plain: "
               f"bit-equal share {same:.6f} ({'ok' if ok else 'FAIL'}: "
@@ -684,7 +739,8 @@ def serve_phase(path, predictor):
 
 
 def e2e_phase(path, predictor):
-    """Card (kernels, bf16) vs CPU (plain versions, f32) on one clip."""
+    """Card (kernels, in the path's dtype) vs CPU (plain versions, f32) on
+    one clip."""
     clip = np.random.RandomState(1).randn(1, *CLIP).astype(np.float32)
     card_logit = predictor.predict(clip)["logits"]
     cpu_model = tree.cast(copy.deepcopy(predictor.model).to("cpu"),
@@ -727,14 +783,22 @@ def _write_profile(prof, title, profile, rows=40):
 
 
 def timing_phase(path, model, dev, card, profile):
-    """B=16 forward (tools/torch_forward_ms.forward_times); optional
-    profile of one more."""
-    ms = float(np.median(forward_times(model, CLIP)))
+    """B=16 forward (tools/torch_forward_ms.forward_times) in the path's
+    input dtype, counted: each kernel exactly its launches per forward (the
+    path's SERVE_PER_LAYER or the mode's MODE_PER_LAYER entry x depth)
+    times the forwards; optional profile of one more."""
+    dtype = input_dtype(path)
+    per_layer = SERVE_PER_LAYER.get(path) or MODE_PER_LAYER[path]
+    _lib.reset_launches()
+    times = forward_times(model, CLIP, dtype)
+    _tally({n: k * DEPTH * (WARMUP + ITERS) for n, k in per_layer.items()})
+    ms = float(np.median(times))
     phase("timing", f"{path}: B=16 forward median {ms:.3f} ms = "
-          f"{16e3 / ms:.2f} clips/s on {card} (informative)")
+          f"{16e3 / ms:.2f} clips/s on {card}; launches exactly "
+          f"{WARMUP + ITERS} forwards' (informative)")
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
-        x = torch.randn(16, *CLIP, device=dev).to(torch.bfloat16)
+        x = torch.randn(16, *CLIP, device=dev).to(dtype)
         with prof_ctx(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             with torch.inference_mode():
@@ -1196,33 +1260,38 @@ def main():
     for kernel, dtype, found, ok in selfcheck.tensor_core_check(
             _lib.tensor_ops_of_sass(sass),
             _lib.tensor_ops_of_sass(sass, ("HGMMA.",)),
-            _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_WGMMA_OP,)), imma):
+            _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_WGMMA_OP,)), imma,
+            _lib.tensor_ops_of_sass(sass, (selfcheck.TF32_WGMMA_OP,))):
+        fma_only = kernel in selfcheck.FMA_ONLY_KERNELS and dtype == "f32"
         what = ("HGMMA" if kernel in selfcheck.WGMMA_KERNELS
-                and dtype == "bf16" else "IGMMA" if dtype == "int8"
-                else "tensor-core")
+                else "TF32 HGMMA" if kernel in selfcheck.TF32_WGMMA_KERNELS
+                else "IGMMA" if dtype == "int8" else "tensor-core")
         phase("build", f"{kernel} {dtype}: {what} instructions "
               f"{sorted(found.values())}"
               + (f", IMMA {sum(imma.get(n, 0) for n in found)}"
                  if dtype == "int8" else "")
               + f" ({'ok' if ok else 'FAIL'}: "
-              f"{'none' if dtype == 'f32' else 'each'} wanted"
+              f"{'none' if fma_only else 'each'} wanted"
               + (", no IMMA" if dtype == "int8" else "") + ")")
         if not ok:
             raise SystemExit(f"{kernel} in {dtype} is not on the pipes it "
                              f"should be")
-    # the int8 wgmma kernels at the launch budget with nothing spilled
-    report = _lib.ptxas_report((_lib.BUILD_DIR / "build.log").read_text())
-    for kernel in selfcheck.INT8_WGMMA_KERNELS:
-        got = {n: r for n, r in report.items() if kernel in n}
-        spilled = {n: r for n, r in got.items()
-                   if r.get("spill_stores") or r.get("spill_loads")
-                   or r.get("registers", 0) > 168}
-        phase("build", f"{kernel}: ptxas, {len(got)} instantiations, "
-              f"registers {sorted(r.get('registers') for r in got.values())}"
-              f", spilled {len(spilled)} (ok: none wanted)")
-        if not got or spilled:
-            raise SystemExit(f"{kernel} spills or exceeds 168 registers: "
-                             f"{spilled}")
+    # the wgmma kernels at the launch budget with nothing spilled
+    log = (_lib.BUILD_DIR / "build.log").read_text()
+    report = _lib.ptxas_report(log)
+    for kernel, regs, off in selfcheck.wgmma_register_rows(report):
+        phase("build", f"{kernel}: ptxas, {len(regs)} instantiations, "
+              f"registers {sorted(regs.values())}, off budget {len(off)} "
+              f"(ok: none wanted: no spill, "
+              f"{'exactly' if kernel in selfcheck.TF32_WGMMA_KERNELS else 'at most'}"
+              f" {selfcheck.WGMMA_REGISTERS})")
+        if not regs or off:
+            raise SystemExit(f"{kernel} spills or is off its register "
+                             f"budget: {off}")
+    serialized = [ln.strip() for ln in log.splitlines()
+                  if "wgmma" in ln and "serialized" in ln]
+    phase("build", f"ptxas notes of serialized wgmma: {len(serialized)}"
+          + "".join(f"\n  {ln}" for ln in serialized))
     # the temporal cores: every head layout's instantiation, none spilled
     for kernel, regs, spilled in selfcheck.spill_rows(
             report, selfcheck.TEMPORAL_KERNELS):

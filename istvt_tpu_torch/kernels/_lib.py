@@ -88,9 +88,9 @@ _SIGNATURES = {
     # x, x_dt, s, b, y, R, D, stream
     "istvt_ln_rows": [_P, _I, _P, _P, _P, _I, _I, _P],
     # a, b, dt, layout, out, out_f32, bias, res, gelu, out2, aux, part, mode,
-    # M, N, K, splits, kslice, ws, stream
+    # M, N, K, splits, kslice, ws, planes, stream
     "istvt_gemm": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                   _I, _I, _I, _P, _P],
+                   _I, _I, _I, _P, _P, _P],
     # x, dt, s, dy, res, dx, part, R, D, blocks, stream
     "istvt_ln_bwd_rows": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # part, nout, P, N, out, stream
@@ -204,21 +204,26 @@ def build(force: bool = False) -> Path:
 
 
 # SASS opcodes of the tensor cores' float products: HMMA (mma.sync) and HGMMA
-# (wgmma); the int8 ones, IMMA (mma.sync) and IGMMA (wgmma), are not among them
+# (wgmma, bf16 or TF32); the int8 ones, IMMA (mma.sync) and IGMMA (wgmma), are
+# not among them
 TENSOR_OPS = ("HMMA.", "HGMMA.")
 
 
 def tensor_ops_of_sass(sass: str, ops=TENSOR_OPS) -> Dict[str, int]:
     """{kernel function (mangled name): its instructions of the opcodes
-    `ops`} in `cuobjdump -sass` output (by default every bf16 tensor-core
-    product, HMMA and HGMMA; ("HGMMA.",) counts wgmma alone)."""
+    `ops`} in `cuobjdump -sass` output: each op a literal substring of the
+    line or a compiled regular expression searched in it (by default every
+    bf16 or TF32 tensor-core product, HMMA and HGMMA; ("HGMMA.",) counts
+    wgmma alone, (selfcheck.TF32_WGMMA_OP,) its TF32 form)."""
     counts: Dict[str, int] = {}
     fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts.setdefault(fn, 0)
-        elif fn is not None and any(op in line for op in ops):
+        elif fn is not None and any(
+                op in line if isinstance(op, str) else op.search(line)
+                for op in ops):
             counts[fn] += 1
     return counts
 

@@ -31,40 +31,58 @@
 // rows, the (N, 4D) FF hidden and the backward's dy / dh1 in VMEM; here they go
 // through device memory in the dtype JAX rounds them to (the activation dtype, or f32
 // where the JAX kernel keeps f32), so the numbers are the same at the cost of extra
-// round trips. In f32 (the attention-map path's dtype) the GEMMs run on the FMA
-// pipes, 67 TFLOP/s at most.
+// round trips. In f32 (the attention-map path's dtype, and the CLIs' serving and
+// training without --bf16) the FMA pipes give 67 TFLOP/s at most; single-pass TF32
+// (495 TFLOP/s) rounds each input to 11 bits and misses f32 accuracy by about 1e-3.
+// So f32 runs three TF32 products on the tensor cores, a_lo b_hi + a_hi b_lo + a_hi
+// b_hi with x = x_hi + x_lo, x_hi = rna_tf32(x), x_lo = rna_tf32(x - x_hi): the
+// dropped a_lo b_lo and the roundings leave about 2^-21 of each product, as close to
+// f32 as the FMA pipes' own summation order; the ceiling is 495 / 3 = 165 TFLOP/s.
 //
-// What the design does about it: the bf16 GEMM is warp-specialised on Hopper's
+// What the design does about it: both GEMMs are warp-specialised on Hopper's
 // asynchronous units (wgmma.cuh). A block of 384 threads owns one SM and walks over
 // 128 x 128 output tiles (persistent: one block per SM, the tiles taken in turn):
 // warpgroup 2 gives up its registers (setmaxnreg) and one of its threads starts TMA
-// loads of 64-deep A and B tiles into a ring of kStages stages in dynamic shared
+// loads of the k-step's A and B tiles into a ring of kStages stages in dynamic shared
 // memory, running ahead into the next tile while the consumers finish one (an mbarrier
 // pair per stage: "full" completes on the tiles' bytes, "empty" when all 8 consumer
 // warps are done with the stage); warpgroups 0 and 1 take the registers and run wgmma
-// m64n128k16 (bf16 in, f32 sums) on 64 rows each, straight from shared memory. Each
-// operand is read in its stored layout, no transposed copy: the TMA box and the
-// 128-byte swizzle match the wgmma descriptor of that operand's major (NN: A K-major, B
-// N-major; NT: both K-major, the (N, K) weight as stored; TN: A M-major, B N-major,
-// through wgmma's transpose bits). TMA zero-fills the K tail (728 = 11 * 64 + 24) and
-// the M / N edges, and the epilogue masks its stores. The epilogue (+ bias, stash,
-// tanh-GELU, + residual; or the GELU derivative) runs on the wgmma accumulator
-// registers in the JAX order, in f32, with one rounding; its bias goes to shared
-// memory and its residual or GELU input to registers before the tile's main loop, so
-// their latency hides under it. Column sums over rows (db1, ds, db) are written per
-// 128-row tile and added by a second pass in a fixed order, not with atomics, so every
-// result is deterministic. The weight gradients (TN, K = the rows) are split along K
-// where whole tiles would leave the SMs under a wave (kernels/linear.plan_splitk):
-// each slice writes an f32 partial and colsum adds them in slice order. Float32 inputs
-// run a plain FMA tile (64x64, 4x4 outputs a thread) with the same layouts and
-// epilogues: no TF32, so f32 results stay within rounding of the f32 reference.
-// Measured on the H100 and left out (PERF.md): a 128 x 256 tile (slower but
-// for TN), two blocks an SM (the wgmma needs more than the 80 registers a thread that
-// leaves), a fifth stage, a second wgmma group in flight. Not yet used: an epilogue
-// that overlaps the next tile's products (consumer warpgroups on alternate tiles),
-// TMA stores, clusters and multicast (each block reads its A and B tiles from L2,
-// about 32 KB per 64-deep step of a tile, which L2's bandwidth caps), fusing LN into
-// the A load.
+// on 64 rows each. TMA zero-fills the K tail (728 = 11 * 64 + 24) and the M / N edges,
+// and the epilogue masks its stores.
+//   * bf16: 64-deep k-steps, wgmma m64n128k16 straight from shared memory. Each
+//     operand is read in its stored layout, no transposed copy: the TMA box and the
+//     128-byte swizzle match the wgmma descriptor of that operand's major (NN: A
+//     K-major, B N-major; NT: both K-major, the (N, K) weight as stored; TN: A M-major,
+//     B N-major, through wgmma's transpose bits).
+//   * f32: 32-deep k-steps (one 128-byte row of f32), wgmma m64n128k8 tf32, which has
+//     no transpose bits. B is read from shared memory as two K-major planes, B_hi and
+//     B_lo (N, K), that a pass writes once a call (tf32_planes_kernel: the weight for NN
+//     and NT, 8.5 MB at most; for TN the (rows, N) gradient, transposed there). A is
+//     loaded by each consumer from its stage in the stored major (K-major, or M-major
+//     for TN), split into TF32 hi / lo in registers and given to wgmma as the register
+//     operand, so the activations need no extra pass. A stage is 48 KB (A 16, B_hi 16,
+//     B_lo 16); a k-step issues the small products before a_hi b_hi, in two halves of
+//     six wgmma, the second half's loads and splits running while the first half's
+//     products are in flight. The tensor cores round each wgmma's f32 sum toward zero,
+//     so a k-step sums into a fresh accumulator that an IEEE add then folds into the
+//     tile's sums: summed in one accumulator over K = 2912, the bias reached 7e-5, seven
+//     times the f32 check's tolerance (PERF.md).
+// The epilogue (+ bias, stash, tanh-GELU, + residual; or the GELU derivative) runs on
+// the wgmma accumulator registers in the JAX order, in f32, with one rounding; its bias
+// goes to shared memory and its residual or GELU input to registers before the tile's
+// main loop, so their latency hides under it. Column sums over rows (db1, ds, db) are
+// written per 128-row tile and added by a second pass in a fixed order, not with
+// atomics, so every result is deterministic. The weight gradients (TN, K = the rows)
+// are split along K where whole tiles would leave the SMs under a wave
+// (kernels/linear.plan_splitk): each slice writes an f32 partial and colsum adds them
+// in slice order. Measured on the H100 and left out (PERF.md): a 128 x 256 tile (slower
+// but for TN), two blocks an SM (the wgmma needs more than the 80 registers a thread
+// that leaves), a fifth stage, a second wgmma group in flight (bf16). Not yet used: an
+// epilogue that overlaps the next tile's products (consumer warpgroups on alternate
+// tiles), TMA stores, clusters and multicast (each block reads its A and B tiles from
+// L2), fusing LN into the A load.
+#include <type_traits>
+
 #include "wgmma.cuh"
 
 namespace istvt {
@@ -136,39 +154,62 @@ __device__ __forceinline__ float epi_value(const Epi& e, float v, size_t o, int 
   return v;
 }
 
-// (ii) bf16 GEMM on wgmma (see the header): 128 x 128 x 64 block tiles, kStages
-// TMA-filled stages, warpgroups 0-1 consume, warpgroup 2 produces.
-constexpr int kBM = kTileM, kBN = kTileN, kBK = 64, kGemmThreads = 384;
+// (ii) the wgmma GEMMs (see the header): 128 x 128 output tiles, kStages TMA-filled
+// stages, warpgroups 0-1 consume, warpgroup 2 produces; bf16 64 deep a k-step, f32 32.
+constexpr int kBM = kTileM, kBN = kTileN, kBK = 64, kFK = 32, kGemmThreads = 384;
 // the ring's depth, and the registers a thread of the producer / consumer warpgroups
 // keeps after setmaxnreg (of the block's 384 x 168 at launch)
 constexpr int kStages = 4, kProducerRegs = 40, kConsumerRegs = 232;
 
-// Dynamic shared memory of a block: the A and B rings, the full / empty barriers, the
-// column-sum scratch [8 warps][kBN], the bias tile [kBN], and 1 KB to align the rings
-// to the swizzle atom.
+// Dynamic shared memory of a block: the rings (bf16: A and B; f32: A, B_hi and B_lo),
+// the full / empty barriers, the column-sum scratch [8 warps][kBN], the bias tile [kBN],
+// and 1 KB to align the rings to the swizzle atom.
 constexpr int kGemmSmem = kStages * (kBM + kBN) * kBK * 2 + 2 * kStages * 8 + 9 * kBN * 4 + 1024;
+constexpr int kF32Smem = kStages * (kBM + 2 * kBN) * kFK * 4 + 2 * kStages * 8 + 9 * kBN * 4 +
+                         1024;
 
-// epi_value of the bf16 GEMM on the pair of columns (col, col + 1) at the even flat
+// A side tensor's pair of columns (col, col + 1) in registers, in the input dtype T.
+template <typename T> struct PairOf;
+template <> struct PairOf<__nv_bfloat16> { using type = __nv_bfloat162; };
+template <> struct PairOf<float> { using type = float2; };
+__device__ __forceinline__ float2 pair_f(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+__device__ __forceinline__ float2 pair_f(float2 v) { return v; }
+template <typename T> __device__ __forceinline__ typename PairOf<T>::type zero_pair();
+template <> __device__ __forceinline__ __nv_bfloat162 zero_pair<__nv_bfloat16>() {
+  return __floats2bfloat162_rn(0.f, 0.f);
+}
+template <> __device__ __forceinline__ float2 zero_pair<float>() { return make_float2(0.f, 0.f); }
+
+// Stores the pair (a, b) in T at the even flat index o of p.
+template <typename T> __device__ __forceinline__ void store_side(void* p, size_t o, float a, float b);
+template <>
+__device__ __forceinline__ void store_side<__nv_bfloat16>(void* p, size_t o, float a, float b) {
+  static_cast<__nv_bfloat162*>(p)[o >> 1] = __floats2bfloat162_rn(a, b);
+}
+template <> __device__ __forceinline__ void store_side<float>(void* p, size_t o, float a, float b) {
+  static_cast<float2*>(p)[o >> 1] = make_float2(a, b);
+}
+
+// epi_value of the wgmma GEMMs on the pair of columns (col, col + 1) at the even flat
 // index o: the same arithmetic in the same order, the pair of bias values `b` (read
 // only if e.bias is set) and of the side tensor's values `side` (res for kEpiStd /
 // kEpiStash, aux for kEpiGeluBwd; read only where they are set) given, the side
-// output stored as a pair.
-template <int EPI>
+// output stored as a pair in the input dtype T.
+template <typename T, int EPI>
 __device__ __forceinline__ float2 epi_pair(const Epi& e, float v0, float v1, size_t o, float2 b,
                                            float2 side) {
   if (EPI == kEpiGeluBwd) {
     float val0, d0, val1, d1;
     gelu_tanh_and_grad(side.x, val0, d0);
     gelu_tanh_and_grad(side.y, val1, d1);
-    static_cast<__nv_bfloat162*>(e.out2)[o >> 1] = __floats2bfloat162_rn(val0, val1);
+    store_side<T>(e.out2, o, val0, val1);
     return make_float2(__fmul_rn(v0, d0), __fmul_rn(v1, d1));
   }
   if (e.bias != nullptr) {
     v0 = __fadd_rn(v0, b.x);
     v1 = __fadd_rn(v1, b.y);
   }
-  if (EPI == kEpiStash)
-    static_cast<__nv_bfloat162*>(e.out2)[o >> 1] = __floats2bfloat162_rn(v0, v1);
+  if (EPI == kEpiStash) store_side<T>(e.out2, o, v0, v1);
   if (e.gelu) {
     v0 = gelu_tanh(v0);
     v1 = gelu_tanh(v1);
@@ -178,6 +219,89 @@ __device__ __forceinline__ float2 epi_pair(const Epi& e, float v0, float v1, siz
     v1 = __fadd_rn(v1, side.y);
   }
   return make_float2(v0, v1);
+}
+
+// The epilogue's operands of a tile, read before its main loop so that their latency
+// hides under it: (N even) this thread's pairs of res or aux, at its accumulator
+// positions, zero where there are none.
+template <typename T, int EPI>
+__device__ __forceinline__ void load_side(typename PairOf<T>::type (&side)[16][2], const Epi& epi,
+                                          bool vec, int M, int N, int m0, int n0, int wg,
+                                          int warp, int g, int q) {
+  using P = typename PairOf<T>::type;
+  const P* side_g = static_cast<const P*>(EPI == kEpiGeluBwd ? epi.aux : epi.res);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wg * 64 + warp * 16 + g + 8 * h;
+      const int col = n0 + i * 8 + 2 * q;
+      side[i][h] = zero_pair<T>();
+      if (vec && side_g != nullptr && row < M && col < N)
+        side[i][h] = side_g[(static_cast<size_t>(row) * N + col) >> 1];
+    }
+}
+
+// The epilogue of a tile on the accumulators: thread (warpgroup wg, warp, g, q) holds
+// rows 64 wg + 16 warp + g (+ 8), columns 8 i + 2 q (+ 1); the tile's bias columns are
+// in sbias; kEpiGeluBwd's column sums go through red to epi.part's row mt.
+template <typename T, typename OutT, int EPI>
+__device__ __forceinline__ void store_tile(const float (&acc)[64],
+                                           const typename PairOf<T>::type (&side)[16][2],
+                                           const Epi& epi, OutT* dst, const float* sbias,
+                                           float* red, bool vec, int M, int N, int m0, int n0,
+                                           int mt, int wg, int warp, int g, int q) {
+  const int c = threadIdx.x;  // 0..255 over the consumers
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int col = n0 + i * 8 + 2 * q;
+    float csum[2] = {0.f, 0.f};  // kEpiGeluBwd: the column pair's sum over h
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wg * 64 + warp * 16 + g + 8 * h;
+      if (row >= M || col >= N) continue;
+      const size_t o = static_cast<size_t>(row) * N + col;
+      const float a0 = acc[4 * i + 2 * h], a1 = acc[4 * i + 2 * h + 1];
+      if (vec) {  // N even, so col + 1 < N too
+        const int cl = col - n0;
+        const float2 v = epi_pair<T, EPI>(epi, a0, a1, o, make_float2(sbias[cl], sbias[cl + 1]),
+                                          pair_f(side[i][h]));
+        store_pair<OutT>(dst + o, v.x, v.y, true);
+        csum[0] += v.x;
+        csum[1] += v.y;
+      } else {
+        const float v0 = epi_value<T, EPI>(epi, a0, o, col);
+        if (col + 1 < N) {
+          const float v1 = epi_value<T, EPI>(epi, a1, o + 1, col + 1);
+          store_pair<OutT>(dst + o, v0, v1, false);
+          csum[1] += v1;
+        } else {
+          dst[o] = from_f<OutT>(v0);
+        }
+        csum[0] += v0;
+      }
+    }
+    if constexpr (EPI == kEpiGeluBwd) {
+      // column sums of the tile's 128 rows: over the 8 row groups of a warp
+      // (lane bits 2-4) here, then over the 8 consumer warps in order below
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          csum[e] += __shfl_xor_sync(0xffffffffu, csum[e], off);
+        if (g == 0) red[(wg * 4 + warp) * kBN + i * 8 + 2 * q + e] = csum[e];
+      }
+    }
+  }
+  if constexpr (EPI == kEpiGeluBwd) {
+    bar_sync(256);
+    if (c < kBN && n0 + c < N) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) v += red[w * kBN + c];
+      epi.part[static_cast<size_t>(mt) * N + n0 + c] = v;
+    }
+  }
 }
 
 // out (M, N) (+ z M N for split-K slice z's partial) = epilogue(A @ B), A's and B's
@@ -239,8 +363,6 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_bf16_wgmma_kernel(
     const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
     const int c = threadIdx.x;      // 0..255 over the consumers
     const bool vec = (N & 1) == 0;  // the pair at an even column is 8- / 4-byte aligned
-    const __nv_bfloat162* side_g = static_cast<const __nv_bfloat162*>(
-        EPI == kEpiGeluBwd ? epi.aux : epi.res);
     // the warpgroup's 64 A rows (K-major) or its 64-wide M slab (M-major): 8 KB in
     const unsigned a_base = smem_u32(As) + wg * 64 * kBK * 2;
     const unsigned b_base = smem_u32(Bs);
@@ -248,23 +370,12 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_bf16_wgmma_kernel(
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       int m0, n0, mt, z, kb, ke;
       grid.at(tile, m0, n0, mt, z, kb, ke);
-      // the epilogue's operands, read now so that their latency hides under the
-      // main loop: the tile's bias columns into shared memory (once both warpgroups
-      // are past the last tile's epilogue), and (N even) this thread's pairs of res
-      // or aux into registers
+      // the tile's bias columns into shared memory (once both warpgroups are past the
+      // last tile's epilogue), its res or aux pairs into registers
       bar_sync(256);
       if (epi.bias != nullptr && c < kBN) sbias[c] = n0 + c < N ? epi.bias[n0 + c] : 0.f;
       __nv_bfloat162 side[16][2];
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + wg * 64 + warp * 16 + g + 8 * h;
-          const int col = n0 + i * 8 + 2 * q;
-          side[i][h] = __floats2bfloat162_rn(0.f, 0.f);
-          if (vec && side_g != nullptr && row < M && col < N)
-            side[i][h] = side_g[(static_cast<size_t>(row) * N + col) >> 1];
-        }
+      load_side<__nv_bfloat16, EPI>(side, epi, vec, M, N, m0, n0, wg, warp, g, q);
       bar_sync(256);  // sbias is written
 
       float acc[64];
@@ -291,146 +402,194 @@ __global__ void __launch_bounds__(kGemmThreads, 1) gemm_bf16_wgmma_kernel(
         fence_regs(acc);
         if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
       }
-
-      // epilogue on the accumulators: thread (warp, g, q) holds rows 16 warp + g (+ 8),
-      // columns 8 i + 2 q (+ 1)
-      OutT* dst = out + static_cast<size_t>(z) * M * N;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int col = n0 + i * 8 + 2 * q;
-        float csum[2] = {0.f, 0.f};  // kEpiGeluBwd: the column pair's sum over h
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + wg * 64 + warp * 16 + g + 8 * h;
-          if (row >= M || col >= N) continue;
-          const size_t o = static_cast<size_t>(row) * N + col;
-          const float a0 = acc[4 * i + 2 * h], a1 = acc[4 * i + 2 * h + 1];
-          if (vec) {  // N even, so col + 1 < N too
-            const int cl = col - n0;
-            const float2 v = epi_pair<EPI>(epi, a0, a1, o, make_float2(sbias[cl], sbias[cl + 1]),
-                                           __bfloat1622float2(side[i][h]));
-            store_pair<OutT>(dst + o, v.x, v.y, true);
-            csum[0] += v.x;
-            csum[1] += v.y;
-          } else {
-            const float v0 = epi_value<__nv_bfloat16, EPI>(epi, a0, o, col);
-            if (col + 1 < N) {
-              const float v1 = epi_value<__nv_bfloat16, EPI>(epi, a1, o + 1, col + 1);
-              store_pair<OutT>(dst + o, v0, v1, false);
-              csum[1] += v1;
-            } else {
-              dst[o] = from_f<OutT>(v0);
-            }
-            csum[0] += v0;
-          }
-        }
-        if constexpr (EPI == kEpiGeluBwd) {
-          // column sums of the tile's 128 rows: over the 8 row groups of a warp
-          // (lane bits 2-4) here, then over the 8 consumer warps in order below
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-#pragma unroll
-            for (int off = 4; off < 32; off <<= 1)
-              csum[e] += __shfl_xor_sync(0xffffffffu, csum[e], off);
-            if (g == 0) red[(wg * 4 + warp) * kBN + i * 8 + 2 * q + e] = csum[e];
-          }
-        }
-      }
-      if constexpr (EPI == kEpiGeluBwd) {
-        bar_sync(256);
-        if (c < kBN && n0 + c < N) {
-          float v = 0.f;
-#pragma unroll
-          for (int w = 0; w < 8; ++w) v += red[w * kBN + c];
-          epi.part[static_cast<size_t>(mt) * N + n0 + c] = v;
-        }
-      }
+      store_tile<__nv_bfloat16, OutT, EPI>(acc, side, epi, out + static_cast<size_t>(z) * M * N,
+                                           sbias, red, vec, M, N, m0, n0, mt, wg, warp, g, q);
     }
   }
 }
 
-// (iii) float32 GEMM on the FMA pipes (no TF32): 64 x 64 block tile, 16 deep,
-// each thread 4 x 4 outputs at rows ty + 16 i, columns tx + 16 j.
-constexpr int kFM = 64, kFN = 64, kFK = 16;
+// The TF32 hi / lo halves of this thread's A fragments for the 8-deep k-slices 2 h
+// and 2 h + 1 of a stage's A tile `a` (128 rows x 32 k of f32, 128-byte swizzled):
+// K-major, rows of 32 k; or (kAm, TN) M-major, four 32-wide M slabs of 32 k-rows.
+// Element i of slice 2 h + j is (row 64 wg + 16 warp + g + 8 (i % 2), k 8 (2 h + j) + q
+// + 4 (i / 2)) (wgmma_m64n128k8_tf32's A fragment); both layouts read it without bank
+// conflicts but for the M-major's two-way ones.
+template <bool kAm>
+__device__ __forceinline__ void load_a_split(const float* a, int wg, int warp, int g, int q, int h,
+                                             unsigned (&hi)[2][4], unsigned (&lo)[2][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wg * 64 + warp * 16 + g + 8 * (i & 1);
+      const int k = 8 * (2 * h + j) + q + 4 * (i >> 1);
+      float x;
+      if (kAm) {
+        const int mm = r & 31;
+        x = a[(r >> 5) * 1024 + k * 32 + ((((mm >> 2) ^ (k & 7))) << 2) + (mm & 3)];
+      } else {
+        x = a[r * 32 + (((k >> 2) ^ (r & 7)) << 2) + (k & 3)];
+      }
+      hi[j][i] = tf32_rna(x);
+      lo[j][i] = tf32_rna(__fsub_rn(x, __uint_as_float(hi[j][i])));
+    }
+}
 
+// (iii) The f32 GEMM as three TF32 products (see the header): the bf16 kernel's ring,
+// tile walk and epilogue; B from its two planes (N, K) hi and lo, A split in registers.
+// The tensor cores round each product's f32 sum toward zero, a bias of half a unit of
+// the sum's last place a wgmma, which over K / 8 x 3 wgmma into one sum (1,092 at K =
+// 2912) grows with K to several times f32's error. So a k-step's twelve wgmma (k-slices
+// 0-3: a_lo b_hi, a_hi b_lo, a_hi b_hi each) start a fresh sum `part` (the first with
+// scale-d 0), in two halves committed as one group each (the second half's loads and
+// splits overlap the first's products), and part is added to the tile's sums `acc`
+// with an IEEE add once both groups are done: the truncation then falls on a 32-deep
+// partial sum, of random sign from one k-step to the next. The next k-step's first
+// half of A is loaded and split once the first half's group is done, under the second
+// half's products.
 template <int L, int EPI>
-__global__ void __launch_bounds__(256) gemm_f32_kernel(
-    const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ out, Epi epi,
-    int M, int N, int K) {
-  __shared__ float As[kFK][kFM + 4];  // [k][m]
-  __shared__ float Bs[kFK][kFN + 4];  // [k][n]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kFM, n0 = blockIdx.x * kFN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+__global__ void __launch_bounds__(kGemmThreads, 1) gemm_f32_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_bh,
+    const __grid_constant__ CUtensorMap tma_bl, float* __restrict__ out, Epi epi, int M, int N,
+    TileGrid grid) {
+  constexpr bool kAm = L == kTN;  // A stored (K, M): M-major
+  constexpr int kAStage = kBM * kFK, kBStage = kBN * kFK;  // elements
+  constexpr unsigned kTxBytes = (kAStage + 2 * kBStage) * 4;  // the full boxes, edges too
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* As = reinterpret_cast<float*>(base);
+  float* Bh = As + kStages * kAStage;
+  float* Bl = Bh + kStages * kBStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bl + kStages * kBStage);
+  uint64_t* empty = full + kStages;
+  float* red = reinterpret_cast<float*>(empty + kStages);
+  float* sbias = red + 8 * kBN;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int tiles = grid.count();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < K; k0 += kFK) {
+  if (wg == 2) {
+    regs_dealloc<kProducerRegs>();
+    if (t == 0)
+      produce_ring<kStages>(grid, tiles, full, empty, kTxBytes, [&](int s, int m0, int n0, int kt) {
+        const int k0 = kt * kFK;
+        float* a = As + s * kAStage;
+        if (kAm) {  // four 32-wide M slabs of 32 K-rows
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * 256;
-      if (L == kTN) {  // A stored (K, M)
-        const int kk = idx >> 6, mm = idx & 63, gk = k0 + kk, gm = m0 + mm;
-        As[kk][mm] = (gm < M && gk < K) ? A[static_cast<size_t>(gk) * M + gm] : 0.f;
-      } else {
-        const int mm = idx >> 4, kk = idx & 15, gm = m0 + mm, gk = k0 + kk;
-        As[kk][mm] = (gm < M && gk < K) ? A[static_cast<size_t>(gm) * K + gk] : 0.f;
+          for (int j = 0; j < kBM / 32; ++j)
+            tma_load_2d(a + j * 32 * kFK, &tma_a, &full[s], m0 + 32 * j, k0);
+        } else {  // 128 rows of 32 K
+          tma_load_2d(a, &tma_a, &full[s], k0, m0);
+        }
+        tma_load_2d(Bh + s * kBStage, &tma_bh, &full[s], k0, n0);
+        tma_load_2d(Bl + s * kBStage, &tma_bl, &full[s], k0, n0);
+      });
+  } else {
+    regs_alloc<kConsumerRegs>();
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+    const int c = threadIdx.x;
+    const bool vec = (N & 1) == 0;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0, mt, z, kb, ke;
+      grid.at(tile, m0, n0, mt, z, kb, ke);
+      bar_sync(256);
+      if (epi.bias != nullptr && c < kBN) sbias[c] = n0 + c < N ? epi.bias[n0 + c] : 0.f;
+      bar_sync(256);
+
+      float acc[64], part[64];
+#pragma unroll
+      for (int r = 0; r < 64; ++r) acc[r] = part[r] = 0.f;
+      // the first half of the next k-step's A fragments, loaded ahead
+      unsigned nhi[2][4], nlo[2][4];
+      if (kb < ke) {
+        const int s = it % kStages;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        load_a_split<kAm>(As + s * kAStage, wg, warp, g, q, 0, nhi, nlo);
       }
-    }
+      for (int kt = kb; kt < ke; ++kt, ++it) {
+        const int s = it % kStages;
+        const float* a = As + s * kAStage;
+        const unsigned bh = smem_u32(Bh + s * kBStage), bl = smem_u32(Bl + s * kBStage);
+        unsigned ahi[2][4], alo[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * 256;
-      if (L == kNT) {  // B stored (N, K)
-        const int nn = idx >> 4, kk = idx & 15, gk = k0 + kk, gn = n0 + nn;
-        Bs[kk][nn] = (gk < K && gn < N) ? B[static_cast<size_t>(gn) * K + gk] : 0.f;
-      } else {
-        const int kk = idx >> 6, nn = idx & 63, gk = k0 + kk, gn = n0 + nn;
-        Bs[kk][nn] = (gk < K && gn < N) ? B[static_cast<size_t>(gk) * N + gn] : 0.f;
+        for (int h = 0; h < 2; ++h) {
+          if (h == 1) load_a_split<kAm>(a, wg, warp, g, q, 1, ahi, alo);
+          fence_regs(part);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int kk = 2 * h + j;
+            const unsigned(&hi)[4] = h == 0 ? nhi[j] : ahi[j];
+            const unsigned(&lo)[4] = h == 0 ? nlo[j] : alo[j];
+            const uint64_t dh = wgmma_desc(bh + kk * 32, 16, 1024);
+            const uint64_t dl = wgmma_desc(bl + kk * 32, 16, 1024);
+            wgmma_m64n128k8_tf32(part, lo, dh, kk != 0);
+            wgmma_m64n128k8_tf32(part, hi, dl, 1);
+            wgmma_m64n128k8_tf32(part, hi, dh, 1);
+          }
+          wgmma_commit();
+        }
+        // the first half's group is done, so its fragments may be overwritten with
+        // the next k-step's while the second half's products run
+        fence_regs(part);
+        wgmma_wait<1>();
+        fence_regs(part);
+        if (kt + 1 < ke) {
+          const int s1 = (it + 1) % kStages;
+          mbar_wait(&full[s1], ((it + 1) / kStages) & 1);
+          load_a_split<kAm>(As + s1 * kAStage, wg, warp, g, q, 0, nhi, nlo);
+        }
+        wgmma_wait<0>();
+        fence_regs(part);
+        if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+#pragma unroll
+        for (int r = 0; r < 64; ++r) acc[r] = __fadd_rn(acc[r], part[r]);
       }
+      // the epilogue's res or aux pairs, read after the main loop (its registers hold
+      // part): their latency is not hidden
+      float2 side[16][2];
+      load_side<float, EPI>(side, epi, vec, M, N, m0, n0, wg, warp, g, q);
+      store_tile<float, float, EPI>(acc, side, epi, out + static_cast<size_t>(z) * M * N, sbias,
+                                    red, vec, M, N, m0, n0, mt, wg, warp, g, q);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+  }
+}
+
+// The B planes of the f32 GEMM: hi = rna_tf32(b), lo = rna_tf32(b - hi), each (N, kp)
+// K-major, from b stored (N, K) (kT false: NT's weight) or (K, N) (kT: NN's weight, TN's
+// gradient), transposed through a 32 x 32 shared-memory tile so that both the reads and
+// the writes are 128-byte rows. Columns K .. kp - 1 are not written (TMA never reads
+// them).
+template <bool kT>
+__global__ void __launch_bounds__(256) tf32_planes_kernel(const float* __restrict__ b,
+                                                          float* __restrict__ hi,
+                                                          float* __restrict__ lo, int N, int K,
+                                                          int kp) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32, tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  if (kT) {
+    for (int i = ty; i < 32; i += 8) {
+      const int k = k0 + i, n = n0 + tx;
+      tile[i][tx] = k < K && n < N ? b[static_cast<size_t>(k) * N + n] : 0.f;
     }
     __syncthreads();
   }
-  float csum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N) {
-        const size_t o = static_cast<size_t>(row) * N + col;
-        const float v = epi_value<float, EPI>(epi, acc[i][j], o, col);
-        out[o] = v;
-        if (EPI == kEpiGeluBwd) csum[j] += v;
-      }
-    }
-  }
-  if (EPI == kEpiGeluBwd) {
-    float* red = &As[0][0];  // [16][64]; the tiles are done
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[ty * kFN + tx + 16 * j] = csum[j];
-    __syncthreads();
-    if (tid < kFN && n0 + tid < N) {
-      float v = 0.f;
-      for (int r = 0; r < 16; ++r) v += red[r * kFN + tid];
-      epi.part[static_cast<size_t>(blockIdx.y) * N + n0 + tid] = v;
-    }
+  for (int i = ty; i < 32; i += 8) {
+    const int n = n0 + i, k = k0 + tx;
+    if (n >= N || k >= K) continue;
+    const float x = kT ? tile[tx][i] : b[static_cast<size_t>(n) * K + k];
+    const unsigned h = tf32_rna(x);
+    const size_t o = static_cast<size_t>(n) * kp + k;
+    hi[o] = __uint_as_float(h);
+    lo[o] = __uint_as_float(tf32_rna(__fsub_rn(x, __uint_as_float(h))));
   }
 }
 
@@ -516,84 +675,118 @@ __global__ void __launch_bounds__(256) colsum_kernel(const float* __restrict__ p
 }
 
 
-// The TMA map of a row-major bf16 (rows, cols) matrix in boxes of 64 columns x box_rows
-// rows (wgmma.cuh's tile_map; cols a multiple of 8).
-bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, cols, box_rows);
+// The TMA map of a row-major (rows, cols) matrix of T (bf16 or f32) with rows ld
+// elements apart, in boxes of 128 bytes x box_rows rows (wgmma.cuh's tile_map).
+template <typename T>
+bool tile_map_of(CUtensorMap* map, const void* base, int rows, int cols, long ld, int box_rows) {
+  if (std::is_same<T, float>::value)
+    return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, cols, ld, box_rows);
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, ld, box_rows);
 }
 
-template <int L, typename OutT, int EPI>
-int launch_wgmma(const void* a, const void* b, OutT* out, const Epi& epi, int M, int N, int K,
-                 int splits, int kslice, cudaStream_t st) {
-  CUtensorMap ma, mb;
-  const bool ok = (L == kTN ? bf16_map(&ma, a, K, M, 64) : bf16_map(&ma, a, M, K, kBM)) &&
-                  (L == kNT ? bf16_map(&mb, b, N, K, kBN) : bf16_map(&mb, b, K, N, 64));
-  if (!ok || sm_count() < 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = gemm_bf16_wgmma_kernel<L, OutT, EPI>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+// One GEMM's operands: a as stored, and b as stored (bf16) or the B planes (f32: hi
+// (N, kp), then lo), with the epilogue and the stream.
+struct GemmArgs {
+  const void* a;
+  const void* b;
+  Epi epi;
+  int M, N, K, kp;
+  cudaStream_t st;
+};
+
+// A persistent launch of kern over grid's tiles, one block an SM at most, with smem
+// bytes of dynamic shared memory (allowed once per kernel by its caller: attr).
+template <typename Kern, typename... Args>
+int launch_tiles(Kern kern, cudaError_t attr, int smem, const TileGrid& grid, cudaStream_t st,
+                 Args... args) {
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const TileGrid grid{(N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits, kslice,
-                      (K + kBK - 1) / kBK};
-  const int tiles = grid.tn * grid.tm * splits;
+  const int tiles = grid.tn * grid.tm * grid.splits;
   if (tiles == 0) return 0;
-  kern<<<tiles < sm_count() ? tiles : sm_count(), kGemmThreads, kGemmSmem, st>>>(ma, mb, out, epi,
-                                                                                  M, N, grid);
+  kern<<<tiles < sm_count() ? tiles : sm_count(), kGemmThreads, smem, st>>>(args..., grid);
   return 0;
+}
+
+template <typename T, int L, typename OutT, int EPI>
+int launch_one(const GemmArgs& g, void* out, int splits, int kslice) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int bk = kF32 ? kFK : kBK;
+  const TileGrid grid{(g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, splits, kslice,
+                      (g.K + bk - 1) / bk};
+  CUtensorMap ma, mb, ml;
+  const bool a_ok = L == kTN ? tile_map_of<T>(&ma, g.a, g.K, g.M, g.M, kF32 ? 32 : 64)
+                             : tile_map_of<T>(&ma, g.a, g.M, g.K, g.K, kBM);
+  if (!a_ok || sm_count() < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kF32) {
+    const float* hi = static_cast<const float*>(g.b);
+    if (!tile_map_of<float>(&mb, hi, g.N, g.K, g.kp, kBN) ||
+        !tile_map_of<float>(&ml, hi + static_cast<size_t>(g.N) * g.kp, g.N, g.K, g.kp, kBN))
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto kern = gemm_f32_wgmma_kernel<L, EPI>;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+    return launch_tiles(kern, attr, kF32Smem, grid, g.st, ma, mb, ml, static_cast<float*>(out),
+                        g.epi, g.M, g.N);
+  } else {
+    if (!(L == kNT ? tile_map_of<T>(&mb, g.b, g.N, g.K, g.K, kBN)
+                   : tile_map_of<T>(&mb, g.b, g.K, g.N, g.N, 64)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto kern = gemm_bf16_wgmma_kernel<L, OutT, EPI>;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+    return launch_tiles(kern, attr, kGemmSmem, grid, g.st, ma, mb, static_cast<OutT*>(out), g.epi,
+                        g.M, g.N);
+  }
 }
 
 // The GELU-backward epilogue exists for the NT layout with an output in the input
 // dtype only (ln_ff_residual_bwd's dh1), the stash for NN with an output in the input
 // dtype only (ln_ff_residual_h1's fc1); split-K (splits > 1 slices of kslice k-tiles,
 // f32 partials in ws, kernels/linear.plan_splitk) for an f32 output without epilogue
-// only (the weight gradients); other combinations are refused.
-template <int L>
-int launch_bf16(const void* a, const void* b, void* out, int out_f32, int mode, const Epi& epi,
-                int M, int N, int K, int splits, int kslice, void* ws, cudaStream_t st) {
-  const int nk = (K + kBK - 1) / kBK;
-  auto O = static_cast<__nv_bfloat16*>(out);
+// only (the weight gradients); f32 inputs give an f32 output; other combinations are
+// refused.
+template <typename T, int L>
+int launch_gemm(const GemmArgs& g, void* out, int out_f32, int mode, int splits, int kslice,
+                void* ws) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const int nk = (g.K + (kF32 ? kFK : kBK) - 1) / (kF32 ? kFK : kBK);
+  const Epi& epi = g.epi;
+  if (kF32 && !out_f32) return static_cast<int>(cudaErrorInvalidValue);
   if (splits > 1) {
-    const long n = static_cast<long>(M) * N;
+    const long n = static_cast<long>(g.M) * g.N;
     if (mode != kEpiStd || epi.bias != nullptr || epi.res != nullptr || epi.out2 != nullptr ||
         epi.gelu || !out_f32 || ws == nullptr || kslice < 1 || (splits - 1) * kslice >= nk ||
         splits * kslice < nk || n > 0x7fffffffL)
       return static_cast<int>(cudaErrorInvalidValue);
-    const int rc = launch_wgmma<L, float, kEpiStd>(a, b, static_cast<float*>(ws), epi, M, N,
-                                                        K, splits, kslice, st);
+    const int rc = launch_one<T, L, float, kEpiStd>(g, ws, splits, kslice);
     if (rc != 0) return rc;
-    colsum_kernel<<<static_cast<int>((n + 255) / 256), 256, 0, st>>>(
+    colsum_kernel<<<static_cast<int>((n + 255) / 256), 256, 0, g.st>>>(
         static_cast<const float*>(ws), 1, splits, static_cast<int>(n), static_cast<float*>(out));
     return 0;
   }
   kslice = nk > 0 ? nk : 1;
+  const bool out_in_dt = out_f32 == kF32;
   if (mode == kEpiGeluBwd) {
-    if (L != kNT || out_f32 || epi.part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_wgmma<kNT, __nv_bfloat16, kEpiGeluBwd>(a, b, O, epi, M, N, K, 1, kslice, st);
+    if (L != kNT || !out_in_dt || epi.part == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_one<T, kNT, T, kEpiGeluBwd>(g, out, 1, kslice);
   }
   if (epi.out2 != nullptr) {
-    if (L != kNN || out_f32) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_wgmma<kNN, __nv_bfloat16, kEpiStash>(a, b, O, epi, M, N, K, 1, kslice, st);
+    if (L != kNN || !out_in_dt) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_one<T, kNN, T, kEpiStash>(g, out, 1, kslice);
   }
-  if (out_f32)
-    return launch_wgmma<L, float, kEpiStd>(a, b, static_cast<float*>(out), epi, M, N, K, 1,
-                                                kslice, st);
-  return launch_wgmma<L, __nv_bfloat16, kEpiStd>(a, b, O, epi, M, N, K, 1, kslice, st);
+  if (out_f32) return launch_one<T, L, float, kEpiStd>(g, out, 1, kslice);
+  return launch_one<T, L, T, kEpiStd>(g, out, 1, kslice);
 }
 
-template <int L>
-int launch_f32(const float* a, const float* b, float* out, int mode, const Epi& epi, int M, int N,
-               int K, cudaStream_t st) {
-  dim3 grid((N + kFN - 1) / kFN, (M + kFM - 1) / kFM);
-  if (mode == kEpiGeluBwd) {
-    if (L != kNT || epi.part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    gemm_f32_kernel<kNT, kEpiGeluBwd><<<grid, 256, 0, st>>>(a, b, out, epi, M, N, K);
-  } else if (epi.out2 != nullptr) {
-    if (L != kNN) return static_cast<int>(cudaErrorInvalidValue);
-    gemm_f32_kernel<kNN, kEpiStash><<<grid, 256, 0, st>>>(a, b, out, epi, M, N, K);
-  } else {
-    gemm_f32_kernel<L, kEpiStd><<<grid, 256, 0, st>>>(a, b, out, epi, M, N, K);
+template <typename T>
+int launch_layout(int layout, const GemmArgs& g, void* out, int out_f32, int mode, int splits,
+                  int kslice, void* ws) {
+  switch (layout) {
+    case kNN: return launch_gemm<T, kNN>(g, out, out_f32, mode, splits, kslice, ws);
+    case kNT: return launch_gemm<T, kNT>(g, out, out_f32, mode, splits, kslice, ws);
+    case kTN: return launch_gemm<T, kTN>(g, out, out_f32, mode, splits, kslice, ws);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
 }
 
 template <typename T, int DPL>
@@ -647,45 +840,40 @@ int istvt_ln_rows(const void* x, int x_dt, const void* s, const void* b, void* y
 // pre-activation -> out2 (dt, or null; layout NN, out in dt only), tanh-GELU if gelu,
 // + res (dt, or null);
 // mode 1 (layout NT, out in dt only): acc * gelu'(aux), gelu(aux) -> out2, with aux,
-// out2 (M, N) in dt, and part (f32 (ceil(M / tile), N)) the per-block-row column sums
-// of the f32 result (tile 128 rows for bf16, 64 for f32). splits > 1 (bf16 inputs, out
-// f32, mode 0 without bias, res, gelu or out2): K is cut into `splits` slices of
-// `kslice` 64-deep k-tiles (the last one shorter), each slice's product goes to its
-// (M, N) f32 partial in ws (splits, M, N), and the partials are added into out in
-// slice order; with splits = 1 kslice and ws are not read.
+// out2 (M, N) in dt, and part (f32 (ceil(M / 128), N)) the per-128-row column sums of
+// the f32 result. splits > 1 (out f32, mode 0 without bias, res, gelu or out2): K is
+// cut into `splits` slices of `kslice` k-tiles (64 deep for bf16, 32 for f32; the last
+// slice shorter), each slice's product goes to its (M, N) f32 partial in ws (splits, M,
+// N), and the partials are added into out in slice order; with splits = 1 kslice and ws
+// are not read. f32 inputs also take `planes`, f32 (2, N, kp) with kp = K rounded up to
+// a multiple of 4: the TF32 hi and lo planes of B, written here before the GEMM.
 int istvt_gemm(const void* a, const void* b, int dt, int layout, void* out, int out_f32,
                const void* bias, const void* res, int gelu, void* out2, const void* aux,
                void* part, int mode, int M, int N, int K, int splits, int kslice, void* ws,
-               void* stream) {
+               void* planes, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const Epi epi{static_cast<const float*>(bias), res, out2, aux, static_cast<float*>(part),
                 gelu};
-  int rc = 0;
-  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || layout < kNN || layout > kTN) return static_cast<int>(cudaErrorInvalidValue);
+  int rc;
   if (dt == kBF16) {
-    switch (layout) {
-      case kNN:
-        rc = launch_bf16<kNN>(a, b, out, out_f32, mode, epi, M, N, K, splits, kslice, ws, st);
-        break;
-      case kNT:
-        rc = launch_bf16<kNT>(a, b, out, out_f32, mode, epi, M, N, K, splits, kslice, ws, st);
-        break;
-      case kTN:
-        rc = launch_bf16<kTN>(a, b, out, out_f32, mode, epi, M, N, K, splits, kslice, ws, st);
-        break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    rc = launch_layout<__nv_bfloat16>(layout, GemmArgs{a, b, epi, M, N, K, K, st}, out, out_f32,
+                                      mode, splits, kslice, ws);
   } else {
-    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
-    auto A = static_cast<const float*>(a);
+    if (planes == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int kp = (K + 3) & ~3;
+    auto hi = static_cast<float*>(planes);
+    auto lo = hi + static_cast<size_t>(N) * kp;
     auto B = static_cast<const float*>(b);
-    auto O = static_cast<float*>(out);
-    switch (layout) {
-      case kNN: rc = launch_f32<kNN>(A, B, O, mode, epi, M, N, K, st); break;
-      case kNT: rc = launch_f32<kNT>(A, B, O, mode, epi, M, N, K, st); break;
-      case kTN: rc = launch_f32<kTN>(A, B, O, mode, epi, M, N, K, st); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 pg((K + 31) / 32, (N + 31) / 32);
+    if (K > 0 && N > 0) {
+      if (layout == kNT)
+        tf32_planes_kernel<false><<<pg, 256, 0, st>>>(B, hi, lo, N, K, kp);
+      else
+        tf32_planes_kernel<true><<<pg, 256, 0, st>>>(B, hi, lo, N, K, kp);
     }
+    rc = launch_layout<float>(layout, GemmArgs{a, planes, epi, M, N, K, kp, st}, out, out_f32,
+                              mode, splits, kslice, ws);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

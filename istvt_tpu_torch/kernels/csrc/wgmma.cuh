@@ -1,19 +1,22 @@
-// Hopper's asynchronous building blocks for the two wgmma GEMMs, the float one
-// (float_gemm.cu) and the int8 one (q8_rows_gemm.cuh, whose body the standalone kernel
-// and #9's GEMM phases run), in inline PTX: mbarriers, 2-D TMA loads, the proxy
-// fences, the wgmma shared-memory descriptor with the 128-byte swizzle, wgmma
-// m64n128k16 (bf16 in, f32 sums) and m64n128k32 (s8 in, s32 sums), setmaxnreg; and
+// Hopper's asynchronous building blocks for the wgmma GEMMs, the float ones
+// (float_gemm.cu: bf16, and f32 as three TF32 products) and the int8 one
+// (q8_rows_gemm.cuh, whose body the standalone kernel and #9's GEMM phases run), in
+// inline PTX: mbarriers, 2-D TMA loads, the proxy fences, the wgmma shared-memory
+// descriptor with the 128-byte swizzle, wgmma m64n128k16 (bf16 in, f32 sums),
+// m64n128k8 (tf32, A from registers, f32 sums) and m64n128k32 (s8 in, s32 sums), the
+// TF32 rounding, setmaxnreg; and
 // what both GEMMs share around them: the persistent walk over the output tiles
 // (TileGrid), the producer thread's loop that keeps the TMA ring full (produce_ring),
 // and on the host the tensor maps (tile_map) and the card's SM count.
 //
 // Shared-memory layouts (PTX ISA, "Shared Memory Matrix Layout"; CUTLASS's
 // canonical GMMA layouts), 128-byte swizzle, each atom 1024-byte aligned:
-//   * K-major (the K index contiguous): rows of 128 B (64 bf16 or 128 int8 elements)
-//     at a stride of 128 B, one row per M (or N) index; the descriptor's stride byte
-//     offset (SBO) is the stride between groups of 8 rows, 1024 B; its leading byte
-//     offset is unused. The k-th slice of one wgmma (16 bf16 or 32 int8 deep: 32 B)
-//     starts 32 k bytes into the row, so both types take the same descriptors.
+//   * K-major (the K index contiguous): rows of 128 B (64 bf16, 32 f32 or 128 int8
+//     elements) at a stride of 128 B, one row per M (or N) index; the descriptor's
+//     stride byte offset (SBO) is the stride between groups of 8 rows, 1024 B; its
+//     leading byte offset is unused. The k-th slice of one wgmma (16 bf16, 8 tf32 or 32
+//     int8 deep: 32 B) starts 32 k bytes into the row, so all types take the same
+//     descriptors.
 //   * MN-major (the M or N index contiguous; bf16 only, wgmma transposes no 8-bit
 //     operand): slabs of 64 K-rows x 64 elements, one
 //     K index per 128-byte row; SBO is the stride between groups of 8 K-rows, 1024 B,
@@ -22,10 +25,10 @@
 // A TMA load with CU_TENSOR_MAP_SWIZZLE_128B and a box whose inner extent is 128
 // bytes writes exactly these layouts.
 //
-// Fragment of the f32 accumulator of m64nNk16 and of the s32 one of m64nNk32 (PTX ISA,
-// "Register Fragments: wgmma .m64nNk16 / .m64nNk32"), thread t of the warpgroup, warp
-// w = t / 32, lane = 4 g + q: d[4 i + 2 h + e] = (row 16 w + g + 8 h, column 8 i + 2 q
-// + e), i < N / 8.
+// Fragment of the f32 accumulator of m64nNk16 and m64nNk8 and of the s32 one of
+// m64nNk32 (PTX ISA, "Register Fragments: wgmma .m64nNk16 / .m64nNk8 / .m64nNk32"),
+// thread t of the warpgroup, warp w = t / 32, lane = 4 g + q: d[4 i + 2 h + e] = (row
+// 16 w + g + 8 h, column 8 i + 2 q + e), i < N / 8.
 #pragma once
 
 #include <cuda.h>
@@ -171,9 +174,41 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d (64 x 128, f32) = A (64 x 8) @ B (8 x 128) (+ d if add), tf32. A from registers:
+// warp w of the warpgroup holds rows 16 w .. + 15 as the m16n8k8 tf32 fragment, lane
+// 4 g + q: a[i] = (row 16 w + g + 8 (i % 2), column q + 4 (i / 2)). B from shared memory,
+// K-major (tf32 has no transpose bits); each 8-deep slice is 32 bytes of the 128-byte
+// rows, so B takes the bf16 K-major descriptors. The tensor cores round the f32 sum of
+// each such product toward zero.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const unsigned (&a)[4],
+                                                     uint64_t db, int add) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : ISTVT_F8(0), ISTVT_F8(8), ISTVT_F8(16), ISTVT_F8(24), ISTVT_F8(32), ISTVT_F8(40),
+        ISTVT_F8(48), ISTVT_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(add));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero: the result's
+// low 13 bits are zero.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 #undef ISTVT_F8
 
-#define ISTVT_R8(i)                                                                   \
+#define ISTVT_R8(i)                                                                  \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),         \
       "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
 

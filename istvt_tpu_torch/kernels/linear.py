@@ -13,6 +13,9 @@ csrc/float_gemm.cu (LN rows, the GEMM with its fused epilogue, and for the
 backward the LN-backward rows and column sums); a CPU tensor runs the
 plain version beside each wrapper. Where autograd records the call, both
 wrappers are torch.autograd.Functions whose backward runs the same way.
+The GEMM runs bf16 inputs on the bf16 tensor cores and f32 inputs as three
+TF32 products on them (split_tf32), within f32's rounding of the plain
+f32 product.
 """
 from __future__ import annotations
 
@@ -232,9 +235,15 @@ def gemm(a, b, out, *, layout: str = "nn", bias32=None, res=None,
     pre-activation into out2, tanh-GELU, + res; or, with aux (the pre-GELU
     hidden; layout 'nt', out in a's dtype), out = acc * gelu'(aux),
     gelu(aux) into out2 and the per-block column sums of the f32 result
-    into part, (ceil(M / gemm_row_tile), N) f32. A bf16 'tn' product into
-    f32 without epilogue (a weight gradient) is split along K as
-    plan_splitk says, its partials in a scratch tensor made here."""
+    into part, (ceil(M / gemm_row_tile), N) f32. A 'tn' product into f32
+    without epilogue (a weight gradient) is split along K as plan_splitk
+    says, its partials in a scratch tensor made here. f32 inputs run as
+    three TF32 products (split_tf32), B's two planes in a scratch tensor
+    made here. The split holds for finite inputs: an input that is +-inf,
+    or within 2^-12 of the largest f32 (its hi rounds to inf), has lo = inf
+    - inf = NaN, so every output it reaches is NaN where the plain f32
+    product gives +-inf (or, near the largest f32, a finite value); NaN
+    inputs give NaN as the plain product does."""
     code = _LAYOUT[layout]
     b = b.to(a.dtype).contiguous()
     if layout == "tn":
@@ -260,33 +269,56 @@ def gemm(a, b, out, *, layout: str = "nn", bias32=None, res=None,
     out_f32 = out.dtype == torch.float32
     if not out_f32 and out.dtype != a.dtype:
         raise TypeError(f"GEMM output {out.dtype} for {a.dtype} inputs")
-    splits, kslice, ws = 1, 0, None
-    if (layout == "tn" and out_f32 and a.dtype == torch.bfloat16
-            and bias32 is None and res is None and not gelu and out2 is None
-            and aux is None):
-        plan = plan_splitk(m, n, k, _sm_count(a.device.index))
+    splits, kslice, ws, planes = 1, 0, None, None
+    if (layout == "tn" and out_f32 and bias32 is None and res is None
+            and not gelu and out2 is None and aux is None):
+        plan = plan_splitk(m, n, k, _sm_count(a.device.index), a.dtype)
         if plan.splits > 1:
             splits, kslice = plan.splits, plan.kslice
             ws = torch.empty(plan.part_shape, dtype=torch.float32,
+                             device=a.device)
+    if a.dtype == torch.float32:
+        planes = torch.empty(tf32_planes_shape(n, k), dtype=torch.float32,
                              device=a.device)
     _lib.check(_lib.load().istvt_gemm(
         a.data_ptr(), b.data_ptr(), _lib.DTYPE_CODE[a.dtype], code,
         out.data_ptr(), int(out_f32), _lib.ptr(bias32), _lib.ptr(res),
         int(gelu), _lib.ptr(out2), _lib.ptr(aux), _lib.ptr(part),
         int(aux is not None), m, n, k, splits, kslice, _lib.ptr(ws),
-        _lib.stream()), "gemm")
+        _lib.ptr(planes), _lib.stream()), "gemm")
 
 
-# The bf16 GEMM's output tile (csrc/float_gemm.cu kBM, kBN, kBK): rows,
-# columns and the depth of one k-step.
-GEMM_TILE = (128, 128, 64)
+def split_tf32(x):
+    """(hi, lo) of f32 x as the f32 GEMM splits each input (csrc/wgmma.cuh
+    tf32_rna, cvt.rna.tf32.f32): hi = x rounded to TF32, 10 mantissa bits,
+    to nearest with ties away from zero (the low 13 bits zero), and lo =
+    x - hi rounded the same way, so that hi + lo is x to 2^-22 of |x|. For
+    finite x: adding half of the dropped unit to the magnitude's bits
+    carries into the exponent where it should."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def tf32_planes_shape(n: int, k: int) -> Tuple[int, int, int]:
+    """The f32 GEMM's B planes, (2, N, kp): hi then lo, K-major, each row
+    padded to a multiple of 4 elements (16 bytes, TMA's row stride)."""
+    return 2, n, _cdiv(k, 4) * 4
+
+
+# The wgmma GEMMs' output tile (csrc/float_gemm.cu kBM, kBN) and the depth of
+# one k-step by input dtype (kBK: 64 bf16; kFK: 32 f32, one 128-byte row).
+GEMM_TILES = {torch.bfloat16: (128, 128, 64), torch.float32: (128, 128, 32)}
 # The planner's model of the persistent GEMM (one block an SM, taking the
-# tiles in turn): the time of one 64-deep k-step of a tile, a tile's fill
-# and epilogue in k-steps, and the card's memory rate for the f32 partials.
-# The H100 measured 0.55 us a k-step where both operands are aligned
-# (PERF.md); with that figure the model's dW shapes get the same splits, or
-# (#23's at 2 clips) one more.
-_KSTEP_S = 0.43e-6
+# tiles in turn): the time of one k-step of a tile by input dtype, a tile's
+# fill and epilogue in k-steps, and the card's memory rate for the f32
+# partials. The H100 measured 0.55 us a bf16 k-step where both operands are
+# aligned (PERF.md); with that figure the model's dW shapes get the same
+# splits, or (#23's at 2 clips) one more. An f32 k-step is half as deep but
+# three TF32 products at half the bf16 rate: three bf16 k-steps' work.
+_KSTEP_S = {torch.bfloat16: 0.43e-6, torch.float32: 3 * 0.43e-6}
 _BLOCK_KSTEPS = 6
 _HBM_BPS = 3.35e12
 _MAX_SPLITS = 16
@@ -306,18 +338,20 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan_splitk(m: int, n: int, k: int, sms: int) -> SplitK:
+def plan_splitk(m: int, n: int, k: int, sms: int,
+                dtype=torch.bfloat16) -> SplitK:
     """How to split a weight-gradient GEMM (M, N) over K rows between `sms`
-    SMs: the number of slices whose modelled time is least, where a launch
-    takes one tile time per wave (tiles / sms, rounded up; a tile's time its
-    k-steps plus its fill and epilogue) and every slice beyond one also
-    writes and reads an f32 (M, N) partial. So a grid under a wave (72 tiles
-    of 128 x 128 for the 728 x 1536 dW on 132 SMs), or a second wave of a
-    few tiles (138 for 728 x 2912), is split until the waves are nearly
-    full, as long as the partials cost less than the time saved."""
-    bm, bn, bk = GEMM_TILE
+    SMs, for inputs of `dtype` (its k-step, GEMM_TILES): the number of
+    slices whose modelled time is least, where a launch takes one tile
+    time per wave (tiles / sms, rounded up; a tile's time its k-steps plus
+    its fill and epilogue) and every slice beyond one also writes and reads
+    an f32 (M, N) partial. So a grid under a wave (72 tiles of 128 x 128
+    for the 728 x 1536 dW on 132 SMs), or a second wave of a few tiles (138
+    for 728 x 2912), is split until the waves are nearly full, as long as
+    the partials cost less than the time saved."""
+    bm, bn, bk = GEMM_TILES[dtype]
     tiles, ksteps = _cdiv(m, bm) * _cdiv(n, bn), _cdiv(k, bk)
-    part_ksteps = 8 * m * n / _HBM_BPS / _KSTEP_S     # one partial, k-steps
+    part_ksteps = 8 * m * n / _HBM_BPS / _KSTEP_S[dtype]   # one partial
     best = None
     for want in range(1, min(_MAX_SPLITS, max(ksteps, 1)) + 1):
         kslice = _cdiv(ksteps, want)
@@ -340,9 +374,9 @@ def _sm_count(index) -> int:
 
 
 def gemm_row_tile(dtype) -> int:
-    """Rows per block of the GEMM (bf16 tensor-core tile GEMM_TILE[0], f32
-    64): the row count of a column-sum partial."""
-    return GEMM_TILE[0] if dtype == torch.bfloat16 else 64
+    """Rows per block of the GEMM (GEMM_TILES[dtype][0], 128 for both input
+    dtypes): the row count of a column-sum partial."""
+    return GEMM_TILES[dtype][0]
 
 
 def colsum(part):

@@ -18,12 +18,16 @@ f32 they differ only by the attention's (or #6's float fc2's) summation
 order, far inside atol = rtol = 2e-3. That margin matters: one flipped activation code would
 move its row's outputs by up to amax * max|w| / 127, about 1e-3 at these
 scales. The float kernels differ from theirs only by summation order, and
-are held in f32 at atol = rtol = 1e-5: a GEMM that rounded its f32 inputs
-to TF32 or bf16 would be off by about 1e-3 here. The backward kernels
-return several outputs, among them weight gradients summed over every
-row; each output is held at max|diff| <= 1e-5 * max|plain| (summation
-order only; TF32 or bf16 rounding of the f32 inputs is ~1e-3 of the
-scale and fails).
+are held in f32 at atol = rtol = 1e-5, a test of f32-level accuracy: a
+GEMM that rounded its f32 inputs to TF32 once, or to bf16, would be off by
+about 1e-3 here, where the f32 GEMM's three TF32 products (a_lo b_hi +
+a_hi b_lo + a_hi b_hi, kernels/linear.split_tf32) meet it, as f32 in
+another summation order does (on the card max|diff| 3e-6 to 1.2e-5 at the
+callers' shapes, the largest on outputs of magnitude ~1; PERF.md and
+tests/test_torch_gemm_f32.py). The backward kernels return several
+outputs, among them weight gradients summed over every row; each output
+is held at max|diff| <= 1e-5 * max|plain| (summation order only; TF32 or
+bf16 rounding of the f32 inputs is ~1e-3 of the scale and fails).
 
 st_layer_q8 (#9) is the one int8 case that quantizes attention outputs it
 computed itself (a_t, then a_s): the temporal core's summation order
@@ -56,13 +60,15 @@ clips ("@b16", the main path's shape, drawn when made). The int8 wrappers
 that run the int8 GEMM are given the K-major weight copies (quant.kmajor)
 made here, once, as a model holds them.
 
-The GEMMs alone are tabled below the cases: the float GEMM (gemm_shapes)
-and the int8 GEMM (gemm_q8_shapes), each at every caller's shape, with
-their operands, plain versions and counts of work.
+The GEMMs alone are tabled below the cases: the float GEMM (gemm_shapes,
+with bf16 or f32 inputs) and the int8 GEMM (gemm_q8_shapes), each at
+every caller's shape, with their operands, plain versions, criteria and
+counts of work.
 """
 from __future__ import annotations
 
 import functools
+import re
 
 import torch
 
@@ -409,61 +415,63 @@ GEMM_EPILOGUES = ("plain", "bias", "bias_gelu", "bias_res", "bias_gelu_res",
                   "stash", "gelu_bwd")
 
 
-def gemm_shapes(geometry=SLICE) -> dict:
+def gemm_shapes(geometry=SLICE, dtype=torch.bfloat16) -> dict:
     """{name: (layout, M, N, K, epilogue, out dtype)}: every GEMM launch of
     the float path at `geometry`'s rows R = b * t1 * s (#22's fused_ff at
     its unpadded b * t1 * n_valid rows), with the epilogue and output
-    dtype its caller gives it."""
+    dtype its caller gives it for inputs of `dtype` (f32 inputs give f32
+    outputs)."""
     b, t1, s, n_valid = (geometry[k] for k in ("b", "t1", "s", "n_valid"))
     d, inner, hid = geometry["d"], geometry["inner"], geometry["hid"]
-    r, fr, bf, f32 = b * t1 * s, b * t1 * n_valid, torch.bfloat16, \
-        torch.float32
+    r, fr, f32, dt = b * t1 * s, b * t1 * n_valid, torch.float32, dtype
     return {
-        "#18 QKV": ("nn", r, 3 * inner, d, "plain", bf),
-        "#20 out-projection + r": ("nn", r, d, inner, "bias_res", bf),
-        "#20 out-projection": ("nn", r, d, inner, "bias", bf),
-        "#21 fc1": ("nn", r, hid, d, "bias_gelu", bf),
-        "#21_h1 fc1 (stash)": ("nn", r, hid, d, "stash", bf),
-        "#21 / #6 fc2": ("nn", r, d, hid, "bias_res", bf),
-        "#22 fc1": ("nn", fr, hid, d, "bias_gelu", bf),
-        "#22 fc2": ("nn", fr, d, hid, "bias", bf),
+        "#18 QKV": ("nn", r, 3 * inner, d, "plain", dt),
+        "#20 out-projection + r": ("nn", r, d, inner, "bias_res", dt),
+        "#20 out-projection": ("nn", r, d, inner, "bias", dt),
+        "#21 fc1": ("nn", r, hid, d, "bias_gelu", dt),
+        "#21_h1 fc1 (stash)": ("nn", r, hid, d, "stash", dt),
+        "#21 / #6 fc2": ("nn", r, d, hid, "bias_res", dt),
+        "#22 fc1": ("nn", fr, hid, d, "bias_gelu", dt),
+        "#22 fc2": ("nn", fr, d, hid, "bias", dt),
         "#19 dy": ("nt", r, d, 3 * inner, "plain", f32),
         "#19 dW": ("tn", d, 3 * inner, r, "plain", f32),
-        "#20 backward dx": ("nt", r, inner, d, "plain", bf),
+        "#20 backward dx": ("nt", r, inner, d, "plain", dt),
         "#20 backward dW": ("tn", inner, d, r, "plain", f32),
-        "#23 dh1 (gelu_bwd)": ("nt", r, hid, d, "gelu_bwd", bf),
+        "#23 dh1 (gelu_bwd)": ("nt", r, hid, d, "gelu_bwd", dt),
         "#23 dw2": ("tn", hid, d, r, "plain", f32),
         "#23 dw1": ("tn", d, hid, r, "plain", f32),
         "#23 dy": ("nt", r, d, hid, "plain", f32),
     }
 
 
-def gemm_operands(layout, m, n, k, epilogue, out_dtype, device, seed=0):
-    """The arguments of one linear.gemm call: {"a", "b", "out", "layout",
-    and the epilogue's keywords}; a drawn N(0, 1) like activations, b like
-    a layer's init U(+-1/sqrt(k)) (for tn, where both are activations or
-    gradients, N(0, 1) too), bias N(0, 0.02), res and aux N(0, 1)."""
+def gemm_operands(layout, m, n, k, epilogue, out_dtype, device, seed=0,
+                  dtype=torch.bfloat16):
+    """The arguments of one linear.gemm call with inputs of `dtype`: {"a",
+    "b", "out", "layout", and the epilogue's keywords}; a drawn N(0, 1)
+    like activations, b like a layer's init U(+-1/sqrt(k)) (for tn, where
+    both are activations or gradients, N(0, 1) too), bias N(0, 0.02), res
+    and aux N(0, 1)."""
     g = torch.Generator().manual_seed(seed)
     a = torch.randn(*((k, m) if layout == "tn" else (m, k)), generator=g)
     b_shape = (n, k) if layout == "nt" else (k, n)
     b = (torch.randn(*b_shape, generator=g) if layout == "tn"
          else (torch.rand(*b_shape, generator=g) * 2 - 1) * k ** -0.5)
-    bf = torch.bfloat16
-    ops = {"a": a.to(device, bf), "b": b.to(device, bf), "layout": layout,
+    ops = {"a": a.to(device, dtype), "b": b.to(device, dtype),
+           "layout": layout,
            "out": torch.empty(m, n, dtype=out_dtype, device=device)}
     if epilogue != "plain" and epilogue != "gelu_bwd":
         ops["bias32"] = (torch.randn(n, generator=g) * 0.02).to(device)
     if "res" in epilogue:
-        ops["res"] = torch.randn(m, n, generator=g).to(device, bf)
+        ops["res"] = torch.randn(m, n, generator=g).to(device, dtype)
     if "gelu" in epilogue or epilogue == "stash":
         ops["gelu"] = True
     if epilogue == "stash":
-        ops["out2"] = torch.empty(m, n, dtype=bf, device=device)
+        ops["out2"] = torch.empty(m, n, dtype=dtype, device=device)
     if epilogue == "gelu_bwd":
         del ops["gelu"]
-        ops["aux"] = torch.randn(m, n, generator=g).to(device, bf)
-        ops["out2"] = torch.empty(m, n, dtype=bf, device=device)
-        ops["part"] = torch.empty(-(-m // linear.gemm_row_tile(bf)), n,
+        ops["aux"] = torch.randn(m, n, generator=g).to(device, dtype)
+        ops["out2"] = torch.empty(m, n, dtype=dtype, device=device)
+        ops["part"] = torch.empty(-(-m // linear.gemm_row_tile(dtype)), n,
                                   dtype=torch.float32, device=device)
     return ops
 
@@ -511,11 +519,67 @@ def gemm_plain(ops) -> tuple:
 
 def gemm_flops_bytes(ops) -> tuple:
     """(operations, bytes) of a GEMM case: 2 M N K, and each input read and
-    each output written once."""
+    each output written once (the f32 GEMM's B planes are its own scratch
+    traffic, not the function's: their pass counts in its time only)."""
     (m, n), layout = ops["out"].shape, ops["layout"]
     k = ops["a"].shape[0 if layout == "tn" else 1]
     tensors = [t for t in ops.values() if torch.is_tensor(t)]
     return 2 * m * n * k, sum(t.numel() * t.element_size() for t in tensors)
+
+
+# published H100 SXM peaks (NVIDIA's data sheet): bytes/s, and dense
+# operations/s by the type of the operation (int8, bf16 and tf32: the tensor
+# cores; f32: the FMA pipes, outside them)
+HBM_BPS = 3.35e12
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+
+
+def float_gemm_ops(flops, dtype) -> dict:
+    """{type: operations} of `flops` (2 M N K) on the float GEMM with inputs
+    of `dtype`: bf16 products on the bf16 tensor cores, f32 as three TF32
+    products (split_tf32)."""
+    return {"tf32": 3 * flops} if dtype == torch.float32 else {"bf16": flops}
+
+
+def bound_ms(ops: dict, nbytes) -> tuple:
+    """(ms, what sets it) of the least time the card could take for work of
+    `ops` ({type: operations}) that must move `nbytes`: the larger of the
+    bytes over the memory rate and the operations over their peaks."""
+    t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items())
+    t_bytes = nbytes / HBM_BPS
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def gemm_bound_ms(ops) -> tuple:
+    """(bound ms, what sets it, FMA ms or None) of a GEMM case: bound_ms of
+    its operations (float_gemm_ops) and bytes (gemm_flops_bytes); f32 inputs
+    also get 2 M N K on the FMA pipes beside it."""
+    flops, nbytes = gemm_flops_bytes(ops)
+    f32 = ops["a"].dtype == torch.float32
+    return (*bound_ms(float_gemm_ops(flops, ops["a"].dtype), nbytes),
+            1e3 * flops / PEAK_OPS["f32"] if f32 else None)
+
+
+def gemm_f32_close(ops, got, want) -> tuple:
+    """(ok, err) of an f32 GEMM case against its plain version: nn and nt at
+    atol = rtol = F32_TOL_FLOAT (err max|diff|); tn, a weight gradient
+    summed over the rows, at max|diff| <= F32_TOL_FLOAT * max|plain| per
+    output (err the worst ratio): there f32 in another summation order
+    already misses the allclose criterion by 4-6x
+    (tests/test_torch_gemm_f32.py)."""
+    ok, err = True, 0.0
+    for g, w in zip(got, want):
+        diff = (g.float() - w.float()).abs().max().item()
+        if ops["layout"] == "tn":
+            e = diff / max(w.float().abs().max().item(), 1e-30)
+            ok = ok and e <= F32_TOL_FLOAT
+        else:
+            e = diff
+            ok = ok and torch.allclose(g, w, atol=F32_TOL_FLOAT,
+                                       rtol=F32_TOL_FLOAT)
+        err = max(err, e)
+    return ok, err
 
 
 # ---------------------------------------------------------------------------
@@ -617,20 +681,25 @@ def gemm_q8_ops_bytes(ops) -> tuple:
 
 
 # The kernels that run the spatial attention core or its backward, and the
-# float GEMM: the bf16 instantiations must use the tensor cores, the f32
-# ones must not (their 1e-5 check would then test the FMA pipes' f32, as it
-# should); every instantiation of the bf16 GEMM must run wgmma (HGMMA), not
-# mma.sync alone. Patterns are the Itanium-mangled template heads of csrc's
-# kernels: the attention kernels' first template parameter is the
-# activation type; the GEMMs' names say it (their parameters start with the
-# layout), so every instantiation of the name counts.
+# float GEMMs: the bf16 instantiations of the attention kernels must use the
+# tensor cores, their f32 ones must not (their 1e-5 check would then test the
+# FMA pipes' f32, as it should); every instantiation of the bf16 GEMM must run
+# wgmma (HGMMA), not mma.sync alone, and every instantiation of the f32 GEMM
+# TF32 wgmma (HGMMA.64x128x8.F32.TF32: its three TF32 products meet the 1e-5
+# check, which single-pass TF32 or bf16 would miss by ~1e-3). Patterns are
+# the Itanium-mangled template heads of csrc's kernels: the attention
+# kernels' first template parameter is the activation type; the GEMMs' names
+# say it (their parameters start with the layout), so every instantiation of
+# the name counts.
 TENSOR_CORE_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
                        "st_layer_q8_kernel", "spatial_attn_bwd_dq_kernel",
                        "spatial_attn_bwd_dkv_kernel", "gemm_bf16_wgmma_kernel")
 FMA_ONLY_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
                     "spatial_attn_bwd_dq_kernel",
-                    "spatial_attn_bwd_dkv_kernel", "gemm_f32_kernel")
+                    "spatial_attn_bwd_dkv_kernel")
 WGMMA_KERNELS = ("gemm_bf16_wgmma_kernel",)
+TF32_WGMMA_KERNELS = ("gemm_f32_wgmma_kernel",)
+TF32_WGMMA_OP = re.compile(r"HGMMA\.\S*\.TF32")
 # the int8 GEMM and the one-launch layer #9, whose GEMM phases run its body:
 # every instantiation (whatever its output and residual types, dtype or
 # dim_head) must run int8 wgmma, IGMMA in the SASS, and, where the int8
@@ -638,39 +707,61 @@ WGMMA_KERNELS = ("gemm_bf16_wgmma_kernel",)
 INT8_WGMMA_KERNELS = ("gemm_q8_wgmma_kernel", "st_layer_q8_kernel")
 INT8_WGMMA_OP = "IGMMA."
 INT8_MMA_SYNC_OP = "IMMA."
-_NAMED_DTYPE = ("gemm_bf16_wgmma_kernel", "gemm_f32_kernel")
+_NAMED_DTYPE = ("gemm_bf16_wgmma_kernel", "gemm_f32_wgmma_kernel")
+# the warp-specialised wgmma kernels: launched with 168 registers a thread
+# (setmaxnreg's budget; fewer would stall the consumers' setmaxnreg.inc)
+# and none spilled
+WGMMA_REGISTERS = 168
 
 
-def tensor_core_check(counts, wgmma=None, igmma=None, imma=None) -> list:
+def tensor_core_check(counts, wgmma=None, igmma=None, imma=None,
+                      tf32=None) -> list:
     """Rows (kernel, dtype, {mangled name: tensor-core instructions}, ok)
     for each entry of TENSOR_CORE_KERNELS in bf16 (ok: every instantiation
     has some; for WGMMA_KERNELS, every instantiation has HGMMA, counted in
-    `wgmma`), FMA_ONLY_KERNELS in f32 (ok: none has any) and
-    INT8_WGMMA_KERNELS in int8 (ok: every instantiation has IGMMA, counted
-    in `igmma`, and, with `imma`, none has IMMA); `counts` is
-    _lib.tensor_ops_of_sass(sass), `wgmma` tensor_ops_of_sass(sass,
-    ("HGMMA.",)), `igmma` tensor_ops_of_sass(sass, (INT8_WGMMA_OP,)) and
-    `imma` tensor_ops_of_sass(sass, (INT8_MMA_SYNC_OP,)) of the built
-    library's sass (_lib.sass_text; without `wgmma` or `igmma` their rows
-    fail)."""
+    `wgmma`), FMA_ONLY_KERNELS in f32 (ok: none has any),
+    TF32_WGMMA_KERNELS in f32 (ok: every instantiation has TF32 HGMMA,
+    counted in `tf32`) and INT8_WGMMA_KERNELS in int8 (ok: every
+    instantiation has IGMMA, counted in `igmma`, and, with `imma`, none has
+    IMMA); `counts` is _lib.tensor_ops_of_sass(sass), `wgmma`
+    tensor_ops_of_sass(sass, ("HGMMA.",)), `tf32` tensor_ops_of_sass(sass,
+    (TF32_WGMMA_OP,)), `igmma` tensor_ops_of_sass(sass, (INT8_WGMMA_OP,))
+    and `imma` tensor_ops_of_sass(sass, (INT8_MMA_SYNC_OP,)) of the built
+    library's sass (_lib.sass_text; without `wgmma`, `tf32` or `igmma`
+    their rows fail)."""
     rows = []
-    for kernels, dtype, tag in ((TENSOR_CORE_KERNELS, "bf16",
-                                 "I13__nv_bfloat16"),
-                                (FMA_ONLY_KERNELS, "f32", "If"),
-                                (INT8_WGMMA_KERNELS, "int8", "I")):
+    for kernels, dtype, tag, source in (
+            (TENSOR_CORE_KERNELS, "bf16", "I13__nv_bfloat16", counts),
+            (FMA_ONLY_KERNELS, "f32", "If", counts),
+            (TF32_WGMMA_KERNELS, "f32", "I", tf32 or {}),
+            (INT8_WGMMA_KERNELS, "int8", "I", igmma or {})):
         for k in kernels:
             head = f"{len(k)}{k}" + ("I" if k in _NAMED_DTYPE else tag)
-            source = counts
-            if dtype == "bf16" and k in WGMMA_KERNELS:
-                source = wgmma or {}
-            elif dtype == "int8":
-                source = igmma or {}
-            found = {n: c for n, c in source.items() if head in n}
-            ok = bool(found) and (not any(found.values()) if dtype == "f32"
+            src = (wgmma or {}) if k in WGMMA_KERNELS else source
+            found = {n: c for n, c in src.items() if head in n}
+            fma_only = kernels is FMA_ONLY_KERNELS
+            ok = bool(found) and (not any(found.values()) if fma_only
                                   else all(found.values()))
             if dtype == "int8" and imma is not None:
                 ok = ok and not any(imma.get(n, 0) for n in found)
             rows.append((k, dtype, found, ok))
+    return rows
+
+
+def wgmma_register_rows(report) -> list:
+    """Rows (kernel, {mangled name: registers}, [names off budget]) of every
+    instantiation of the wgmma kernels (TF32_WGMMA_KERNELS,
+    INT8_WGMMA_KERNELS) in `report` (_lib.ptxas_report of build/build.log):
+    off budget if it spilled or holds more than WGMMA_REGISTERS, or, for
+    the f32 GEMM (warp-specialised by setmaxnreg), fewer."""
+    rows = []
+    for k, regs, spilled in spill_rows(report, TF32_WGMMA_KERNELS
+                                       + INT8_WGMMA_KERNELS):
+        off = set(spilled) | {n for n, r in regs.items()
+                              if r is None or r > WGMMA_REGISTERS
+                              or (k in TF32_WGMMA_KERNELS
+                                  and r != WGMMA_REGISTERS)}
+        rows.append((k, regs, sorted(off)))
     return rows
 
 

@@ -29,7 +29,7 @@ def _one_torch_thread():
 
 def _fill(m, n, splits):
     """The share of the launch's waves that its blocks fill."""
-    bm, bn, _ = linear.GEMM_TILE
+    bm, bn, _ = linear.GEMM_TILES[torch.bfloat16]
     blocks = -(-m // bm) * -(-n // bn) * splits
     return blocks / (-(-blocks // SMS) * SMS)
 
@@ -41,7 +41,7 @@ def test_splitk_slices_cover_k_in_order(m, n, k):
     starting and ending on a k-tile boundary (but the last, at K); the
     partials are (splits, M, N); kslice k-tiles a slice, as the kernel
     reads them."""
-    bk = linear.GEMM_TILE[2]
+    bk = linear.GEMM_TILES[torch.bfloat16][2]
     plan = linear.plan_splitk(m, n, k, SMS)
     assert plan.splits == len(plan.bounds) >= 1
     assert plan.part_shape == (plan.splits, m, n)
@@ -77,10 +77,12 @@ def test_splitk_leaves_full_grids_whole():
 
 def test_row_tile_is_the_planned_m_tile():
     """The column-sum partials of the GELU-backward epilogue have a row per
-    block row of the bf16 GEMM: gemm_row_tile and the planner's M tile are
-    one number (the f32 FMA GEMM's tile is 64)."""
-    assert linear.gemm_row_tile(torch.bfloat16) == linear.GEMM_TILE[0] == 128
-    assert linear.gemm_row_tile(torch.float32) == 64
+    block row of the GEMM: gemm_row_tile and the planner's M tile are one
+    number, 128 for bf16 and for f32 inputs (both on the wgmma tile)."""
+    bf16 = linear.GEMM_TILES[torch.bfloat16]
+    f32 = linear.GEMM_TILES[torch.float32]
+    assert linear.gemm_row_tile(torch.bfloat16) == bf16[0] == 128
+    assert linear.gemm_row_tile(torch.float32) == f32[0] == 128
 
 
 @pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
@@ -148,8 +150,9 @@ def test_gemm_shapes_are_the_callers():
 
 
 # a cuobjdump -sass excerpt in its layout: two instantiations of the bf16
-# GEMM (template parameters layout, output type, epilogue, BN), the f32 FMA
-# GEMM and a bf16 spatial attention kernel
+# GEMM (template parameters layout, output type, epilogue, BN), one of the
+# f32 GEMM (layout, epilogue) on TF32 wgmma, an f32 spatial attention kernel
+# on the FMA pipes and a bf16 one
 _SASS = """
 \tcode for sm_90a
 \t\tFunction : _ZN5istvt22gemm_bf16_wgmma_kernelILi0E13__nv_bfloat16Li0ELi128EEEv14CUtensorMap_stS2_PT0_NS_3EpiEiiii
@@ -157,43 +160,66 @@ _SASS = """
         /*0a40*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
 \t\tFunction : _ZN5istvt22gemm_bf16_wgmma_kernelILi2EfLi0ELi128EEEv14CUtensorMap_stS1_PT0_NS_3EpiEiiii
         /*0a30*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;
-\t\tFunction : _ZN5istvt15gemm_f32_kernelILi0ELi0EEEvPKfS2_PfNS_3EpiEiii
+\t\tFunction : _ZN5istvt21gemm_f32_wgmma_kernelILi0ELi0EEEv14CUtensorMap_stS1_S1_PfNS_3EpiEiiNS_8TileGridE
+        /*0b10*/                   HGMMA.64x128x8.F32.TF32 R24, R152, gdesc[UR4], R24, gsb0 ;
+        /*0b20*/                   HGMMA.64x128x8.F32.TF32 R24, R156, gdesc[UR8], R24, gsb0 ;
+\t\tFunction : _ZN5istvt19spatial_attn_kernelIfLi64EEEvPKT_PS2_iiif
         /*0100*/                   FFMA R4, R2, R3, R4 ;
 \t\tFunction : _ZN5istvt19spatial_attn_kernelI13__nv_bfloat16Li64EEEvPKT_PS2_iiif
         /*0a30*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;
 """
 
 
+def _gemm_rows(sass, **given):
+    """{(kernel, dtype): ok} of tensor_core_check on `sass` for its GEMMs
+    and the spatial kernel, the wgmma and TF32 counts given unless set in
+    `given` (None leaves them out)."""
+    counts = {"wgmma": _lib.tensor_ops_of_sass(sass, ("HGMMA.",)),
+              "tf32": _lib.tensor_ops_of_sass(sass,
+                                              (selfcheck.TF32_WGMMA_OP,))}
+    counts.update(given)
+    return {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(
+        _lib.tensor_ops_of_sass(sass), **counts)}
+
+
 def test_wgmma_check_reads_the_sass():
     """The GEMM rows of the tensor-core check: HGMMA is counted apart from
-    HMMA; every instantiation of the bf16 GEMM must have HGMMA, whatever
-    its template parameters, and the f32 GEMM no tensor-core instruction;
-    a bf16 GEMM on mma.sync alone, or no GEMM at all, fails."""
+    HMMA, and its TF32 form apart from bf16; every instantiation of the
+    bf16 GEMM must have HGMMA and every one of the f32 GEMM TF32 HGMMA,
+    whatever their template parameters, and the f32 attention kernels no
+    tensor-core instruction; a bf16 GEMM on mma.sync alone, an f32 GEMM on
+    bf16 wgmma or the FMA pipes, or a GEMM whose counts are not given,
+    fails."""
     counts = _lib.tensor_ops_of_sass(_SASS)
     wgmma = _lib.tensor_ops_of_sass(_SASS, ("HGMMA.",))
-    assert sorted(counts.values()) == [0, 1, 1, 2]
-    assert sorted(wgmma.values()) == [0, 0, 1, 2]
+    tf32 = _lib.tensor_ops_of_sass(_SASS, (selfcheck.TF32_WGMMA_OP,))
+    assert sorted(counts.values()) == [0, 1, 1, 2, 2]
+    assert sorted(wgmma.values()) == [0, 0, 1, 2, 2]
+    assert sorted(tf32.values()) == [0, 0, 0, 0, 2]
     rows = {(k, d): (f, ok) for k, d, f, ok
-            in selfcheck.tensor_core_check(counts, wgmma)}
+            in selfcheck.tensor_core_check(counts, wgmma, tf32=tf32)}
     found, ok = rows[("gemm_bf16_wgmma_kernel", "bf16")]
     assert ok and sorted(found.values()) == [1, 2]
-    found, ok = rows[("gemm_f32_kernel", "f32")]
+    found, ok = rows[("gemm_f32_wgmma_kernel", "f32")]
+    assert ok and list(found.values()) == [2]
+    found, ok = rows[("spatial_attn_kernel", "f32")]
     assert ok and list(found.values()) == [0]
     assert rows[("spatial_attn_kernel", "bf16")][1]
+    assert ("gemm_f32_kernel", "f32") not in rows      # the FMA GEMM is gone
     hmma_only = _SASS.replace("HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, "
-                              "gsb0 ;\n\t\tFunction : _ZN5istvt15",
+                              "gsb0 ;\n\t\tFunction : _ZN5istvt21",
                               "HMMA.16816.F32.BF16 R24, R4, R20, R24 ;\n"
-                              "\t\tFunction : _ZN5istvt15")
-    rows = {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(
-        _lib.tensor_ops_of_sass(hmma_only),
-        _lib.tensor_ops_of_sass(hmma_only, ("HGMMA.",)))}
+                              "\t\tFunction : _ZN5istvt21")
+    rows = _gemm_rows(hmma_only)
     assert not rows[("gemm_bf16_wgmma_kernel", "bf16")]
-    assert rows[("gemm_f32_kernel", "f32")]
+    assert rows[("gemm_f32_wgmma_kernel", "f32")]
+    for other in ("HGMMA.64x128x16.F32.BF16", "FFMA"):
+        rows = _gemm_rows(_SASS.replace("HGMMA.64x128x8.F32.TF32", other))
+        assert not rows[("gemm_f32_wgmma_kernel", "f32")], other
+        assert rows[("gemm_bf16_wgmma_kernel", "bf16")]
     fma = _SASS.replace("FFMA R4, R2, R3, R4", "HMMA.16816.F32.BF16 R4, R2, "
                         "R3, R4")
-    rows = {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(
-        _lib.tensor_ops_of_sass(fma), _lib.tensor_ops_of_sass(fma, ("HGMMA.",)))}
-    assert not rows[("gemm_f32_kernel", "f32")]
-    rows = {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(
-        counts)}                                  # no wgmma counts given
+    assert not _gemm_rows(fma)[("spatial_attn_kernel", "f32")]
+    rows = _gemm_rows(_SASS, wgmma=None, tf32=None)  # no wgmma counts given
     assert not rows[("gemm_bf16_wgmma_kernel", "bf16")]
+    assert not rows[("gemm_f32_wgmma_kernel", "f32")]

@@ -265,7 +265,8 @@ def test_temporal_kernels_build_without_spills(cuda):
 
 @pytest.mark.parametrize("kernel, dtype", [
     *((k, "bf16") for k in selfcheck.TENSOR_CORE_KERNELS),
-    *((k, "f32") for k in selfcheck.FMA_ONLY_KERNELS)])
+    *((k, "f32") for k in selfcheck.FMA_ONLY_KERNELS
+      + selfcheck.TF32_WGMMA_KERNELS)])
 def test_spatial_attention_on_the_tensor_cores(cuda, kernel, dtype):
     """From the built library (cuobjdump -sass): every bf16 instantiation
     of the kernels that run the spatial core (#10 and #2's
@@ -273,15 +274,32 @@ def test_spatial_attention_on_the_tensor_cores(cuda, kernel, dtype):
     st_layer_q8_kernel) or #13 (both passes) has tensor-core instructions
     (HMMA / HGMMA; #9's int8 IMMA does not count), every instantiation of
     the bf16 float GEMM has wgmma (HGMMA), and no f32 instantiation of
-    those but #9 has any, nor the f32 FMA GEMM."""
+    those but #9 has any; every instantiation of the f32 float GEMM has
+    TF32 wgmma (HGMMA.64x128x8.F32.TF32)."""
     _lib.load()
     sass = _lib.sass_text()
     rows = selfcheck.tensor_core_check(
         _lib.tensor_ops_of_sass(sass),
-        _lib.tensor_ops_of_sass(sass, ("HGMMA.",)))
+        _lib.tensor_ops_of_sass(sass, ("HGMMA.",)),
+        tf32=_lib.tensor_ops_of_sass(sass, (selfcheck.TF32_WGMMA_OP,)))
     (found, ok), = [(f, o) for k, d, f, o in rows
                     if k == kernel and d == dtype]
     assert ok, found
+
+
+def test_f32_gemm_builds_at_its_register_budget(cuda):
+    """ptxas reports each of the f32 GEMM's five instantiations (three
+    layouts without an epilogue kind of their own, the stash, the GELU
+    backward) at exactly the 168 registers its setmaxnreg split needs, with
+    no byte spilled, and no note that it serialized the kernel's wgmma."""
+    _lib.load()
+    log = (_lib.BUILD_DIR / "build.log").read_text()
+    rows = {k: (regs, off) for k, regs, off in selfcheck.wgmma_register_rows(
+        _lib.ptxas_report(log))}
+    regs, off = rows["gemm_f32_wgmma_kernel"]
+    assert len(regs) == 5 and not off, (regs, off)
+    assert not [ln for ln in log.splitlines() if "serialized" in ln
+                and "gemm_f32_wgmma_kernel" in ln]
 
 
 # the float GEMM alone: every caller's launch at the slice, and edges of
@@ -349,6 +367,98 @@ def test_gemm_raises_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         linear.gemm(torch.zeros(64 * 64 + 1, device=cuda, dtype=bf)[1:]
                     .view(64, 64), b, out)
+
+
+# the f32 GEMM alone (three TF32 products): every caller's launch at the
+# slice and at the B=16 step's rows, in f32, and the edges of each layout
+# with every epilogue (tn at K = 5152 and 41216 split along K)
+GEMM_F32_CASES = [
+    *selfcheck.gemm_shapes(dtype=torch.float32).values(),
+    *selfcheck.gemm_shapes({**selfcheck.SLICE, "b": 16},
+                           torch.float32).values(),
+    *((layout, m, n, k, epi, torch.float32)
+      for layout, shapes in _GEMM_EDGES.items() for m, n, k in shapes
+      for epi in [*selfcheck.GEMM_EPILOGUES[:5],
+                  *(("stash",) if layout == "nn" else ()),
+                  *(("gelu_bwd",) if layout == "nt" else ())])]
+
+
+@pytest.mark.parametrize(
+    "layout, m, n, k, epilogue, out_dtype", GEMM_F32_CASES,
+    ids=[f"{c[0]}-{c[1]}x{c[2]}x{c[3]}-{c[4]}" for c in GEMM_F32_CASES])
+def test_gemm_f32_matches_plain(cuda, record_property, layout, m, n, k,
+                                epilogue, out_dtype):
+    """The f32 GEMM (kernels/linear.gemm on f32 inputs: three TF32
+    products on wgmma) against the plain f32 product (TF32 off) by the f32
+    criterion, every output: nn and nt at atol = rtol = 1e-5, tn (weight
+    gradients) at max|diff| <= 1e-5 max|plain| (selfcheck.gemm_f32_close);
+    a second call gives the same bits."""
+    ops = selfcheck.gemm_operands(layout, m, n, k, epilogue, out_dtype, cuda,
+                                  seed=m + 3 * n + 7 * k,
+                                  dtype=torch.float32)
+    selfcheck.run_gemm(ops)
+    with highest():
+        want = selfcheck.gemm_plain(ops)
+    torch.cuda.synchronize()
+    got = [t.clone() for t in selfcheck.gemm_results(ops)]
+    ok, err = selfcheck.gemm_f32_close(ops, got, want)
+    record_property("err", err)
+    assert ok, err
+    selfcheck.run_gemm(ops)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, selfcheck.gemm_results(ops)))
+
+
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+def test_gemm_f32_non_finite_inputs(cuda, layout):
+    """An inf or NaN in either f32 input (linear.gemm's stated limit of the
+    TF32 split): exactly the outputs that the plain f32 product makes
+    non-finite are non-finite (NaN, where the plain product may give
+    +-inf), and the others still meet the f32 criterion."""
+    ops = selfcheck.gemm_operands(layout, 256, 256, 512, "bias", torch.float32,
+                                  cuda, seed=11, dtype=torch.float32)
+    a, b = ops["a"], ops["b"]
+    # a's element of output row 3 and a NaN in row 7; b's element of column 9
+    a[(5, 3) if layout == "tn" else (3, 5)] = float("inf")
+    a[(2, 7) if layout == "tn" else (7, 2)] = float("nan")
+    b[(9, 4) if layout == "nt" else (4, 9)] = float("-inf")
+    selfcheck.run_gemm(ops)
+    with highest():
+        want = selfcheck.gemm_plain(ops)
+    torch.cuda.synchronize()
+    got = selfcheck.gemm_results(ops)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        assert not torch.isfinite(w[[3, 7]]).any()
+        assert not torch.isfinite(w[:, 9]).any()
+    finite = [torch.where(torch.isfinite(t), t, 0) for t in got]
+    ok, err = selfcheck.gemm_f32_close(
+        ops, finite, [torch.where(torch.isfinite(t), t, 0) for t in want])
+    assert ok, err
+
+
+def test_gemm_f32_raises_what_it_cannot_take(cuda):
+    """No other route for f32 either: what the f32 GEMM does not take
+    raises, it is never computed on the FMA pipes or by a plain version."""
+    f32 = torch.float32
+    a, b = (torch.zeros(64, 64, device=cuda) for _ in range(2))
+    out = torch.empty(64, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="gemm"):       # stash on nt
+        linear.gemm(a, b, out, layout="nt", out2=torch.empty_like(out))
+    with pytest.raises(RuntimeError, match="gemm"):       # GELU bwd on nn
+        linear.gemm(a, b, out, aux=out, out2=torch.empty_like(out),
+                    part=torch.empty(1, 64, device=cuda))
+    with pytest.raises(TypeError, match="output"):        # bf16 out
+        linear.gemm(a, b, out.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="divisible by 8"):
+        linear.gemm(torch.zeros(64, 60, device=cuda),
+                    torch.zeros(60, 64, device=cuda), out)
+    with pytest.raises(ValueError, match="aligned"):
+        linear.gemm(torch.zeros(64 * 64 + 1, device=cuda, dtype=f32)[1:]
+                    .view(64, 64), b, out)
+    with pytest.raises(ValueError, match="CUDA"):
+        linear.gemm(a.cpu(), b, out)
 
 
 # the int8 GEMM alone: every caller's launch at the slice and at the B=16

@@ -2,7 +2,8 @@
 
     python3 tools/kernel_ms.py [--root DIR]
                                [--cases NAME,...|spatial|gemm|temporal]
-                               [--gemm | --gemm-q8 | --layer-phases]
+                               [--gemm [--dtype bf16|f32] | --gemm-q8 |
+                                --layer-phases]
                                [--batch B]
 
 Imports istvt_tpu_torch from DIR (default: the checkout holding this
@@ -31,11 +32,16 @@ and the unstamped call's device ms beside it.
 With --gemm it times instead the float GEMM alone (kernels/linear.gemm) at
 every caller's shape (selfcheck.gemm_shapes, taken from this script's
 checkout, so that a parent's package can be timed on the same operands) for
-B clips (default 2, the slice; 16 for the B=16 forward and step), and
-torch.matmul on the same operands as the yardstick: one JSON line per
-shape with device ms, TFLOP/s and the bound (with --nt, an nn shape also
-timed with its weight stored (N, K), as layout nt: what the weight's
-layout costs). With --gemm-q8 it times the int8 GEMM alone the same way,
+B clips (default 2, the slice; 16 for the B=16 forward and step), with
+inputs in --dtype (bf16, the default, or f32: the three-TF32-product GEMM;
+the operands and shapes from selfcheck.gemm_operands / gemm_shapes of
+this checkout), and torch.matmul on the same operands as the yardstick (in
+f32 with TF32 off): one JSON line per shape with device ms, TFLOP/s, the
+bound and what sets it (selfcheck.gemm_bound_ms: in f32 three TF32
+products at 495 TFLOP/s, and the FMA pipes' time beside it) and, in f32,
+the worst error against the plain f32 product by selfcheck.gemm_f32_close
+(with --nt, an nn shape also timed with its weight stored (N, K), as
+layout nt: what the weight's layout costs). With --gemm-q8 it times the int8 GEMM alone the same way,
 at every int8 caller's shape (selfcheck.gemm_q8_shapes: #1-#8's QKV,
 out-projections, fc1 and fc2 with their epilogues), on operands made by
 this checkout's selfcheck and quant helpers: the GEMM of the package
@@ -75,8 +81,6 @@ LAYER_PHASES = ("1 LN + quant x", "2 QKV_t GEMM", "3 temporal core",
                 "7 QKV_s GEMM", "8 spatial core", "9 quant a_s",
                 "10 out_s GEMM + b + x", "11 LN + quant y",
                 "12 fc1 GEMM + GELU", "13 quant hidden", "14 fc2 GEMM + y")
-# published H100 SXM peaks: bf16 and int8 dense operations/s, bytes/s
-PEAK_BF16, PEAK_INT8, HBM_BPS = 989e12, 1979e12, 3.35e12
 # the card's spin ahead of a device_ms run: about 2 ms at 1.7 GHz
 SPIN_CYCLES = 3_500_000
 
@@ -167,7 +171,7 @@ def gemm_q8_rows(sc, device, batch=2, run=None):
         ms = device_ms(call)
         lib_ms = int_mm_ms(ops)
         n_ops, n_bytes = sc.gemm_q8_ops_bytes(ops)
-        bound = 1e3 * max(n_ops / PEAK_INT8, n_bytes / HBM_BPS)
+        bound = sc.bound_ms({"int8": n_ops}, n_bytes)[0]
         yield name, shape, ms, lib_ms, n_ops / ms / 1e9, bound, ops
 
 
@@ -203,27 +207,29 @@ def layer_phase_us(kern, args, reps=10):
     return np.median(np.stack(runs), axis=0)
 
 
-def gemm_rows(sc, device, batch=2, nt=False):
+def gemm_rows(sc, device, batch=2, nt=False, dtype=torch.bfloat16):
     """Yields (name, layout, m, n, k, kernel device ms, torch.matmul device
-    ms, TFLOP/s, bound ms, operands, nt ms) for each GEMM shape of `batch`
-    clips (the operands made afresh for each shape); with nt, an nn shape
-    (but the stash, which only nn takes) is also timed as the same product
-    with its weight stored (N, K), layout nt (else nt ms is None)."""
+    ms, TFLOP/s, sc.gemm_bound_ms(ops), operands, nt ms) for each GEMM shape
+    of `batch` clips with inputs of `dtype` (the operands made afresh for
+    each shape; torch.matmul with TF32 off); with nt, an nn shape (but the
+    stash, which only nn takes) is also timed as the same product with its
+    weight stored (N, K), layout nt (else nt ms is None)."""
+    from istvt_tpu_torch.core.precision import highest
     for name, (layout, m, n, k, epi, dt) in sc.gemm_shapes(
-            {**sc.SLICE, "b": batch}).items():
-        ops = sc.gemm_operands(layout, m, n, k, epi, dt, device)
+            {**sc.SLICE, "b": batch}, dtype).items():
+        ops = sc.gemm_operands(layout, m, n, k, epi, dt, device, dtype=dtype)
         a = ops["a"].t() if layout == "tn" else ops["a"]
         b = ops["b"].t() if layout == "nt" else ops["b"]
         ms = device_ms(lambda: sc.run_gemm(ops))
-        mm = device_ms(lambda: torch.matmul(a, b))
+        with highest():
+            mm = device_ms(lambda: torch.matmul(a, b))
         nt_ms = None
         if nt and layout == "nn" and epi != "stash":
             ops_nt = {**ops, "b": ops["b"].t().contiguous(), "layout": "nt"}
             nt_ms = device_ms(lambda: sc.run_gemm(ops_nt))
-        flops, nbytes = sc.gemm_flops_bytes(ops)
-        bound = 1e3 * max(flops / PEAK_BF16, nbytes / HBM_BPS)
-        yield (name, layout, m, n, k, ms, mm, flops / ms / 1e9, bound, ops,
-               nt_ms)
+        flops, _ = sc.gemm_flops_bytes(ops)
+        yield (name, layout, m, n, k, ms, mm, flops / ms / 1e9,
+               sc.gemm_bound_ms(ops), ops, nt_ms)
 
 
 def main():
@@ -241,10 +247,13 @@ def main():
     ap.add_argument("--nt", action="store_true",
                     help="with --gemm: time each nn shape also with its "
                          "weight stored (N, K), as layout nt")
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16",
+                    help="with --gemm: the inputs' dtype")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
 
+    from istvt_tpu_torch.core.precision import highest
     from istvt_tpu_torch.kernels import _lib, quant, selfcheck
 
     if not torch.cuda.is_available():
@@ -270,14 +279,23 @@ def main():
                               "card": card}), flush=True)
         return
     if args.gemm:
-        for name, layout, m, n, k, ms, mm, tflops, bound, _, nt_ms in \
-                gemm_rows(gemm_selfcheck(), torch.device("cuda"), args.batch,
-                          args.nt):
+        sc = gemm_selfcheck()
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
+        for name, layout, m, n, k, ms, mm, tflops, (bound, by, fma), ops, \
+                nt_ms in gemm_rows(sc, torch.device("cuda"), args.batch,
+                                   args.nt, dtype):
+            err = None
+            if dtype == torch.float32:
+                with highest():
+                    want = sc.gemm_plain(ops)
+                err = sc.gemm_f32_close(ops, sc.gemm_results(ops), want)[1]
             print(json.dumps({"root": tag, "gemm": name, "batch": args.batch,
-                              "layout": layout, "mnk": [m, n, k], "ms": ms,
-                              "matmul_ms": mm, "tflops": tflops,
-                              "bound_ms": bound, "nt_ms": nt_ms,
-                              "card": card}), flush=True)
+                              "dtype": args.dtype, "layout": layout,
+                              "mnk": [m, n, k], "ms": ms, "matmul_ms": mm,
+                              "tflops": tflops, "bound_ms": bound,
+                              "bound_by": by, "fma_ms": fma,
+                              "share": bound / ms, "err": err,
+                              "nt_ms": nt_ms, "card": card}), flush=True)
         return
     if args.layer_phases:
         for batch in (2, 16):

@@ -4,8 +4,8 @@
 
 Disassembles both shared libraries with cuobjdump -sass (beside nvcc) and,
 for every kernel function present in both whose mangled name contains one
-of the --match substrings (default: the f32 FMA GEMM, gemm_f32_kernel),
-prints whether its instructions are the same (addresses and the
+of the --match substrings (default: every kernel of the port, all in the
+istvt namespace), prints whether its instructions are the same (addresses and the
 scheduling comments dropped), with both instruction counts; the last line
 counts the same and the differing functions. Used to show that a change
 left a kernel's machine code as it was.
@@ -38,7 +38,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("lib_a")
     ap.add_argument("lib_b")
-    ap.add_argument("--match", default="gemm_f32_kernel")
+    ap.add_argument("--match", default="istvt")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
         __file__))))

@@ -1,12 +1,14 @@
 """Median B=16 forward time of a port serving path on one NVIDIA GPU.
 
-    python3 tools/torch_forward_ms.py [--root DIR] [--path int8|float]
+    python3 tools/torch_forward_ms.py [--root DIR]
+                                      [--path int8|float|float32]
                                       [--mode MODE]
 
 Imports istvt_tpu_torch from DIR (default: the checkout holding this
 script), builds the path's paper-geometry model (300^2 x 6, depth 12,
-seed 0) with its cli/serve.build_predictor (flags --int8, or --bf16 for the
-float path), switches an int8 model to the A/B mode MODE (`set_mode`: the
+seed 0) with its cli/serve.build_predictor (flags --int8, --bf16 for the
+float path, none for the float path in f32, whose inputs are then f32),
+switches an int8 model to the A/B mode MODE (`set_mode`: the
 ISTVTConfig q8_ff / q8_attn pair of INT8_MODES; default 'ingest', the
 CLI's) and times it with `forward_times`, the one B=16 timing that
 chip_smoke.py's timing phase also calls. Prints one JSON line: root, path,
@@ -31,8 +33,10 @@ BATCH, ITERS, WARMUP = 16, 20, 2
 INT8_MODES = {"ingest": ("full", "ingest"), "boundary": ("full", "boundary"),
               "mixed": ("mixed", "ingest"), "bf16_ff": ("bf16", "ingest"),
               "layer": ("full", "layer"), "ff_int8": ("int8", "ingest")}
-# the modes (and the float path) whose model reads pack_params' copies
-PACKED = ("float", "mixed", "bf16_ff")
+# the modes (and the float paths) whose model reads pack_params' copies
+PACKED = ("float", "float32", "mixed", "bf16_ff")
+# each path's cli/serve.py flags and input dtype
+PATH_FLAGS = {"int8": ["--int8"], "float": ["--bf16"], "float32": []}
 
 
 def set_mode(model, mode):
@@ -45,17 +49,25 @@ def set_mode(model, mode):
         istvt.pack_params(model)
 
 
-def forward_times(model, clip):
+def input_dtype(path):
+    """The dtype of a path's inputs: f32 for the f32 float path, else
+    bf16."""
+    import torch
+    return torch.float32 if path == "float32" else torch.bfloat16
+
+
+def forward_times(model, clip, dtype=None):
     """ms of ITERS B=16 calls `model(x)` (CUDA events), after WARMUP
-    warm-up calls, each on a distinct bf16 input drawn on the card from
-    seed 2 outside the timed span. Raises on non-finite logits."""
+    warm-up calls, each on a distinct input in `dtype` (default bf16)
+    drawn on the card from seed 2 outside the timed span. Raises on
+    non-finite logits."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     times = []
     with torch.inference_mode():
         for i in range(WARMUP + ITERS):
             x = torch.randn(BATCH, *clip, generator=g,
-                            device=dev).to(torch.bfloat16)
+                            device=dev).to(dtype or torch.bfloat16)
             e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
             e0.record()
             logits = model(x)
@@ -72,7 +84,7 @@ def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=here)
-    ap.add_argument("--path", choices=("int8", "float"), default="int8")
+    ap.add_argument("--path", choices=tuple(PATH_FLAGS), default="int8")
     ap.add_argument("--mode", default="ingest",
                     help="the int8 path's A/B modes, comma-separated, timed "
                          f"in turn on one model ({', '.join(INT8_MODES)})")
@@ -80,7 +92,7 @@ def main():
     modes = args.mode.split(",")
     if any(m not in INT8_MODES for m in modes):
         ap.error(f"--mode: each of {', '.join(INT8_MODES)}")
-    if args.path == "float" and modes != ["ingest"]:
+    if args.path != "int8" and modes != ["ingest"]:
         ap.error("--mode is the int8 path's")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -89,8 +101,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script times the GPU")
-    cli = cli_serve.build_parser().parse_args(
-        ["--int8"] if args.path == "int8" else ["--bf16"])
+    cli = cli_serve.build_parser().parse_args(PATH_FLAGS[args.path])
     model = cli_serve.build_predictor(cli, torch.device("cuda")).model
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -100,7 +111,8 @@ def main():
         if args.path == "int8":
             set_mode(model, mode)
         times = forward_times(
-            model, (cli.seq_len, cli.input_size, cli.input_size, 3))
+            model, (cli.seq_len, cli.input_size, cli.input_size, 3),
+            input_dtype(args.path))
         q1, med, q3 = np.percentile(times, [25, 50, 75])
         print(json.dumps({"root": os.path.relpath(root, here),
                           "path": args.path,

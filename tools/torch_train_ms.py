@@ -1,20 +1,22 @@
-"""Median bf16 train-step time of the port's float fused path on one
-NVIDIA GPU.
+"""Median train-step time of the port's float fused path on one NVIDIA
+GPU, in bf16 over f32 masters (the default) or in f32.
 
-    python3 tools/torch_train_ms.py [--root DIR]
+    python3 tools/torch_train_ms.py [--root DIR] [--f32]
 
 Imports istvt_tpu_torch from DIR (default: the checkout holding this
 script), builds a trainer through cli/train.py's code path (check_args,
 build: --dataset synthetic --use_pallas --bf16 --dropout 0, the paper
-geometry 300^2 x 6, depth 12, B=16) and times TRAIN_STEPS steps after one
-warm-up step (`warm_up`) with `train_times`, the timing chip_smoke.py's
-train phase also calls: the host clock around each step, ending in the loss read.
-Then `device_step_ms`: the card's time in kernels over PROFILED_STEPS more
-steps under torch.profiler, a step's share (the host clock spreads more
-between runs than the device does). Prints one JSON line: root, the step
-times, their median, the device ms a step, the peak device memory, the
-losses and the card's name and power limit. Run parent, change, change,
-parent in one call to compare two commits on one card.
+geometry 300^2 x 6, depth 12, B=16; with --f32 the same without --bf16,
+also at B=16: an out-of-memory error fails the run) and times TRAIN_STEPS
+steps after one warm-up step (`warm_up`) with `train_times`, the timing
+chip_smoke.py's train phase also calls: the host clock around each step,
+ending in the loss read. Then `device_step_ms`: the card's time in kernels
+over PROFILED_STEPS more steps under torch.profiler, a step's share (the
+host clock spreads more between runs than the device does). Prints one
+JSON line: root, dtype, batch, the step times, their median, the device
+ms a step, the peak device memory, the losses and the card's name and
+power limit. Run parent, change, change, parent in one call to compare
+two commits on one card.
 """
 from __future__ import annotations
 
@@ -42,12 +44,13 @@ def build_trainer(cli_train, flags, bf16=True):
     return cli_train.build(args)
 
 
-def paper_trainer(cli_train):
-    """A B=TRAIN_BATCH trainer, its state and TRAIN_STEPS + 1 batches made
-    before any step."""
+def paper_trainer(cli_train, bf16=True):
+    """A B=TRAIN_BATCH trainer (bf16 over f32 masters, or f32), its state
+    and TRAIN_STEPS + 1 batches made before any step."""
     trainer, loader, _ = build_trainer(
         cli_train, ["--batch_size", str(TRAIN_BATCH), "--epochs", "1",
-                    "--dataset_len", str(TRAIN_BATCH * (TRAIN_STEPS + 1))])
+                    "--dataset_len", str(TRAIN_BATCH * (TRAIN_STEPS + 1))],
+        bf16)
     return trainer, trainer.init_state(), list(loader)
 
 
@@ -91,6 +94,8 @@ def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=here)
+    ap.add_argument("--f32", action="store_true",
+                    help="train in f32 (no --bf16)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -99,7 +104,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script times the GPU")
-    trainer, ts, batches = paper_trainer(cli_train)
+    trainer, ts, batches = paper_trainer(cli_train, bf16=not args.f32)
     warm_up(trainer, ts, batches[0])
     times, losses = train_times(trainer, ts, batches[1:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -108,7 +113,9 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    print(json.dumps({"root": os.path.relpath(root, here), "ms": times,
+    print(json.dumps({"root": os.path.relpath(root, here),
+                      "dtype": "f32" if args.f32 else "bf16",
+                      "batch": TRAIN_BATCH, "ms": times,
                       "median_ms": float(np.median(times)),
                       "device_ms": dev_ms, "peak_gib": peak,
                       "losses": losses, "card": card}), flush=True)
