@@ -34,11 +34,16 @@ path reaches. In phases; any failure raises and exits non-zero:
                 int8 GEMM (gemm_q8_wgmma_kernel: #1-#8) and of the
                 one-launch layer (st_layer_q8_kernel: #9, whose GEMM phases
                 run the same body) has int8 wgmma (IGMMA) and no int8
-                mma.sync (IMMA), and no f32 attention kernel has any
+                mma.sync (IMMA), and every f32 instantiation of those
+                attention kernels and of #9 TF32 mma.sync
+                (HMMA.1688.F32.TF32: the f32 tile's three TF32 products)
                 (selfcheck.tensor_core_check); from ptxas's report
                 (build/build.log), the f32 GEMM holds exactly 168 registers
                 and those int8 kernels at most 168, with no byte spilled
-                (selfcheck.wgmma_register_rows), ptxas's notes that it
+                (selfcheck.wgmma_register_rows), no f32 instantiation of
+                the spatial attention kernels spills
+                (selfcheck.SPATIAL_KERNELS; the bf16 ones' spills are
+                printed), ptxas's notes that it
                 serialized a kernel's wgmma are printed, and every head
                 layout of
                 the temporal core #11 and its backward #12 is built (17
@@ -62,8 +67,11 @@ path reaches. In phases; any failure raises and exits non-zero:
                 rel-L2 < 1e-2 and max|diff| < 0.02 max|plain| (#16, #17:
                 and the share of bf16 elements equal bit for bit); median
                 kernel / plain / library-call ms and the card's least time
-                (bound), and for the kernels that a CLI path runs in f32
-                (F32_PATH) the f32 kernel / plain ms and bound too; for #24
+                (bound), and for the kernels that a CLI path or the kernel
+                API phase runs in f32 (F32_PATH) the f32 kernel / plain /
+                library-call ms (under highest(), TF32 off) and bound too
+                (the f32 GEMM's and spatial attention's products as three
+                TF32 products, the FMA pipes' time beside it); for #24
                 also the stem's cuDNN composition's ms;
                 then the float GEMM alone (kernels/linear.gemm) at each of
                 its callers' shapes at the slice (selfcheck.gemm_shapes:
@@ -201,7 +209,8 @@ from torch_forward_ms import INT8_MODES as TOOL_MODES  # noqa: E402
 from torch_forward_ms import (ITERS, PACKED, PATH_FLAGS,  # noqa: E402
                               WARMUP, forward_times, input_dtype, set_mode)
 from torch_train_ms import (TRAIN_BATCH, build_trainer,  # noqa: E402
-                            paper_trainer, train_times, warm_up)
+                            kernel_families, paper_trainer, train_times,
+                            warm_up)
 from kernel_ms import gemm_q8_rows, gemm_rows, median_ms  # noqa: E402
 
 # the serving paths, by their cli/serve.py flags (int8, float in bf16, float
@@ -321,18 +330,11 @@ TRAIN_PER_LAYER = {
 }
 
 # kernels that a path runs in f32 (float serving and training without --bf16,
-# the interpretability path; the kernel API phase's sepconv_bn): phase 3
-# times them in f32 as well as in bf16
+# the interpretability path; the kernel API phase's spatial entries and
+# sepconv_bn): phase 3 times them in f32 as well as in bf16
 F32_PATH = ({*SERVE_PER_LAYER["float"], *TRAIN_PER_LAYER}
-            | {"fused_ff", "sepconv_bn"})
-# the kernels whose products run on the float GEMM (in f32 three TF32
-# products a multiply-add); the other float products (the attention cores,
-# #24) run on the FMA pipes in f32
-GEMM_KERNELS = ("ln_matmul", "matmul_bias_residual",
-                "matmul_bias_residual/no_r", "ln_ff_residual",
-                "ln_ff_residual/h1", "ln_ff_residual/bwd", "ln_matmul/bwd",
-                "fused_ff", "ln_ff_residual_q8")
-
+            | {"fused_ff", "sepconv_bn", "fused_frame_attention",
+               "fused_frame_attention_mh", "fused_frame_attention_bwd"})
 # the kernel API phase: launches of one call of each entry point (forward
 # and backward of the differentiable ones)
 API_LAUNCHES = {"fused_frame_attention_mh": 1, "fused_frame_attention_bwd": 1,
@@ -370,162 +372,6 @@ def _tally(want_nonzero):
 
 # ---------------------------------------------------------------------------
 # 3. kernels vs plain
-
-
-def _ops(name, args):
-    """{input type: operations} the kernel's products need on these inputs
-    (multiply-adds count 2; elementwise work is left out). Masked keys
-    (>= n_valid) are not counted: the data does not need them."""
-    if name == "ln_qkv_q8_temporal_attention":
-        x, wq, heads = args[0], args[3], args[5]
-        b, t1, s, d = x.shape
-        inner = wq.shape[1] // 3
-        return {"int8": 2 * x.numel() // d * d * 3 * inner,
-                "bf16": 4 * b * s * t1 * t1 * inner}
-    if name == "mm_q8_ln_qkv_q8_spatial_attention":
-        a, woq, wq, n_valid = args[0], args[1], args[6], args[9]
-        g, s, d_in = a.shape
-        d, inner = woq.shape[1], wq.shape[1] // 3
-        return {"int8": 2 * g * s * (d_in * d + d * 3 * inner),
-                "bf16": 4 * g * s * n_valid * inner}
-    if name == "matmul_q8_res_ln_ff_q8_full":
-        a, wqo, w1q = args[0], args[2], args[7]
-        rows = a.numel() // a.shape[-1]
-        d, hid = wqo.shape[1], w1q.shape[1]
-        return {"int8": 2 * rows * (a.shape[-1] * d + 2 * d * hid)}
-    if name == "st_layer_q8":                     # 6 GEMMs, both cores
-        x, n_valid = args[0], args[24]
-        b, t1, s, d = x.shape
-        inner = args[3].shape[1] // 3
-        return {"int8": 2 * x.numel() // d * sum(
-                    args[i].numel() for i in (3, 5, 10, 12, 17, 20)),
-                "bf16": 4 * b * s * t1 * t1 * inner
-                + 4 * b * t1 * s * n_valid * inner}
-    if name == "temporal_attention_packed":
-        b, t1, s, i3 = args[0].shape
-        return {"bf16": 4 * b * s * t1 * t1 * (i3 // 3)}
-    if name == "spatial_attention_packed":
-        g, s, i3 = args[0].shape
-        return {"bf16": 4 * g * s * args[2] * (i3 // 3)}
-    if name == "temporal_attention_packed/bwd":   # 5 products of (T1, T1)
-        b, t1, s, i3 = args[0].shape
-        return {"bf16": 10 * b * s * t1 * t1 * (i3 // 3)}
-    if name == "spatial_attention_packed/bwd":    # 5 products, valid keys
-        g, s, i3 = args[0].shape
-        return {"bf16": 10 * g * s * args[3] * (i3 // 3)}
-    if name in ("fused_frame_attention", "fused_frame_attention_mh"):
-        g, s, inner = args[0].shape               # no mask
-        return {"bf16": 4 * g * s * s * inner}
-    if name == "fused_frame_attention_bwd":       # 5 products, no mask
-        g, s, inner = args[0].shape
-        return {"bf16": 10 * g * s * s * inner}
-    if name == "fused_temporal_attention":
-        b, t1, s, inner = args[0].shape
-        return {"bf16": 4 * b * s * t1 * t1 * inner}
-    if name == "fused_temporal_attention_bwd":    # 5 products of (T1, T1)
-        b, t1, s, inner = args[0].shape
-        return {"bf16": 10 * b * s * t1 * t1 * inner}
-    if name == "sepconv_bn":                      # pointwise; f32 depthwise
-        pixels, cin = args[0].numel() // args[0].shape[-1], args[0].shape[-1]
-        return {"bf16": 2 * pixels * cin * args[2].shape[1],
-                "f32": 18 * pixels * cin}
-    rows = args[0].numel() // args[0].shape[-1]
-    if name == "ln_matmul_q8":                    # (rows, D) @ (D, K)
-        return {"int8": 2 * rows * args[3].numel()}
-    if name in ("matmul_q8_bias_residual", "matmul_q8_bias_residual/no_r"):
-        return {"int8": 2 * rows * args[1].numel()}
-    if name == "matmul_q8_ln_matmul_q8":          # out-proj, then QKV
-        return {"int8": 2 * rows * (args[1].numel() + args[6].numel())}
-    if name == "ln_ff_residual_q8":               # int8 fc1, float fc2
-        return {"int8": 2 * rows * args[3].numel(),
-                "bf16": 2 * rows * args[6].numel()}
-    if name == "ln_ff_residual_q8_full":          # int8 fc1 and fc2
-        return {"int8": 2 * rows * (args[3].numel() + args[6].numel())}
-    if name in ("ln_ff_residual", "ln_ff_residual/h1"):
-        return {"bf16": 4 * rows * args[3].shape[0] * args[3].shape[1]}
-    if name == "fused_ff":                        # fc1, fc2
-        return {"bf16": 4 * rows * args[1].shape[0] * args[1].shape[1]}
-    if name == "ln_ff_residual/bwd":              # dW2, dH, dW1, dY
-        return {"bf16": 8 * rows * args[3].shape[0] * args[3].shape[1]}
-    if name == "ln_matmul/bwd":                   # dY, dW
-        return {"bf16": 4 * rows * args[3].numel()}
-    # ln_matmul, matmul_bias_residual(/no_r): one (rows, K) @ (K, N) product
-    return {"bf16": 2 * rows * args[-1 if name == "ln_matmul" else 1].numel()}
-
-
-def _ops_as_run(name, args, dtype):
-    """_ops by the type of operation that runs them for activations of
-    `dtype`: in f32 the float GEMM's products (GEMM_KERNELS) as
-    selfcheck.float_gemm_ops runs them, the others f32 on the FMA pipes."""
-    ops = _ops(name, args)
-    if dtype != torch.float32:
-        return ops
-    out = {}
-    for k, n in ops.items():
-        parts = {k: n}
-        if k == "bf16":
-            parts = (selfcheck.float_gemm_ops(n, dtype)
-                     if name in GEMM_KERNELS else {"f32": n})
-        for kk, nn in parts.items():
-            out[kk] = out.get(kk, 0) + nn
-    return out
-
-
-def _bound_ms(name, args, out, dtype=torch.bfloat16):
-    """The least time the card could take (selfcheck.bound_ms): the bytes
-    the function must move (each input read once, the output written once)
-    and its operations by type (_ops_as_run for activations of `dtype`)."""
-    tensors = [t for t in args if torch.is_tensor(t)] + list(
-        selfcheck.outputs(out))
-    return selfcheck.bound_ms(
-        _ops_as_run(name, args, dtype),
-        sum(t.numel() * t.element_size() for t in tensors))
-
-
-def _library_call(name, args):
-    """One PyTorch call computing the same function, timed as a yardstick
-    only (the port never calls it), or None where there is none."""
-    if name == "spatial_attention_packed":
-        qkv, heads, n_valid = args
-        g, s, i3 = qkv.shape
-        q, k, v = (t.view(g, s, heads, -1).transpose(1, 2)
-                   for t in qkv.split(i3 // 3, dim=-1))
-        mask = torch.zeros(1, 1, 1, s, dtype=qkv.dtype, device=qkv.device)
-        mask[..., n_valid:] = -1e30
-        return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      attn_mask=mask)
-    if name == "matmul_bias_residual/no_r":
-        x, w, b = args
-        return lambda: F.linear(x, w.t(), b)
-    if name in ("fused_frame_attention", "fused_frame_attention_mh"):
-        q, k, v = args[:3]
-        heads = args[3] if len(args) > 3 else 1
-        g, s, _ = q.shape
-        q, k, v = (t.view(g, s, heads, -1).transpose(1, 2) for t in (q, k, v))
-        return lambda: F.scaled_dot_product_attention(q, k, v)
-    if name == "fused_frame_attention_bwd":
-        # the backward of one SDPA call without a mask
-        q, k, v, go, heads = args
-        g, s, _ = q.shape
-        q, k, v = (t.reshape(g, s, heads, -1).transpose(1, 2).detach()
-                   .requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(q, k, v)
-        gout = go.reshape(g, s, heads, -1).transpose(1, 2)
-        return lambda: torch.autograd.grad(out, (q, k, v), gout,
-                                           retain_graph=True)
-    if name == "spatial_attention_packed/bwd":
-        # the backward of one SDPA call with the same additive mask
-        qkv, go, heads, n_valid = args
-        g, s, i3 = qkv.shape
-        q, k, v = (t.reshape(g, s, heads, -1).transpose(1, 2).detach()
-                   .requires_grad_() for t in qkv.split(i3 // 3, dim=-1))
-        mask = torch.zeros(1, 1, 1, s, dtype=qkv.dtype, device=qkv.device)
-        mask[..., n_valid:] = -1e30
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-        gout = go.reshape(g, s, heads, -1).transpose(1, 2)
-        return lambda: torch.autograd.grad(out, (q, k, v), gout,
-                                           retain_graph=True)
-    return None
 
 
 def _cudnn_sepconv(args):
@@ -573,21 +419,33 @@ def check_kernels(dev):
         ms_kern_b = median_ms(lambda: kern(*args16))
         ms_plain_b = median_ms(lambda: plain(*args16))
         ms, plain_ms = min(ms_kern_a, ms_kern_b), min(ms_plain_a, ms_plain_b)
-        lib = _library_call(counter, args16)
+        lib = selfcheck.library_call(counter, args16)
         lib_ms = None if lib is None else median_ms(lib)
-        bound_ms, bound_by = _bound_ms(counter, args16, out16)
+        bound_ms, bound_by = selfcheck.case_bound_ms(counter, args16, out16)
         if counter == "sepconv_bn":
             extra["cudnn_ms"] = median_ms(_cudnn_sepconv(args16))
         if counter in F32_PATH:
-            # a path runs it in f32: time that too
+            # a path runs it in f32: time that too, with its yardstick
             with highest():
                 f32_ms = [median_ms(lambda: kern(*args)),
                           median_ms(lambda: plain(*args))]
-            b32, by32 = _bound_ms(counter, args, got, torch.float32)
+                lib32 = selfcheck.library_call(counter, args)
+                lib32_ms = None if lib32 is None else median_ms(lib32)
+            b32, by32 = selfcheck.case_bound_ms(counter, args, got,
+                                                torch.float32)
             extra["f32"] = {"ms": f32_ms[0], "plain_ms": f32_ms[1],
-                            "bound_ms": b32, "bound_by": by32}
+                            "bound_ms": b32, "bound_by": by32,
+                            "library_ms": lib32_ms}
+            fma = ""
+            if counter in selfcheck.TF32_CASES:
+                # the same products on the FMA pipes: a reading for the
+                # text only, not a measurement, so not in the kernels line
+                fma_ms = 1e3 * selfcheck.case_ops(counter, args).get(
+                    "bf16", 0) / selfcheck.PEAK_OPS["f32"]
+                fma = f", FMA pipes {fma_ms:.4f}"
             phase("kernels", f"{name}: f32 median ms kernel {f32_ms[0]:.4f} "
-                  f"plain {f32_ms[1]:.4f} bound {b32:.4f} ({by32})")
+                  f"plain {f32_ms[1]:.4f} library {lib32_ms} bound "
+                  f"{b32:.4f} ({by32}{fma})")
         crit = ("rel-L2 < " if name in selfcheck.FREE_RUNNING_CASES
                 else "") + str(selfcheck.f32_tol(name))
         phase("kernels", f"{name}: f32 max|diff| {err32:.3e} "
@@ -760,18 +618,9 @@ def e2e_phase(path, predictor):
 
 
 def _write_profile(prof, title, profile, rows=40):
-    """Append a profile's table and its device time by kernel family (the
-    port's kernels by their template's name, every other CUDA kernel and
-    copy under 'other') to the file `profile`."""
-    fam = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        name = (e.key.split("istvt::", 1)[1].split("<")[0].split("(")[0]
-                if "istvt::" in e.key else "other")
-        fam[name] = fam.get(name, 0.0) + us / 1e3
+    """Append a profile's table and its device time by kernel family
+    (torch_train_ms.kernel_families) to the file `profile`."""
+    fam = kernel_families(prof)
     with open(profile, "a") as f:
         f.write(title + "\n")
         f.write(prof.key_averages().table(sort_by="cuda_time_total",
@@ -1261,17 +1110,17 @@ def main():
             _lib.tensor_ops_of_sass(sass),
             _lib.tensor_ops_of_sass(sass, ("HGMMA.",)),
             _lib.tensor_ops_of_sass(sass, (selfcheck.INT8_WGMMA_OP,)), imma,
-            _lib.tensor_ops_of_sass(sass, (selfcheck.TF32_WGMMA_OP,))):
-        fma_only = kernel in selfcheck.FMA_ONLY_KERNELS and dtype == "f32"
+            _lib.tensor_ops_of_sass(sass, (selfcheck.TF32_WGMMA_OP,)),
+            _lib.tensor_ops_of_sass(sass, (selfcheck.TF32_MMA_OP,))):
         what = ("HGMMA" if kernel in selfcheck.WGMMA_KERNELS
                 else "TF32 HGMMA" if kernel in selfcheck.TF32_WGMMA_KERNELS
+                else "TF32 HMMA" if dtype == "f32"
                 else "IGMMA" if dtype == "int8" else "tensor-core")
         phase("build", f"{kernel} {dtype}: {what} instructions "
               f"{sorted(found.values())}"
               + (f", IMMA {sum(imma.get(n, 0) for n in found)}"
                  if dtype == "int8" else "")
-              + f" ({'ok' if ok else 'FAIL'}: "
-              f"{'none' if fma_only else 'each'} wanted"
+              + f" ({'ok' if ok else 'FAIL'}: each wanted"
               + (", no IMMA" if dtype == "int8" else "") + ")")
         if not ok:
             raise SystemExit(f"{kernel} in {dtype} is not on the pipes it "
@@ -1288,6 +1137,15 @@ def main():
         if not regs or off:
             raise SystemExit(f"{kernel} spills or is off its register "
                              f"budget: {off}")
+    # the spatial attention kernels: no f32 instantiation spilled
+    for kernel, regs, spilled in selfcheck.spill_rows(
+            report, selfcheck.SPATIAL_KERNELS):
+        f32 = [n for n in spilled if f"{len(kernel)}{kernel}If" in n]
+        phase("build", f"{kernel}: ptxas, {len(regs)} instantiations, "
+              f"registers {sorted(regs.values())}, spilled: f32 {len(f32)} "
+              f"(ok: none wanted), bf16 {len(spilled) - len(f32)}")
+        if not regs or f32:
+            raise SystemExit(f"{kernel}: f32 instantiations spill: {f32}")
     serialized = [ln.strip() for ln in log.splitlines()
                   if "wgmma" in ln and "serialized" in ln]
     phase("build", f"ptxas notes of serialized wgmma: {len(serialized)}"

@@ -17,8 +17,9 @@ a torch.autograd.Function whose backward is temporal_attention_packed_bwd
 spatial_attention_packed_bwd (TPU kernel fused_frame_attention_bwd).
 A CUDA tensor launches the core (or raises on a shape the core does not
 take); a CPU tensor runs the plain version. The spatial core and its
-backward run on the bf16 tensor cores for bf16 activations and on the FMA
-pipes for f32 ones (chosen by dtype when the kernels are compiled); the
+backward run on the tensor cores in both dtypes: bf16 products for bf16
+activations, three TF32 products each for f32 ones (chosen by dtype when
+the kernels are compiled); the
 temporal core and its backward lay each head on a few lanes of a warp, in
 the layout temporal_plan picks (csrc/temporal.cuh). The int8 ingest kernels
 (kernels/quant.py) run the same cores and plain helpers on their own

@@ -26,7 +26,8 @@
 // (295 MB at B=16 bf16, 0.088 ms at 3.35 TB/s). The spatial backward is 5 S^2 dh
 // products per (frame, head), about 0.08 TFLOP per B=16 layer (9.5 GFLOP at the
 // 2-clip slice: 0.0097 ms at 989 TFLOP/s of bf16, against 0.0110 ms for its bytes,
-// so bytes bound it). The TPU kernel held the whole S x S f32 score tile of a frame
+// so bytes bound it; in f32 three TF32 products of each, 0.059 ms at 495 TFLOP/s,
+// bound by them). The TPU kernel held the whole S x S f32 score tile of a frame
 // in VMEM (542 KB), which does not fit the 227 KB of shared memory of a block.
 //
 // What the design does about it: the temporal backward takes whole (clip, location)
@@ -40,21 +41,26 @@
 // per query tile, the exact softmax, rowsum(P o dP), dS and dQ, and per query row the
 // softmax max, sum and rowsum; (b) per key tile, streaming query chunks: P from the
 // stored max / sum (the scores summed in the same order as in (a), so P and dS are
-// (a)'s), then dK and dV. By activation dtype:
-//   * bf16, on the tensor cores (attention_tc.cuh): 128 rows a block (8 warps x 16,
-//     their rows held as mma A fragments), the other side streaming through shared
-//     memory in 64-row chunks, two stages by cp.async; every product is mma.sync
-//     m16n8k16 with f32 accumulators, P and dS going from the accumulators into the
-//     next product as A fragments. Pass (a) sweeps the keys three times (max and sum;
-//     rowsum(P o dP) from QK^T and dO V^T; dS and dQ += dS K), pass (b) the queries
-//     once (K Q^T and V dO^T, then dV += round(P)^T dO and dK += dS^T Q), 10 S^2 dh
-//     products in all against the 5 the math needs; the exp and IEEE division per
-//     score, kept so that P rounds as the reference's does, cost beyond that.
-//   * f32, on the FMA pipes (the f32 check needs no TF32): (a) per 32-query tile,
-//     each lane holding the score and dP rows of its key slots in registers as the
-//     f32 forward core does; (b) per 32-key tile, streaming 32-query chunks.
-// dim_head <= 64 in both (pass (b)'s registers: K, V, dK and dV of 16 rows a warp).
-#include "attention_tc.cuh"
+// (a)'s), then dK and dV. Both dtypes run on the tensor cores with 128 rows a block (8
+// warps x 16), the other side streaming through shared memory in chunks; pass (b)
+// sweeps the queries once (K Q^T and V dO^T, then dV += round(P)^T dO and dK += dS^T
+// Q). The exp per score, and in bf16 the IEEE division, kept so that P rounds as the
+// reference's does, cost beyond the products. By activation dtype:
+//   * bf16 (attention_tc.cuh): the rows held as mma A fragments, 64-row chunks, two
+//     stages by cp.async; every product mma.sync m16n8k16 with f32 accumulators, P and
+//     dS going from the accumulators into the next product as A fragments. Pass (a)
+//     sweeps the keys three times (max and sum; rowsum(P o dP) from QK^T and dO V^T;
+//     dS and dQ += dS K): 10 S^2 dh products in all against the 5 the math needs.
+//   * f32 (attention_tf32.cuh): every product as three TF32 products on mma.sync
+//     m16n8k8, so the f32 check (1e-5 max|plain|) holds; the rows' raw A fragments in
+//     each lane's shared-memory slots, 32-row chunks split once into hi / lo planes, a
+//     fresh sum each 32-deep k-step, P and dS into the next product from the
+//     accumulators as in bf16. Pass (a) sweeps the keys twice: max, sum and
+//     rowsum(P o dP) in one online sweep (P is not rounded in f32), then dS and dQ: 9
+//     S^2 dh products (27 TF32 ones).
+// dim_head <= 64 in both (pass (b)'s registers: dK and dV of 16 rows a warp, with the
+// bf16 pass's K and V fragments).
+#include "attention_tf32.cuh"
 #include "temporal.cuh"
 
 namespace istvt {
@@ -76,285 +82,186 @@ __global__ void temporal_attn_bwd_kernel(
                                      kTemporalBwdThreads * W);
 }
 
-// (ii) Spatial backward. kSQ queries or keys per block tile, 4 per warp.
-constexpr int kSQ = 32, kSW = 4, kSMaxCh = 12;  // S <= 12 * 32 = 384
+// (ii) Spatial backward: two passes, 128 query (a) or key (b) rows a block of 256
+// threads, 16 a warp.
 
-// The f32 score of (query q, key j): sum over d in order of fmaf(q_d, k_d), times the
-// scale, -1e30 added for masked keys. Pass (a) and pass (b) both compute it this way,
-// so both get the same bits.
-__device__ __forceinline__ float masked_score(float dot, float scale, int key, int n_valid) {
-  float v = __fmul_rn(dot, scale);
-  if (key >= n_valid) v = __fadd_rn(v, -1e30f);
-  return v;
+// The f32 passes, on the tensor cores as three TF32 products (attention_tf32.cuh): the
+// rows a warp owns held as raw A fragments in its lanes' shared-memory slots, the other
+// side streaming in 32-row chunks split once into hi / lo planes, a fresh sum each
+// 32-deep k-step. Shared memory (dynamic): the two held matrices of the block's 8 warps
+// and the stage.
+// Pass (a) stages K (T and A planes: QK^T, dS K) and V (T: dO V^T); pass (b) Q and dO
+// (T and A planes each: K Q^T, dS^T Q; V dO^T, P^T dO) and the stats.
+__host__ __device__ constexpr int tf32_bwd_smem_bytes(int dh, bool dkv) {
+  return 4 * (tf32_held_floats(dh, 8, 2) +
+              (dkv ? tf32_stage_floats(dh, 2, 2, 2, 3) : tf32_stage_floats(dh, 2, 2, 1, 0)));
 }
 
-// (a) Block = (query tile of 32, head, frame); warp w owns queries 4w..4w+3, lane
-// owns keys 32 m + lane. Writes dQ and stats[(frame, head, row)] = (max, sum, rowsum).
-// kPacked: q is the packed qkv (G, S, 3 inner) and dq the packed dqkv; else q, k, v,
-// dq, dk, dv are (G, S, inner) tensors of their own.
+// (a), f32: sweep 1 (K, V chunks), online: QK^T and dP = dO V^T, each row's max, sum
+// of e = exp(s - max) and sum of e dP, rescaled where the max grows (tf32_online), so
+// rowsum(P o dP) = (sum of e dP) / sum, still P o dP summed directly; sweep 2 (K, V
+// chunks): P = e / sum (times the reciprocal), dS = (P o (dP - rowsum)) s, dQ += dS K.
+// Writes dQ and stats (max, 1 / sum, rowsum). kPacked: q is the packed qkv (G, S, 3
+// inner) and dq the packed dqkv; else q, k, v, dq, dk, dv are (G, S, inner) tensors of
+// their own.
 template <int DH, bool kPacked>
-__device__ __forceinline__ void spatial_bwd_dq_fma(const float* __restrict__ q,
-                                                   const float* __restrict__ k,
-                                                   const float* __restrict__ v,
-                                                   const float* __restrict__ dout,
-                                                   float* __restrict__ dq,
-                                                   float* __restrict__ stats, int S, int H,
-                                                   int inner, int n_valid, float scale) {
-  using T = float;
-  constexpr int DPL = DH >= 32 ? DH / 32 : 1;
-  __shared__ __align__(16) float Qs[DH][kSQ + 4];  // Q tile, transposed
-  __shared__ __align__(16) float Gs[DH][kSQ + 4];  // dO tile, transposed
-  __shared__ float KV[32][DH + 1];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kSQ, h = blockIdx.y, f = blockIdx.z;
+__device__ __forceinline__ void spatial_bwd_dq_tf32(const float* q, const float* k,
+                                                    const float* v, const float* dout,
+                                                    float* dq, float* stats, int S, int H,
+                                                    int inner, int n_valid, float scale,
+                                                    float* smem) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, f = blockIdx.z;
   const auto base = rows<kPacked>(q, k, v, inner).at(static_cast<size_t>(f) * S, h * DH);
-  const T* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
-  const int nch = (S + 31) / 32;
+  const float* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
+  const int nch = (S + kTfC - 1) / kTfC;
+  using Stage = Tf32Stage<DH, Tile256, 2, 3u, 1u>;  // K (T and A planes), V (T)
+  static_assert(Stage::kFloats == tf32_stage_floats(DH, 2, 2, 1, 0), "the smem plan");
+  const Stage st{smem + tf32_held_floats(DH, 8, 2)};
+  // chunk i: K and V rows of key chunk i % nch
+  const auto next = [&](int i) {
+    st.issue([&](int s, int r) { return s ? base.v(r) : base.k(r); }, nullptr,
+             (i % nch) * kTfC, S, 3u);
+  };
+  next(0);
+  float* qs = tf32_slots<DH>(smem, 8, 0, warp, lane);
+  float* gs = tf32_slots<DH>(smem, 8, 1, warp, lane);
+  const int r0 = blockIdx.x * kTcQT + 16 * warp + g;
+  const bool in0 = r0 < S, in1 = r0 + 8 < S;
+  tf32_hold<DH>(qs, in0 ? base.q(r0) : nullptr, in1 ? base.q(r0 + 8) : nullptr, t);
+  tf32_hold<DH>(gs, in0 ? gbase + static_cast<size_t>(r0) * inner : nullptr,
+                in1 ? gbase + static_cast<size_t>(r0 + 8) * inner : nullptr, t);
 
-  for (int idx = tid; idx < kSQ * DH; idx += 256) {
-    const int qq = idx / DH, d = idx % DH, row = q0 + qq;
-    Qs[d][qq] = row < S ? to_f(base.q(row)[d]) : 0.f;
-    Gs[d][qq] = row < S ? to_f(gbase[static_cast<size_t>(row) * inner + d]) : 0.f;
-  }
-
-  float sc[kSW][kSMaxCh], dp[kSW][kSMaxCh];
+  // the scores (masked) and dP of key chunk c, its planes landed
+  const auto s_dp = [&](int c, float (&sc)[4][4], float (&dp)[4][4]) {
+    tf32_scores<DH>(sc, qs, st.bt(0), lane);
+    tc_mask(sc, c * kTfC, t, S, n_valid, scale);
+    tf32_scores<DH>(dp, gs, st.bt(1), lane);
+  };
+  float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f};
+  for (int c = 0; c < nch; ++c) {
+    tf32_land<Tile256>(st, 3u, c, 2 * nch, next);
+    float sc[4][4], dp[4][4], corr[2];
+    s_dp(c, sc, dp);
+    tf32_online(sc, mx, sm, corr);
 #pragma unroll
-  for (int m = 0; m < kSMaxCh; ++m) {
+    for (int r = 0; r < 2; ++r) {
+      float acc = __fmul_rn(pdp[r], corr[r]);
 #pragma unroll
-    for (int qq = 0; qq < kSW; ++qq) {
-      sc[qq][m] = -INFINITY;
-      dp[qq][m] = 0.f;
-    }
-    if (m < nch) {
-      const int key = m * 32 + lane;
-      __syncthreads();
-      for (int idx = tid; idx < 32 * DH; idx += 256) {
-        const int kk = idx / DH, d = idx % DH, r = m * 32 + kk;
-        KV[kk][d] = r < S ? to_f(base.k(r)[d]) : 0.f;
-      }
-      __syncthreads();
-      float a[kSW] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        const float kv = KV[lane][d];
-        const float4 qv = *reinterpret_cast<const float4*>(&Qs[d][warp * kSW]);
-        a[0] = fmaf(qv.x, kv, a[0]);
-        a[1] = fmaf(qv.y, kv, a[1]);
-        a[2] = fmaf(qv.z, kv, a[2]);
-        a[3] = fmaf(qv.w, kv, a[3]);
-      }
-      __syncthreads();
-      for (int idx = tid; idx < 32 * DH; idx += 256) {
-        const int kk = idx / DH, d = idx % DH, r = m * 32 + kk;
-        KV[kk][d] = r < S ? to_f(base.v(r)[d]) : 0.f;
-      }
-      __syncthreads();
-      float c[kSW] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        const float vv = KV[lane][d];
-        const float4 gv = *reinterpret_cast<const float4*>(&Gs[d][warp * kSW]);
-        c[0] = fmaf(gv.x, vv, c[0]);
-        c[1] = fmaf(gv.y, vv, c[1]);
-        c[2] = fmaf(gv.z, vv, c[2]);
-        c[3] = fmaf(gv.w, vv, c[3]);
-      }
-      if (key < S) {
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int qq = 0; qq < kSW; ++qq) {
-          sc[qq][m] = masked_score(a[qq], scale, key, n_valid);
-          dp[qq][m] = c[qq];
-        }
-      }
+        for (int e = 2 * r; e < 2 * r + 2; ++e) acc = __fadd_rn(acc, __fmul_rn(sc[j][e], dp[j][e]));
+      pdp[r] = acc;
     }
   }
-  // exact softmax per query row, rowsum(P o dP), then dS (rounded to T) into dp
+  float rinv[2];
+  tf32_row_sums(sm, rinv);
 #pragma unroll
-  for (int qq = 0; qq < kSW; ++qq) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int m = 0; m < kSMaxCh; ++m) mx = fmaxf(mx, sc[qq][m]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int m = 0; m < kSMaxCh; ++m) {
-      sc[qq][m] = expf(sc[qq][m] - mx);
-      sum += sc[qq][m];
-    }
-    sum = warp_sum(sum);
-    float pdp = 0.f;
-#pragma unroll
-    for (int m = 0; m < kSMaxCh; ++m) {
-      sc[qq][m] = __fdiv_rn(sc[qq][m], sum);
-      pdp += __fmul_rn(sc[qq][m], dp[qq][m]);
-    }
-    pdp = warp_sum(pdp);
-#pragma unroll
-    for (int m = 0; m < kSMaxCh; ++m)
-      dp[qq][m] = round_to<T>(__fmul_rn(__fmul_rn(sc[qq][m], __fsub_rn(dp[qq][m], pdp)), scale));
-    const int row = q0 + warp * kSW + qq;
-    if (lane == 0 && row < S) {
-      float* st = stats + ((static_cast<size_t>(f) * H + h) * S + row) * 3;
-      st[0] = mx;
-      st[1] = sum;
-      st[2] = pdp;
-    }
+  for (int r = 0; r < 2; ++r) {
+    pdp[r] = __fadd_rn(pdp[r], __shfl_xor_sync(0xffffffffu, pdp[r], 1));
+    pdp[r] = __fadd_rn(pdp[r], __shfl_xor_sync(0xffffffffu, pdp[r], 2));
+    pdp[r] = __fmul_rn(pdp[r], rinv[r]);
   }
-
-  float o[kSW][DPL];
+  // sweep 2: dS and dQ += dS K
+  float o[DH / 8][4];
 #pragma unroll
-  for (int qq = 0; qq < kSW; ++qq)
+  for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) o[qq][e] = 0.f;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    tf32_land<Tile256>(st, 3u, nch + c, 2 * nch, next);
+    float sc[4][4], dp[4][4];
+    s_dp(c, sc, dp);
 #pragma unroll
-  for (int m = 0; m < kSMaxCh; ++m) {
-    if (m < nch) {
-      __syncthreads();
-      for (int idx = tid; idx < 32 * DH; idx += 256) {
-        const int kk = idx / DH, d = idx % DH, r = m * 32 + kk;
-        KV[kk][d] = r < S ? to_f(base.k(r)[d]) : 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = __fmul_rn(expf(sc[j][e] - mx[e >> 1]), rinv[e >> 1]);
+        dp[j][e] = __fmul_rn(__fmul_rn(pr, __fsub_rn(dp[j][e], pdp[e >> 1])), scale);
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < 32; ++jj) {
-        float g[kSW];
-#pragma unroll
-        for (int qq = 0; qq < kSW; ++qq) g[qq] = __shfl_sync(0xffffffffu, dp[qq][m], jj);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          const int d = lane + 32 * e;
-          const float kv = d < DH ? KV[jj][d] : 0.f;
-#pragma unroll
-          for (int qq = 0; qq < kSW; ++qq) o[qq][e] = fmaf(g[qq], kv, o[qq][e]);
-        }
-      }
-    }
+    tf32_ab<DH>(o, dp, st.ba(0), lane);
   }
-#pragma unroll
   const auto ob = rows<kPacked>(dq, dq, dq, inner).at(static_cast<size_t>(f) * S, h * DH);
-  for (int qq = 0; qq < kSW; ++qq) {
-    const int row = q0 + warp * kSW + qq;
-    if (row >= S) continue;
+  if (t == 0) {
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < DH) ob.q(row)[d] = from_f<T>(o[qq][e]);
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half;
+      if (row >= S) continue;
+      float* sr = stats + ((static_cast<size_t>(f) * H + h) * S + row) * 3;
+      sr[0] = mx[half];
+      sr[1] = rinv[half];
+      sr[2] = pdp[half];
     }
   }
+  tf32_store<DH>(o, in0 ? ob.q(r0) : nullptr, in1 ? ob.q(r0 + 8) : nullptr, t);
 }
 
-// (b) Block = (key tile of 32, head, frame); warp w owns keys 4w..4w+3; query chunks
-// of 32 stream through shared memory, lane = query. Writes dK and dV.
+// (b), f32: block = (key tile of 128, head, frame), warp w's 16 keys held as A fragments
+// of K and V; query chunks stream Q, dO (split) and their stats rows. Per chunk: S^T =
+// K Q^T and dP^T = V dO^T (the terms in (a)'s order), P^T from the stored max and 1 /
+// sum by (a)'s operations (so P and dS are (a)'s bit for bit), dS^T, then dV += P^T dO
+// and dK += dS^T Q, each chunk summed afresh. Writes dK and dV.
 template <int DH, bool kPacked>
-__device__ __forceinline__ void spatial_bwd_dkv_fma(const float* __restrict__ q,
-                                                    const float* __restrict__ k,
-                                                    const float* __restrict__ v,
-                                                    const float* __restrict__ dout,
-                                                    float* __restrict__ dk_out,
-                                                    float* __restrict__ dv_out,
-                                                    const float* __restrict__ stats, int S,
-                                                    int H, int inner, int n_valid, float scale) {
-  using T = float;
-  constexpr int DPL = DH >= 32 ? DH / 32 : 1;
-  __shared__ __align__(16) float Ks[DH][kSQ + 4];  // K tile, transposed
-  __shared__ __align__(16) float Vs[DH][kSQ + 4];  // V tile, transposed
-  __shared__ float Qc[32][DH + 1];                 // query chunk
-  __shared__ float Gc[32][DH + 1];                 // dO chunk
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k0 = blockIdx.x * kSQ, h = blockIdx.y, f = blockIdx.z;
+__device__ __forceinline__ void spatial_bwd_dkv_tf32(const float* q, const float* k,
+                                                     const float* v, const float* dout,
+                                                     float* dk_out, float* dv_out,
+                                                     const float* stats, int S, int H,
+                                                     int inner, int n_valid, float scale,
+                                                     float* smem) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, f = blockIdx.z;
   const auto base = rows<kPacked>(q, k, v, inner).at(static_cast<size_t>(f) * S, h * DH);
-  const T* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
+  const float* gbase = dout + static_cast<size_t>(f) * S * inner + h * DH;
   const float* fstats = stats + (static_cast<size_t>(f) * H + h) * S * 3;
-  const int nch = (S + 31) / 32;
+  const int nch = (S + kTfC - 1) / kTfC;
+  using Stage = Tf32Stage<DH, Tile256, 2, 3u, 3u, 3>;  // Q, dO (T and A planes), stats
+  static_assert(Stage::kFloats == tf32_stage_floats(DH, 2, 2, 2, 3), "the smem plan");
+  const Stage st{smem + tf32_held_floats(DH, 8, 2)};
+  // chunk i: Q and dO rows of query chunk i, and their stats
+  const auto next = [&](int i) {
+    st.issue([&](int s, int r) { return s ? gbase + static_cast<size_t>(r) * inner : base.q(r); },
+             fstats, i * kTfC, S, 3u);
+  };
+  next(0);
+  float* ks = tf32_slots<DH>(smem, 8, 0, warp, lane);
+  float* vs = tf32_slots<DH>(smem, 8, 1, warp, lane);
+  const int k0 = blockIdx.x * kTcQT + 16 * warp + g;  // keys k0, k0 + 8
+  const bool in0 = k0 < S, in1 = k0 + 8 < S;
+  tf32_hold<DH>(ks, in0 ? base.k(k0) : nullptr, in1 ? base.k(k0 + 8) : nullptr, t);
+  tf32_hold<DH>(vs, in0 ? base.v(k0) : nullptr, in1 ? base.v(k0 + 8) : nullptr, t);
+  float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-  for (int idx = tid; idx < kSQ * DH; idx += 256) {
-    const int kk = idx / DH, d = idx % DH, r = k0 + kk;
-    Ks[d][kk] = r < S ? to_f(base.k(r)[d]) : 0.f;
-    Vs[d][kk] = r < S ? to_f(base.v(r)[d]) : 0.f;
-  }
-  float dk[kSW][DPL], dv[kSW][DPL];
+  for (int c = 0; c < nch; ++c) {
+    tf32_land<Tile256>(st, 3u, c, nch, next);
+    float sc[4][4], dp[4][4];
+    tf32_scores<DH, 1, true>(sc, ks, st.bt(0), lane);
+    tf32_scores<DH, 1, true>(dp, vs, st.bt(1), lane);
+    const float* xs = st.extra();
 #pragma unroll
-  for (int kk = 0; kk < kSW; ++kk)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) dk[kk][e] = dv[kk][e] = 0.f;
-
-  for (int m = 0; m < nch; ++m) {
-    __syncthreads();
-    for (int idx = tid; idx < 32 * DH; idx += 256) {
-      const int qq = idx / DH, d = idx % DH, r = m * 32 + qq;
-      Qc[qq][d] = r < S ? to_f(base.q(r)[d]) : 0.f;
-      Gc[qq][d] = r < S ? to_f(gbase[static_cast<size_t>(r) * inner + d]) : 0.f;
-    }
-    __syncthreads();
-    const int qrow = m * 32 + lane;
-    float mx = 0.f, sum = 1.f, pdp = 0.f;
-    if (qrow < S) {
-      mx = fstats[qrow * 3];
-      sum = fstats[qrow * 3 + 1];
-      pdp = fstats[qrow * 3 + 2];
-    }
-    float a[kSW] = {0.f, 0.f, 0.f, 0.f}, c[kSW] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float qv = Qc[lane][d], gv = Gc[lane][d];
-      const float4 kv = *reinterpret_cast<const float4*>(&Ks[d][warp * kSW]);
-      const float4 vv = *reinterpret_cast<const float4*>(&Vs[d][warp * kSW]);
-      a[0] = fmaf(qv, kv.x, a[0]);
-      a[1] = fmaf(qv, kv.y, a[1]);
-      a[2] = fmaf(qv, kv.z, a[2]);
-      a[3] = fmaf(qv, kv.w, a[3]);
-      c[0] = fmaf(gv, vv.x, c[0]);
-      c[1] = fmaf(gv, vv.y, c[1]);
-      c[2] = fmaf(gv, vv.z, c[2]);
-      c[3] = fmaf(gv, vv.w, c[3]);
-    }
-    float pb[kSW], ds[kSW];
-#pragma unroll
-    for (int kk = 0; kk < kSW; ++kk) {
-      const int key = k0 + warp * kSW + kk;
-      float p = 0.f;
-      if (qrow < S && key < S)
-        p = __fdiv_rn(expf(masked_score(a[kk], scale, key, n_valid) - mx), sum);
-      pb[kk] = round_to<T>(p);
-      ds[kk] = round_to<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(c[kk], pdp)), scale));
-    }
-#pragma unroll 4
-    for (int jj = 0; jj < 32; ++jj) {
-      float pj[kSW], sj[kSW];
-#pragma unroll
-      for (int kk = 0; kk < kSW; ++kk) {
-        pj[kk] = __shfl_sync(0xffffffffu, pb[kk], jj);
-        sj[kk] = __shfl_sync(0xffffffffu, ds[kk], jj);
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * j + 2 * t + (e & 1);  // query in the chunk
+        const int key = k0 + 8 * (e >> 1);
+        float s = __fmul_rn(sc[j][e], scale);
+        if (key >= n_valid) s = __fadd_rn(s, -1e30f);
+        float pr = 0.f;
+        if (c * kTfC + qi < S) pr = __fmul_rn(expf(s - xs[3 * qi]), xs[3 * qi + 1]);
+        sc[j][e] = pr;
+        dp[j][e] = __fmul_rn(__fmul_rn(pr, __fsub_rn(dp[j][e], xs[3 * qi + 2])), scale);
       }
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        const int d = lane + 32 * e;
-        const float gv = d < DH ? Gc[jj][d] : 0.f;
-        const float qv = d < DH ? Qc[jj][d] : 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kSW; ++kk) {
-          dv[kk][e] = fmaf(pj[kk], gv, dv[kk][e]);
-          dk[kk][e] = fmaf(sj[kk], qv, dk[kk][e]);
-        }
-      }
-    }
+    tf32_ab<DH>(dv, sc, st.ba(1), lane);
+    tf32_ab<DH>(dk, dp, st.ba(0), lane);
   }
   // packed: dk_out is the dqkv (dk, dv at columns inner and 2 inner of its rows)
   const auto ob =
       rows<kPacked>(dk_out, dk_out, dv_out, inner).at(static_cast<size_t>(f) * S, h * DH);
-#pragma unroll
-  for (int kk = 0; kk < kSW; ++kk) {
-    const int key = k0 + warp * kSW + kk;
-    if (key >= S) continue;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < DH) {
-        ob.k(key)[d] = from_f<T>(dk[kk][e]);
-        ob.v(key)[d] = from_f<T>(dv[kk][e]);
-      }
-    }
-  }
+  tf32_store<DH>(dk, in0 ? ob.k(k0) : nullptr, in1 ? ob.k(k0 + 8) : nullptr, t);
+  tf32_store<DH>(dv, in0 ? ob.v(k0) : nullptr, in1 ? ob.v(k0 + 8) : nullptr, t);
 }
 
 // The bf16 passes, on the tensor cores (attention_tc.cuh): 128 query (a) or key (b)
@@ -598,34 +505,41 @@ __device__ __forceinline__ void spatial_bwd_dkv_tc(const bf16* q, const bf16* k,
   }
 }
 
-// The two passes by activation dtype: f32 on the FMA pipes, bf16 on the tensor cores.
+// The two passes by activation dtype, both on the tensor cores: f32 as three TF32
+// products (its shared memory dynamic, above the 48 KB a static array may take), bf16
+// on bf16 products. Launch bounds: for f32 one block an SM stated (its shared memory
+// allows no more), so that ptxas takes the registers the passes need (without it, it
+// aimed for two or three blocks and spilled); for bf16 none (0), as before.
 template <typename T>
-__host__ __device__ constexpr int spatial_bwd_tile() {
-  return std::is_same<T, float>::value ? kSQ : kTcQT;
-}
+constexpr int kSpatialBwdMinBlocks = std::is_same<T, float>::value ? 1 : 0;
 
 template <typename T, int DH, bool kPacked>
-__global__ void __launch_bounds__(256) spatial_attn_bwd_dq_kernel(
+__global__ void __launch_bounds__(256, kSpatialBwdMinBlocks<T>) spatial_attn_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats, int S, int H,
     int inner, int n_valid, float scale) {
-  if constexpr (std::is_same<T, float>::value)
-    spatial_bwd_dq_fma<DH, kPacked>(q, k, v, dout, dq, stats, S, H, inner, n_valid, scale);
-  else
+  if constexpr (std::is_same<T, float>::value) {
+    extern __shared__ float4 tf32_smem[];
+    spatial_bwd_dq_tf32<DH, kPacked>(q, k, v, dout, dq, stats, S, H, inner, n_valid, scale,
+                                     reinterpret_cast<float*>(tf32_smem));
+  } else {
     spatial_bwd_dq_tc<DH, kPacked>(q, k, v, dout, dq, stats, S, H, inner, n_valid, scale);
+  }
 }
 
 template <typename T, int DH, bool kPacked>
-__global__ void __launch_bounds__(256) spatial_attn_bwd_dkv_kernel(
+__global__ void __launch_bounds__(256, kSpatialBwdMinBlocks<T>) spatial_attn_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, T* __restrict__ dk_out, T* __restrict__ dv_out,
     const float* __restrict__ stats, int S, int H, int inner, int n_valid, float scale) {
-  if constexpr (std::is_same<T, float>::value)
-    spatial_bwd_dkv_fma<DH, kPacked>(q, k, v, dout, dk_out, dv_out, stats, S, H, inner, n_valid,
-                                     scale);
-  else
+  if constexpr (std::is_same<T, float>::value) {
+    extern __shared__ float4 tf32_smem[];
+    spatial_bwd_dkv_tf32<DH, kPacked>(q, k, v, dout, dk_out, dv_out, stats, S, H, inner,
+                                      n_valid, scale, reinterpret_cast<float*>(tf32_smem));
+  } else {
     spatial_bwd_dkv_tc<DH, kPacked>(q, k, v, dout, dk_out, dv_out, stats, S, H, inner, n_valid,
                                     scale);
+  }
 }
 
 template <typename T>
@@ -656,14 +570,28 @@ int launch_temporal_bwd(const void* qkv, const void* dout, void* dqkv, int B, in
 
 // Packed: q = qkv, dq = dqkv (k, v, dk, dv unused). Unpacked: six tensors of their own.
 template <typename T, int DH, bool kPacked>
-void launch_spatial_bwd_dh(const T* q, const T* k, const T* v, const T* g, T* dq, T* dk, T* dv,
-                           float* stats, int G, int S, int H, int inner, int n_valid, float scale,
-                           cudaStream_t st) {
-  dim3 grid((S + spatial_bwd_tile<T>() - 1) / spatial_bwd_tile<T>(), H, G);
-  spatial_attn_bwd_dq_kernel<T, DH, kPacked><<<grid, 256, 0, st>>>(q, k, v, g, dq, stats, S, H,
-                                                                   inner, n_valid, scale);
-  spatial_attn_bwd_dkv_kernel<T, DH, kPacked><<<grid, 256, 0, st>>>(
-      q, k, v, g, kPacked ? dq : dk, dv, stats, S, H, inner, n_valid, scale);
+int launch_spatial_bwd_dh(const T* q, const T* k, const T* v, const T* g, T* dq, T* dk, T* dv,
+                          float* stats, int G, int S, int H, int inner, int n_valid, float scale,
+                          cudaStream_t st) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  constexpr int dq_bytes = f32 ? tf32_bwd_smem_bytes(DH, false) : 0;
+  constexpr int dkv_bytes = f32 ? tf32_bwd_smem_bytes(DH, true) : 0;
+  auto dq_kern = spatial_attn_bwd_dq_kernel<T, DH, kPacked>;
+  auto dkv_kern = spatial_attn_bwd_dkv_kernel<T, DH, kPacked>;
+  static const cudaError_t attr = [&] {
+    if (!f32) return cudaSuccess;
+    cudaError_t e =
+        cudaFuncSetAttribute(dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(dkv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+    return e;
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((S + kTcQT - 1) / kTcQT, H, G);
+  dq_kern<<<grid, 256, dq_bytes, st>>>(q, k, v, g, dq, stats, S, H, inner, n_valid, scale);
+  dkv_kern<<<grid, 256, dkv_bytes, st>>>(q, k, v, g, kPacked ? dq : dk, dv, stats, S, H, inner,
+                                         n_valid, scale);
+  return 0;
 }
 
 template <typename T, bool kPacked>
@@ -680,20 +608,16 @@ int launch_spatial_bwd(const void* q, const void* k, const void* v, const void* 
   auto sts = static_cast<float*>(stats);
   switch (inner / H) {
     case 16:
-      launch_spatial_bwd_dh<T, 16, kPacked>(qp, kp, vp, g, dqp, dkp, dvp, sts, G, S, H, inner,
-                                            n_valid, scale, st);
-      break;
+      return launch_spatial_bwd_dh<T, 16, kPacked>(qp, kp, vp, g, dqp, dkp, dvp, sts, G, S, H,
+                                                   inner, n_valid, scale, st);
     case 32:
-      launch_spatial_bwd_dh<T, 32, kPacked>(qp, kp, vp, g, dqp, dkp, dvp, sts, G, S, H, inner,
-                                            n_valid, scale, st);
-      break;
+      return launch_spatial_bwd_dh<T, 32, kPacked>(qp, kp, vp, g, dqp, dkp, dvp, sts, G, S, H,
+                                                   inner, n_valid, scale, st);
     case 64:
-      launch_spatial_bwd_dh<T, 64, kPacked>(qp, kp, vp, g, dqp, dkp, dvp, sts, G, S, H, inner,
-                                            n_valid, scale, st);
-      break;
+      return launch_spatial_bwd_dh<T, 64, kPacked>(qp, kp, vp, g, dqp, dkp, dvp, sts, G, S, H,
+                                                   inner, n_valid, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
 }
 
 }  // namespace istvt

@@ -19,7 +19,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcWarps = 8, kTcQT = 16 * kTcWarps;  // 128 rows a tile, 16 a warp
 
 // The block that runs a spatial tile: its kThreads threads (kWarps warps, each with
-// 16 query rows of a bf16 tile or 4 of an f32 one), meeting at __syncthreads. 256 in
+// 16 query rows), meeting at __syncthreads. 256 in
 // the standalone kernels (TileThreads<256>, every template's default); 384 in the
 // persistent ST layer #9, whose block is the int8 GEMM's.
 template <int N>
@@ -119,13 +119,14 @@ __device__ __forceinline__ void tc_mma_ab(float (&c)[DH / 8][4], const unsigned 
   }
 }
 
-// The scores of one warp's 16 rows against 16 keys from C fragments c (q.k sums):
+// The scores of one warp's 16 rows against 8 NJ keys from C fragments c (q.k sums):
 // x scale, -1e30 added for keys >= n_valid, -inf for keys >= S. key0 is the key of
 // the first column; column (j, e) is key0 + 8 j + 2 t + (e & 1).
-__device__ __forceinline__ void tc_mask(float (&c)[2][4], int key0, int t, int S, int n_valid,
+template <int NJ>
+__device__ __forceinline__ void tc_mask(float (&c)[NJ][4], int key0, int t, int S, int n_valid,
                                         float scale) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = key0 + 8 * j + 2 * t + (e & 1);

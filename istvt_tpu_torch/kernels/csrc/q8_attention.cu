@@ -27,7 +27,8 @@
 // ms at 989 TFLOP/s of bf16, so bytes bound it). The TPU kernel held the whole S x S
 // f32 score tile of a frame in VMEM (368^2 x 4 B = 542 KB), which does not fit in the
 // 227 KB of shared memory a block can use. What the design does about it (both tiles
-// in q8_attention.cuh, chosen by the activation dtype at compile time):
+// in q8_attention.cuh, chosen by the activation dtype at compile time; both stream the
+// keys past the query rows, nothing S x S is stored):
 //   * bf16, on the tensor cores: 128 queries a block (8 warps x 16 rows, their q
 //     held as mma A fragments), so one staging of a frame-head's K and V serves 128
 //     queries; K and V stream through shared memory in 64-key chunks (32 at dim_head
@@ -39,11 +40,16 @@
 //     accumulators into PV as the A fragment. The extra QK^T is S^2 dh products; the
 //     exp and the IEEE division per score (kept, so p rounds as the reference's
 //     does) and the two barriers per chunk are what it spends beyond the bound.
-//   * f32, on the FMA pipes (so the f32 check holds at 1e-5, which TF32 would not):
-//     queries tiled 32 to a block (4 per warp), each lane keeping the full score
-//     row of its key slots in registers (12 chunks of 32 keys, S <= 384), keys and
-//     values streaming through a 32-key shared-memory chunk, Q transposed in shared
-//     memory so a warp's 4 queries load as one broadcast float4.
+//   * f32, on the tensor cores as well: each product as three TF32 products (a_lo b_hi
+//     + a_hi b_lo + a_hi b_hi, mma.sync m16n8k8; attention_tf32.cuh), so the f32 check
+//     holds at 1e-5, which one TF32 product would miss. The bf16 tile's 16 query rows a
+//     warp; each lane holds its raw q fragments in its own shared-memory slots (the
+//     registers go to the accumulators), keys and values stream in 32-key chunks that
+//     each thread copies by cp.async and splits once into hi / lo planes, each 32-deep
+//     k-step sums afresh (the tensor cores round each product's sum toward zero), and
+//     since p is not rounded in f32 one online sweep over the keys replaces the two.
+//     Its work in f32 is three times the products: 0.188 ms at 495 TFLOP/s of TF32 for
+//     a B=16 forward, above the bytes' 0.101 ms.
 // The bodies are device functions in q8_attention.cuh and temporal.cuh, which
 // q8_layer.cu (#9) runs inside its persistent kernel.
 //
@@ -68,25 +74,59 @@ __global__ void __launch_bounds__(kTemporalThreads) temporal_attn_kernel(
   temporal_attn_lane<T, V, L, C>(qkv, out, T1, S, H, inner, dh, scale, g, g < total);
 }
 
-// (v) Block = (query tile of spatial_q_tile<T>(), head, frame).
+// (v) Block = (query tile of spatial_q_tile(), head, frame). The bf16 tile's shared
+// memory is static; the f32 tile's, above the 48 KB a static array may take, dynamic
+// (spatial_smem_bytes, opted in by launch_tile). Launch bounds: for f32 two blocks an SM
+// stated (one at dim_head 128), so that ptxas neither aims for more blocks and spills
+// (without it) nor spreads into registers that would keep a second block out; for bf16
+// none (0), as before.
 template <typename T, int DH>
-__global__ void __launch_bounds__(256) spatial_attn_kernel(
+constexpr int kSpatialMinBlocks = std::is_same<T, float>::value ? (DH > 64 ? 1 : 2) : 0;
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(256, kSpatialMinBlocks<T, DH>) spatial_attn_kernel(
     const T* __restrict__ qkv, T* __restrict__ out, int S, int inner, int n_valid,
     float scale) {
-  __shared__ __align__(16) unsigned char smem[spatial_smem_bytes<T>(DH)];
-  spatial_attn_tile<T, DH>(qkv, out, S, inner, n_valid, scale, blockIdx.x, blockIdx.y,
-                           blockIdx.z, reinterpret_cast<float*>(smem));
+  if constexpr (std::is_same<T, float>::value) {
+    extern __shared__ float4 tf32_smem[];
+    spatial_attn_tile<T, DH>(qkv, out, S, inner, n_valid, scale, blockIdx.x, blockIdx.y,
+                             blockIdx.z, reinterpret_cast<float*>(tf32_smem));
+  } else {
+    __shared__ __align__(16) unsigned char smem[spatial_smem_bytes<T>(DH)];
+    spatial_attn_tile<T, DH>(qkv, out, S, inner, n_valid, scale, blockIdx.x, blockIdx.y,
+                             blockIdx.z, reinterpret_cast<float*>(smem));
+  }
 }
 
 // (v) on separate q, k, v: block = (query tile, head, frame), no mask.
 template <typename T, int DH>
-__global__ void __launch_bounds__(256) frame_attn_kernel(
+__global__ void __launch_bounds__(256, kSpatialMinBlocks<T, DH>) frame_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int S, int inner, float scale) {
-  __shared__ __align__(16) unsigned char smem[spatial_smem_bytes<T>(DH)];
-  spatial_attn_tile_rows<T, DH>(SplitRows<const T*>{q, k, v, inner}, out, S, inner, S, scale,
-                                blockIdx.x, blockIdx.y, blockIdx.z,
-                                reinterpret_cast<float*>(smem));
+  const SplitRows<const T*> rows{q, k, v, inner};
+  if constexpr (std::is_same<T, float>::value) {
+    extern __shared__ float4 tf32_smem[];
+    spatial_attn_tile_rows<T, DH>(rows, out, S, inner, S, scale, blockIdx.x, blockIdx.y,
+                                  blockIdx.z, reinterpret_cast<float*>(tf32_smem));
+  } else {
+    __shared__ __align__(16) unsigned char smem[spatial_smem_bytes<T>(DH)];
+    spatial_attn_tile_rows<T, DH>(rows, out, S, inner, S, scale, blockIdx.x, blockIdx.y,
+                                  blockIdx.z, reinterpret_cast<float*>(smem));
+  }
+}
+
+// Launches a spatial tile kernel on the grid of (query tiles, H, G) with the f32 tile's
+// dynamic shared memory (opted in once an instantiation); 0 or the CUDA error.
+template <typename T, int DH, typename Kern, typename... Args>
+int launch_tile(Kern kern, int G, int S, int H, cudaStream_t st, Args... args) {
+  const int bytes = std::is_same<T, float>::value ? spatial_smem_bytes<T>(DH) : 0;
+  static const cudaError_t attr =
+      bytes ? cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+            : cudaSuccess;
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((S + spatial_q_tile() - 1) / spatial_q_tile(), H, G);
+  kern<<<grid, 256, bytes, st>>>(args...);
+  return 0;
 }
 
 template <typename T>
@@ -103,39 +143,47 @@ int launch_temporal(const void* qkv, void* out, int B, int T1, int S, int H, int
   });
 }
 
+template <typename T, int DH>
+int launch_spatial_dh(const T* in, T* o, int G, int S, int H, int inner, int n_valid,
+                      float scale, cudaStream_t st) {
+  return launch_tile<T, DH>(spatial_attn_kernel<T, DH>, G, S, H, st, in, o, S, inner, n_valid,
+                            scale);
+}
+
 template <typename T>
 int launch_spatial(const void* qkv, void* out, int G, int S, int H, int inner, int n_valid,
                    float scale, cudaStream_t st) {
-  const int dh = inner / H;
-  dim3 grid((S + spatial_q_tile<T>() - 1) / spatial_q_tile<T>(), H, G);
   auto in = static_cast<const T*>(qkv);
   auto o = static_cast<T*>(out);
-  switch (dh) {
-    case 16: spatial_attn_kernel<T, 16><<<grid, 256, 0, st>>>(in, o, S, inner, n_valid, scale); break;
-    case 32: spatial_attn_kernel<T, 32><<<grid, 256, 0, st>>>(in, o, S, inner, n_valid, scale); break;
-    case 64: spatial_attn_kernel<T, 64><<<grid, 256, 0, st>>>(in, o, S, inner, n_valid, scale); break;
-    case 128: spatial_attn_kernel<T, 128><<<grid, 256, 0, st>>>(in, o, S, inner, n_valid, scale); break;
+  switch (inner / H) {
+    case 16: return launch_spatial_dh<T, 16>(in, o, G, S, H, inner, n_valid, scale, st);
+    case 32: return launch_spatial_dh<T, 32>(in, o, G, S, H, inner, n_valid, scale, st);
+    case 64: return launch_spatial_dh<T, 64>(in, o, G, S, H, inner, n_valid, scale, st);
+    case 128: return launch_spatial_dh<T, 128>(in, o, G, S, H, inner, n_valid, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
+}
+
+template <typename T, int DH>
+int launch_frame_dh(const T* q, const T* k, const T* v, T* o, int G, int S, int H, int inner,
+                    float scale, cudaStream_t st) {
+  return launch_tile<T, DH>(frame_attn_kernel<T, DH>, G, S, H, st, q, k, v, o, S, inner, scale);
 }
 
 template <typename T>
 int launch_frame(const void* q, const void* k, const void* v, void* out, int G, int S, int H,
                  int inner, float scale, cudaStream_t st) {
-  dim3 grid((S + spatial_q_tile<T>() - 1) / spatial_q_tile<T>(), H, G);
   auto qp = static_cast<const T*>(q);
   auto kp = static_cast<const T*>(k);
   auto vp = static_cast<const T*>(v);
   auto o = static_cast<T*>(out);
   switch (inner / H) {
-    case 16: frame_attn_kernel<T, 16><<<grid, 256, 0, st>>>(qp, kp, vp, o, S, inner, scale); break;
-    case 32: frame_attn_kernel<T, 32><<<grid, 256, 0, st>>>(qp, kp, vp, o, S, inner, scale); break;
-    case 64: frame_attn_kernel<T, 64><<<grid, 256, 0, st>>>(qp, kp, vp, o, S, inner, scale); break;
-    case 128: frame_attn_kernel<T, 128><<<grid, 256, 0, st>>>(qp, kp, vp, o, S, inner, scale); break;
+    case 16: return launch_frame_dh<T, 16>(qp, kp, vp, o, G, S, H, inner, scale, st);
+    case 32: return launch_frame_dh<T, 32>(qp, kp, vp, o, G, S, H, inner, scale, st);
+    case 64: return launch_frame_dh<T, 64>(qp, kp, vp, o, G, S, H, inner, scale, st);
+    case 128: return launch_frame_dh<T, 128>(qp, kp, vp, o, G, S, H, inner, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
 }
 
 }  // namespace istvt

@@ -7,154 +7,107 @@
 
 #include <type_traits>
 
-#include "attention_tc.cuh"
+#include "attention_tf32.cuh"
 #include "temporal.cuh"
 
 namespace istvt {
 
 // (v) Spatial attention of one (query tile, head, frame) by the block's threads (Tile,
-// a TileThreads: 256 in the standalone kernels, 384 in #9):
-// for each query row, f32 scores q.k (bf16 products on the tensor cores), x scale,
-// -1e30 added for keys >= n_valid, the exact softmax in f32, p rounded to T, PV
-// summed in f32, the output rounded to T (JAX's _mh_attention_vmem). Two tiles, one
-// per activation dtype, chosen at compile time (the bf16 one never gives way to the
-// f32 one):
-//   * T = bf16: 16 rows a warp (128 queries a tile of 256 threads), on the tensor
-//     cores (spatial_attn_tile_tc);
-//   * T = float: 4 rows a warp (32 queries a tile of 256 threads), on the FMA pipes
-//     (spatial_attn_tile_fma), so the f32 check holds at 1e-5 (TF32 would not).
+// a TileThreads: 256 in the standalone kernels, 384 in #9), 16 query rows a warp: for
+// each query row, f32 scores q.k, x scale, -1e30 added for keys >= n_valid, the exact
+// softmax in f32, p rounded to T, PV summed in f32, the output rounded to T (JAX's
+// _mh_attention_vmem). Both tiles run on the tensor cores, the one for the activation
+// dtype chosen at compile time:
+//   * T = bf16: bf16 products, mma.sync m16n8k16 (spatial_attn_tile_tc,
+//     attention_tc.cuh);
+//   * T = float: each product as three TF32 products, mma.sync m16n8k8
+//     (spatial_attn_tile_tf32, attention_tf32.cuh), so the f32 check holds at 1e-5,
+//     which one TF32 product would miss; p (not rounded in f32) is normalised after
+//     PV.
 // smem: spatial_smem_bytes<T, Tile>(DH) bytes, 16-byte aligned. A block may start its
 // next tile on the same memory (the persistent ST layer #9 does): each tile's last
 // shared-memory read is followed by a barrier that every warp passes before the next
-// tile writes there, and no copy into shared memory is left in flight.
-constexpr int kQW = 4, kMaxCh = 12;  // f32: 4 queries a warp; keys S <= 12 * 32 = 384
-__host__ __device__ constexpr int spatial_smem_floats(int dh, int qt) {
-  return dh * (qt + 4) + 32 * (dh + 1);
-}
+// tile writes there (or, for a lane's own slots, by the same lane's program order), and
+// no copy into shared memory is left in flight.
+
+// The f32 tile's products in groups of fresh sums, the same bits in any grouping: QK^T
+// in two key groups (tf32_scores), PV in column groups of two n8 tiles (tf32_ab), so
+// that fewer accumulators are live at once: at dim_head 64 the standalone tile fits the
+// 128 registers a thread of two blocks an SM has without a spill (whole-chunk groups
+// spilled), at the cost of splitting A and P again for each group.
+constexpr int kTf32QkGroups = 2;
+template <int DH>
+constexpr int kTf32PvGroups = DH / 16;
 
 // Queries per tile: the grid's (and #9's tile walk's) unit.
-template <typename T, typename Tile = Tile256>
+template <typename Tile = Tile256>
 __host__ __device__ constexpr int spatial_q_tile() {
-  return std::is_same<T, float>::value ? kQW * Tile::kWarps : 16 * Tile::kWarps;
+  return 16 * Tile::kWarps;
 }
 
 template <typename T, typename Tile = Tile256>
 __host__ __device__ constexpr int spatial_smem_bytes(int dh) {
-  return std::is_same<T, float>::value ? 4 * spatial_smem_floats(dh, spatial_q_tile<T, Tile>())
-                                       : tc_smem_bytes(dh);
+  return std::is_same<T, float>::value
+             ? 4 * (tf32_held_floats(dh, Tile::kWarps, 1) + tf32_stage_floats(dh, 2, 1, 1, 0))
+             : tc_smem_bytes(dh);
 }
 
-// The f32 tile: warp w owns queries 4w..4w+3 of the tile's QT, lane the keys 32 m +
-// lane. smem: Q transposed, then one 32-key chunk of K or V; Q is rewritten only after
-// every warp has passed the barrier before the tile's last V chunk.
+// The f32 tile: warp w owns query rows 16 w..16 w + 15 of the tile's, held as raw A
+// fragments in its lanes' slots. Keys and values stream in 32-row chunks split into
+// hi / lo planes (Tf32Stage: K's for QK^T, V's for PV), in one sweep: each chunk's
+// scores QK^T, the rows' running max (the same in the four threads of a row's quad),
+// e = exp(s - max) (f32, unrounded) as the A fragment of PV, the output and the sums of
+// e rescaled by exp(old max - new max) where the max grows, each chunk's PV summed
+// afresh and folded in by an IEEE add; at the end the output times 1 / sum. p is not
+// rounded in f32, so normalising after PV rather than before (JAX's order, which the
+// bf16 tile keeps for its rounding of p) changes the result by f32 rounding alone, and
+// saves the second QK^T.
 template <int DH, typename Tile = Tile256, typename Rows>
-__device__ __forceinline__ void spatial_attn_tile_fma(const Rows& src, float* out, int S,
-                                                      int inner, int n_valid, float scale,
-                                                      int q_tile, int h, int f, float* smem) {
-  using T = float;
-  constexpr int DPL = DH >= 32 ? DH / 32 : 1, QT = spatial_q_tile<T, Tile>();
-  constexpr int kQS = QT + 4, kKS = DH + 1;  // row strides of Qs [DH][kQS], KV [32][kKS]
-  float* Qs = smem;
-  float* KV = smem + DH * kQS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = q_tile * QT;
+__device__ __forceinline__ void spatial_attn_tile_tf32(const Rows& src, float* out, int S,
+                                                       int inner, int n_valid, float scale,
+                                                       int q_tile, int h, int f, float* smem) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const Rows base = src.at(static_cast<size_t>(f) * S, h * DH);
-  const int nch = (S + 31) / 32;
+  const int nch = (S + kTfC - 1) / kTfC;
+  using Stage = Tf32Stage<DH, Tile, 2, 1u, 2u>;  // K (T plane), V (A plane)
+  static_assert(Stage::kFloats == tf32_stage_floats(DH, 2, 1, 1, 0), "the smem plan");
+  const Stage st{smem + tf32_held_floats(DH, Tile::kWarps, 1)};
+  const auto next = [&](int i) {
+    st.issue([&](int s, int r) { return s ? base.v(r) : base.k(r); }, nullptr, i * kTfC, S, 3u);
+  };
+  next(0);
+  float* qs = tf32_slots<DH>(smem, Tile::kWarps, 0, warp, lane);
+  const int r0 = q_tile * spatial_q_tile<Tile>() + 16 * warp + g;
+  tf32_hold<DH>(qs, r0 < S ? base.q(r0) : nullptr, r0 + 8 < S ? base.q(r0 + 8) : nullptr, t);
 
-  for (int idx = tid; idx < QT * DH; idx += Tile::kThreads) {
-    const int qq = idx / DH, d = idx % DH, row = q0 + qq;
-    Qs[d * kQS + qq] = row < S ? to_f(base.q(row)[d]) : 0.f;
+  float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};  // rows r0, r0 + 8
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    tf32_land<Tile>(st, 3u, c, nch, next);
+    float s[4][4];
+    tf32_scores<DH, kTf32QkGroups>(s, qs, st.bt(0), lane);
+    tc_mask(s, c * kTfC, t, S, n_valid, scale);
+    float corr[2];
+    tf32_online(s, mx, sm, corr);
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = __fmul_rn(o[n][e], corr[e >> 1]);
+    tf32_ab<DH, kTf32PvGroups<DH>>(o, s, st.ba(1), lane);
   }
-
-  float sc[kQW][kMaxCh];
+  float rinv[2];
+  tf32_row_sums(sm, rinv);
 #pragma unroll
-  for (int m = 0; m < kMaxCh; ++m) {
-    if (m < nch) {
-      Tile::sync();
-      for (int idx = tid; idx < 32 * DH; idx += Tile::kThreads) {
-        const int kk = idx / DH, d = idx % DH, key = m * 32 + kk;
-        KV[kk * kKS + d] = key < S ? to_f(base.k(key)[d]) : 0.f;
-      }
-      Tile::sync();
-      float a[kQW] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        const float kv = KV[lane * kKS + d];
-        const float4 qv = *reinterpret_cast<const float4*>(&Qs[d * kQS + warp * kQW]);
-        a[0] = fmaf(qv.x, kv, a[0]);
-        a[1] = fmaf(qv.y, kv, a[1]);
-        a[2] = fmaf(qv.z, kv, a[2]);
-        a[3] = fmaf(qv.w, kv, a[3]);
-      }
-      const int key = m * 32 + lane;
+  for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
-      for (int qq = 0; qq < kQW; ++qq) {
-        float v = __fmul_rn(a[qq], scale);
-        if (key >= n_valid) v = __fadd_rn(v, -1e30f);
-        sc[qq][m] = key < S ? v : -INFINITY;
-      }
-    } else {
-#pragma unroll
-      for (int qq = 0; qq < kQW; ++qq) sc[qq][m] = -INFINITY;
-    }
-  }
-  // exact softmax per query row: max, exp, sum, normalise, round to T
-#pragma unroll
-  for (int qq = 0; qq < kQW; ++qq) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int m = 0; m < kMaxCh; ++m) mx = fmaxf(mx, sc[qq][m]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int m = 0; m < kMaxCh; ++m) {
-      sc[qq][m] = expf(sc[qq][m] - mx);
-      sum += sc[qq][m];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int m = 0; m < kMaxCh; ++m) sc[qq][m] = round_to<T>(__fdiv_rn(sc[qq][m], sum));
-  }
-
-  float o[kQW][DPL];
-#pragma unroll
-  for (int qq = 0; qq < kQW; ++qq)
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) o[qq][e] = 0.f;
-#pragma unroll
-  for (int m = 0; m < kMaxCh; ++m) {
-    if (m < nch) {
-      Tile::sync();
-      for (int idx = tid; idx < 32 * DH; idx += Tile::kThreads) {
-        const int kk = idx / DH, d = idx % DH, key = m * 32 + kk;
-        KV[kk * kKS + d] = key < S ? to_f(base.v(key)[d]) : 0.f;
-      }
-      Tile::sync();
-#pragma unroll 4
-      for (int jj = 0; jj < 32; ++jj) {
-        float p[kQW];
-#pragma unroll
-        for (int qq = 0; qq < kQW; ++qq) p[qq] = __shfl_sync(0xffffffffu, sc[qq][m], jj);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          const int d = lane + 32 * e;
-          const float vv = d < DH ? KV[jj * kKS + d] : 0.f;
-#pragma unroll
-          for (int qq = 0; qq < kQW; ++qq) o[qq][e] = fmaf(p[qq], vv, o[qq][e]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int qq = 0; qq < kQW; ++qq) {
-    const int row = q0 + warp * kQW + qq;
-    if (row >= S) continue;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < DH) out[(static_cast<size_t>(f) * S + row) * inner + h * DH + d] = from_f<T>(o[qq][e]);
-    }
-  }
+    for (int e = 0; e < 4; ++e) o[n][e] = __fmul_rn(o[n][e], rinv[e >> 1]);
+  float* orow = out + static_cast<size_t>(f) * S * inner + h * DH;
+  tf32_store<DH>(o, r0 < S ? orow + static_cast<size_t>(r0) * inner : nullptr,
+                 r0 + 8 < S ? orow + static_cast<size_t>(r0 + 8) * inner : nullptr, t);
 }
 
 // The bf16 tile: warp w owns query rows 16 w..16 w + 15 of the tile's, held as mma A
@@ -174,7 +127,7 @@ __device__ __forceinline__ void spatial_attn_tile_tc(const Rows& src, bf16* out,
   using Stage = TcKvStage<DH, Rows, Tile::kThreads>;
   const Stage stage{base, smem, nch, S};
   stage(0);
-  const int r0 = q_tile * spatial_q_tile<bf16, Tile>() + 16 * warp + g;
+  const int r0 = q_tile * spatial_q_tile<Tile>() + 16 * warp + g;
   unsigned qf[DH / 16][4];
   tc_rows_frag<DH>(qf, r0 < S ? base.q(r0) : nullptr, r0 + 8 < S ? base.q(r0 + 8) : nullptr, t);
   float mx[2], sm[2];  // rows r0, r0 + 8
@@ -229,7 +182,7 @@ __device__ __forceinline__ void spatial_attn_tile_rows(const Rows& src, T* out, 
                                                        int n_valid, float scale, int q_tile,
                                                        int h, int f, float* smem) {
   if constexpr (std::is_same<T, float>::value) {
-    spatial_attn_tile_fma<DH, Tile>(src, out, S, inner, n_valid, scale, q_tile, h, f, smem);
+    spatial_attn_tile_tf32<DH, Tile>(src, out, S, inner, n_valid, scale, q_tile, h, f, smem);
   } else {
     spatial_attn_tile_tc<DH, Tile>(src, out, S, inner, n_valid, scale, q_tile, h, f,
                                    reinterpret_cast<bf16*>(smem));

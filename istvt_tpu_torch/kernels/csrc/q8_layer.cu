@@ -36,7 +36,7 @@
 // ring, with the same epilogue in the same order. So the block is the GEMM's, 384
 // threads, and its dynamic shared memory the GEMM's kQSmem (133 KB, opted in with
 // cudaFuncSetAttribute), whose ring region also holds the spatial phase's tile (36 KB
-// at dim_head 64 in bf16, 21 KB in f32). What that takes inside one launch:
+// at dim_head 64 in bf16, 98 KB in f32). What that takes inside one launch:
 //   * the ring: each GEMM phase initialises the ring's barriers anew, after thread 0
 //     has invalidated the last phase's (every thread has left them behind a grid
 //     barrier), so the stage and parity counters start at 0 in every phase and a
@@ -53,8 +53,8 @@
 //     their K-major copies (quant.kmajor), nine tensor maps encoded on the host per
 //     call and passed as one __grid_constant__ parameter;
 //   * the spatial phase: all 12 warps of the block run one tile (LayerTile: 192
-//     queries in bf16, 48 in f32; 128 and 32 in the standalone kernels' 256-thread
-//     blocks), so that the one block an SM keeps as many warps at it as the two
+//     queries, 128 in the standalone kernels' 256-thread blocks; a row's bits are the
+//     same in both), so that the one block an SM keeps as many warps at it as the
 //     standalone blocks did; the row phases stride over all 12 warps, the temporal
 //     phase over all 384 threads (the standalone kernel's layout and arithmetic, so
 //     its a_t equals #1's bit for bit);
@@ -164,6 +164,21 @@ __global__ void __launch_bounds__(kQThreads, 1)
   const int lane = threadIdx.x & 31;
   const int warp0 = blockIdx.x * kLayerWarps + (threadIdx.x >> 5);
   const int nwarps = gridDim.x * kLayerWarps;
+  // A row pass: f(r, lane) for each of this warp's rows. In f32 the first row, the step
+  // and the lane are computed anew for each pass: held through the phases, they were
+  // what ptxas spilled around the f32 spatial tile. bf16 keeps the loop it had, and
+  // stamper() below its test, so that the bf16 instantiations keep their SASS
+  // instruction for instruction (tools/sass_diff.py against the commit before the f32
+  // tile moved to the tensor cores): that is what shows the f32 redesign moved no bf16
+  // time. One body for both needs bf16 #9 timed with it (kernel_ms.py --layer-phases).
+  const auto row_pass = [&](const auto& f) {
+    if constexpr (std::is_same<T, float>::value) {
+      const int tid = tf32_tid(), step = gridDim.x * kLayerWarps;
+      for (int r = blockIdx.x * kLayerWarps + (tid >> 5); r < p.rows; r += step) f(r, tid & 31);
+    } else {
+      for (int r = warp0; r < p.rows; r += nwarps) f(r, lane);
+    }
+  };
   const int D = p.D, I = p.inner, I3 = 3 * p.inner, HD = p.hdim;
   const T* x = static_cast<const T*>(p.x);
   T* out = static_cast<T*>(p.out);
@@ -172,24 +187,32 @@ __global__ void __launch_bounds__(kQThreads, 1)
   const float* no_bias = nullptr;
   const float* no_res = nullptr;
   int phase = 0;
+  // the thread that writes the stamps, block 0's thread 0 (in f32 found anew at each
+  // stamp: held through the phases, it was what ptxas spilled around the spatial tile;
+  // bf16 as before, see row_pass)
+  const auto stamper = [&]() {
+    if constexpr (std::is_same<T, float>::value)
+      return blockIdx.x == 0 && tf32_tid() == 0;
+    else
+      return blockIdx.x == 0 && threadIdx.x == 0;
+  };
   // the end of a phase: the grid barrier, stamped in the STAMP instantiation
   auto next_phase = [&]() {
     grid.sync();
     ++phase;
-    if (STAMP && blockIdx.x == 0 && threadIdx.x == 0) p.stamps[phase] = globaltimer_ns();
+    if (STAMP && stamper()) p.stamps[phase] = globaltimer_ns();
   };
   // the end of a row pass: its codes' writes ordered before the next phase's TMA
   auto rows_written = [&]() {
     fence_proxy_async_global();
     next_phase();
   };
-  if (STAMP && blockIdx.x == 0 && threadIdx.x == 0) p.stamps[0] = globaltimer_ns();
+  if (STAMP && stamper()) p.stamps[0] = globaltimer_ns();
 
   // --- temporal branch: LN -> int8 QKV -> self-subtract attention
   // (istvt_tpu/kernels/quant.py:720-761)
   // 1. LN + quant rows of x
-  for (int r = warp0; r < p.rows; r += nwarps)
-    ln_quant_row(x, p.st, p.bt, p.q, p.rs, r, D, p.ldd, lane);
+  row_pass([&](int r, int ln) { ln_quant_row(x, p.st, p.bt, p.q, p.rs, r, D, p.ldd, ln); });
   rows_written();
   // 2. QKV_t, rounded to x's dtype
   gemm_phase<T, float, false>(&m.a_d, &m.wqt, p.rs, p.wst, no_bias, no_res, qkv, p.rows, I3, D,
@@ -210,22 +233,23 @@ __global__ void __launch_bounds__(kQThreads, 1)
   next_phase();
   // --- spatial branch: out-proj -> LN -> int8 QKV -> per-frame attention (:763-786)
   // 4. quant rows of a_t
-  for (int r = warp0; r < p.rows; r += nwarps) quant_row(a, p.q, p.rs, r, I, p.ldi, lane);
+  row_pass([&](int r, int ln) { quant_row(a, p.q, p.rs, r, I, p.ldi, ln); });
   rows_written();
   // 5. out-proj_t + b into the f32 y
   gemm_phase<float, float, false>(&m.a_i, &m.wot, p.rs, p.sot, p.bot, no_res, p.y, p.rows, D, I,
                                   smem_raw, false);
   next_phase();
   // 6. LN + quant rows of y
-  for (int r = warp0; r < p.rows; r += nwarps)
-    ln_quant_row<float>(p.y, p.ss, p.bs, p.q, p.rs, r, D, p.ldd, lane);
+  row_pass([&](int r, int ln) {
+    ln_quant_row<float>(p.y, p.ss, p.bs, p.q, p.rs, r, D, p.ldd, ln);
+  });
   rows_written();
   // 7. QKV_s, rounded to x's dtype
   gemm_phase<T, float, false>(&m.a_d, &m.wqs, p.rs, p.wss, no_bias, no_res, qkv, p.rows, I3, D,
                               smem_raw, false);
   next_phase();
   // 8. spatial core: masked softmax over n_valid keys, P cast to x's dtype before PV; the
-  // block's 12 warps on one tile (192 queries in bf16, 48 in f32) in the ring's memory
+  // block's 12 warps on one tile of 192 queries in the ring's memory
   for (int t = blockIdx.x; t < p.s_tiles; t += gridDim.x)
     spatial_attn_tile<T, DH, LayerTile>(qkv, a, p.S, I, p.n_valid, p.scale, t % p.s_nqt,
                                         (t / p.s_nqt) % p.H, t / (p.s_nqt * p.H),
@@ -234,23 +258,23 @@ __global__ void __launch_bounds__(kQThreads, 1)
   next_phase();
   // --- out-proj + residual -> PreNorm fully-int8 FF (:788-833)
   // 9. quant rows of a_s
-  for (int r = warp0; r < p.rows; r += nwarps) quant_row(a, p.q, p.rs, r, I, p.ldi, lane);
+  row_pass([&](int r, int ln) { quant_row(a, p.q, p.rs, r, I, p.ldi, ln); });
   rows_written();
   // 10. out-proj_s + b + x into the f32 y
   gemm_phase<float, T, false>(&m.a_i, &m.wos, p.rs, p.sos, p.bos, x, p.y, p.rows, D, I, smem_raw,
                               false);
   next_phase();
   // 11. LN + quant rows of y
-  for (int r = warp0; r < p.rows; r += nwarps)
-    ln_quant_row<float>(p.y, p.sf, p.bf, p.q, p.rs, r, D, p.ldd, lane);
+  row_pass([&](int r, int ln) {
+    ln_quant_row<float>(p.y, p.sf, p.bf, p.q, p.rs, r, D, p.ldd, ln);
+  });
   rows_written();
   // 12. fc1 + b1 -> tanh-GELU, f32
   gemm_phase<float, float, true>(&m.a_d, &m.w1, p.rs, p.w1s, p.b1, no_res, p.hid, p.rows, HD, D,
                                  smem_raw, false);
   next_phase();
   // 13. quant rows of the hidden (each needs its whole row: after the barrier)
-  for (int r = warp0; r < p.rows; r += nwarps)
-    quant_row<float>(p.hid, p.q, p.rs, r, HD, p.ldh, lane);
+  row_pass([&](int r, int ln) { quant_row<float>(p.hid, p.q, p.rs, r, HD, p.ldh, ln); });
   rows_written();
   // 14. fc2 + b2 + y, one rounding to x's dtype
   gemm_phase<T, float, false>(&m.a_h, &m.w2, p.rs, p.w2s, p.b2, p.y, out, p.rows, D, HD, smem_raw,
@@ -276,7 +300,7 @@ int launch_layer(const LayerQ8& p, const LayerMaps& maps, cudaStream_t st) {
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   LayerQ8 params = p;
-  constexpr int QT = spatial_q_tile<T, LayerTile>();
+  constexpr int QT = spatial_q_tile<LayerTile>();
   params.s_nqt = (p.S + QT - 1) / QT;
   params.s_tiles = params.s_nqt * p.H * p.B * p.T1;
   LayerMaps m = maps;

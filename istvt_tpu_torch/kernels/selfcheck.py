@@ -20,11 +20,12 @@ move its row's outputs by up to amax * max|w| / 127, about 1e-3 at these
 scales. The float kernels differ from theirs only by summation order, and
 are held in f32 at atol = rtol = 1e-5, a test of f32-level accuracy: a
 GEMM that rounded its f32 inputs to TF32 once, or to bf16, would be off by
-about 1e-3 here, where the f32 GEMM's three TF32 products (a_lo b_hi +
-a_hi b_lo + a_hi b_hi, kernels/linear.split_tf32) meet it, as f32 in
-another summation order does (on the card max|diff| 3e-6 to 1.2e-5 at the
-callers' shapes, the largest on outputs of magnitude ~1; PERF.md and
-tests/test_torch_gemm_f32.py). The backward kernels return several
+about 1e-3 here, where the three TF32 products (a_lo b_hi + a_hi b_lo +
+a_hi b_hi, kernels/linear.split_tf32) of the f32 GEMM and of the f32
+spatial attention cores meet it, as f32 in another summation order does
+(the GEMM on the card: max|diff| 3e-6 to 1.2e-5 at the callers' shapes,
+the largest on outputs of magnitude ~1; PERF.md,
+tests/test_torch_gemm_f32.py and tests/test_torch_spatial_f32.py). The backward kernels return several
 outputs, among them weight gradients summed over every row; each output
 is held at max|diff| <= 1e-5 * max|plain| (summation order only; TF32 or
 bf16 rounding of the f32 inputs is ~1e-3 of the scale and fails).
@@ -71,6 +72,7 @@ import functools
 import re
 
 import torch
+import torch.nn.functional as F
 
 from istvt_tpu_torch.kernels import _lib, attention, conv, linear, mlp, quant
 
@@ -535,9 +537,9 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 def float_gemm_ops(flops, dtype) -> dict:
-    """{type: operations} of `flops` (2 M N K) on the float GEMM with inputs
-    of `dtype`: bf16 products on the bf16 tensor cores, f32 as three TF32
-    products (split_tf32)."""
+    """{type: operations} of `flops` (2 M N K) on the float GEMM, or on the
+    spatial attention cores, with inputs of `dtype`: bf16 products on the
+    bf16 tensor cores, f32 as three TF32 products (split_tf32)."""
     return {"tf32": 3 * flops} if dtype == torch.float32 else {"bf16": flops}
 
 
@@ -549,6 +551,178 @@ def bound_ms(ops: dict, nbytes) -> tuple:
     t_bytes = nbytes / HBM_BPS
     return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# ---------------------------------------------------------------------------
+# The yardsticks of a case (chip_smoke.py's kernels line, tools/kernel_ms.py
+# --library): its operations by type, its bound, and one PyTorch call
+# computing the same function.
+
+# the kernels whose float products run on the tensor cores in f32 as three
+# TF32 products a multiply-add: those on the float GEMM and the spatial
+# attention cores (#10, #13, #14, #15, #2's core); the other f32 products
+# (the temporal cores, #24) run on the FMA pipes (#9 runs both kinds)
+TF32_CASES = ("ln_matmul", "matmul_bias_residual",
+              "matmul_bias_residual/no_r", "ln_ff_residual",
+              "ln_ff_residual/h1", "ln_ff_residual/bwd", "ln_matmul/bwd",
+              "fused_ff", "ln_ff_residual_q8", "spatial_attention_packed",
+              "spatial_attention_packed/bwd", "fused_frame_attention",
+              "fused_frame_attention_mh", "fused_frame_attention_bwd",
+              "mm_q8_ln_qkv_q8_spatial_attention")
+
+
+def case_ops(name, args):
+    """{input type: operations} the kernel's products need on these inputs
+    (multiply-adds count 2; elementwise work is left out). Masked keys
+    (>= n_valid) are not counted: the data does not need them."""
+    if name == "ln_qkv_q8_temporal_attention":
+        x, wq, heads = args[0], args[3], args[5]
+        b, t1, s, d = x.shape
+        inner = wq.shape[1] // 3
+        return {"int8": 2 * x.numel() // d * d * 3 * inner,
+                "bf16": 4 * b * s * t1 * t1 * inner}
+    if name == "mm_q8_ln_qkv_q8_spatial_attention":
+        a, woq, wq, n_valid = args[0], args[1], args[6], args[9]
+        g, s, d_in = a.shape
+        d, inner = woq.shape[1], wq.shape[1] // 3
+        return {"int8": 2 * g * s * (d_in * d + d * 3 * inner),
+                "bf16": 4 * g * s * n_valid * inner}
+    if name == "matmul_q8_res_ln_ff_q8_full":
+        a, wqo, w1q = args[0], args[2], args[7]
+        rows = a.numel() // a.shape[-1]
+        d, hid = wqo.shape[1], w1q.shape[1]
+        return {"int8": 2 * rows * (a.shape[-1] * d + 2 * d * hid)}
+    if name == "st_layer_q8":                     # 6 GEMMs, both cores
+        x, n_valid = args[0], args[24]
+        b, t1, s, d = x.shape
+        inner = args[3].shape[1] // 3
+        return {"int8": 2 * x.numel() // d * sum(
+                    args[i].numel() for i in (3, 5, 10, 12, 17, 20)),
+                "bf16": 4 * b * s * t1 * t1 * inner
+                + 4 * b * t1 * s * n_valid * inner}
+    if name == "temporal_attention_packed":
+        b, t1, s, i3 = args[0].shape
+        return {"bf16": 4 * b * s * t1 * t1 * (i3 // 3)}
+    if name == "spatial_attention_packed":
+        g, s, i3 = args[0].shape
+        return {"bf16": 4 * g * s * args[2] * (i3 // 3)}
+    if name == "temporal_attention_packed/bwd":   # 5 products of (T1, T1)
+        b, t1, s, i3 = args[0].shape
+        return {"bf16": 10 * b * s * t1 * t1 * (i3 // 3)}
+    if name == "spatial_attention_packed/bwd":    # 5 products, valid keys
+        g, s, i3 = args[0].shape
+        return {"bf16": 10 * g * s * args[3] * (i3 // 3)}
+    if name in ("fused_frame_attention", "fused_frame_attention_mh"):
+        g, s, inner = args[0].shape               # no mask
+        return {"bf16": 4 * g * s * s * inner}
+    if name == "fused_frame_attention_bwd":       # 5 products, no mask
+        g, s, inner = args[0].shape
+        return {"bf16": 10 * g * s * s * inner}
+    if name == "fused_temporal_attention":
+        b, t1, s, inner = args[0].shape
+        return {"bf16": 4 * b * s * t1 * t1 * inner}
+    if name == "fused_temporal_attention_bwd":    # 5 products of (T1, T1)
+        b, t1, s, inner = args[0].shape
+        return {"bf16": 10 * b * s * t1 * t1 * inner}
+    if name == "sepconv_bn":                      # pointwise; f32 depthwise
+        pixels, cin = args[0].numel() // args[0].shape[-1], args[0].shape[-1]
+        return {"bf16": 2 * pixels * cin * args[2].shape[1],
+                "f32": 18 * pixels * cin}
+    rows = args[0].numel() // args[0].shape[-1]
+    if name == "ln_matmul_q8":                    # (rows, D) @ (D, K)
+        return {"int8": 2 * rows * args[3].numel()}
+    if name in ("matmul_q8_bias_residual", "matmul_q8_bias_residual/no_r"):
+        return {"int8": 2 * rows * args[1].numel()}
+    if name == "matmul_q8_ln_matmul_q8":          # out-proj, then QKV
+        return {"int8": 2 * rows * (args[1].numel() + args[6].numel())}
+    if name == "ln_ff_residual_q8":               # int8 fc1, float fc2
+        return {"int8": 2 * rows * args[3].numel(),
+                "bf16": 2 * rows * args[6].numel()}
+    if name == "ln_ff_residual_q8_full":          # int8 fc1 and fc2
+        return {"int8": 2 * rows * (args[3].numel() + args[6].numel())}
+    if name in ("ln_ff_residual", "ln_ff_residual/h1"):
+        return {"bf16": 4 * rows * args[3].shape[0] * args[3].shape[1]}
+    if name == "fused_ff":                        # fc1, fc2
+        return {"bf16": 4 * rows * args[1].shape[0] * args[1].shape[1]}
+    if name == "ln_ff_residual/bwd":              # dW2, dH, dW1, dY
+        return {"bf16": 8 * rows * args[3].shape[0] * args[3].shape[1]}
+    if name == "ln_matmul/bwd":                   # dY, dW
+        return {"bf16": 4 * rows * args[3].numel()}
+    # ln_matmul, matmul_bias_residual(/no_r): one (rows, K) @ (K, N) product
+    return {"bf16": 2 * rows * args[-1 if name == "ln_matmul" else 1].numel()}
+
+
+def case_ops_as_run(name, args, dtype):
+    """case_ops by the type of operation that runs them for activations of
+    `dtype`: in f32 the products of TF32_CASES as three TF32 products
+    (float_gemm_ops), the others f32 on the FMA pipes."""
+    ops = case_ops(name, args)
+    if dtype != torch.float32:
+        return ops
+    out = {}
+    for k, n in ops.items():
+        parts = {k: n}
+        if k == "bf16":
+            parts = (float_gemm_ops(n, dtype)
+                     if name in TF32_CASES else {"f32": n})
+        for kk, nn in parts.items():
+            out[kk] = out.get(kk, 0) + nn
+    return out
+
+
+def case_bound_ms(name, args, out, dtype=torch.bfloat16):
+    """The least time the card could take (bound_ms): the bytes the
+    function must move (each input read once, the output written once) and
+    its operations by type (case_ops_as_run for activations of `dtype`)."""
+    tensors = [t for t in args if torch.is_tensor(t)] + list(outputs(out))
+    return bound_ms(case_ops_as_run(name, args, dtype),
+                    sum(t.numel() * t.element_size() for t in tensors))
+
+
+def library_call(name, args):
+    """One PyTorch call computing the same function, timed as a yardstick
+    only (the port never calls it), or None where there is none."""
+    if name == "spatial_attention_packed":
+        qkv, heads, n_valid = args
+        g, s, i3 = qkv.shape
+        q, k, v = (t.view(g, s, heads, -1).transpose(1, 2)
+                   for t in qkv.split(i3 // 3, dim=-1))
+        mask = torch.zeros(1, 1, 1, s, dtype=qkv.dtype, device=qkv.device)
+        mask[..., n_valid:] = -1e30
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask)
+    if name == "matmul_bias_residual/no_r":
+        x, w, b = args
+        return lambda: F.linear(x, w.t(), b)
+    if name in ("fused_frame_attention", "fused_frame_attention_mh"):
+        q, k, v = args[:3]
+        heads = args[3] if len(args) > 3 else 1
+        g, s, _ = q.shape
+        q, k, v = (t.view(g, s, heads, -1).transpose(1, 2) for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(q, k, v)
+    if name == "fused_frame_attention_bwd":
+        # the backward of one SDPA call without a mask
+        q, k, v, go, heads = args
+        g, s, _ = q.shape
+        q, k, v = (t.reshape(g, s, heads, -1).transpose(1, 2).detach()
+                   .requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v)
+        gout = go.reshape(g, s, heads, -1).transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (q, k, v), gout,
+                                           retain_graph=True)
+    if name == "spatial_attention_packed/bwd":
+        # the backward of one SDPA call with the same additive mask
+        qkv, go, heads, n_valid = args
+        g, s, i3 = qkv.shape
+        q, k, v = (t.reshape(g, s, heads, -1).transpose(1, 2).detach()
+                   .requires_grad_() for t in qkv.split(i3 // 3, dim=-1))
+        mask = torch.zeros(1, 1, 1, s, dtype=qkv.dtype, device=qkv.device)
+        mask[..., n_valid:] = -1e30
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        gout = go.reshape(g, s, heads, -1).transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (q, k, v), gout,
+                                           retain_graph=True)
+    return None
 
 
 def gemm_bound_ms(ops) -> tuple:
@@ -681,22 +855,27 @@ def gemm_q8_ops_bytes(ops) -> tuple:
 
 
 # The kernels that run the spatial attention core or its backward, and the
-# float GEMMs: the bf16 instantiations of the attention kernels must use the
-# tensor cores, their f32 ones must not (their 1e-5 check would then test the
-# FMA pipes' f32, as it should); every instantiation of the bf16 GEMM must run
-# wgmma (HGMMA), not mma.sync alone, and every instantiation of the f32 GEMM
-# TF32 wgmma (HGMMA.64x128x8.F32.TF32: its three TF32 products meet the 1e-5
-# check, which single-pass TF32 or bf16 would miss by ~1e-3). Patterns are
-# the Itanium-mangled template heads of csrc's kernels: the attention
-# kernels' first template parameter is the activation type; the GEMMs' names
-# say it (their parameters start with the layout), so every instantiation of
-# the name counts.
+# float GEMMs: every bf16 instantiation of the attention kernels must use the
+# tensor cores, and every f32 one TF32 mma.sync (HMMA.1688.F32.TF32: the f32
+# tile's three TF32 products a product, which meet the 1e-5 check where one TF32
+# product would miss it by ~1e-3; #9's f32 spatial phase runs that tile too);
+# every instantiation of the bf16 GEMM must run wgmma (HGMMA), not mma.sync
+# alone, and every instantiation of the f32 GEMM TF32 wgmma
+# (HGMMA.64x128x8.F32.TF32, the same three products). Patterns are the
+# Itanium-mangled template heads of csrc's kernels: the attention kernels'
+# first template parameter is the activation type; the GEMMs' names say it
+# (their parameters start with the layout), so every instantiation of the
+# name counts.
 TENSOR_CORE_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
                        "st_layer_q8_kernel", "spatial_attn_bwd_dq_kernel",
                        "spatial_attn_bwd_dkv_kernel", "gemm_bf16_wgmma_kernel")
-FMA_ONLY_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
+TF32_MMA_KERNELS = ("spatial_attn_kernel", "frame_attn_kernel",
                     "spatial_attn_bwd_dq_kernel",
-                    "spatial_attn_bwd_dkv_kernel")
+                    "spatial_attn_bwd_dkv_kernel", "st_layer_q8_kernel")
+TF32_MMA_OP = re.compile(r"HMMA\.\S*\.TF32")
+# the spatial attention kernels (forward and #13's two passes): no
+# instantiation may spill (#9's budget is held with the wgmma kernels')
+SPATIAL_KERNELS = TF32_MMA_KERNELS[:4]
 WGMMA_KERNELS = ("gemm_bf16_wgmma_kernel",)
 TF32_WGMMA_KERNELS = ("gemm_f32_wgmma_kernel",)
 TF32_WGMMA_OP = re.compile(r"HGMMA\.\S*\.TF32")
@@ -715,33 +894,32 @@ WGMMA_REGISTERS = 168
 
 
 def tensor_core_check(counts, wgmma=None, igmma=None, imma=None,
-                      tf32=None) -> list:
+                      tf32=None, tf32_mma=None) -> list:
     """Rows (kernel, dtype, {mangled name: tensor-core instructions}, ok)
     for each entry of TENSOR_CORE_KERNELS in bf16 (ok: every instantiation
     has some; for WGMMA_KERNELS, every instantiation has HGMMA, counted in
-    `wgmma`), FMA_ONLY_KERNELS in f32 (ok: none has any),
-    TF32_WGMMA_KERNELS in f32 (ok: every instantiation has TF32 HGMMA,
-    counted in `tf32`) and INT8_WGMMA_KERNELS in int8 (ok: every
-    instantiation has IGMMA, counted in `igmma`, and, with `imma`, none has
-    IMMA); `counts` is _lib.tensor_ops_of_sass(sass), `wgmma`
-    tensor_ops_of_sass(sass, ("HGMMA.",)), `tf32` tensor_ops_of_sass(sass,
+    `wgmma`), TF32_MMA_KERNELS in f32 (ok: every instantiation has TF32
+    HMMA, counted in `tf32_mma`), TF32_WGMMA_KERNELS in f32 (ok: every
+    instantiation has TF32 HGMMA, counted in `tf32`) and INT8_WGMMA_KERNELS
+    in int8 (ok: every instantiation has IGMMA, counted in `igmma`, and,
+    with `imma`, none has IMMA); `counts` is _lib.tensor_ops_of_sass(sass),
+    `wgmma` tensor_ops_of_sass(sass, ("HGMMA.",)), `tf32_mma`
+    tensor_ops_of_sass(sass, (TF32_MMA_OP,)), `tf32` tensor_ops_of_sass(sass,
     (TF32_WGMMA_OP,)), `igmma` tensor_ops_of_sass(sass, (INT8_WGMMA_OP,))
     and `imma` tensor_ops_of_sass(sass, (INT8_MMA_SYNC_OP,)) of the built
-    library's sass (_lib.sass_text; without `wgmma`, `tf32` or `igmma`
-    their rows fail)."""
+    library's sass (_lib.sass_text; without `wgmma`, `tf32_mma`, `tf32` or
+    `igmma` their rows fail)."""
     rows = []
     for kernels, dtype, tag, source in (
             (TENSOR_CORE_KERNELS, "bf16", "I13__nv_bfloat16", counts),
-            (FMA_ONLY_KERNELS, "f32", "If", counts),
+            (TF32_MMA_KERNELS, "f32", "If", tf32_mma or {}),
             (TF32_WGMMA_KERNELS, "f32", "I", tf32 or {}),
             (INT8_WGMMA_KERNELS, "int8", "I", igmma or {})):
         for k in kernels:
             head = f"{len(k)}{k}" + ("I" if k in _NAMED_DTYPE else tag)
             src = (wgmma or {}) if k in WGMMA_KERNELS else source
             found = {n: c for n, c in src.items() if head in n}
-            fma_only = kernels is FMA_ONLY_KERNELS
-            ok = bool(found) and (not any(found.values()) if fma_only
-                                  else all(found.values()))
+            ok = bool(found) and all(found.values())
             if dtype == "int8" and imma is not None:
                 ok = ok and not any(imma.get(n, 0) for n in found)
             rows.append((k, dtype, found, ok))

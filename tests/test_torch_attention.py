@@ -85,7 +85,8 @@ def test_core_limits_raise_with_a_message():
 
 
 # a cuobjdump -sass excerpt in its layout: the spatial kernels' bf16 and f32
-# instantiations, #9's with int8 IMMA only in f32
+# instantiations (the f32 one on TF32 mma.sync), #9's with int8 IMMA and, in
+# f32, TF32 mma.sync
 _SASS = """
 \tcode for sm_90a
 \t\tFunction : _ZN5istvt19spatial_attn_kernelI13__nv_bfloat16Li64EEEvPKT_PS2_iiif
@@ -93,30 +94,48 @@ _SASS = """
         /*0a30*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;
         /*0a40*/                   HMMA.16816.F32.BF16 R28, R4, R22, R28 ;
 \t\tFunction : _ZN5istvt19spatial_attn_kernelIfLi64EEEvPKT_PS1_iiif
-        /*0100*/                   FFMA R4, R2, R3, R4 ;
+        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
 \t\tFunction : _ZN5istvt18st_layer_q8_kernelIfLi64EEEvNS_7LayerQ8E
         /*0200*/                   IMMA.16832.S8.S8 R8, R12, R16, R8 ;
+        /*0210*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
 \t\tFunction : _ZN5istvt18st_layer_q8_kernelI13__nv_bfloat16Li64EEEvNS_7LayerQ8E
         /*0200*/                   IMMA.16832.S8.S8 R8, R12, R16, R8 ;
         /*0300*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
 """
 
 
+def _rows(sass):
+    """{(kernel, dtype): ok} of the tensor-core check on `sass`, its TF32
+    mma.sync counts given."""
+    return {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(
+        _lib.tensor_ops_of_sass(sass),
+        tf32_mma=_lib.tensor_ops_of_sass(sass, (selfcheck.TF32_MMA_OP,)))}
+
+
 def test_tensor_core_check_reads_the_sass():
     """The tensor-core check of chip_smoke.py's build phase and the card
     test, on a canned cuobjdump listing: HMMA / HGMMA count, IMMA does
-    not; a bf16 kernel with none, an f32 one with some, or a kernel not
-    in the library at all fails."""
+    not, and an f32 instantiation counts TF32 mma.sync (HMMA.1688.F32.TF32)
+    alone; a bf16 kernel with none, an f32 one on the FMA pipes or on bf16
+    products, or a kernel not in the library at all fails."""
     counts = _lib.tensor_ops_of_sass(_SASS)
-    assert sorted(counts.values()) == [0, 0, 1, 2]
-    rows = {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(counts)}
+    assert sorted(counts.values()) == [1, 1, 1, 2]
+    tf32 = _lib.tensor_ops_of_sass(_SASS, (selfcheck.TF32_MMA_OP,))
+    assert sorted(tf32.values()) == [0, 0, 1, 1]
+    rows = _rows(_SASS)
     assert rows[("spatial_attn_kernel", "bf16")]
     assert rows[("spatial_attn_kernel", "f32")]
     assert rows[("st_layer_q8_kernel", "bf16")]
+    assert rows[("st_layer_q8_kernel", "f32")]
     assert not rows[("frame_attn_kernel", "bf16")]          # not built
-    fma = counts.copy()
-    fma["_ZN5istvt19spatial_attn_kernelI13__nv_bfloat16Li16EEEvPKT_PS2_iiif"] = 0
-    fma["_ZN5istvt19spatial_attn_kernelIfLi16EEEvPKT_PS1_iiif"] = 3
-    rows = {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(fma)}
-    assert not rows[("spatial_attn_kernel", "bf16")]
-    assert not rows[("spatial_attn_kernel", "f32")]
+    assert not rows[("frame_attn_kernel", "f32")]
+    assert not any(ok for k, d, _, ok in selfcheck.tensor_core_check(counts)
+                   if d == "f32" and k in selfcheck.TF32_MMA_KERNELS)
+    for other in ("FFMA R4, R2, R3, R4", "HMMA.16816.F32.BF16 R4, R8, R12, R4"):
+        rows = _rows(_SASS.replace("HMMA.1688.F32.TF32 R4, R8, R12, R4",
+                                   other))
+        assert not rows[("spatial_attn_kernel", "f32")], other
+        assert not rows[("st_layer_q8_kernel", "f32")], other
+        assert rows[("spatial_attn_kernel", "bf16")], other
+    fma = _SASS.replace("HMMA.16816.F32.BF16", "FFMA")
+    assert not _rows(fma)[("spatial_attn_kernel", "bf16")]

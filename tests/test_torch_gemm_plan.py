@@ -152,7 +152,7 @@ def test_gemm_shapes_are_the_callers():
 # a cuobjdump -sass excerpt in its layout: two instantiations of the bf16
 # GEMM (template parameters layout, output type, epilogue, BN), one of the
 # f32 GEMM (layout, epilogue) on TF32 wgmma, an f32 spatial attention kernel
-# on the FMA pipes and a bf16 one
+# on TF32 mma.sync and a bf16 one
 _SASS = """
 \tcode for sm_90a
 \t\tFunction : _ZN5istvt22gemm_bf16_wgmma_kernelILi0E13__nv_bfloat16Li0ELi128EEEv14CUtensorMap_stS2_PT0_NS_3EpiEiiii
@@ -164,7 +164,7 @@ _SASS = """
         /*0b10*/                   HGMMA.64x128x8.F32.TF32 R24, R152, gdesc[UR4], R24, gsb0 ;
         /*0b20*/                   HGMMA.64x128x8.F32.TF32 R24, R156, gdesc[UR8], R24, gsb0 ;
 \t\tFunction : _ZN5istvt19spatial_attn_kernelIfLi64EEEvPKT_PS2_iiif
-        /*0100*/                   FFMA R4, R2, R3, R4 ;
+        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
 \t\tFunction : _ZN5istvt19spatial_attn_kernelI13__nv_bfloat16Li64EEEvPKT_PS2_iiif
         /*0a30*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;
 """
@@ -172,11 +172,13 @@ _SASS = """
 
 def _gemm_rows(sass, **given):
     """{(kernel, dtype): ok} of tensor_core_check on `sass` for its GEMMs
-    and the spatial kernel, the wgmma and TF32 counts given unless set in
-    `given` (None leaves them out)."""
+    and the spatial kernel, the wgmma, TF32 wgmma and TF32 mma.sync counts
+    given unless set in `given` (None leaves them out)."""
     counts = {"wgmma": _lib.tensor_ops_of_sass(sass, ("HGMMA.",)),
               "tf32": _lib.tensor_ops_of_sass(sass,
-                                              (selfcheck.TF32_WGMMA_OP,))}
+                                              (selfcheck.TF32_WGMMA_OP,)),
+              "tf32_mma": _lib.tensor_ops_of_sass(sass,
+                                                  (selfcheck.TF32_MMA_OP,))}
     counts.update(given)
     return {(k, d): ok for k, d, _, ok in selfcheck.tensor_core_check(
         _lib.tensor_ops_of_sass(sass), **counts)}
@@ -186,24 +188,28 @@ def test_wgmma_check_reads_the_sass():
     """The GEMM rows of the tensor-core check: HGMMA is counted apart from
     HMMA, and its TF32 form apart from bf16; every instantiation of the
     bf16 GEMM must have HGMMA and every one of the f32 GEMM TF32 HGMMA,
-    whatever their template parameters, and the f32 attention kernels no
-    tensor-core instruction; a bf16 GEMM on mma.sync alone, an f32 GEMM on
-    bf16 wgmma or the FMA pipes, or a GEMM whose counts are not given,
-    fails."""
+    whatever their template parameters, and the f32 attention kernels TF32
+    mma.sync (HMMA.1688.F32.TF32), which is not TF32 wgmma; a bf16 GEMM on
+    mma.sync alone, an f32 GEMM on bf16 wgmma, TF32 mma.sync or the FMA
+    pipes, an f32 attention kernel on bf16 products or the FMA pipes, or a
+    kernel whose counts are not given, fails."""
     counts = _lib.tensor_ops_of_sass(_SASS)
     wgmma = _lib.tensor_ops_of_sass(_SASS, ("HGMMA.",))
     tf32 = _lib.tensor_ops_of_sass(_SASS, (selfcheck.TF32_WGMMA_OP,))
-    assert sorted(counts.values()) == [0, 1, 1, 2, 2]
+    assert sorted(counts.values()) == [1, 1, 1, 2, 2]
     assert sorted(wgmma.values()) == [0, 0, 1, 2, 2]
     assert sorted(tf32.values()) == [0, 0, 0, 0, 2]
+    tf32_mma = _lib.tensor_ops_of_sass(_SASS, (selfcheck.TF32_MMA_OP,))
+    assert sorted(tf32_mma.values()) == [0, 0, 0, 0, 1]
     rows = {(k, d): (f, ok) for k, d, f, ok
-            in selfcheck.tensor_core_check(counts, wgmma, tf32=tf32)}
+            in selfcheck.tensor_core_check(counts, wgmma, tf32=tf32,
+                                           tf32_mma=tf32_mma)}
     found, ok = rows[("gemm_bf16_wgmma_kernel", "bf16")]
     assert ok and sorted(found.values()) == [1, 2]
     found, ok = rows[("gemm_f32_wgmma_kernel", "f32")]
     assert ok and list(found.values()) == [2]
     found, ok = rows[("spatial_attn_kernel", "f32")]
-    assert ok and list(found.values()) == [0]
+    assert ok and list(found.values()) == [1]
     assert rows[("spatial_attn_kernel", "bf16")][1]
     assert ("gemm_f32_kernel", "f32") not in rows      # the FMA GEMM is gone
     hmma_only = _SASS.replace("HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, "
@@ -213,13 +219,15 @@ def test_wgmma_check_reads_the_sass():
     rows = _gemm_rows(hmma_only)
     assert not rows[("gemm_bf16_wgmma_kernel", "bf16")]
     assert rows[("gemm_f32_wgmma_kernel", "f32")]
-    for other in ("HGMMA.64x128x16.F32.BF16", "FFMA"):
+    for other in ("HGMMA.64x128x16.F32.BF16", "HMMA.1688.F32.TF32", "FFMA"):
         rows = _gemm_rows(_SASS.replace("HGMMA.64x128x8.F32.TF32", other))
         assert not rows[("gemm_f32_wgmma_kernel", "f32")], other
         assert rows[("gemm_bf16_wgmma_kernel", "bf16")]
-    fma = _SASS.replace("FFMA R4, R2, R3, R4", "HMMA.16816.F32.BF16 R4, R2, "
-                        "R3, R4")
-    assert not _gemm_rows(fma)[("spatial_attn_kernel", "f32")]
-    rows = _gemm_rows(_SASS, wgmma=None, tf32=None)  # no wgmma counts given
+    for other in ("HMMA.16816.F32.BF16", "FFMA"):
+        rows = _gemm_rows(_SASS.replace("HMMA.1688.F32.TF32", other))
+        assert not rows[("spatial_attn_kernel", "f32")], other
+    rows = _gemm_rows(_SASS, wgmma=None, tf32=None,
+                      tf32_mma=None)                # no counts given
     assert not rows[("gemm_bf16_wgmma_kernel", "bf16")]
     assert not rows[("gemm_f32_wgmma_kernel", "f32")]
+    assert not rows[("spatial_attn_kernel", "f32")]

@@ -4,25 +4,31 @@ the small geometry of the JAX kernel tests (dim_head 16, S = 32): every
 launch counter of kernels/_lib.LAUNCHES, the training slice's backward
 kernels and h1-stash forward and the int8 A/B modes' kernels included;
 the one-kernel layer #9 at more shapes and against the #1 -> #2 -> #3
-chain; the kernel API's entries (#13's unpacked entry, #14-#17, #24) against
-their plain versions, the packed cores they share device code with, and the
-differentiable wrappers' backward on the card; the spatial attention core
-and its backward #13 at more shapes (S off the 16-row mma tile, masked
-keys, every dim_head, 112 frames), bf16 on the tensor cores and f32 on the
-FMA pipes, and from the built library's SASS that each runs on the pipes
-it should; the float GEMM (wgmma) alone at every caller's shape and at
-edges of each layout, every epilogue, both output dtypes and split-K; the
-int8 GEMM (s8 wgmma) alone at every caller's shape at the slice and at the
-B=16 forward's rows, at M off its tile and in every (output, residual,
-GELU) combination its callers use, bit for bit against its plain version
-without GELU, with its padding never read and its weight copies built
-in a call where none is given; then small models on the card against the
+chain; the kernel API's entries (#13's unpacked entry, #14-#17, #24)
+against their plain versions, the packed cores they share device code
+with, and the differentiable wrappers' backward on the card; the spatial
+attention core and its backward #13 at more shapes (S off the 16-row mma
+tile, masked keys, every dim_head, 112 frames), bf16 on bf16 products
+and f32 as three TF32 products, both on the tensor cores, and from the
+built library's SASS and ptxas report that each runs on the pipes it
+should, without a spill (and, from tools/mma_tf32_probe.cu, that
+mma.sync truncates the sums those tiles start afresh each k-step); the
+float GEMM (wgmma) alone at every caller's shape and at edges of each
+layout, every epilogue, both output dtypes and split-K; the int8 GEMM
+(s8 wgmma) alone at every caller's shape at the slice and at the B=16
+forward's rows, at M off its tile and in every (output, residual, GELU)
+combination its callers use, bit for bit against its plain version
+without GELU, with its padding never read and its weight copies built in
+a call where none is given; then small models on the card against the
 CPU.
 
 Needs an NVIDIA GPU with nvcc: marked `gpu`, and skipped (inside the
 fixture, not at import) where torch sees no CUDA device. Run on the card:
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 """
+import subprocess
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -95,16 +101,19 @@ def _spatial_qkv(cuda, s, dh, frames, heads=4, grad=False):
 def test_spatial_core_matches_plain_at_more_shapes(cuda, record_property, s,
                                                    n_valid, dh, frames):
     """The spatial core (#10's, and so #2's, #9's, #14's and #15's) against
-    its plain version: bf16 (the tensor cores) by the bf16 criterion, the
-    share of elements equal bit for bit recorded; f32 (the FMA pipes) at
-    atol = rtol = 1e-5."""
+    its plain version: bf16 (bf16 products) by the bf16 criterion, the
+    share of elements equal bit for bit recorded; f32 (three TF32 products)
+    at atol = rtol = 1e-5, and a second call equal to the first bit for
+    bit."""
     heads, qkv, _ = _spatial_qkv(cuda, s, dh, frames)
     with highest():
         got = attention.spatial_attention_packed(qkv, heads, n_valid)
         want = attention.spatial_packed_plain(qkv, heads, n_valid)
+    again = attention.spatial_attention_packed(qkv, heads, n_valid)
     torch.cuda.synchronize()
     assert torch.allclose(got, want, atol=1e-5, rtol=1e-5), \
         (got - want).abs().max()
+    assert torch.equal(again, got)
     x = qkv.bfloat16()
     got = attention.spatial_attention_packed(x, heads, n_valid)
     want = attention.spatial_packed_plain(x, heads, n_valid)
@@ -121,15 +130,18 @@ def test_spatial_bwd_matches_plain_at_more_shapes(cuda, record_property, s,
                                                   n_valid, dh, frames):
     """#13 (packed) against its plain version at the same shapes: bf16 by
     the bf16 criterion per output, the share equal bit for bit recorded;
-    f32 at max|diff| <= 1e-5 max|plain| per output."""
+    f32 (three TF32 products) at max|diff| <= 1e-5 max|plain| per output,
+    and a second call equal to the first bit for bit."""
     heads, qkv, go = _spatial_qkv(cuda, s, dh, frames, grad=True)
     with highest():
         got = attention.spatial_attention_packed_bwd(qkv, go, heads, n_valid)
         want = attention.spatial_packed_bwd_plain(qkv, go, heads, n_valid)
+    again = attention.spatial_attention_packed_bwd(qkv, go, heads, n_valid)
     torch.cuda.synchronize()
     inner = heads * dh
     for a, b in zip(got.split(inner, dim=-1), want.split(inner, dim=-1)):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    assert torch.equal(again, got)
     x, gb = qkv.bfloat16(), go.bfloat16()
     got = attention.spatial_attention_packed_bwd(x, gb, heads, n_valid)
     want = attention.spatial_packed_bwd_plain(x, gb, heads, n_valid)
@@ -265,27 +277,59 @@ def test_temporal_kernels_build_without_spills(cuda):
 
 @pytest.mark.parametrize("kernel, dtype", [
     *((k, "bf16") for k in selfcheck.TENSOR_CORE_KERNELS),
-    *((k, "f32") for k in selfcheck.FMA_ONLY_KERNELS
+    *((k, "f32") for k in selfcheck.TF32_MMA_KERNELS
       + selfcheck.TF32_WGMMA_KERNELS)])
 def test_spatial_attention_on_the_tensor_cores(cuda, kernel, dtype):
     """From the built library (cuobjdump -sass): every bf16 instantiation
     of the kernels that run the spatial core (#10 and #2's
     spatial_attn_kernel, #14 / #15's frame_attn_kernel, #9's
     st_layer_q8_kernel) or #13 (both passes) has tensor-core instructions
-    (HMMA / HGMMA; #9's int8 IMMA does not count), every instantiation of
-    the bf16 float GEMM has wgmma (HGMMA), and no f32 instantiation of
-    those but #9 has any; every instantiation of the f32 float GEMM has
-    TF32 wgmma (HGMMA.64x128x8.F32.TF32)."""
+    (HMMA / HGMMA; #9's int8 IMMA does not count), every f32 one TF32
+    mma.sync (HMMA.1688.F32.TF32: the f32 tile's three TF32 products),
+    every instantiation of the bf16 float GEMM has wgmma (HGMMA) and every
+    one of the f32 float GEMM TF32 wgmma (HGMMA.64x128x8.F32.TF32)."""
     _lib.load()
     sass = _lib.sass_text()
     rows = selfcheck.tensor_core_check(
         _lib.tensor_ops_of_sass(sass),
         _lib.tensor_ops_of_sass(sass, ("HGMMA.",)),
-        tf32=_lib.tensor_ops_of_sass(sass, (selfcheck.TF32_WGMMA_OP,)))
+        tf32=_lib.tensor_ops_of_sass(sass, (selfcheck.TF32_WGMMA_OP,)),
+        tf32_mma=_lib.tensor_ops_of_sass(sass, (selfcheck.TF32_MMA_OP,)))
     (found, ok), = [(f, o) for k, d, f, o in rows
                     if k == kernel and d == dtype]
     assert ok, found
 
+
+def test_spatial_attention_kernels_build_without_spills(cuda):
+    """ptxas reports no spill for any f32 instantiation of the spatial
+    core's kernels and #13's two passes (selfcheck.SPATIAL_KERNELS: every
+    dim_head, packed and unpacked); #9, whose f32 spatial phase runs the
+    same tile, is held to its 168 registers with the wgmma kernels
+    (test_st_layer_q8_runs_int8_wgmma_without_spills). (The bf16 pass (a)
+    of #13's unpacked entry at dim_head 16 spills 12 bytes, as it did
+    before the f32 tiles came; its code is unchanged.)"""
+    _lib.load()
+    report = _lib.ptxas_report((_lib.BUILD_DIR / "build.log").read_text())
+    for kernel, regs, spilled in selfcheck.spill_rows(
+            report, selfcheck.SPATIAL_KERNELS):
+        f32 = [n for n in regs if f"{len(kernel)}{kernel}If" in n]
+        assert f32 and not set(f32) & set(spilled), (kernel, regs, spilled)
+
+
+
+def test_mma_sync_tf32_sums_round_toward_zero(cuda, tmp_path):
+    """Why the f32 spatial tiles start a fresh sum every 32-deep k-step
+    (csrc/attention_tf32.cuh): mma.sync's TF32 products round their f32 sum
+    toward zero, as wgmma's do. tools/mma_tf32_probe.cu adds one product of
+    0.75 ulp to +1 and to -1 on one lane and reads back +1 and -1."""
+    src = Path(__file__).resolve().parent.parent / "tools" / \
+        "mma_tf32_probe.cu"
+    exe = tmp_path / "mma_tf32_probe"
+    subprocess.run([_lib._nvcc(), *_lib.ARCH_FLAGS, "-O3", "-o", str(exe),
+                    str(src)], check=True, capture_output=True)
+    out = subprocess.run([str(exe)], check=True, capture_output=True,
+                         text=True).stdout
+    assert "rounded toward zero" in out, out
 
 def test_f32_gemm_builds_at_its_register_budget(cuda):
     """ptxas reports each of the f32 GEMM's five instantiations (three

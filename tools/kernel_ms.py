@@ -2,9 +2,8 @@
 
     python3 tools/kernel_ms.py [--root DIR]
                                [--cases NAME,...|spatial|gemm|temporal]
-                               [--gemm [--dtype bf16|f32] | --gemm-q8 |
-                                --layer-phases]
-                               [--batch B]
+                               [--gemm | --gemm-q8 | --layer-phases]
+                               [--dtype bf16|f32] [--batch B] [--library]
 
 Imports istvt_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels and times each case of its
@@ -12,14 +11,17 @@ kernels/selfcheck.slice_cases (`spatial`, the default: the kernels that run
 the spatial attention core or its backward: #2, #9, #10, #13 packed and
 unpacked, #14, #15; `gemm`: the kernels that run the float GEMM, #6,
 #18-#23; `temporal`: the temporal core #11, its backward #12 and #1, which
-runs the core after its GEMM) in bf16 and in f32 on the case's seeded
-inputs, for B clips (default 2, the slice; 16 for the B=16 forward's
-shapes): the smaller of two medians
+runs the core after its GEMM) in bf16 and in f32 (or in --dtype alone) on
+the case's seeded inputs, for B clips (default 2, the slice; 16 for the
+B=16 forward's shapes): the smaller of two medians
 of 20 CUDA-event timings of one call (chip_smoke.py's phase-3 timing), the
 warm-up outside them, and `device_ms`, the device time of one call with the
-host's launch overhead hidden. Prints one JSON line per case and dtype:
-root, case, dtype, batch, ms, device_ms, and the card's name and power
-limit.
+host's launch overhead hidden; with --library also the device ms of the
+case's PyTorch yardstick on the same inputs (selfcheck.library_call, in
+f32 under highest(): TF32 off) and its bound (selfcheck.case_bound_ms: in
+f32 the spatial cores' and GEMMs' products as three TF32 products). Prints
+one JSON line per case and dtype: root, case, dtype, batch, ms, device_ms
+(library_ms, bound_ms, bound_by), and the card's name and power limit.
 
 With --layer-phases it times the 14 phases of the one-launch int8 layer #9
 (kernels/quant.st_layer_q8) at the slice and at B=16, in bf16 and f32: the
@@ -132,10 +134,10 @@ def _own_module(name):
     return mod
 
 
-def gemm_selfcheck():
-    """This checkout's kernels/selfcheck.py: its GEMM tables and operands
-    (the kernels it calls are those of whichever istvt_tpu_torch is on
-    sys.path)."""
+def own_selfcheck():
+    """This checkout's kernels/selfcheck.py: its GEMM tables, operands and
+    yardsticks (the kernels it calls are those of whichever istvt_tpu_torch
+    is on sys.path)."""
     return _own_module("selfcheck")
 
 
@@ -232,6 +234,19 @@ def gemm_rows(sc, device, batch=2, nt=False, dtype=torch.bfloat16):
                sc.gemm_bound_ms(ops), ops, nt_ms)
 
 
+def _yardstick(sc, name, args, out, dtype, highest):
+    """{library_ms, bound_ms, bound_by} of a case by this checkout's
+    selfcheck `sc`: the device ms of its one-call yardstick (library_call;
+    None where it has none; under highest() in f32) and its bound for
+    activations of dtype (case_bound_ms)."""
+    counter = sc.counter(name)
+    with highest():
+        lib = sc.library_call(counter, args)
+        lib_ms = None if lib is None else device_ms(lib)
+    bound, by = sc.case_bound_ms(counter, args, out, dtype)
+    return {"library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+
+
 def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser()
@@ -247,8 +262,12 @@ def main():
     ap.add_argument("--nt", action="store_true",
                     help="with --gemm: time each nn shape also with its "
                          "weight stored (N, K), as layout nt")
-    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16",
-                    help="with --gemm: the inputs' dtype")
+    ap.add_argument("--library", action="store_true",
+                    help="with the cases: time each case's PyTorch "
+                         "yardstick and give its bound too")
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default=None,
+                    help="the inputs' dtype (--gemm: bf16 unless given; "
+                         "the cases: both unless given)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -265,7 +284,7 @@ def main():
         check=True).stdout.strip()
     tag = os.path.relpath(root, here)
     if args.gemm_q8:
-        sc = gemm_selfcheck()
+        sc = own_selfcheck()
         sc.quant = _own_module("quant")   # operands and plain version
         for name, (m, n, k, *_), ms, (lib_ms, lib_layout), tops, bound, \
                 ops in gemm_q8_rows(sc, torch.device("cuda"), args.batch,
@@ -279,8 +298,8 @@ def main():
                               "card": card}), flush=True)
         return
     if args.gemm:
-        sc = gemm_selfcheck()
-        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
+        sc = own_selfcheck()
+        dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
         for name, layout, m, n, k, ms, mm, tflops, (bound, by, fma), ops, \
                 nt_ms in gemm_rows(sc, torch.device("cuda"), args.batch,
                                    args.nt, dtype):
@@ -290,7 +309,7 @@ def main():
                     want = sc.gemm_plain(ops)
                 err = sc.gemm_f32_close(ops, sc.gemm_results(ops), want)[1]
             print(json.dumps({"root": tag, "gemm": name, "batch": args.batch,
-                              "dtype": args.dtype, "layout": layout,
+                              "dtype": args.dtype or "bf16", "layout": layout,
                               "mnk": [m, n, k], "ms": ms, "matmul_ms": mm,
                               "tflops": tflops, "bound_ms": bound,
                               "bound_by": by, "fma_ms": fma,
@@ -316,15 +335,20 @@ def main():
     cases = selfcheck.slice_cases(torch.device("cuda"),
                                   {**selfcheck.SLICE, "b": args.batch})
     names = CASE_SETS.get(args.cases, args.cases.split(","))
+    dtypes = {None: (torch.bfloat16, torch.float32),
+              "bf16": (torch.bfloat16,), "f32": (torch.float32,)}[args.dtype]
     for name in names:
         kern, _, make = cases[name]
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in dtypes:
             call_args = make(dt)
             ms = min(median_ms(lambda: kern(*call_args)) for _ in range(2))
             dms = device_ms(lambda: kern(*call_args))
-            print(json.dumps({"root": tag, "case": name, "dtype": str(dt)[6:],
-                              "batch": args.batch, "ms": ms,
-                              "device_ms": dms, "card": card}), flush=True)
+            row = {"root": tag, "case": name, "dtype": str(dt)[6:],
+                   "batch": args.batch, "ms": ms, "device_ms": dms}
+            if args.library:
+                row.update(_yardstick(own_selfcheck(), name, call_args,
+                                      kern(*call_args), dt, highest))
+            print(json.dumps({**row, "card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -12,10 +12,11 @@ steps after one warm-up step (`warm_up`) with `train_times`, the timing
 chip_smoke.py's train phase also calls: the host clock around each step,
 ending in the loss read. Then `device_step_ms`: the card's time in kernels
 over PROFILED_STEPS more steps under torch.profiler, a step's share (the
-host clock spreads more between runs than the device does). Prints one
-JSON line: root, dtype, batch, the step times, their median, the device
-ms a step, the peak device memory, the losses and the card's name and
-power limit. Run parent, change, change, parent in one call to compare
+host clock spreads more between runs than the device does), in all and by
+kernel family (`kernel_families`: the port's kernels by template name, the
+rest as 'other'). Prints one JSON line: root, dtype, batch, the step
+times, their median, the device ms a step and its families, the peak
+device memory, the losses and the card's name and power limit. Run parent, change, change, parent in one call to compare
 two commits on one card.
 """
 from __future__ import annotations
@@ -77,17 +78,32 @@ def train_times(trainer, ts, batches):
     return times, losses
 
 
+def kernel_families(prof) -> dict:
+    """{family: device ms} of a torch.profiler run: the port's kernels by
+    their template's name, every other CUDA kernel and copy under
+    'other'."""
+    fam = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        name = (e.key.split("istvt::", 1)[1].split("<")[0].split("(")[0]
+                if "istvt::" in e.key else "other")
+        fam[name] = fam.get(name, 0.0) + us / 1e3
+    return fam
+
+
 def device_step_ms(trainer, ts, batches):
-    """ms of CUDA kernel time a step (torch.profiler's self device time,
-    summed over every kernel) over one step per batch."""
+    """(ms of CUDA kernel time a step, {kernel family: ms a step}) over one
+    step per batch under torch.profiler (its self device time)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for batch in batches:
             float(trainer.step_fn(ts, batch)["loss"])
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total if hasattr(e, "self_device_time_total")
-             else e.self_cuda_time_total for e in prof.key_averages())
-    return us / 1e3 / len(batches)
+    fam = {k: v / len(batches) for k, v in kernel_families(prof).items()}
+    return sum(fam.values()), fam
 
 
 def main():
@@ -108,7 +124,7 @@ def main():
     warm_up(trainer, ts, batches[0])
     times, losses = train_times(trainer, ts, batches[1:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    dev_ms = device_step_ms(trainer, ts, batches[1:1 + PROFILED_STEPS])
+    dev_ms, fam = device_step_ms(trainer, ts, batches[1:1 + PROFILED_STEPS])
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -117,7 +133,10 @@ def main():
                       "dtype": "f32" if args.f32 else "bf16",
                       "batch": TRAIN_BATCH, "ms": times,
                       "median_ms": float(np.median(times)),
-                      "device_ms": dev_ms, "peak_gib": peak,
+                      "device_ms": dev_ms, "device_ms_by_family": {
+                          k: round(v, 3) for k, v in sorted(
+                              fam.items(), key=lambda kv: -kv[1])},
+                      "peak_gib": peak,
                       "losses": losses, "card": card}), flush=True)
 
 
