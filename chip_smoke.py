@@ -13,7 +13,10 @@ CLI flag chooses them, as in the JAX package): ('full', 'boundary'),
 layer) and ('int8', 'ingest') (the fully-int8 FF); the float fused path
 in bf16 (`cli/serve.py --bf16`) and in f32 (`cli/serve.py`), training on
 the float fused path in bf16 over f32 masters (`cli/train.py --dataset
-synthetic --use_pallas --bf16 --dropout 0`), and
+synthetic --use_pallas --bf16 --dropout 0`), the reference's default
+training recipe (`cli/train.py --dataset synthetic`: f32, dropout 0.5,
+the XLA-math path; with --use_pallas and --remat), a checkpointed run
+resumed, recalibrated, served and explained from its checkpoint, and
 the LRP relevance maps (`interpret/`, `cli/visualize.py`) in f32, then the
 kernel API (`istvt_tpu_torch.kernels`, `kernels/conv.py`), which no model
 path reaches. In phases; any failure raises and exits non-zero:
@@ -132,6 +135,32 @@ path reaches. In phases; any failure raises and exits non-zero:
                 (kernels, bf16) vs the CPU (plain versions, f32) from the
                 same weights and batch: |dloss| <= 5e-2, gradient cosine
                 >= 0.99
+  8b. train dropout - the default recipe at depth 12, B=8, f32, dropout
+                0.5, for each of DROPOUT_RECIPES (without --use_pallas,
+                with --remat, with --use_pallas, with both): median ms a
+                step of 3 after a warm-up, peak device memory, losses;
+                counted: exactly dropout_launches (none without
+                --use_pallas; with it the attention blocks' kernels
+                forward and backward, DROPOUT_PER_LAYER, the forward ones
+                twice with --remat), every other 0
+  8c. train dropout e2e - one depth-2 B=2 step of each of
+                DROPOUT_RECIPES, card (f32) vs CPU (plain, f32), the same
+                weights, batch and dropout masks: |dloss| <= 5e-2, gradient
+                cosine >= 0.99 (the train gate), and the f32 limits
+                |dloss| <= 1e-5, cosine >= 0.99999; cuDNN deterministic,
+                each --remat step's loss and gradients on the card equal,
+                bit for bit, those of the same step without --remat
+  8d. checkpoint - depth 2, B=2, --use_pallas --dropout 0.5, one step an
+                epoch, cuDNN deterministic: a Trainer saves two epochs, a
+                fresh one restores and takes the third step (then
+                recalibrate_bn over one batch, counted: one step's and two
+                forwards' launches), vs three uninterrupted steps:
+                parameters max|d| / max|p| <= 1e-6 (stated in advance;
+                whether bit-equal is printed); recalibrate_bn on the card
+                vs the CPU on the same weights and batch (each running
+                statistic rel-L2 <= 1e-4); cli/serve --checkpoint_dir's
+                logits vs the trained model's eval logits (|d| <= 1e-5);
+                cli/visualize --model_path writes its 18 PNGs
   then the interpretability path, B=1, f32 with TF32 off:
   9. interpret - generate_lrp for each method, with use_pallas (counted
                 from 0: fused_ff exactly 12 launches per call, every other
@@ -205,6 +234,7 @@ from istvt_tpu_torch.interpret import (  # noqa: E402
 from istvt_tpu_torch.kernels import _lib, selfcheck  # noqa: E402
 from istvt_tpu_torch.models import istvt  # noqa: E402
 from istvt_tpu_torch.serve_daemon import ServeDaemon  # noqa: E402
+from istvt_tpu_torch.train import step as S  # noqa: E402
 from torch_forward_ms import INT8_MODES as TOOL_MODES  # noqa: E402
 from torch_forward_ms import (ITERS, PACKED, PATH_FLAGS,  # noqa: E402
                               WARMUP, forward_times, input_dtype, set_mode)
@@ -328,6 +358,33 @@ TRAIN_PER_LAYER = {
     "temporal_attention_packed/bwd": 1, "spatial_attention_packed/bwd": 1,
     "ln_matmul/bwd": 2, "ln_ff_residual/bwd": 1,
 }
+
+# launches per layer of one f32 train step of the reference's default recipe
+# (--dropout 0.5) with --use_pallas: the attention blocks' kernels forward
+# and backward; the feed-forward with its dropout is plain torch
+# (models/istvt.py:366-376), so neither #21 variant nor #23 runs. Without
+# --use_pallas no kernel runs (the XLA-math path). With --remat each layer's
+# forward kernels run again in the backward pass.
+DROPOUT_PER_LAYER = {n: k for n, k in TRAIN_PER_LAYER.items()
+                     if not n.startswith("ln_ff_residual")}
+FORWARD_PER_LAYER = {n: k for n, k in DROPOUT_PER_LAYER.items()
+                     if not n.endswith("/bwd")}
+# the default recipe's timed variants: extra cli/train.py flags
+DROPOUT_RECIPES = {"xla-math": [], "xla-math --remat": ["--remat"],
+                   "fused": ["--use_pallas"],
+                   "fused --remat": ["--use_pallas", "--remat"]}
+DROPOUT_BATCH, DROPOUT_STEPS = 8, 3
+
+
+def dropout_launches(flags, steps, depth):
+    """{kernel: launches} of `steps` dropout train steps of a depth-`depth`
+    model with these extra flags."""
+    if "--use_pallas" not in flags:
+        return {}
+    per = {n: k + (FORWARD_PER_LAYER.get(n, 0) if "--remat" in flags else 0)
+           for n, k in DROPOUT_PER_LAYER.items()}
+    return {n: k * steps * depth for n, k in per.items()}
+
 
 # kernels that a path runs in f32 (float serving and training without --bf16,
 # the interpretability path; the kernel API phase's spatial entries and
@@ -719,8 +776,18 @@ def mode_phases(predictor, dev, card, profile):
 # 7-8. training through cli/train.py's code path
 
 
+# a temporary directory for the run's checkpoints and PNGs (set by main)
+WORK = None
+
+
+def _workdir(name):
+    path = os.path.join(WORK, name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
 def _trainer(flags, bf16=True):
-    return build_trainer(cli_train, flags, bf16)
+    return build_trainer(cli_train, flags, _workdir("train"), bf16)
 
 
 def _profile_step(trainer, ts, batch, card, profile):
@@ -738,7 +805,7 @@ def train_phase(card, profile):
     """TRAIN_STEPS timed B=16 steps after one warm-up step, counted
     (tools/torch_train_ms.train_times)."""
     t0 = time.perf_counter()
-    trainer, ts, batches = paper_trainer(cli_train)
+    trainer, ts, batches = paper_trainer(cli_train, _workdir("train"))
     phase("train", f"model + {len(batches)} synthetic batches built in "
           f"{time.perf_counter() - t0:.1f} s")
     warm_up(trainer, ts, batches[0])
@@ -783,6 +850,209 @@ def train_e2e_phase():
     if not (abs(l_card - l_cpu) <= 5e-2 and cos >= 0.99):
         raise SystemExit("the card's train step disagrees with the CPU "
                          "reference")
+
+
+def _recipe_trainer(flags, tag):
+    """cli/train.py's build of the reference's default recipe (f32,
+    --dropout 0.5, no --use_pallas) with extra flags, checkpoints under a
+    fresh work directory `tag`."""
+    args = cli_train.build_parser().parse_args(
+        ["--dataset", "synthetic", "--dropout", "0.5", "-o",
+         _workdir(tag)] + flags)
+    cli_train.check_args(args)
+    trainer, loader, _ = cli_train.build(args)
+    return trainer, loader
+
+
+def dropout_train_phase(card):
+    """Phase 8b: the default recipe at depth 12, B=DROPOUT_BATCH, f32, for
+    each of DROPOUT_RECIPES: DROPOUT_STEPS timed steps after a warm-up,
+    counted (dropout_launches)."""
+    for name, extra in DROPOUT_RECIPES.items():
+        t0 = time.perf_counter()
+        trainer, loader = _recipe_trainer(
+            ["--batch_size", str(DROPOUT_BATCH), "--epochs", "1",
+             "--dataset_len", str(DROPOUT_BATCH * (DROPOUT_STEPS + 1))]
+            + extra, "dropout")
+        ts, batches = trainer.init_state(), list(loader)
+        built = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        warm_up(trainer, ts, batches[0])
+        _lib.reset_launches()
+        times, losses = train_times(trainer, ts, batches[1:])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = _tally(dropout_launches(extra, len(times), DEPTH))
+        ms = float(np.median(times))
+        phase("train dropout", f"{name}, depth {DEPTH}, B={DROPOUT_BATCH} "
+              f"f32, dropout 0.5: steps (ms) "
+              f"{[round(t, 3) for t in times]}: median {ms:.3f} ms = "
+              f"{DROPOUT_BATCH * 1e3 / ms:.2f} clips/s; peak device memory "
+              f"{peak:.2f} GiB; losses {[round(v, 5) for v in losses]} on "
+              f"{card} (informative; built in {built:.1f} s)")
+        phase("train dropout", f"{name}: launches over {len(times)} steps "
+              f"{ {n: k for n, k in counts.items() if k} } (every other "
+              f"counter 0)")
+        del trainer, ts, batches
+        torch.cuda.empty_cache()
+
+
+def _given_masks(seed, rate=0.5):
+    """A mask source (nn/layers.dropout_mask) drawing on the CPU from a
+    seeded generator and handing the mask to the device asked for: the
+    card and the CPU get the same masks."""
+    gen = torch.Generator().manual_seed(seed)
+    return lambda shape, dev: (torch.rand(shape, generator=gen)
+                               < 1.0 - rate).to(dev)
+
+
+def dropout_e2e_phase():
+    """Phase 8c: one depth-2 B=2 step of the default recipe for each of
+    DROPOUT_RECIPES: the card (f32) vs the CPU (plain, f32) from the same
+    weights, batch and masks, under the train gate and the f32 limits; on
+    the card, a --remat step equals the step without it bit for bit (the
+    recompute runs the same deterministic kernels on the masks drawn before
+    the checkpointed call)."""
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    on_card = {}
+    try:
+        for name, extra in DROPOUT_RECIPES.items():
+            flags = ["--depth", "2", "--batch_size", "2", "--dataset_len",
+                     "2", "--epochs", "1"] + extra
+            card_tr, loader = _recipe_trainer(flags, "dropout_e2e")
+            cpu_tr, _ = _recipe_trainer(flags + ["--device", "cpu"],
+                                        "dropout_e2e")
+            batch = next(iter(loader))
+            out = []
+            t0 = time.perf_counter()
+            for tr in (card_tr, cpu_tr):
+                ts = tr.init_state()
+                with highest():
+                    m = S.make_train_step(rng=_given_masks(5))(ts, batch)
+                out.append((float(m["loss"]), torch.cat([
+                    p.grad.double().cpu().ravel()
+                    for p in tr.model.parameters()])))
+            (l_card, g_card), (l_cpu, g_cpu) = out
+            cos = float(F.cosine_similarity(g_card, g_cpu, dim=0))
+            dl = abs(l_card - l_cpu)
+            phase("train dropout e2e", f"{name}, depth 2, B=2, dropout 0.5, "
+                  f"the same masks: loss card {l_card:.6f} vs CPU plain f32 "
+                  f"{l_cpu:.6f} (|d| {dl:.3e}, limits 5e-2 and f32 1e-5); "
+                  f"gradient cosine {cos:.8f} (limits 0.99 and f32 "
+                  f"0.99999; {time.perf_counter() - t0:.1f} s)")
+            if not (dl <= 5e-2 and cos >= 0.99):
+                raise SystemExit(f"the card's {name} dropout step disagrees "
+                                 f"with the CPU reference")
+            if not (dl <= 1e-5 and cos >= 0.99999):
+                raise SystemExit(f"the card's {name} dropout step is off the "
+                                 f"CPU reference by more than f32 allows")
+            on_card[name] = (l_card, g_card)
+            if "--remat" in extra:
+                base = name.replace(" --remat", "")
+                l_base, g_base = on_card[base]
+                diff = float((g_card - g_base).abs().max())
+                same = l_card == l_base and torch.equal(g_card, g_base)
+                phase("train dropout e2e", f"{name} vs {base} on the card: "
+                      f"loss {l_card!r} vs {l_base!r}, gradients max|d| "
+                      f"{diff:.3e}: equal bit for bit {same}")
+                if not same:
+                    raise SystemExit(f"{name} does not give the gradients "
+                                     f"of {base} on the card")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+
+
+def checkpoint_phase(dev, card):
+    """Phase 8d: depth 2, B=2, f32, --use_pallas --dropout 0.5, one step an
+    epoch (the reference schedule, which does not depend on the epoch
+    count): 2 epochs, a fresh Trainer that restores and takes the third
+    step (+ --recal_bn 1, counted), vs 3 uninterrupted steps; cuDNN
+    deterministic (the port's kernels use no atomics). Then
+    recalibrate_bn card vs CPU, serve and visualize from the checkpoint."""
+    flags = ["--use_pallas", "--depth", "2", "--batch_size", "2",
+             "--dataset_len", "2", "--reference_schedule"]
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    t0 = time.perf_counter()
+    try:
+        full, loader = _recipe_trainer(flags + ["--epochs", "3"], "ck_full")
+        ts_full = full.fit(loader)
+        cut, loader = _recipe_trainer(flags + ["--epochs", "2"], "ck")
+        cut.fit(loader)
+        resumed, loader = _recipe_trainer(
+            flags + ["--epochs", "3", "--recal_bn", "1"], "ck")
+        _lib.reset_launches()
+        ts = resumed.fit(loader)
+        # depth 2: one step, then two forwards of recalibrate_bn
+        counts = _tally({n: 2 * (k + 2 * FORWARD_PER_LAYER.get(n, 0))
+                         for n, k in DROPOUT_PER_LAYER.items()})
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+    got = torch.cat([p.detach().double().cpu().ravel()
+                     for p in ts.model.parameters()])
+    want = torch.cat([p.detach().double().cpu().ravel()
+                      for p in ts_full.model.parameters()])
+    rel = float((got - want).abs().max() / want.abs().max())
+    steps = resumed.ckpt.all_steps()
+    phase("checkpoint", f"depth 2, B=2: 2 epochs, save, fresh Trainer, "
+          f"restore, step 3 vs 3 uninterrupted steps: parameters max|d| / "
+          f"max|p| {rel:.3e} (bound 1e-6), bit-equal {bool(rel == 0)}; "
+          f"steps saved {steps}; the resumed fit's launches (1 step + "
+          f"recalibrate_bn's 2 forwards) "
+          f"{ {n: k for n, k in counts.items() if k} } "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if ts.step != 3 or rel > 1e-6 or steps != [1, 2, 3, 4]:
+        raise SystemExit(f"resume disagrees with the uninterrupted run "
+                         f"(step {ts.step}, steps {steps})")
+
+    # recalibrate_bn on the card vs the CPU, same weights and batch
+    loader.set_epoch(7)
+    batches = [next(iter(loader))]
+    cpu_model = copy.deepcopy(ts.model).to("cpu")
+    t0 = time.perf_counter()
+    with highest():
+        on_card = S.recalibrate_bn(ts.model, batches)
+        on_cpu = S.recalibrate_bn(cpu_model, batches)
+    rels = [float((on_card[n].double().cpu() - v.double()).norm()
+                  / v.double().norm().clamp_min(1e-30))
+            for n, v in on_cpu.items()]
+    phase("checkpoint", f"recalibrate_bn card vs CPU plain f32: {len(rels)} "
+          f"running statistics, rel-L2 max {max(rels):.3e} (limit 1e-4; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    if max(rels) > 1e-4:
+        raise SystemExit("recalibrate_bn on the card disagrees with the CPU")
+    del cpu_model
+
+    # serve and visualize from the checkpoint directory
+    ck = _workdir("ck")
+    predictor = cli_serve.build_predictor(cli_serve.build_parser().parse_args(
+        ["--depth", "2", "--max_batch", "2", "-o", ck]), dev)
+    resumed.model.load_state_dict(
+        resumed.ckpt.restore(map_location=dev)["model"])
+    clips = batches[0]["clips"]
+    served = np.asarray(predictor.predict(clips)["logits"], np.float64)
+    want = S.make_eval_step()(resumed.model, batches[0])["logits"]
+    dlogit = float(np.abs(served.ravel() - want.double().cpu().numpy()).max())
+    phase("checkpoint", f"cli/serve --checkpoint_dir: logits "
+          f"{np.round(served.ravel(), 5).tolist()} vs the trained model's "
+          f"eval logits (|d| {dlogit:.3e}, limit 1e-5)")
+    if not dlogit <= 1e-5:
+        raise SystemExit("serving from the checkpoint disagrees with the "
+                         "trained model")
+    del predictor
+    out = _workdir("visualize")
+    written = cli_visualize.main(["--dataset", "synthetic", "--max_clips",
+                                  "1", "--depth", "2", "--model_path", ck,
+                                  "--out_dir", out])
+    t = PAPER.num_frames
+    if len(written) != 3 * t or not all(os.path.getsize(p) for p in written):
+        raise SystemExit(f"visualize --model_path wrote {written}")
+    phase("checkpoint", f"cli/visualize --model_path: {len(written)} PNGs "
+          f"on {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -1189,6 +1459,12 @@ def main():
     torch.cuda.empty_cache()
     train_e2e_phase()
     torch.cuda.empty_cache()
+    # 8b-8d the reference's default recipe, checkpoints and resume
+    dropout_train_phase(card)
+    dropout_e2e_phase()
+    torch.cuda.empty_cache()
+    checkpoint_phase(dev, card)
+    torch.cuda.empty_cache()
 
     # 9-10 the interpretability path
     interpret_phase(dev, card, args.profile)
@@ -1216,4 +1492,5 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as WORK:
+        main()

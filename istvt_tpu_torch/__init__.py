@@ -7,22 +7,25 @@ and is held against it by the tests. It imports `torch` and never `jax`.
 Ported so far: the int8 W8A8 serving forward of ISTVT
 (`ISTVTConfig(use_pallas=True, quantize='int8')`, q8_ff='full',
 q8_attn='ingest', stem_store='f8'), the float fused serving forward
-(`quantize='none'`), training on the float fused path, and the
-interpretability path (attention maps, attn_bias gradients, LRP
-relevance; the XLA-math eval forward, `use_pallas=False`):
+(`quantize='none'`), training on the float fused path and on the
+XLA-math path (`use_pallas=False`), with dropout and remat, checkpoints,
+resume and BN recalibration, and the interpretability path (attention
+maps, attn_bias gradients, LRP relevance; the XLA-math eval forward):
 
-  core/      config copies, device selection, TF32 control, dtype cast
+  core/      config copies, device selection, TF32 control, dtype cast,
+             checkpoints (torch files)
   nn/        the layers the Xception stem and the ST layers use
   kernels/   the per-layer kernels, forward and backward, hand-written CUDA
              for sm_90a (csrc/), each with a plain PyTorch version beside it
   models/    Xception stem, ISTVT, the `istvt` registry key
-  compat/    JAX params -> port state_dict, BN statistics back
+  compat/    JAX params and TrainState <-> port state_dict and optimizer
   serve.py   bucketed Predictor; serve_daemon.py the HTTP batch server
-  train/     loss, metrics, schedules, the train / eval steps, Trainer
+  train/     loss, metrics, schedules, the train / eval steps, Trainer,
+             recalibrate_bn, the metrics logger
   data/      synthetic clips and a synchronous ClipLoader
   interpret/ LRP rollout, full epsilon-rule LRP, saliency PNGs
   cli/       `python -m istvt_tpu_torch.cli.serve --int8`,
-             `python -m istvt_tpu_torch.cli.train --use_pallas --bf16 ...`,
+             `python -m istvt_tpu_torch.cli.train --dataset synthetic`,
              `python -m istvt_tpu_torch.cli.visualize --dataset synthetic`
 """
 

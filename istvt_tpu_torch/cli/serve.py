@@ -2,10 +2,11 @@
 (counterpart of istvt_tpu/cli/serve.py, same flag spellings).
 
 Stands up the HTTP batch-scoring daemon (serve_daemon.ServeDaemon) on the
-port's ISTVT on the GPU, with random-init weights: the int8 W8A8 serving
-path with --int8, else the float fused path (bf16 with --bf16, f32
-otherwise). Not yet ported (each exits with a message): checkpoint
-restore and AOT artifacts.
+port's ISTVT on the GPU: the int8 W8A8 serving path with --int8, else the
+float fused path (bf16 with --bf16, f32 otherwise), with the weights of
+the latest train checkpoint under --checkpoint_dir (cli/train.py -o), or
+random-init weights without it. Not yet ported (exits with a message):
+AOT artifacts (--artifact).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ def build_parser():
     p.add_argument("--seq_len", "-sl", type=int, default=6)
     p.add_argument("--input_size", "-is", type=int, default=300)
     p.add_argument("--checkpoint_dir", "-o", default=None,
-                   help="checkpoint dir (not ported yet)")
+                   help="serve the latest train checkpoint under this dir")
     p.add_argument("--artifact", default=None,
                    help="AOT artifact dir (not ported yet)")
     p.add_argument("--host", default="127.0.0.1")
@@ -43,9 +44,10 @@ def build_parser():
 
 def build_predictor(args, device=None):
     """Model + Predictor on `device` (the GPU when None; there is no CPU
-    fallback): with --int8, bf16 parameters + quantize_params and bf16
-    inputs; else the float fused model in bf16 (--bf16) or f32, its
-    weights packed (pack_params) after the cast."""
+    fallback), its weights restored from --checkpoint_dir's latest step
+    when there is one (before any cast): with --int8, bf16 parameters +
+    quantize_params and bf16 inputs; else the float fused model in bf16
+    (--bf16) or f32, its weights packed (pack_params) after the cast."""
     import torch
 
     from istvt_tpu_torch.core import tree
@@ -55,9 +57,9 @@ def build_predictor(args, device=None):
     from istvt_tpu_torch.models.registry import model_selection
     from istvt_tpu_torch.serve import Predictor
 
-    if args.artifact or args.checkpoint_dir:
-        raise SystemExit("--artifact / --checkpoint_dir: not ported yet "
-                         "(ROADMAP.md queue 1, 'Serving extras')")
+    if args.artifact:
+        raise SystemExit("--artifact: not ported yet (ROADMAP.md queue 1, "
+                         "'Serving extras')")
     device = require_cuda() if device is None else torch.device(device)
     cfg = ISTVTConfig(num_frames=args.seq_len, image_size=args.input_size,
                       feat_hw=istvt.infer_feat_hw(args.input_size),
@@ -65,6 +67,13 @@ def build_predictor(args, device=None):
                       quantize="int8" if args.int8 else "none")
     model = model_selection(args.model_name, num_out_classes=1, cfg=cfg,
                             device=device)
+    if args.checkpoint_dir:
+        from istvt_tpu_torch.core.checkpoint import CheckpointManager
+        mgr = CheckpointManager(args.checkpoint_dir)
+        restored = mgr.restore(map_location=device)
+        if restored is not None:
+            model.load_state_dict(restored["model"])
+            print(f"restored step {mgr.latest_step()}")
     buckets = args.buckets or sorted({1, max(args.max_batch // 2, 1),
                                       args.max_batch})
     if args.int8:

@@ -1,18 +1,24 @@
 """Train CLI — `python -m istvt_tpu_torch.cli.train` (counterpart of
 istvt_tpu/cli/train.py, same flag spellings).
 
-Trains ISTVT on the float fused path (`--use_pallas`, `--dropout 0`) on
-the GPU, f32 or bf16 over f32 masters (`--bf16`), on the synthetic clips:
+Trains ISTVT on the GPU on the synthetic clips, f32 or bf16 over f32
+masters (`--bf16`): the reference's default recipe (the XLA-math forward
+with dropout 0.5, checkpoints under ./output) is
 
-    python -m istvt_tpu_torch.cli.train --dataset synthetic --use_pallas \\
-        --bf16 --dropout 0
+    python -m istvt_tpu_torch.cli.train --dataset synthetic
 
-Implemented: --dataset synthetic, --use_pallas, --bf16, --dropout 0,
---optimizer, --lr, --epochs, --batch_size, --dataset_len, --grad_accum,
---depth, --seed, --reference_schedule, and the geometry (--seq_len,
---input_size). Every other flag or value exits naming its ROADMAP.md
-item. The card is the default; `--device cpu` runs the plain versions of
-the kernels (the tests use it).
+and `--use_pallas` runs the float fused path (its kernels; with dropout >
+0 the feed-forward is plain torch, as in JAX). Implemented: --dataset
+synthetic, --use_pallas, --bf16, --dropout, --remat, --optimizer, --lr,
+--epochs, --batch_size, --dataset_len, --grad_accum, --depth, --seed,
+--reference_schedule, the geometry (--seq_len, --input_size), and the
+checkpoints: --checkpoint_dir / -o (default ./output; "" saves nothing),
+--continue_train (resume the latest), --test_mode (restore the latest,
+evaluate the val loader, exit), --recal_bn N (recalibrate BatchNorm over N
+train batches after the last epoch). --model_path is parsed and never
+read, as in the JAX CLI. Every other flag or value exits naming its
+ROADMAP.md item. The card is the default; `--device cpu` runs the plain
+versions of the kernels (the tests use it).
 """
 from __future__ import annotations
 
@@ -27,15 +33,9 @@ _NOT_PORTED = {
     "data_root": "'Training' (the real datasets)",
     "transform": "'Training' (the real datasets)",
     "num_workers": "'Training' (loader workers)",
-    "checkpoint_dir": "'Training' (checkpointing)",
-    "continue_train": "'Training' (checkpointing)",
-    "model_path": "'Training' (checkpointing)",
-    "test_mode": "'Training' (checkpointing)",
     "mesh_model": "'Parallelism'",
     "mesh_pipe": "'Parallelism'",
     "microbatches": "'Parallelism'",
-    "recal_bn": "'Training' (recalibrate_bn)",
-    "remat": "'Training' (remat)",
     "use_native_decode": "'Training' (the real datasets)",
     "boxes": "'Training' (the real datasets)",
     "dump_attns_every": "'Interpretation'",
@@ -67,11 +67,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=0,
                    help="loader workers (not ported: items are made in "
                         "the calling thread)")
-    p.add_argument("--checkpoint_dir", "-o", default="",
-                   help="checkpoint dir (not ported yet)")
-    p.add_argument("--continue_train", action="store_true")
-    p.add_argument("--model_path", "-mp", default=None)
-    p.add_argument("--test_mode", action="store_true")
+    p.add_argument("--checkpoint_dir", "-o", default="./output",
+                   help="checkpoints and metrics.jsonl ('' saves nothing)")
+    p.add_argument("--continue_train", action="store_true",
+                   help="resume from the latest checkpoint")
+    p.add_argument("--model_path", "-mp", default=None,
+                   help="parsed and never read, as in the JAX CLI")
+    p.add_argument("--test_mode", action="store_true",
+                   help="restore the latest checkpoint and evaluate only")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--mesh_pipe", type=int, default=1)
@@ -79,10 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grad_accum", type=int, default=1,
                    help="gradient-accumulation microbatches per optimizer "
                         "step (must divide batch_size)")
-    p.add_argument("--recal_bn", type=int, default=0, metavar="N")
+    p.add_argument("--recal_bn", type=int, default=0, metavar="N",
+                   help="after training, recalibrate BatchNorm running "
+                        "stats over N train batches")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 forward/backward vs f32 master params")
-    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each ST layer in the backward pass")
     p.add_argument("--use_pallas", action="store_true",
                    help="the fused kernels (hand-written CUDA here)")
     p.add_argument("--reference_schedule", action="store_true",
@@ -118,15 +124,6 @@ def check_args(args, parser=None):
     if args.dataset != "synthetic":
         raise SystemExit(f"--dataset {args.dataset} is not ported yet "
                          f"({_Q1}, 'Training': the real datasets)")
-    if not args.use_pallas:
-        raise SystemExit(f"training without --use_pallas (the XLA-math "
-                         f"forward) is not ported yet ({_Q1}, 'Float "
-                         f"XLA-math forward')")
-    if args.dropout != 0.0:
-        raise SystemExit(f"--dropout {args.dropout}: the dropout "
-                         f"feed-forward is the XLA-math path with exact "
-                         f"GELU, not ported yet ({_Q1}, 'Float XLA-math "
-                         f"forward'); pass --dropout 0")
 
 
 def build(args):
@@ -169,7 +166,8 @@ def build(args):
     trainer = Trainer(model, tc, dc,
                       steps_per_epoch=max(len(train_loader), 1),
                       use_reference_schedule=args.reference_schedule,
-                      grad_accum=args.grad_accum)
+                      grad_accum=args.grad_accum,
+                      recal_bn_batches=args.recal_bn)
     return trainer, train_loader, val_loader
 
 
@@ -178,7 +176,16 @@ def main(argv=None):
     args = parser.parse_args(argv)
     check_args(args, parser)
     trainer, train_loader, val_loader = build(args)
-    trainer.fit(train_loader, val_loader)
+    ts = trainer.init_state()
+    if args.continue_train or args.test_mode:
+        ts = trainer.restore(ts)
+    if args.test_mode:
+        from istvt_tpu_torch.train.trainer import evaluate
+        ev = evaluate(trainer.model, val_loader)
+        print(args.quality, {k: round(v, 4) if isinstance(v, float) else v
+                             for k, v in ev.items()})
+        return
+    trainer.fit(train_loader, val_loader, ts=ts)
 
 
 if __name__ == "__main__":

@@ -9,12 +9,14 @@ upsampled x16 to 304x304), beside the plain frame `<frame>.png`;
 --mode features writes the gradient x input relevance as
 `<frame>_feat.png`. The model is ISTVTConfig(...) with the JAX CLI's
 defaults (use_pallas=False: the XLA-math forward, exact-erf GELU), random
-weights from seed 0:
+weights from seed 0, or with --model_path those of a train checkpoint
+directory's latest step (cli/train.py -o) or of a bare save_pytree file
+{'params', 'state'} (core/checkpoint.py):
 
     python -m istvt_tpu_torch.cli.visualize --dataset synthetic
 
-The card is the default; `--device cpu` runs on the CPU. --dataset ff++,
---model_path and --mode channels exit naming their ROADMAP.md items.
+The card is the default; `--device cpu` runs on the CPU. --dataset ff++
+and --mode channels exit naming their ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ def build_parser():
     p.add_argument("--dataset", "-d", default="ff++",
                    choices=["ff++", "synthetic"])
     p.add_argument("--model_path", "-mp", default=None,
-                   help="checkpoint to restore (not ported yet)")
+                   help="a train checkpoint dir or a save_pytree file")
     p.add_argument("--out_dir", default="./visualize")
     p.add_argument("--method", default="transformer_attribution",
                    choices=["transformer_attribution", "rollout",
@@ -71,14 +73,30 @@ def check_args(args):
     if args.dataset != "synthetic":
         raise SystemExit(f"--dataset {args.dataset} is not ported yet "
                          f"({_Q1}, 'Training': the real datasets)")
-    if args.model_path:
-        raise SystemExit(f"--model_path (checkpoint restore) is not ported "
-                         f"yet ({_Q1}, 'Training' / 'Serving extras')")
+
+
+def restore(model, path: str):
+    """Load a trainer checkpoint directory's latest state, or a bare
+    save_pytree file {'params', 'state'}, into model (JAX's _restore)."""
+    from istvt_tpu_torch.core.checkpoint import (CheckpointManager,
+                                                 load_pytree)
+
+    if not os.path.exists(path):
+        raise SystemExit(f"--model_path {path}: no checkpoint there")
+    dev = next(model.parameters()).device
+    if os.path.isdir(path):
+        mgr = CheckpointManager(path)
+        if mgr.latest_step() is not None:
+            model.load_state_dict(mgr.restore(map_location=dev)["model"])
+            print(f"restored trainer step {mgr.latest_step()}")
+            return
+    tree = load_pytree(path, map_location=dev)
+    model.load_state_dict({**tree["params"], **tree["state"]})
 
 
 def build(args):
     """(model, dataset) for parsed, checked args: the JAX CLI's config
-    with random weights from seed 0, on args.device."""
+    with random weights from seed 0, or --model_path's, on args.device."""
     import torch
 
     from istvt_tpu_torch.core.config import ISTVTConfig
@@ -91,6 +109,8 @@ def build(args):
                       feat_hw=istvt.infer_feat_hw(args.input_size),
                       depth=args.depth)
     model = istvt.init(cfg, torch.Generator().manual_seed(0), dev)
+    if args.model_path:
+        restore(model, args.model_path)
     ds = SyntheticVideoDataset(min(args.max_clips, 8), args.seq_len,
                                args.input_size)
     return model, ds

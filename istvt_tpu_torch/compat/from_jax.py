@@ -1,23 +1,35 @@
-"""JAX (params, state) trees -> port state_dict
-(counterpart of istvt_tpu/compat/torch_import.py, in the other direction),
-and the BatchNorm running statistics back (`state_to_jax`), so a training
-run's state is compared in either form.
+"""JAX (params, state) trees <-> port state_dict
+(counterpart of istvt_tpu/compat/torch_import.py), and a JAX TrainState
+(params, model_state, optax opt_state, step) <-> the port's model and
+optimizer, so one run's state moves between the packages either way: a
+JAX checkpoint resumes in the port, and the port's in JAX.
 
 The JAX trees arrive as numpy arrays (`jax.device_get` or `np.asarray` of
-each leaf); this module never imports jax. Layouts (JAX -> torch):
+each leaf) and leave as numpy arrays; this module never imports jax.
+Layouts (JAX -> torch):
   conv   HWIO (kH, kW, I/g, O) -> (O, I/g, kH, kW)
   linear (in, out)             -> (out, in)
   BN     scale/bias, mean/var  -> weight/bias, running_mean/running_var
   q8     int8 (D, K), f32 (K,) -> buffers of the same layout
+Each leaf's place in both is one entry of a table (`_xception_entries`,
+`_dsttr_entries`): (tree, path in the JAX tree, state_dict key, layout),
+read one way by params_from_jax and the other by params_to_jax. optax's
+adamw moments mu / nu and sgd's trace take their parameters' layout
+changes; its update count becomes torch's per-parameter `step`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from istvt_tpu_torch.models.xception import BLOCK_SPECS
+
+# (tree 'p' (params) or 's' (state), JAX path, state_dict key, layout
+# 'conv' / 'lin' / '' (as is))
+Entry = Tuple[str, tuple, str, str]
 
 
 def _t(a) -> torch.Tensor:
@@ -37,92 +49,130 @@ def _lin(w) -> torch.Tensor:
     return _t(np.asarray(w).T)
 
 
-def _bn(sd, prefix, p, s):
-    sd[f"{prefix}.weight"] = _t(p["scale"])
-    sd[f"{prefix}.bias"] = _t(p["bias"])
-    sd[f"{prefix}.running_mean"] = _t(s["mean"])
-    sd[f"{prefix}.running_var"] = _t(s["var"])
-    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+_TO_TORCH = {"conv": _conv, "lin": _lin, "": _t}
+_TO_JAX = {"conv": lambda a: a.transpose(2, 3, 1, 0),
+           "lin": lambda a: a.T, "": lambda a: a}
 
 
-def _sep(sd, prefix, p):
-    sd[f"{prefix}.conv1.weight"] = _conv(p["dw"]["w"])
-    sd[f"{prefix}.pointwise.weight"] = _conv(p["pw"]["w"])
+def _bn(key, path) -> List[Entry]:
+    return [("p", path + ("scale",), f"{key}.weight", ""),
+            ("p", path + ("bias",), f"{key}.bias", ""),
+            ("s", path + ("mean",), f"{key}.running_mean", ""),
+            ("s", path + ("var",), f"{key}.running_var", "")]
+
+
+def _sep(key, path) -> List[Entry]:
+    return [("p", path + ("dw", "w"), f"{key}.conv1.weight", "conv"),
+            ("p", path + ("pw", "w"), f"{key}.pointwise.weight", "conv")]
+
+
+def _block_entries(spec, prefix: str = "", path: tuple = ()) -> List[Entry]:
+    """A block of models/xception.block_init with `spec` (a BLOCK_SPECS
+    entry): the keys of the port's xception.Block."""
+    off = 1 if spec[4] else 0   # rep index shift of the leading ReLU
+    out: List[Entry] = []
+    for i in range(spec[2]):
+        out += _sep(f"{prefix}rep.{3 * i + off}", path + ("rep", i, "sep"))
+        out += _bn(f"{prefix}rep.{3 * i + 1 + off}", path + ("rep", i, "bn"))
+    if spec[0] != spec[1] or spec[3] != 1:
+        out.append(("p", path + ("skip", "w"), f"{prefix}skip.weight",
+                    "conv"))
+        out += _bn(f"{prefix}skipbn", path + ("skipbn",))
+    return out
+
+
+def _xception_entries(prefix: str = "", path: tuple = ()) -> List[Entry]:
+    """models/xception params/state -> reference Xception keys."""
+    out: List[Entry] = [("p", path + ("conv1", "w"), f"{prefix}conv1.weight",
+                         "conv")]
+    out += _bn(f"{prefix}bn1", path + ("bn1",))
+    out.append(("p", path + ("conv2", "w"), f"{prefix}conv2.weight", "conv"))
+    out += _bn(f"{prefix}bn2", path + ("bn2",))
+    for b, spec in enumerate(BLOCK_SPECS, start=1):
+        out += _block_entries(spec, f"{prefix}block{b}.",
+                              path + (f"block{b}",))
+    for i in (3, 4):
+        out += _sep(f"{prefix}conv{i}", path + (f"conv{i}",))
+        out += _bn(f"{prefix}bn{i}", path + (f"bn{i}",))
+    out += [("p", path + ("fc", "w"), f"{prefix}fc.weight", "lin"),
+            ("p", path + ("fc", "b"), f"{prefix}fc.bias", "")]
+    return out
+
+
+def _dsttr_entries(depth: int, prefix: str = "",
+                   path: tuple = ()) -> List[Entry]:
+    """models/istvt.dsttr_init's float leaves -> reference DSTTr keys."""
+    out: List[Entry] = [("p", path + (k,), prefix + k, "")
+                        for k in ("pos_embedding", "space_token",
+                                  "temporal_token")]
+
+    def ln(key, p):
+        return [("p", p + ("scale",), f"{key}.weight", ""),
+                ("p", p + ("bias",), f"{key}.bias", "")]
+
+    def lin(key, p, bias=True):
+        return ([("p", p + ("w",), f"{key}.weight", "lin")]
+                + ([("p", p + ("b",), f"{key}.bias", "")] if bias else []))
+
+    for i in range(depth):
+        pre, lp = f"{prefix}transformer.layers.{i}", path + ("layers", i)
+        at, asp, ff = lp + ("attn_t",), lp + ("attn_s",), lp + ("ff",)
+        out += (ln(f"{pre}.0.norm", at + ("norm",))
+                + lin(f"{pre}.0.fn.to_qk", at + ("to_qk",), bias=False)
+                + lin(f"{pre}.0.fn.to_v", at + ("to_v",), bias=False)
+                + lin(f"{pre}.0.fn.to_out.0", at + ("to_out",))
+                + ln(f"{pre}.1.norm", asp + ("norm",))
+                + lin(f"{pre}.1.fn.to_qkv", asp + ("to_qkv",), bias=False)
+                + lin(f"{pre}.1.fn.to_out.0", asp + ("to_out",))
+                + ln(f"{pre}.2.norm", ff + ("norm",))
+                + lin(f"{pre}.2.fn.net.0", ff + ("fc1",))
+                + lin(f"{pre}.2.fn.net.3", ff + ("fc2",)))
+    out += (ln(f"{prefix}transformer.norm", path + ("norm",))
+            + ln(f"{prefix}mlp_head.0", path + ("mlp_head", "norm"))
+            + lin(f"{prefix}mlp_head.1", path + ("mlp_head", "fc")))
+    return out
+
+
+def _istvt_entries(depth: int) -> List[Entry]:
+    return (_xception_entries("xcep.model.", ("xcep",))
+            + _dsttr_entries(depth, "vit.", ("vit",)))
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _to_state_dict(entries, trees) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for tree, path, key, layout in entries:
+        sd[key] = _TO_TORCH[layout](_get(trees[tree], path))
+        if key.endswith(".running_var"):
+            sd[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0)
+    return sd
 
 
 def block_state_dict(bp, bs, spec, prefix: str = ""):
     """models/xception.block_init params/state of one block with `spec`
     (a BLOCK_SPECS entry) -> the keys of the port's xception.Block."""
-    sd: Dict[str, torch.Tensor] = {}
-    off = 1 if spec[4] else 0   # rep index shift of the leading ReLU
-    for i, unit in enumerate(bp["rep"]):
-        _sep(sd, f"{prefix}rep.{3 * i + off}", unit["sep"])
-        _bn(sd, f"{prefix}rep.{3 * i + 1 + off}", unit["bn"],
-            bs["rep"][i]["bn"])
-    if "skip" in bp:
-        sd[f"{prefix}skip.weight"] = _conv(bp["skip"]["w"])
-        _bn(sd, f"{prefix}skipbn", bp["skipbn"], bs["skipbn"])
-    return sd
+    return _to_state_dict(_block_entries(spec, prefix), {"p": bp, "s": bs})
 
 
 def xception_state_dict(p, s, prefix: str = "") -> Dict[str, torch.Tensor]:
     """models/xception params/state -> reference Xception keys."""
-    sd: Dict[str, torch.Tensor] = {}
-    sd[f"{prefix}conv1.weight"] = _conv(p["conv1"]["w"])
-    _bn(sd, f"{prefix}bn1", p["bn1"], s["bn1"])
-    sd[f"{prefix}conv2.weight"] = _conv(p["conv2"]["w"])
-    _bn(sd, f"{prefix}bn2", p["bn2"], s["bn2"])
-    for b, spec in enumerate(BLOCK_SPECS, start=1):
-        sd.update(block_state_dict(p[f"block{b}"], s[f"block{b}"], spec,
-                                   f"{prefix}block{b}."))
-    _sep(sd, f"{prefix}conv3", p["conv3"])
-    _bn(sd, f"{prefix}bn3", p["bn3"], s["bn3"])
-    _sep(sd, f"{prefix}conv4", p["conv4"])
-    _bn(sd, f"{prefix}bn4", p["bn4"], s["bn4"])
-    sd[f"{prefix}fc.weight"] = _lin(p["fc"]["w"])
-    sd[f"{prefix}fc.bias"] = _t(p["fc"]["b"])
-    return sd
+    return _to_state_dict(_xception_entries(prefix), {"p": p, "s": s})
 
 
 def dsttr_state_dict(p, prefix: str = "") -> Dict[str, torch.Tensor]:
     """models/istvt.dsttr_init tree (with optional 'q8' leaves) -> reference
     DSTTr keys plus the port's int8 buffers."""
-    sd: Dict[str, torch.Tensor] = {}
-    for k in ("pos_embedding", "space_token", "temporal_token"):
-        sd[prefix + k] = _t(p[k])
-
-    def ln(key, q):
-        sd[f"{key}.weight"] = _t(q["scale"])
-        sd[f"{key}.bias"] = _t(q["bias"])
-
-    def lin(key, q):
-        sd[f"{key}.weight"] = _lin(q["w"])
-        if "b" in q:
-            sd[f"{key}.bias"] = _t(q["b"])
-
-    def q8(key, q):
-        for name, v in (q or {}).items():
-            sd[f"{key}.{name}"] = _t(v)
-
+    sd = _to_state_dict(_dsttr_entries(len(p["layers"]), prefix), {"p": p})
     for i, layer in enumerate(p["layers"]):
-        pre = f"{prefix}transformer.layers.{i}"
-        at, asp, ff = layer["attn_t"], layer["attn_s"], layer["ff"]
-        ln(f"{pre}.0.norm", at["norm"])
-        lin(f"{pre}.0.fn.to_qk", at["to_qk"])
-        lin(f"{pre}.0.fn.to_v", at["to_v"])
-        lin(f"{pre}.0.fn.to_out.0", at["to_out"])
-        q8(f"{pre}.0.fn", at.get("q8"))
-        ln(f"{pre}.1.norm", asp["norm"])
-        lin(f"{pre}.1.fn.to_qkv", asp["to_qkv"])
-        lin(f"{pre}.1.fn.to_out.0", asp["to_out"])
-        q8(f"{pre}.1.fn", asp.get("q8"))
-        ln(f"{pre}.2.norm", ff["norm"])
-        lin(f"{pre}.2.fn.net.0", ff["fc1"])
-        lin(f"{pre}.2.fn.net.3", ff["fc2"])
-        q8(f"{pre}.2.fn", ff.get("q8"))
-    ln(f"{prefix}transformer.norm", p["norm"])
-    ln(f"{prefix}mlp_head.0", p["mlp_head"]["norm"])
-    lin(f"{prefix}mlp_head.1", p["mlp_head"]["fc"])
+        for j, name in enumerate(("attn_t", "attn_s", "ff")):
+            for k, v in (layer[name].get("q8") or {}).items():
+                sd[f"{prefix}transformer.layers.{i}.{j}.fn.{k}"] = _t(v)
     return sd
 
 
@@ -134,23 +184,92 @@ def params_from_jax(params: Any, state: Any) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def state_to_jax(sd: Dict[str, torch.Tensor],
-                 prefix: str = "xcep.model.") -> Dict[str, Any]:
-    """The port's BatchNorm running statistics -> JAX `istvt.init`'s state
-    tree {'xcep': {'bn1': {'mean', 'var'}, ..., 'block{b}': {'rep':
-    [{'bn': ...}], 'skipbn': ...}}}, as numpy arrays (the inverse of the
-    state half of params_from_jax)."""
-    def bn(key):
-        return {"mean": sd[f"{prefix}{key}.running_mean"].cpu().numpy(),
-                "var": sd[f"{prefix}{key}.running_var"].cpu().numpy()}
+def _depth(sd) -> int:
+    layer = re.compile(r"^vit\.transformer\.layers\.(\d+)\.")
+    return 1 + max(int(m.group(1)) for m in map(layer.match, sd) if m)
 
-    st: Dict[str, Any] = {k: bn(k) for k in ("bn1", "bn2", "bn3", "bn4")}
-    for b, spec in enumerate(BLOCK_SPECS, start=1):
-        off = 1 if spec[4] else 0
-        blk: Dict[str, Any] = {"rep": [
-            {"bn": bn(f"block{b}.rep.{3 * i + 1 + off}")}
-            for i in range(spec[2])]}
-        if spec[0] != spec[1] or spec[3] != 1:
-            blk["skipbn"] = bn(f"block{b}.skipbn")
-        st[f"block{b}"] = blk
-    return {"xcep": st}
+
+def _listify(tree):
+    """Nested dicts with int keys 0..n-1 -> lists, as JAX's trees hold
+    'layers' and 'rep'."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(isinstance(k, int) for k in tree):
+        return [_listify(tree[i]) for i in range(len(tree))]
+    return {k: _listify(v) for k, v in tree.items()}
+
+
+def params_to_jax(sd: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+    """The port ISTVT's float state_dict -> JAX `istvt.init`'s (params,
+    state) trees as numpy arrays (the inverse of params_from_jax without
+    q8 leaves)."""
+    trees: Dict[str, Dict] = {"p": {}, "s": {}}
+    for tree, path, key, layout in _istvt_entries(_depth(sd)):
+        node = trees[tree]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _TO_JAX[layout](sd[key].detach().cpu().numpy())
+    return _listify(trees["p"]), _listify(trees["s"])
+
+
+# ---------------------------------------------------------------------------
+# TrainState
+
+
+def _field(ts, name):
+    return ts[name] if isinstance(ts, dict) else getattr(ts, name)
+
+
+def train_state_from_jax(jax_ts, model: torch.nn.Module,
+                         opt: torch.optim.Optimizer) -> int:
+    """Load a JAX TrainState (numpy leaves: params, model_state, opt_state
+    of optax.adamw or optax.sgd with momentum, step; a dataclass or a dict)
+    into the port's model and its AdamW / SGD optimizer, in place. Returns
+    the step. adamw's mu / nu become exp_avg / exp_avg_sq and its count
+    every parameter's `step`; sgd's trace becomes momentum_buffer."""
+    params, mstate = _field(jax_ts, "params"), _field(jax_ts, "model_state")
+    model.load_state_dict(params_from_jax(params, mstate))
+    names = [n for n, _ in model.named_parameters()]
+    osd = opt.state_dict()
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    for part in _field(jax_ts, "opt_state"):
+        if hasattr(part, "mu"):
+            mu = params_from_jax(part.mu, mstate)
+            nu = params_from_jax(part.nu, mstate)
+            count = torch.tensor(float(np.asarray(part.count)))
+            state = {i: {"step": count.clone(), "exp_avg": mu[n],
+                         "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
+        elif hasattr(part, "trace"):
+            tr = params_from_jax(part.trace, mstate)
+            state = {i: {"momentum_buffer": tr[n]}
+                     for i, n in enumerate(names)}
+    osd["state"] = state
+    opt.load_state_dict(osd)
+    return int(np.asarray(_field(jax_ts, "step")))
+
+
+def train_state_to_jax(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                       step: int) -> Dict[str, Any]:
+    """The port's model, AdamW / SGD optimizer and step -> {'params',
+    'model_state', 'opt_state', 'step'} as numpy trees in JAX's layout;
+    'opt_state' is {'count', 'mu', 'nu'} (adamw: the count of the
+    ScaleByAdamState and of the schedule's state) or {'trace'} (sgd), for
+    the caller to put into optax's state tuple."""
+    sd = model.state_dict()
+    params, mstate = params_to_jax(sd)
+    names = [n for n, _ in model.named_parameters()]
+    ostate = opt.state_dict()["state"]
+
+    def moment(key):
+        return params_to_jax({**sd, **{
+            n: ostate[i][key] if i in ostate and key in ostate[i]
+            else torch.zeros_like(sd[n]) for i, n in enumerate(names)}})[0]
+
+    if isinstance(opt, torch.optim.SGD):
+        opt_state = {"trace": moment("momentum_buffer")}
+    else:
+        count = int(ostate[0]["step"]) if 0 in ostate else 0
+        opt_state = {"count": np.int32(count), "mu": moment("exp_avg"),
+                     "nu": moment("exp_avg_sq")}
+    return {"params": params, "model_state": mstate, "opt_state": opt_state,
+            "step": np.int32(step)}

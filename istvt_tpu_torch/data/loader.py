@@ -53,5 +53,10 @@ class ClipLoader:
         return batches
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        for idxs in self.index_batches():
+        return self.iter_from(0)
+
+    def iter_from(self, start: int) -> Iterator[Dict[str, np.ndarray]]:
+        """The epoch's batches from the start-th on (the earlier ones are
+        not made): a resumed run picks up its epoch where it stopped."""
+        for idxs in self.index_batches()[start:]:
             yield collate([self.dataset[int(i)] for i in idxs])

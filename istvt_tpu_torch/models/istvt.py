@@ -37,18 +37,23 @@ Ported: the eval forward with `use_pallas=True`, in two forms: int8 W8A8
 serving (`quantize='int8'`, every q8_ff / q8_attn mode above; stem_store
 'f8' or 'bf16') and float fused (`quantize='none'`, in the parameters'
 dtype, f32 or bf16; the stem stores nothing in f8); the train forward
-of the float fused path (`model.train()`, `dropout == 0`, `remat=False`):
-train-mode BatchNorm in the stem, every ST-layer kernel differentiable
-through its backward kernel (train/step.py drives it); and the unfused
-eval layer of models/istvt.py:378-394, which the attention-map path
-(`forward(clips, return_attn=True)` or `attn_bias=...`; interpret/ drives
-it) and the XLA-math forward (`use_pallas=False`) run:
+(`model.train()`, train-mode BatchNorm in the stem; train/step.py drives
+it) of the float fused path, every ST-layer kernel differentiable
+through its backward kernel, and with dropout > 0 the feed-forward in
+plain torch with its dropout (models/istvt.py:366-376), and of the
+XLA-math path (`use_pallas=False`: the unfused layer below under
+autograd, no kernel), either with `remat` (torch.utils.checkpoint a
+layer); and the unfused layer of models/istvt.py:378-394, which the
+attention-map path (`forward(clips, return_attn=True)` or
+`attn_bias=...`; interpret/ drives it, eval mode) and the XLA-math
+forward run:
 
     o = temporal_residual_attention(LN x)    (nn/attention.py, plain
     x = spatial_only_attention(LN o) + x      torch)
     x = feed_forward(LN x) + x               (fused_ff, kernel #22, with
-                                              use_pallas; else linear ->
-                                              exact-erf GELU -> linear)
+                                              use_pallas in eval; else
+                                              linear -> exact-erf GELU ->
+                                              dropout -> linear -> dropout)
 
 at S = 362, unpadded (the maps and the bias are 362 wide). Every other
 configuration raises NotImplementedError naming its ROADMAP.md item; none
@@ -73,6 +78,7 @@ import warnings
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from istvt_tpu_torch.core.config import ISTVTConfig
 from istvt_tpu_torch.kernels import quant
@@ -86,7 +92,8 @@ from istvt_tpu_torch.nn.attention import (spatial_block_fused,
                                           temporal_block_fused,
                                           temporal_block_q8,
                                           temporal_residual_attention)
-from istvt_tpu_torch.nn.layers import gelu, layernorm, linear
+from istvt_tpu_torch.nn.layers import (dropout, dropout_mask, gelu,
+                                       layernorm, linear)
 
 _ROADMAP = "ROADMAP.md queue 1"
 
@@ -266,10 +273,11 @@ class DSTTr(nn.Module):
             x = F.pad(x, (0, 0, 0, extra))
         return x.reshape(b, (t + 1) * (s + extra), d), s + extra, s
 
-    def run_layer(self, layer, x, s: int, n_valid: int):
+    def run_layer(self, layer, x, s: int, n_valid: int, masks=()):
         """One ST layer: x = attn_s(attn_t(x)) + x; x = ff(x) + x, as an
         int8 chain (models/istvt.py:258-356, by q8_ff and q8_attn) or the
-        float fused one (:357-373)."""
+        float fused one (:357-376): in train mode with dropout > 0 its
+        feed-forward is feed_forward's, with `masks`, on LN x."""
         pt, ps, pf = layer
         at, asp, ff = pt.fn, ps.fn, pf.fn
         cfg = self.cfg
@@ -279,6 +287,9 @@ class DSTTr(nn.Module):
             out_t = temporal_block_fused(pt, x, heads, s)
             x = spatial_block_fused(ps, out_t, heads, s, residual=x,
                                     n_valid=n_valid)
+            if self._dropout_ff():
+                h = layernorm(x, pf.norm.weight, pf.norm.bias)
+                return self.feed_forward(ff, h, masks) + x
             w1, w2 = ff.io_weights()
             return ln_ff_residual(x, pf.norm.weight, pf.norm.bias, w1,
                                   ff.net[0].bias, w2, ff.net[3].bias)
@@ -342,11 +353,11 @@ class DSTTr(nn.Module):
             wk=given(asp.out_wk, ff.w1k, ff.w2k))
 
     def run_layer_unfused(self, layer, x, s: int, bias_t=None, bias_s=None,
-                          need_attn: bool = False):
+                          need_attn: bool = False, masks=()):
         """One ST layer on the unpadded stream (models/istvt.py:378-394):
         x = attn_s(LN attn_t(LN x)) + x; x = ff(LN x) + x, the attention on
-        the XLA-math branches. Returns (x, map_t, map_s); the maps are None
-        unless need_attn."""
+        the XLA-math branches, the feed-forward's dropout with `masks`.
+        Returns (x, map_t, map_s); the maps are None unless need_attn."""
         pt, ps, pf = layer
         heads = self.cfg.heads
         res_t = temporal_residual_attention(
@@ -359,20 +370,37 @@ class DSTTr(nn.Module):
         out_s, a_s = res_s if need_attn else (res_s, None)
         x = out_s + x
         f = self.feed_forward(pf.fn, layernorm(x, pf.norm.weight,
-                                               pf.norm.bias))
+                                               pf.norm.bias), masks)
         return f + x, a_t, a_s
 
-    def feed_forward(self, ff, h):
-        """The eval feed-forward of the unfused layer (models/istvt.py:
-        166-185): kernel #22 (fused_ff, tanh-GELU) with use_pallas, else
-        linear -> exact-erf GELU -> linear. Reads the nn.Linear parameters
-        (JAX reads p['fc1']['w']), never the pack_params copies."""
+    def _dropout_ff(self) -> bool:
+        """Whether the feed-forward is the dropout form (train mode with
+        dropout > 0), whether or not masks are drawn, as in JAX."""
+        return self.training and self.cfg.dropout > 0.0
+
+    def feed_forward(self, ff, h, masks=()):
+        """The feed-forward of models/istvt.py:166-185: kernel #22
+        (fused_ff, tanh-GELU) with use_pallas unless it is the dropout
+        form, else linear -> exact-erf GELU -> dropout -> linear ->
+        dropout, with the keep masks `masks` (none: no dropout). Reads the
+        nn.Linear parameters (JAX reads p['fc1']['w']), never the
+        pack_params copies."""
         fc1, fc2 = ff.net[0], ff.net[3]
-        if self.cfg.use_pallas:
+        if self.cfg.use_pallas and not self._dropout_ff():
             return fused_ff(h, fc1.weight.t(), fc1.bias, fc2.weight.t(),
                             fc2.bias)
-        h = gelu(linear(h, fc1.weight, fc1.bias))
-        return linear(h, fc2.weight, fc2.bias)
+        m1, m2 = masks or (None, None)
+        rate, train = self.cfg.dropout, self.training
+        h = dropout(gelu(linear(h, fc1.weight, fc1.bias)), rate, train, m1)
+        return dropout(linear(h, fc2.weight, fc2.bias), rate, train, m2)
+
+    def ff_masks(self, layer, x, rng):
+        """One layer's two feed-forward keep masks, over the stream x as
+        the layer sees it (padded on the fused path, as JAX draws them):
+        (B, N, hidden) then (B, N, D), drawn in that order."""
+        rate, hidden = self.cfg.dropout, layer[2].fn.net[0].out_features
+        return (dropout_mask(x.shape[:-1] + (hidden,), rate, rng, x.device),
+                dropout_mask(x.shape, rate, rng, x.device))
 
     def head(self, x):
         """Stream -> logits from the (temporal-CLS, spatial-CLS) token; LN is
@@ -382,7 +410,8 @@ class DSTTr(nn.Module):
         cls = layernorm(x[:, 0], tr.norm.weight, tr.norm.bias)
         return linear(layernorm(cls, hn.weight, hn.bias), fc.weight, fc.bias)
 
-    def forward(self, feats, return_attn: bool = False, attn_bias=None):
+    def forward(self, feats, return_attn: bool = False, attn_bias=None,
+                rng=None):
         """(B, T, h, w, D) features -> logits (B, num_classes) (the
         counterpart of models/istvt.dsttr_apply); with
         return_attn (logits, {'t': [L x (B, H, S, T+1, T+1)], 's': [L x
@@ -390,7 +419,15 @@ class DSTTr(nn.Module):
         same orders, or None) is added to every post-softmax map.
 
         The fused kernels run when use_pallas is set and no map is asked
-        for; otherwise the unfused layer at S = h * w + 1, unpadded."""
+        for; otherwise the unfused layer at S = h * w + 1, unpadded.
+
+        In train mode with dropout > 0, `rng` (a torch.Generator on the
+        stream's device, or a callable that hands out given masks, see
+        nn/layers.dropout_mask) gives each layer's two feed-forward masks,
+        drawn layer by layer before the layer runs; None runs no dropout.
+        With cfg.remat each layer is recomputed in the backward pass
+        (torch.utils.checkpoint) unless maps are asked for; its masks are
+        its inputs, so the recompute applies the same ones."""
         need_attn = return_attn or attn_bias is not None
         fused = self.cfg.use_pallas and not need_attn
         if self.cfg.quantize == "int8" and not fused:
@@ -402,9 +439,21 @@ class DSTTr(nn.Module):
                           stacklevel=2)
         x, s, n_valid = self.tokens(feats, pad=fused)
         attns = {"t": [], "s": []}
+        draw = self._dropout_ff() and rng is not None
+        remat = (self.cfg.remat and not need_attn
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.transformer.layers):
-            if fused:
-                x = self.run_layer(layer, x, s, n_valid)
+            if not need_attn:
+                masks = self.ff_masks(layer, x, rng) if draw else ()
+
+                def run(x, *masks, layer=layer):
+                    if fused:
+                        return self.run_layer(layer, x, s, n_valid, masks)
+                    return self.run_layer_unfused(layer, x, s,
+                                                  masks=masks)[0]
+
+                x = (checkpoint(run, x, *masks, use_reentrant=False)
+                     if remat else run(x, *masks))
                 continue
             bias = ((None, None) if attn_bias is None
                     else (attn_bias["t"][i], attn_bias["s"][i]))
@@ -467,37 +516,31 @@ class ISTVT(nn.Module):
                                f"pack_params(model)")
 
     def _check_train(self, need_attn: bool = False):
-        """Train mode runs the float fused path with dropout 0 only
-        (models/istvt.py:357-373 with `ln_ff_residual`)."""
+        """Train mode runs the float model: the fused path with
+        use_pallas, else the unfused XLA-math layer, with any dropout and
+        remat; not the int8 path, and no attention maps."""
         cfg = self.cfg
         if need_attn:
             raise NotImplementedError(
                 f"attention maps in train mode (train/attn_dump.py) are not "
                 f"ported yet ({_ROADMAP}, 'Interpretation')")
-        if not cfg.use_pallas or cfg.quantize != "none":
+        if cfg.quantize != "none":
             raise NotImplementedError(
-                f"training runs the float fused path only (use_pallas=True, "
-                f"quantize='none'; got use_pallas={cfg.use_pallas}, "
-                f"quantize={cfg.quantize!r}) ({_ROADMAP}, 'Float XLA-math "
-                f"forward' / 'Training')")
-        if cfg.dropout != 0.0:
-            raise NotImplementedError(
-                f"dropout={cfg.dropout}: the train-mode feed-forward with "
-                f"dropout is the XLA-math path with exact GELU ({_ROADMAP}, "
-                f"'Float XLA-math forward')")
-        if cfg.remat:
-            raise NotImplementedError(f"remat is not ported yet ({_ROADMAP},"
-                                      f" 'Training')")
+                f"train mode with quantize={cfg.quantize!r} (the JAX package "
+                f"runs its float layers then) is not ported; train with "
+                f"quantize='none' ({_ROADMAP}, 'Training')")
 
-    def forward(self, clips, return_attn: bool = False, attn_bias=None):
+    def forward(self, clips, return_attn: bool = False, attn_bias=None,
+                rng=None):
         """clips (B, T, H, W, 3) NHWC -> logits (B, num_classes); with
         return_attn (logits, {'t': [...], 's': [...]}), every layer's maps
         (DSTTr.forward). attn_bias (eval mode) is added to every
         post-softmax map. In train mode the stem's BN running statistics
-        are updated in place."""
+        are updated in place, and `rng` gives the dropout masks
+        (DSTTr.forward)."""
         self._check_path(return_attn or attn_bias is not None)
         return self.vit(self.features(clips), return_attn=return_attn,
-                        attn_bias=attn_bias)
+                        attn_bias=attn_bias, rng=rng)
 
     def features(self, clips):
         """Per-frame stem: (B, T, H, W, 3) -> (B, T, h, w, 728)."""

@@ -109,3 +109,23 @@ def linear(x, w, b=None):
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def dropout_mask(shape, rate: float, rng, device):
+    """The keep mask of one dropout call (bool, True = kept with
+    probability 1 - rate), drawn from `rng`: a torch.Generator on `device`,
+    or a callable (shape, device) -> bool mask that hands out given masks
+    in call order (the tests give both packages the same masks)."""
+    if callable(rng):
+        return rng(tuple(shape), device)
+    return torch.rand(shape, generator=rng, device=device) < 1.0 - rate
+
+
+def dropout(x, rate: float, train: bool, mask=None):
+    """nn/layers.dropout: the identity unless training with rate > 0 and a
+    mask; else the kept values scaled by 1 / (1 - rate), the rest 0."""
+    if not train or rate == 0.0 or mask is None:
+        return x
+    keep = 1.0 - rate
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))

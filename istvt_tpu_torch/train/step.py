@@ -9,10 +9,16 @@ backward run in bf16, and the gradients arrive in f32 on the f32 master
 parameters. The optimizers are torch's AdamW and SGD configured as optax's
 adamw and sgd (decoupled decay times lr, eps 1e-8, a first momentum buffer
 of g), with the lr set from the step-indexed schedule before every update
-(optax's count semantics: the first update uses schedule(0)).
+(optax's count semantics: the first update uses schedule(0)). Dropout
+masks come from the generator given to make_train_step (JAX's rng).
 
-Not ported (raise, naming ROADMAP.md queue 1): recalibrate_bn, a device
-mesh. Other losses (distillation, attention transfer) are queue 1 work.
+recalibrate_bn replaces the BatchNorm running statistics by the fixed
+point of their train-mode update on given batches (JAX's recalibrate_bn).
+`train_state_dict` / `load_train_state` are a TrainState as the tensors
+that core/checkpoint.py saves.
+
+Not ported (raise, naming ROADMAP.md queue 1): a device mesh. Other
+losses (distillation, attention transfer) are queue 1 work.
 """
 from __future__ import annotations
 
@@ -73,6 +79,24 @@ def create_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
                       schedule=optimizer.schedule)
 
 
+def train_state_dict(ts: TrainState) -> Dict:
+    """{'model': the model's state_dict (parameters and BN running
+    statistics under the port's names), 'opt': the optimizer's
+    state_dict, 'step': int}, the tensors still the live ones (JAX's
+    TrainState of params, model_state, opt_state and step)."""
+    return {"model": ts.model.state_dict(), "opt": ts.opt.state_dict(),
+            "step": int(ts.step)}
+
+
+def load_train_state(ts: TrainState, sd: Dict) -> TrainState:
+    """Load train_state_dict's tensors into ts in place (onto the model's
+    device) and return it."""
+    ts.model.load_state_dict(sd["model"])
+    ts.opt.load_state_dict(sd["opt"])
+    ts.step = int(sd["step"])
+    return ts
+
+
 def _device(model):
     return next(model.parameters()).device
 
@@ -83,7 +107,7 @@ def _clips(batch, dev):
 
 
 def make_train_step(compute_dtype: Optional[torch.dtype] = None,
-                    grad_accum: int = 1, mesh=None):
+                    grad_accum: int = 1, mesh=None, rng=None):
     """Returns step(ts, batch) -> {'loss', 'accuracy', 'grad_norm'} (0-dim
     f32 tensors), updating ts in place.
 
@@ -91,7 +115,13 @@ def make_train_step(compute_dtype: Optional[torch.dtype] = None,
     grad_accum=k > 1 splits the batch into k microbatches run one after
     the other: gradients are averaged into one update, the BN running
     statistics thread through the microbatches in order, and loss and
-    accuracy are the microbatch means (JAX's _accumulate)."""
+    accuracy are the microbatch means (JAX's _accumulate).
+
+    rng: the dropout masks' source (JAX's rng), a torch.Generator on the
+    model's device or a callable handing out given masks
+    (nn/layers.dropout_mask); every call draws from it in a fixed order,
+    microbatch by microbatch, layer by layer, each layer's feed-forward
+    masks (models/istvt.DSTTr.ff_masks). None: no dropout."""
     if mesh is not None:
         raise NotImplementedError(f"a device mesh is not ported yet "
                                   f"({_ROADMAP}, 'Parallelism')")
@@ -100,12 +130,13 @@ def make_train_step(compute_dtype: Optional[torch.dtype] = None,
 
     def compute_loss(model, x, labels):
         if compute_dtype is None:
-            logits = model(x)
+            logits = model(x, rng=rng)
         else:
             cast = {n: p.to(compute_dtype) if p.is_floating_point() else p
                     for n, p in model.named_parameters()}
             logits = torch.func.functional_call(model, cast,
-                                                (x.to(compute_dtype),))
+                                                (x.to(compute_dtype),),
+                                                {"rng": rng})
         return losses.bce_with_logits(logits, labels), logits
 
     def step(ts: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -150,9 +181,59 @@ def make_train_step(compute_dtype: Optional[torch.dtype] = None,
     return step
 
 
-def recalibrate_bn(*args, **kwargs):
-    raise NotImplementedError(f"recalibrate_bn is not ported yet "
-                              f"({_ROADMAP}, 'Training')")
+_BN_STATS = ("running_mean", "running_var")
+
+
+@torch.no_grad()
+def recalibrate_bn(model: nn.Module, batches) -> Dict[str, torch.Tensor]:
+    """Replace the BatchNorm running statistics of `model` by the actual
+    activation statistics under its current parameters, averaged over
+    `batches` (JAX's recalibrate_bn: short runs leave an O(0.9^steps)
+    residual of the init statistics that collapses eval-mode logits).
+
+    In train mode the forward never reads the running statistics, so one
+    pass updates each buffer affinely, new = c * old + d. Two probe
+    passes per batch through the real train-mode forward, with every
+    buffer set to 0 and then to 1, give d and c + d (so the rounding of
+    nn/layers.batchnorm_train's update is the one measured); the installed
+    value is the fixed point d / (1 - c) where 1 - c > 1e-3, the original
+    value where a pass leaves the buffer alone. No dropout runs (no rng),
+    and the parameters and any optimizer are untouched. Returns the
+    installed statistics by state_dict name; the model comes back in the
+    mode it had."""
+    was_training = model.training
+    dev = _device(model)
+    bufs = {n: b for n, b in model.named_buffers()
+            if n.rsplit(".", 1)[-1] in _BN_STATS}
+    orig = {n: b.clone() for n, b in bufs.items()}
+    sums = {n: torch.zeros_like(b) for n, b in bufs.items()}
+    count = 0
+    model.train()
+    try:
+        for batch in batches:
+            x = _clips(batch, dev).to(next(model.parameters()).dtype)
+            probes = []
+            for fill in (0.0, 1.0):
+                for b in bufs.values():
+                    b.fill_(fill)
+                model(x)
+                probes.append({n: b.clone() for n, b in bufs.items()})
+            for n in bufs:
+                d, cd = probes[0][n], probes[1][n]
+                one_minus_c = 1.0 - (cd - d)
+                sums[n] += torch.where(one_minus_c > 1e-3,
+                                       d / one_minus_c.clamp_min(1e-3),
+                                       orig[n])
+            count += 1
+    finally:
+        for n, b in bufs.items():
+            b.copy_(orig[n])
+        model.train(was_training)
+    if count == 0:
+        return {}
+    for n, b in bufs.items():
+        b.copy_(sums[n] / count)
+    return {n: b.clone() for n, b in bufs.items()}
 
 
 def make_eval_step():

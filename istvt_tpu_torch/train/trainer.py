@@ -1,22 +1,36 @@
-"""The training loop: epochs + eval (counterpart of
+"""The training loop: epochs + eval + checkpointing (counterpart of
 istvt_tpu/train/trainer.py).
 
 Trainer.fit runs the train step over a ClipLoader for num_epochs, logs
-the running loss and accuracy, and evaluates after each epoch. Not ported
-(each raises, naming ROADMAP.md queue 1 'Training' or 'Parallelism'):
-checkpointing and resume, the SIGTERM/SIGINT checkpoint handler, a device
-mesh, the metrics logger, BN recalibration, step and batch hooks.
+the running loss and accuracy, and evaluates after each epoch. With a
+checkpoint_dir it saves the whole train state after each epoch on a
+background thread (core/checkpoint.py), with the epoch's metric (val
+accuracy, else train accuracy), and logs metrics.jsonl
+(train/logging.py); `restore` resumes the latest state. A run resumes at
+its step's place in the epoch order (epoch step // steps_per_epoch, that
+epoch's later batches), with the dropout generator's state, so a resumed
+run takes the steps an uninterrupted one would have. SIGTERM or SIGINT
+during fit saves the whole state at the next step boundary and exits
+with 128 + signum. recal_bn_batches > 0 recalibrates the BatchNorm
+running statistics after the last epoch (train/step.recalibrate_bn).
+
+Not ported (each raises, naming ROADMAP.md queue 1 'Parallelism' or
+'Tooling'): a device mesh, debug_nans; step and batch hooks are not
+parameters yet.
 """
 from __future__ import annotations
 
+import signal
 import time
 from typing import Callable, Dict, Optional
 
 import torch
 
+from istvt_tpu_torch.core.checkpoint import CheckpointManager
 from istvt_tpu_torch.core.config import DataConfig, TrainConfig
 from istvt_tpu_torch.train import metrics as M
 from istvt_tpu_torch.train import step as S
+from istvt_tpu_torch.train.logging import MetricsLogger
 from istvt_tpu_torch.train.schedule import (cosine_schedule,
                                             reference_epoch_schedule)
 
@@ -49,18 +63,12 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(f"a device mesh is not ported yet "
                                       f"({_ROADMAP}, 'Parallelism')")
-        if tc.checkpoint_dir:
-            raise NotImplementedError(
-                f"checkpointing (checkpoint_dir={tc.checkpoint_dir!r}) and "
-                f"its metrics logger are not ported yet ({_ROADMAP}, "
-                f"'Training'); pass checkpoint_dir=''")
-        if recal_bn_batches:
-            S.recalibrate_bn()
         if tc.debug_nans:
             raise NotImplementedError(f"debug_nans is not ported yet "
                                       f"({_ROADMAP}, 'Tooling')")
         self.model, self.tc, self.dc = model, tc, dc
         self.log = log_fn
+        self.recal_bn_batches = recal_bn_batches
         spe = steps_per_epoch or 1000
         if use_reference_schedule:
             sched = reference_epoch_schedule(tc.base_lr, tc.warmup_epochs,
@@ -72,19 +80,99 @@ class Trainer:
         self.optimizer = S.make_optimizer(tc, sched)
         compute_dtype = torch.bfloat16 if tc.compute_dtype == "bfloat16" \
             else None
+        # the dropout masks' source, as JAX's PRNGKey(seed + 1); its state
+        # is saved and restored with the train state
+        dev = next(model.parameters()).device
+        self.rng = torch.Generator(device=dev).manual_seed(tc.seed + 1)
         self.step_fn = S.make_train_step(compute_dtype=compute_dtype,
-                                         grad_accum=grad_accum)
+                                         grad_accum=grad_accum, rng=self.rng)
+        self.ckpt = CheckpointManager(tc.checkpoint_dir, async_save=True) \
+            if tc.checkpoint_dir else None
+        self.metrics = MetricsLogger(tc.checkpoint_dir) \
+            if tc.checkpoint_dir else None
+        self.best_metric = -float("inf")
 
     def init_state(self) -> S.TrainState:
         return S.create_train_state(self.model, self.optimizer)
 
-    def fit(self, train_loader, val_loader=None) -> S.TrainState:
-        ts = self.init_state()
-        for epoch in range(self.tc.num_epochs):
+    def state_dict(self, ts: S.TrainState) -> Dict:
+        """What a checkpoint holds: train_state_dict(ts) and the dropout
+        generator's state."""
+        return {**S.train_state_dict(ts), "rng": self.rng.get_state()}
+
+    def restore(self, ts: S.TrainState) -> S.TrainState:
+        """ts with the latest checkpoint loaded into it (onto the model's
+        device), or ts as it is if there is none."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return ts
+        step = self.ckpt.latest_step()
+        dev = next(ts.model.parameters()).device
+        sd = self.ckpt.restore(step, map_location=dev)
+        S.load_train_state(ts, sd)
+        if "rng" in sd:
+            self.rng.set_state(sd["rng"].cpu())
+        self.log(f"resumed from step {step}")
+        return ts
+
+    def _snapshot_and_exit(self, ts: S.TrainState, signum: int):
+        """Save the whole state at this step boundary (after any async
+        save has been written) and exit with 128 + signum."""
+        if self.ckpt is not None:
+            self.log(f"signal {signum}: checkpointing step {ts.step} "
+                     f"before exit")
+            self.ckpt.wait()
+            if self.ckpt.latest_step() != ts.step:
+                self.ckpt.save(ts.step, self.state_dict(ts), wait=True)
+        raise SystemExit(128 + signum)
+
+    def fit(self, train_loader, val_loader=None,
+            ts: Optional[S.TrainState] = None) -> S.TrainState:
+        ts = ts if ts is not None else self.restore(self.init_state())
+        # preemption: the handler only records the signal; the loop saves
+        # at the next step boundary, never from inside a step that is
+        # mutating the parameters or the optimizer in place
+        pending = []
+        prev_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev_handlers[sig] = signal.signal(
+                    sig, lambda signum, frame: pending.append(signum))
+            except ValueError:  # not the main thread
+                pass
+        try:
+            self._epochs(train_loader, val_loader, ts, pending)
+        finally:
+            for sig, handler in prev_handlers.items():
+                signal.signal(sig, handler)
+        if self.recal_bn_batches > 0:
+            batches = []
+            train_loader.set_epoch(self.tc.num_epochs)  # a fresh order
+            for batch in train_loader:
+                batches.append(batch)
+                if len(batches) >= self.recal_bn_batches:
+                    break
+            S.recalibrate_bn(self.model, batches)
+            self.log(f"recalibrated BN stats over {len(batches)} batches")
+            if self.ckpt:
+                # step + 1 marks the calibration pass, as in JAX
+                self.ckpt.save(ts.step + 1, self.state_dict(ts),
+                               metric=self.best_metric, wait=True)
+        if self.ckpt:
+            self.ckpt.wait()
+        return ts
+
+    def _epochs(self, train_loader, val_loader, ts, pending):
+        spe = max(len(train_loader), 1)
+        start_epoch, skip = divmod(ts.step, spe)
+        for epoch in range(start_epoch, self.tc.num_epochs):
             train_loader.set_epoch(epoch)
             t0 = time.time()
             run_loss, run_acc, seen = M.Welford(), M.Welford(), 0
-            for batch in train_loader:
+            batches = (train_loader.iter_from(skip)
+                       if epoch == start_epoch else iter(train_loader))
+            for batch in batches:
+                if pending:
+                    self._snapshot_and_exit(ts, pending[0])
                 m = self.step_fn(ts, batch)
                 bs = len(batch["labels"])
                 run_loss.update(float(m["loss"]), bs)
@@ -93,11 +181,28 @@ class Trainer:
                 if seen % (self.tc.log_every * bs) < bs:
                     self.log(f"epoch {epoch} seen {seen}: loss "
                              f"{run_loss.mean:.4f} acc {run_acc.mean:.4f}")
+            if pending:
+                self._snapshot_and_exit(ts, pending[0])
             dt = time.time() - t0
             self.log(f"epoch {epoch}: train loss {run_loss.mean:.4f} "
                      f"acc {run_acc.mean:.4f} "
                      f"({seen / max(dt, 1e-9):.1f} clips/s)")
+            metric = run_acc.mean
+            if self.metrics:
+                self.metrics.log(ts.step, {"loss": run_loss.mean,
+                                           "accuracy": run_acc.mean,
+                                           "clips_per_sec":
+                                               seen / max(dt, 1e-9)},
+                                 prefix="train/")
             if val_loader is not None:
                 ev = evaluate(self.model, val_loader)
                 self.log(f"epoch {epoch}: val {ev}")
-        return ts
+                metric = ev["accuracy"]
+                if self.metrics:
+                    self.metrics.log(ts.step, {k: v for k, v in ev.items()
+                                               if isinstance(v, float)},
+                                     prefix="val/")
+            if self.ckpt:
+                self.ckpt.save(ts.step, self.state_dict(ts), metric=metric)
+            if metric > self.best_metric:
+                self.best_metric = metric

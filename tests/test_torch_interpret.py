@@ -24,6 +24,7 @@ in f32 with TF32 off. Tolerances, with the measured values:
     max 1: a cam that differs in its 7th digit can round one overlay byte
     the other way).
 """
+import copy
 import os
 
 import numpy as np
@@ -333,6 +334,18 @@ def _train_artifact_model(model_seed, steps=30):
         _artifact_batch(2, seed=7)["clips"][1:2]
 
 
+_TRAINED = {}
+
+
+def _trained_copy(model_seed, steps):
+    """_train_artifact_model's result, trained once per (seed, steps) in
+    this file: a copy of the model, the loss and the fake clip."""
+    if (model_seed, steps) not in _TRAINED:
+        _TRAINED[model_seed, steps] = _train_artifact_model(model_seed, steps)
+    model, loss, fake = _TRAINED[model_seed, steps]
+    return copy.deepcopy(model), loss, fake
+
+
 def test_lrp_localizes_synthetic_artifact():
     """Behaviour (the counterpart of tests/test_lrp_golden.py::
     test_lrp_localizes_synthetic_artifact): train a tiny port model on the
@@ -380,12 +393,13 @@ def test_lrp_on_trained_weights_matches_jax():
     train-mode loss of 2e-5 / 8e-6: no positive evidence for the fake
     class, so gradient-weighted rollout keeps nothing), cam_t agrees to
     8e-8; at seed 0 cam_s agrees to 3.5e-9. Without recalibrate_bn
-    (ROADMAP queue 1 item 2) the eval statistics are the init's. Seed 1's
-    port cam_s is already all zero after 15 steps (logit -11.9), where
-    this test stops, to halve its cost."""
+    (ROADMAP queue 1 item 2) the eval statistics are the init's
+    (test_lrp_recalibrated_seeds_match_jax recalibrates). Seed 1's port
+    cam_s is already all zero after 15 steps (logit -11.9), where this test
+    stops, to halve its cost."""
     from istvt_tpu.compat.torch_import import istvt_from_torch
 
-    model, _, fake = _train_artifact_model(1, steps=15)
+    model, _, fake = _trained_copy(1, 15)
     with tprecision.highest():
         cam_s, cam_t = generate_lrp(model, fake)
     sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
@@ -400,3 +414,39 @@ def test_lrp_on_trained_weights_matches_jax():
     np.testing.assert_allclose(cam_t.numpy(), np.asarray(want_t),
                                atol=1e-6, rtol=1e-4)
     assert np.abs(np.asarray(want_t)).max() > 1e-4
+
+
+@pytest.mark.parametrize("model_seed", [1, 2])
+def test_lrp_recalibrated_seeds_match_jax(model_seed):
+    """The localization recipe at model seeds 1 and 2 (15 steps, as
+    test_lrp_on_trained_weights_matches_jax), then recalibrate_bn over the
+    training batch: the fake clip's eval logit turns positive (measured on
+    the CPU: -11.9 -> +9.4 at seed 1, -11.9 -> +10.3 at seed 2; the BN
+    statistics were the init's), and cam_s is no longer all zero, in the
+    port and in JAX on the same weights, which agree (cam_s to ~1e-10,
+    cam_t to ~1e-8). It does not localize: its mass lies outside the
+    patch's cells (inside 0, outside ~2e-6 / 1e-5 on average), so the
+    recipe's seed is still fixed at 0 in test_lrp_localizes_synthetic_
+    artifact."""
+    from istvt_tpu.compat.torch_import import istvt_from_torch
+
+    model, _, fake = _trained_copy(model_seed, 15)
+    tstep.recalibrate_bn(model, [_artifact_batch(4, seed=0)])
+    assert not model.training
+    tistvt.pack_params(model)
+    with torch.no_grad():
+        assert float(model(fake)) > 0
+    with tprecision.highest():
+        cam_s, cam_t = generate_lrp(model, fake)
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    params, state = istvt_from_torch(sd, depth=2)
+    cfg = JaxConfig(num_frames=_ART["t"], image_size=_ART["size"],
+                    feat_hw=_ART["fhw"], depth=2, use_pallas=True,
+                    dropout=0.0)
+    with jprecision.highest():
+        want_s, want_t = jlrp.generate_lrp(params, state,
+                                           jnp.asarray(fake.numpy()), cfg)
+    assert np.asarray(want_s).any() and cam_s.numpy().any()
+    for got, want in ((cam_s, want_s), (cam_t, want_t)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-8, rtol=1e-4)

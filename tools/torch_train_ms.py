@@ -6,7 +6,9 @@ GPU, in bf16 over f32 masters (the default) or in f32.
 Imports istvt_tpu_torch from DIR (default: the checkout holding this
 script), builds a trainer through cli/train.py's code path (check_args,
 build: --dataset synthetic --use_pallas --bf16 --dropout 0, the paper
-geometry 300^2 x 6, depth 12, B=16; with --f32 the same without --bf16,
+geometry 300^2 x 6, depth 12, B=16, -o a temporary directory (the
+checkpoint directory the Trainer makes; no step is saved); with --f32 the
+same without --bf16,
 also at B=16: an out-of-memory error fails the run) and times TRAIN_STEPS
 steps after one warm-up step (`warm_up`) with `train_times`, the timing
 chip_smoke.py's train phase also calls: the host clock around each step,
@@ -26,6 +28,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,22 +39,27 @@ TRAIN_FLAGS = ["--dataset", "synthetic", "--use_pallas", "--bf16",
 TRAIN_BATCH, TRAIN_STEPS, PROFILED_STEPS = 16, 5, 2
 
 
-def build_trainer(cli_train, flags, bf16=True):
+def build_trainer(cli_train, flags, checkpoint_dir, bf16=True):
     """(trainer, loader, extra) of cli_train.build for TRAIN_FLAGS + flags
-    (without --bf16 unless bf16), after its check_args."""
-    args = cli_train.build_parser().parse_args(
+    (without --bf16 unless bf16) and -o checkpoint_dir, after its
+    check_args. A package whose CLI has no checkpoints (its -o defaults to
+    '') gets no -o."""
+    parser = cli_train.build_parser()
+    if parser.parse_args([]).checkpoint_dir:
+        flags = flags + ["-o", checkpoint_dir]
+    args = parser.parse_args(
         [f for f in TRAIN_FLAGS if bf16 or f != "--bf16"] + flags)
     cli_train.check_args(args)
     return cli_train.build(args)
 
 
-def paper_trainer(cli_train, bf16=True):
+def paper_trainer(cli_train, checkpoint_dir, bf16=True):
     """A B=TRAIN_BATCH trainer (bf16 over f32 masters, or f32), its state
     and TRAIN_STEPS + 1 batches made before any step."""
     trainer, loader, _ = build_trainer(
         cli_train, ["--batch_size", str(TRAIN_BATCH), "--epochs", "1",
                     "--dataset_len", str(TRAIN_BATCH * (TRAIN_STEPS + 1))],
-        bf16)
+        checkpoint_dir, bf16)
     return trainer, trainer.init_state(), list(loader)
 
 
@@ -120,11 +128,14 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script times the GPU")
-    trainer, ts, batches = paper_trainer(cli_train, bf16=not args.f32)
-    warm_up(trainer, ts, batches[0])
-    times, losses = train_times(trainer, ts, batches[1:])
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    dev_ms, fam = device_step_ms(trainer, ts, batches[1:1 + PROFILED_STEPS])
+    with tempfile.TemporaryDirectory() as ck:
+        trainer, ts, batches = paper_trainer(cli_train, ck,
+                                             bf16=not args.f32)
+        warm_up(trainer, ts, batches[0])
+        times, losses = train_times(trainer, ts, batches[1:])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dev_ms, fam = device_step_ms(trainer, ts,
+                                     batches[1:1 + PROFILED_STEPS])
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
