@@ -16,10 +16,12 @@ the float fused path in bf16 over f32 masters (`cli/train.py --dataset
 synthetic --use_pallas --bf16 --dropout 0`), the reference's default
 training recipe (`cli/train.py --dataset synthetic`: f32, dropout 0.5,
 the XLA-math path; with --use_pallas and --remat), a checkpointed run
-resumed, recalibrated, served and explained from its checkpoint, and
-the LRP relevance maps (`interpret/`, `cli/visualize.py`) in f32, then the
-kernel API (`istvt_tpu_torch.kernels`, `kernels/conv.py`), which no model
-path reaches. In phases; any failure raises and exits non-zero:
+resumed, recalibrated, served and explained from its checkpoint, the
+data path from disk (a frame tree scored by `cli/score.py --int8` and
+trained on by `cli/train.py --dataset ff++`), and the LRP relevance maps
+(`interpret/`, `cli/visualize.py`) in f32, then the kernel API
+(`istvt_tpu_torch.kernels`, `kernels/conv.py`), which no model path
+reaches. In phases; any failure raises and exits non-zero:
 
   1. device   - a CUDA device is required; prints nvidia-smi's name and
                 power limit and the torch / CUDA versions
@@ -130,7 +132,8 @@ path reaches. In phases; any failure raises and exits non-zero:
   7. train    - B=16 steps at depth 12, bf16: median ms/step and peak
                 device memory; counted from 0 over the timed steps, every
                 kernel must have launched exactly its launches per step
-                (TRAIN_PER_LAYER x depth) times the steps, every other 0
+                (TRAIN_PER_LAYER x depth) times the steps, every other 0;
+                then the same steps fed by device_feed (informative)
   8. train e2e - one step at depth 2 (full width, 300^2, B=2): the card
                 (kernels, bf16) vs the CPU (plain versions, f32) from the
                 same weights and batch: |dloss| <= 5e-2, gradient cosine
@@ -161,6 +164,28 @@ path reaches. In phases; any failure raises and exits non-zero:
                 statistic rel-L2 <= 1e-4); cli/serve --checkpoint_dir's
                 logits vs the trained model's eval logits (|d| <= 1e-5);
                 cli/visualize --model_path writes its 18 PNGs
+  8e. data - from disk (data/, native/, cli/score.py): what the machine has
+                (PIL, cv2, the clipdecode / videodecode builds, CPUs); an
+                FF++ frame tree (hq / lq x the 5 methods x 4 videos x 12
+                JPEG frames of 320^2; PNGs of interpret/heatmap.png_bytes
+                without PIL); cli/score.py --int8 -bs 16 over 32 hq clips
+                at depth 12, counted: exactly #1-#3 x 12 a forward, every
+                other 0; one JSON line a clip; the clips the card scored
+                equal the CPU dataset's items bit for bit; the first two
+                clips' logits vs the CPU's plain versions (|d| <= 5e-2);
+                cli/train.py --dataset ff++ --use_pallas (the default
+                recipe, f32, dropout 0.5) B=8 over 16 clips, counted: the
+                2 steps' DROPOUT_PER_LAYER and the val pass's float
+                forwards, a val dict with acc_type_0..4, --test_mode's hq
+                and lq lines; device_feed's card batch equal to the host
+                batch, device_normalize of a raw_uint8 batch on the card
+                vs the host f32 normalize (1e-6); figures (informative):
+                the loader alone (8 workers) in clips/s, per decoder and
+                for raw_uint8 clips, the int8 B=16 forward alone, the score
+                pipeline (disk -> loader -> device_feed -> int8 forward) in
+                clips/s with the device's busy share under torch.profiler;
+                one ff++video RawVideoDataset item where cv2 or videodecode
+                is there
   then the interpretability path, B=1, f32 with TF32 off:
   9. interpret - generate_lrp for each method, with use_pallas (counted
                 from 0: fused_ff exactly 12 launches per call, every other
@@ -222,6 +247,8 @@ import torch.nn.functional as F
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [_ROOT, os.path.join(_ROOT, "tools")]
 
+from istvt_tpu_torch import native  # noqa: E402
+from istvt_tpu_torch.cli import score as cli_score  # noqa: E402
 from istvt_tpu_torch.cli import serve as cli_serve  # noqa: E402
 from istvt_tpu_torch.cli import train as cli_train  # noqa: E402
 from istvt_tpu_torch.cli import visualize as cli_visualize  # noqa: E402
@@ -229,8 +256,12 @@ from istvt_tpu_torch.core import tree  # noqa: E402
 from istvt_tpu_torch.core.config import ISTVTConfig  # noqa: E402
 from istvt_tpu_torch.core.device import require_cuda  # noqa: E402
 from istvt_tpu_torch.core.precision import highest  # noqa: E402
+from istvt_tpu_torch.data import (  # noqa: E402
+    ClipLoader, Transform, VideoSeqDataset, device_feed, device_normalize)
+from istvt_tpu_torch.data.manifest import FFPP_METHODS  # noqa: E402
 from istvt_tpu_torch.interpret import (  # noqa: E402
     generate_feature_relevance, generate_full_lrp, generate_lrp)
+from istvt_tpu_torch.interpret.heatmap import png_bytes  # noqa: E402
 from istvt_tpu_torch.kernels import _lib, selfcheck  # noqa: E402
 from istvt_tpu_torch.models import istvt  # noqa: E402
 from istvt_tpu_torch.serve_daemon import ServeDaemon  # noqa: E402
@@ -822,8 +853,32 @@ def train_phase(card, profile):
           f"{peak:.2f} GiB; losses {[round(v, 5) for v in losses]} on "
           f"{card} (informative)")
     phase("train", f"launches over {len(times)} steps {counts}")
+    fed, _ = _fed_train_times(trainer, ts, batches[1:])
+    fed_ms = float(np.median(fed))
+    phase("train", f"the same steps fed by data/loader.device_feed (pinned "
+          f"copies on a side stream, one batch ahead; each step's host "
+          f"clock from the loss read before it): "
+          f"{[round(t, 3) for t in fed]}: median {fed_ms:.3f} ms vs "
+          f"{ms:.3f} ms with the copy in the step, on {card} (informative)")
+    _lib.reset_launches()
     if profile:
         _profile_step(trainer, ts, batches[1], card, profile)
+
+
+def _fed_train_times(trainer, ts, batches):
+    """(ms per step, losses) of one step per batch handed over by
+    device_feed, as a fitting Trainer takes them: the host clock from one
+    loss read to the next (the feed's hand-over included)."""
+    times, losses = [], []
+    dev = next(trainer.model.parameters()).device
+    t0 = time.perf_counter()
+    for batch in device_feed(batches, dev):
+        m = trainer.step_fn(ts, batch)
+        losses.append(float(m["loss"]))
+        t1 = time.perf_counter()
+        times.append(1e3 * (t1 - t0))
+        t0 = t1
+    return times, losses
 
 
 def train_e2e_phase():
@@ -1053,6 +1108,370 @@ def checkpoint_phase(dev, card):
         raise SystemExit(f"visualize --model_path wrote {written}")
     phase("checkpoint", f"cli/visualize --model_path: {len(written)} PNGs "
           f"on {card}")
+
+
+# ---------------------------------------------------------------------------
+# 8e. from disk: the frame tree, the loader, the feed, score.py, training
+
+
+TREE_VIDEOS, TREE_FRAMES, TREE_SIDE = 4, 12, 320
+SCORE_CLIPS, SCORE_BATCH = 32, 16
+DISK_BATCH, DISK_CLIPS = 8, 16
+FIGURE_CLIPS = 256           # the loader figure's clips (dataset_len)
+PIPELINE_BATCHES = 8         # the score pipeline figure's B=16 batches
+
+
+def _frame(rng, t):
+    """A smooth 320^2 frame with a drifting bright blob and mild noise
+    (JPEG sizes closer to face crops than white noise gives)."""
+    side = TREE_SIDE
+    low = rng.rand(9, 9, 3)
+    up = np.kron(low, np.ones((side // 8 + 1, side // 8 + 1, 1)))[:side,
+                                                                    :side]
+    yy, xx = np.mgrid[:side, :side]
+    blob = np.exp(-((yy - 140 - 2 * t) ** 2 + (xx - 160 - 3 * t) ** 2)
+                  / 3000.0)[..., None]
+    img = 60 + 120 * up + 70 * blob + rng.randn(side, side, 3) * 6
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _write_tree(root, pil):
+    """FF++ layout: hq / lq x FFPP_METHODS x TREE_VIDEOS videos x
+    TREE_FRAMES frames, JPEG through PIL or PNG through png_bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = list(enumerate((q, m, v) for q in ("hq", "lq")
+                          for m in FFPP_METHODS for v in range(TREE_VIDEOS)))
+
+    def video(job):
+        seed, (q, m, v) = job
+        d = os.path.join(root, q, m, f"{v:03d}")
+        os.makedirs(d, exist_ok=True)
+        rng = np.random.RandomState(seed)
+        for t in range(TREE_FRAMES):
+            img = _frame(rng, t)
+            if pil:
+                from PIL import Image
+                Image.fromarray(img).save(os.path.join(d, f"{t:04d}.jpg"),
+                                          quality=90)
+            else:
+                with open(os.path.join(d, f"{t:04d}.png"), "wb") as f:
+                    f.write(png_bytes(img))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(video, jobs))
+    return len(jobs) * TREE_FRAMES
+
+
+def _probe_machine():
+    """{what: bool} of the data path's host dependencies, printed."""
+    have = {}
+    for mod in ("PIL", "cv2"):
+        try:
+            __import__(mod)
+            have[mod] = True
+        except Exception:
+            have[mod] = False
+    t0 = time.perf_counter()
+    have["clipdecode"] = native.available()
+    have["videodecode"] = native.video_available()
+    phase("data", f"machine: PIL {have['PIL']}, cv2 {have['cv2']}, "
+          f"clipdecode (g++, libjpeg, libpng) built {have['clipdecode']}, "
+          f"videodecode (g++, libavformat / libavcodec / libswscale) built "
+          f"{have['videodecode']} ({time.perf_counter() - t0:.1f} s), "
+          f"os.cpu_count() {os.cpu_count()}")
+    return have
+
+
+def _busy_ms(prof):
+    """ms of the union of the CUDA kernels' and copies' intervals in a
+    torch.profiler run: the time the device was busy."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy / 1e3
+
+
+def _score_args(root, out, extra=()):
+    return cli_score.build_parser().parse_args(
+        ["--int8", "--data_root", root, "-bs", str(SCORE_BATCH),
+         "--max_clips", str(SCORE_CLIPS), "--out", out, *extra])
+
+
+def score_disk_phase(root, dev, card):
+    """cli/score.py --int8 on the tree, counted; its clips vs the CPU
+    dataset's, its first logits vs the CPU's plain versions. Returns the
+    predictor for the figures."""
+    args = _score_args(root, os.path.join(WORK, "scores.jsonl"))
+    t0 = time.perf_counter()
+    predictor, loader = cli_score.build(args)
+    built = time.perf_counter() - t0
+    seen = []
+    predict = predictor.predict
+
+    def recording(clips):
+        seen.append(clips.cpu().numpy())
+        return predict(clips)
+
+    predictor.predict = recording
+    predictor.n_forwards = 0
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    native.reset_clips()
+    summary = cli_score.score(predictor, loader, args.out)
+    torch.cuda.synchronize()
+    counts = _tally({n: k * DEPTH * predictor.n_forwards
+                     for n, k in SERVE_PER_LAYER["int8"].items()})
+    predictor.predict = predict
+    rows = [json.loads(ln) for ln in open(args.out)]
+    phase("data", f"cli/score.py --int8 -bs {SCORE_BATCH} over "
+          f"{SCORE_CLIPS} hq clips, depth {DEPTH}: {predictor.n_forwards} "
+          f"forwards, {len(rows)} JSON lines, summary {summary}; clips by "
+          f"decoder {dict(native.CLIPS)}; launches "
+          f"{ {n: k for n, k in counts.items() if k} } (every other 0; "
+          f"model built in {built:.1f} s)")
+    if predictor.n_forwards != SCORE_CLIPS // SCORE_BATCH or \
+            [r["index"] for r in rows] != list(range(SCORE_CLIPS)):
+        raise SystemExit(f"score.py wrote {len(rows)} lines in "
+                         f"{predictor.n_forwards} forwards")
+    ds = loader.dataset
+    host = np.stack([ds[i]["clips"] for i in range(SCORE_CLIPS)])
+    fed = np.concatenate(seen)
+    equal = fed.dtype == host.dtype and np.array_equal(fed, host)
+    phase("data", f"clips the card scored vs the CPU dataset's items: "
+          f"{fed.shape} {fed.dtype}, equal bit for bit {equal}")
+    if not equal:
+        raise SystemExit("the card scored other clips than the dataset's")
+    cpu_model = tree.cast(copy.deepcopy(predictor.model).to("cpu"),
+                          torch.float32)
+    t0 = time.perf_counter()
+    with highest(), torch.inference_mode():
+        cpu_logit = cpu_model(torch.from_numpy(host[:2])).reshape(-1).numpy()
+    del cpu_model
+    card_logit = np.array([r["logit"] for r in rows[:2]])
+    delta = float(np.abs(card_logit - cpu_logit).max())
+    phase("data", f"first two clips: card {card_logit.tolist()} vs CPU "
+          f"plain f32 {cpu_logit.tolist()}: |dlogit| {delta:.3e} (limit "
+          f"5e-2; CPU forward {time.perf_counter() - t0:.1f} s)")
+    if not delta <= 5e-2:
+        raise SystemExit("score.py's card logits disagree with the CPU")
+    return predictor
+
+
+def train_disk_phase(root, card):
+    """cli/train.py --dataset ff++ --use_pallas (the default recipe at depth
+    12, f32, dropout 0.5) from the tree, counted; then --test_mode."""
+    flags = ["--dataset", "ff++", "--data_root", root, "--use_pallas",
+             "-bs", str(DISK_BATCH), "--dataset_len", str(DISK_CLIPS),
+             "--epochs", "1", "--num_workers", "8", "-o", _workdir("disk")]
+    args = cli_train.build_parser().parse_args(flags)
+    cli_train.check_args(args)
+    t0 = time.perf_counter()
+    trainer, train_loader, val_loader = cli_train.build(args)
+    logged = []
+    trainer.log = logged.append
+    steps = len(train_loader)
+    val_fwd = len(val_loader)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    native.reset_clips()
+    trainer.fit(train_loader, val_loader)
+    torch.cuda.synchronize()
+    want = {n: k * DEPTH * steps for n, k in DROPOUT_PER_LAYER.items()}
+    for n, k in SERVE_PER_LAYER["float"].items():
+        want[n] = want.get(n, 0) + k * DEPTH * val_fwd
+    counts = _tally(want)
+    val = [ln for ln in logged if ln.startswith("epoch 0: val")]
+    phase("data", f"cli/train.py --dataset ff++ --use_pallas, depth {DEPTH}, "
+          f"f32, dropout 0.5, B={DISK_BATCH} over {DISK_CLIPS} clips: "
+          f"{steps} steps and {val_fwd} val forwards in "
+          f"{time.perf_counter() - t0:.1f} s (build included); clips by "
+          f"decoder {dict(native.CLIPS)}; {val}; launches "
+          f"{ {n: k for n, k in counts.items() if k} } (every other 0)")
+    types = [f"acc_type_{i}" for i in range(len(FFPP_METHODS))]
+    if not val or not all(f"'{t}'" in val[0] for t in types):
+        raise SystemExit(f"the val dict lacks a per-type accuracy: {logged}")
+    del trainer
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    import contextlib
+    with contextlib.redirect_stdout(out):
+        cli_train.main(flags + ["--test_mode"])
+    lines = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith(("hq {", "lq {"))]
+    phase("data", f"cli/train.py --test_mode: {lines}")
+    if [ln[:2] for ln in lines] != ["hq", "lq"]:
+        raise SystemExit(f"--test_mode printed {out.getvalue()}")
+    _lib.reset_launches()
+
+
+def feed_phase(root, dev):
+    """device_feed's card batch vs the host batch; device_normalize of a
+    raw_uint8 batch on the card vs the host f32 normalize."""
+    kw = dict(root=root, quality="hq", size=PAPER.image_size, mode="Test",
+              seq_len=PAPER.num_frames)
+    loader = ClipLoader(VideoSeqDataset(transform=Transform(PAPER.image_size),
+                                        **kw), batch_size=4, shuffle=False)
+    host = next(iter(loader))
+    fed = next(iter(device_feed(loader, dev)))
+    same = all(torch.equal(fed[k].cpu(), torch.from_numpy(host[k]))
+               for k in ("clips", "labels"))
+    u8 = ClipLoader(VideoSeqDataset(transform=Transform(
+        PAPER.image_size, raw_uint8=True), **kw), batch_size=4,
+        shuffle=False)
+    raw = next(iter(device_feed(u8, dev)))["clips"]
+    norm = device_normalize(raw).cpu().numpy()
+    err = float(np.abs(norm - host["clips"]).max())
+    phase("data", f"device_feed: the card batch {tuple(fed['clips'].shape)} "
+          f"{fed['clips'].device} equals the host batch bit for bit {same}; "
+          f"device_normalize of the raw_uint8 batch ({raw.dtype}) on the "
+          f"card vs the host f32 normalize: max|d| {err:.3e} (limit 1e-6)")
+    if not same or not err <= 1e-6:
+        raise SystemExit("the feed or device_normalize is off the host")
+
+
+def _loader_rate(root, use_native, raw_uint8=False):
+    ds = VideoSeqDataset(root=root, quality="hq", size=PAPER.image_size,
+                         mode="Train", seq_len=PAPER.num_frames,
+                         transform=Transform(PAPER.image_size,
+                                             raw_uint8=raw_uint8),
+                         dataset_len=FIGURE_CLIPS, use_native=use_native)
+    loader = ClipLoader(ds, batch_size=SCORE_BATCH, num_workers=8)
+    for _ in loader:                            # warm the page cache
+        pass
+    native.reset_clips()
+    t0 = time.perf_counter()
+    n = sum(len(b["labels"]) for b in loader)
+    sec = time.perf_counter() - t0
+    return n / sec, dict(native.CLIPS)
+
+
+def _host_cpus():
+    """What the host gives this process, read before each loader figure:
+    its CPU affinity, the cgroup's CPU quota where the file is there, and
+    the 1 / 5 / 15 min load averages."""
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            quota = f.read().strip()
+    except OSError:
+        quota = "not readable"
+    return (f"{len(os.sched_getaffinity(0))} CPUs in affinity of "
+            f"os.cpu_count() {os.cpu_count()}, cgroup cpu.max {quota!r}, "
+            f"load average {os.getloadavg()}")
+
+
+def figures_phase(root, predictor, card, have):
+    """Informative: the loader alone, the int8 forward alone, the score
+    pipeline end to end with the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+    for use_native, raw in ((False, False), (True, False), (False, True)):
+        if use_native and not have["clipdecode"]:
+            phase("data", "figure: loader with --use_native_decode: not "
+                  "measured (clipdecode did not build on this machine)")
+            continue
+        host = _host_cpus()
+        rate, by = _loader_rate(root, use_native, raw)
+        phase("data", f"figure: loader alone, 8 workers, B={SCORE_BATCH}, "
+              f"{FIGURE_CLIPS} clips of {PAPER.num_frames} frames "
+              f"{TREE_SIDE}^2 -> {PAPER.image_size}^2 (warm page cache), "
+              f"use_native={use_native}, "
+              f"{'raw_uint8' if raw else 'f32'} clips: {rate:.1f} clips/s "
+              f"(decoders {by}) on {card}; host before it: {host} "
+              f"(informative)")
+    times = forward_times(predictor.model, CLIP, torch.bfloat16)
+    fwd = float(np.median(times))
+    phase("data", f"figure: int8 B={SCORE_BATCH} forward alone: median "
+          f"{fwd:.3f} ms = {SCORE_BATCH * 1e3 / fwd:.1f} clips/s on {card} "
+          f"(informative)")
+    n = SCORE_BATCH * PIPELINE_BATCHES
+    args = _score_args(root, os.path.join(WORK, "pipeline.jsonl"),
+                       ["--max_clips", str(n)])
+    loader = ClipLoader(cli_score.make_dataset(args),
+                        batch_size=SCORE_BATCH, shuffle=False)
+    cli_score.score(predictor, loader, args.out)       # warm-up pass
+    torch.cuda.synchronize()
+    host = _host_cpus()
+    t0 = time.perf_counter()
+    cli_score.score(predictor, loader, args.out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cli_score.score(predictor, loader, args.out)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy = _busy_ms(prof)
+    phase("data", f"figure: score.py pipeline (disk -> {loader.num_workers} "
+          f"loader threads -> device_feed -> int8 B={SCORE_BATCH} forward), "
+          f"{n} clips: {n / wall:.1f} clips/s ({wall:.3f} s); under "
+          f"torch.profiler {n / pwall:.1f} clips/s, device busy "
+          f"{busy:.1f} ms of {pwall * 1e3:.1f} ms = "
+          f"{100 * busy / (pwall * 1e3):.1f}% on {card}; host before it: "
+          f"{host} (informative)")
+    _lib.reset_launches()
+
+
+def video_phase(have):
+    """One ff++video item where cv2 or videodecode is there."""
+    if not (have["cv2"] or have["videodecode"]):
+        phase("data", "ff++video: not run (neither cv2 nor a videodecode "
+              "build on this machine)")
+        return
+    from istvt_tpu_torch.data.video_frontend import RawVideoDataset
+    root = _workdir("videos")
+    d = os.path.join(root, "hq", "original")
+    os.makedirs(d, exist_ok=True)
+    import cv2
+    wtr = cv2.VideoWriter(os.path.join(d, "vid0.mp4"),
+                          cv2.VideoWriter_fourcc(*"mp4v"), 25, (320, 240))
+    rng = np.random.RandomState(0)
+    for t in range(16):
+        img = (rng.rand(240, 320, 3) * 40).astype(np.uint8)
+        cv2.ellipse(img, (160 + t, 120), (40, 55), 0, 0, 360,
+                    (140, 160, 220), -1)
+        wtr.write(img)
+    wtr.release()
+    use_native = have["videodecode"]
+    t0 = time.perf_counter()
+    item = RawVideoDataset(root, quality="hq", seq_len=PAPER.num_frames,
+                           size=PAPER.image_size, mode="Test",
+                           use_native=use_native)[0]
+    clip = item["clips"]
+    ok = clip.shape == CLIP and bool(np.isfinite(clip).all())
+    phase("data", f"ff++video: one RawVideoDataset item through "
+          f"{'videodecode' if use_native else 'cv2'}: {clip.shape} "
+          f"{clip.dtype}, finite {ok} ({time.perf_counter() - t0:.2f} s)")
+    if not ok:
+        raise SystemExit("the ff++video item is malformed")
+
+
+def data_phase(dev, card):
+    """Phase 8e."""
+    t_all = time.perf_counter()
+    have = _probe_machine()
+    tree_root = _workdir("frames")
+    t0 = time.perf_counter()
+    n = _write_tree(tree_root, have["PIL"])
+    phase("data", f"frame tree: {n} {'JPEG' if have['PIL'] else 'PNG'} "
+          f"frames of {TREE_SIDE}^2 (hq / lq x {len(FFPP_METHODS)} methods x "
+          f"{TREE_VIDEOS} videos x {TREE_FRAMES}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    predictor = score_disk_phase(tree_root, dev, card)
+    feed_phase(tree_root, dev)
+    figures_phase(tree_root, predictor, card, have)
+    del predictor
+    torch.cuda.empty_cache()
+    train_disk_phase(tree_root, card)
+    torch.cuda.empty_cache()
+    video_phase(have)
+    phase("data", f"phase 8e took {time.perf_counter() - t_all:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1464,6 +1883,9 @@ def main():
     dropout_e2e_phase()
     torch.cuda.empty_cache()
     checkpoint_phase(dev, card)
+    torch.cuda.empty_cache()
+    # 8e from disk
+    data_phase(dev, card)
     torch.cuda.empty_cache()
 
     # 9-10 the interpretability path

@@ -1,43 +1,45 @@
-"""Train CLI — `python -m istvt_tpu_torch.cli.train` (counterpart of
+"""Train CLI - `python -m istvt_tpu_torch.cli.train` (counterpart of
 istvt_tpu/cli/train.py, same flag spellings).
 
-Trains ISTVT on the GPU on the synthetic clips, f32 or bf16 over f32
-masters (`--bf16`): the reference's default recipe (the XLA-math forward
-with dropout 0.5, checkpoints under ./output) is
+Trains ISTVT on the GPU, f32 or bf16 over f32 masters (`--bf16`), on a
+face-crop frame tree (docs/DATA.md): the reference's default recipe (the
+XLA-math forward with dropout 0.5, checkpoints under ./output) is
 
-    python -m istvt_tpu_torch.cli.train --dataset synthetic
+    python -m istvt_tpu_torch.cli.train --data_root /data/ffpp
 
 and `--use_pallas` runs the float fused path (its kernels; with dropout >
-0 the feed-forward is plain torch, as in JAX). Implemented: --dataset
-synthetic, --use_pallas, --bf16, --dropout, --remat, --optimizer, --lr,
---epochs, --batch_size, --dataset_len, --grad_accum, --depth, --seed,
---reference_schedule, the geometry (--seq_len, --input_size), and the
-checkpoints: --checkpoint_dir / -o (default ./output; "" saves nothing),
---continue_train (resume the latest), --test_mode (restore the latest,
-evaluate the val loader, exit), --recal_bn N (recalibrate BatchNorm over N
-train batches after the last epoch). --model_path is parsed and never
-read, as in the JAX CLI. Every other flag or value exits naming its
-ROADMAP.md item. The card is the default; `--device cpu` runs the plain
-versions of the kernels (the tests use it).
+0 the feed-forward is plain torch, as in JAX). The datasets (`make_datasets`,
+as JAX's): ff++ (--quality hq|lq, --transform preset, --use_native_decode:
+the C++ frame decoder), celeb, dfdc (a Celeb-style tree), oulu, ff++video
+(raw videos decoded and face-cropped on the fly, --boxes: external crop
+boxes) and synthetic. The loader makes batches on --num_workers threads,
+two ahead, and the Trainer feeds them to the card through pinned copies
+(data/loader.py). Also implemented: --use_pallas, --bf16, --dropout,
+--remat, --optimizer, --lr, --epochs, --batch_size, --dataset_len,
+--grad_accum, --depth, --seed, --reference_schedule, the geometry
+(--seq_len, --input_size), and the checkpoints: --checkpoint_dir / -o
+(default ./output; "" saves nothing), --continue_train (resume the
+latest), --test_mode (restore the latest and evaluate: hq and lq for ff++
+with a --data_root, ACER for oulu), --recal_bn N (recalibrate BatchNorm
+over N train batches after the last epoch). --model_path is parsed and
+never read, as in the JAX CLI. The parallelism, distillation and
+--dump_attns_every flags exit naming their ROADMAP.md items. The card is
+the default; `--device cpu` runs the plain versions of the kernels (the
+tests use it).
 """
 from __future__ import annotations
 
 import argparse
+import copy
 
 _Q1 = "ROADMAP.md queue 1"
 
 # flags of the JAX CLI not ported yet: any value but the default exits
 # with the named item
 _NOT_PORTED = {
-    "quality": "'Training' (the real datasets)",
-    "data_root": "'Training' (the real datasets)",
-    "transform": "'Training' (the real datasets)",
-    "num_workers": "'Training' (loader workers)",
     "mesh_model": "'Parallelism'",
     "mesh_pipe": "'Parallelism'",
     "microbatches": "'Parallelism'",
-    "use_native_decode": "'Training' (the real datasets)",
-    "boxes": "'Training' (the real datasets)",
     "dump_attns_every": "'Interpretation'",
     "distill_from": "'Distillation and certification'",
     "teacher_depth": "'Distillation and certification'",
@@ -62,11 +64,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["ff++", "celeb", "oulu", "dfdc", "synthetic",
                             "ff++video"])
     p.add_argument("--data_root", default="")
-    p.add_argument("--transform", "-tf", default="300")
+    p.add_argument("--transform", "-tf", default="300",
+                   help="preset: 299|256|300|aug|shuffle "
+                        "(train_CNN.py:154-161)")
     p.add_argument("--dropout", type=float, default=0.5)
-    p.add_argument("--num_workers", type=int, default=0,
-                   help="loader workers (not ported: items are made in "
-                        "the calling thread)")
+    p.add_argument("--num_workers", type=int, default=8,
+                   help="loader threads making each batch's clips")
     p.add_argument("--checkpoint_dir", "-o", default="./output",
                    help="checkpoints and metrics.jsonl ('' saves nothing)")
     p.add_argument("--continue_train", action="store_true",
@@ -96,8 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(train_CNN.py:209-211) instead of cosine")
     p.add_argument("--dataset_len", type=int, default=None)
     p.add_argument("--depth", type=int, default=12)
-    p.add_argument("--use_native_decode", action="store_true")
-    p.add_argument("--boxes", default=None)
+    p.add_argument("--use_native_decode", action="store_true",
+                   help="the C++ frame decoder (pixels differ slightly "
+                        "from PIL's on downscale: opt-in)")
+    p.add_argument("--boxes", default=None, metavar="MANIFEST_JSON",
+                   help="ff++video only: external detector crop boxes "
+                        "{video: {frame: [y0,x0,h,w]}} (docs/DATA.md)")
     p.add_argument("--dump_attns_every", type=int, default=0)
     p.add_argument("--distill_from", default=None)
     p.add_argument("--teacher_depth", type=int, default=12)
@@ -121,9 +128,69 @@ def check_args(args, parser=None):
     if args.model_name != "istvt":
         raise SystemExit(f"--model_name {args.model_name} is not ported yet "
                          f"({_Q1}, 'Rest of the model zoo')")
-    if args.dataset != "synthetic":
-        raise SystemExit(f"--dataset {args.dataset} is not ported yet "
-                         f"({_Q1}, 'Training': the real datasets)")
+
+
+def make_datasets(args):
+    """(train, val) datasets for the parsed args, as JAX's make_datasets
+    (cli/train.py:112-173). One departure: where the --transform preset's
+    frame size gives another feature grid than --input_size (say the
+    default preset '300' with -is 72), the preset's transforms resize to
+    --input_size instead; JAX feeds such frames as they are, to a model
+    that cannot take them."""
+    from istvt_tpu_torch.data import (OULU, Celeb, SyntheticVideoDataset,
+                                      VideoSeqDataset, select_transform)
+    from istvt_tpu_torch.models.istvt import infer_feat_hw
+    tf = select_transform(args.transform)
+    if infer_feat_hw(tf["train"].size) != infer_feat_hw(args.input_size):
+        tf = {k: copy.copy(t) for k, t in tf.items()}
+        for t in tf.values():
+            t.size = args.input_size
+    if args.dataset == "synthetic":
+        train = SyntheticVideoDataset(args.dataset_len or 64, args.seq_len,
+                                      args.input_size, seed=args.seed)
+        val = SyntheticVideoDataset(16, args.seq_len, args.input_size,
+                                    seed=args.seed + 1)
+        return train, val
+    if args.dataset == "oulu":
+        train = OULU(root=args.data_root, mode="Train", size=args.input_size,
+                     seq_len=args.seq_len, transform=tf["train"],
+                     dataset_len=args.dataset_len)
+        val = OULU(root=args.data_root, mode="Test", size=args.input_size,
+                   seq_len=args.seq_len, transform=tf["val"])
+        return train, val
+    if args.dataset in ("celeb", "dfdc"):
+        train = Celeb(root=args.data_root, mode="Train", size=args.input_size,
+                      seq_len=args.seq_len, transform=tf["train"],
+                      dataset_len=args.dataset_len)
+        val = Celeb(root=args.data_root, mode="Test", size=args.input_size,
+                    seq_len=args.seq_len, transform=tf["val"])
+        return train, val
+    use_native = args.use_native_decode
+    if args.dataset == "ff++video":
+        # the backend is pinned, not picked: cv2 by default, the native
+        # decoder with --use_native_decode (their scalers differ)
+        from istvt_tpu_torch.data.video_frontend import RawVideoDataset
+        train = RawVideoDataset(root=args.data_root, quality=args.quality,
+                                mode="Train", size=args.input_size,
+                                seq_len=args.seq_len,
+                                dataset_len=args.dataset_len,
+                                seed=args.seed, use_native=use_native,
+                                boxes=args.boxes)
+        val = RawVideoDataset(root=args.data_root, quality=args.quality,
+                              mode="Test", size=args.input_size,
+                              seq_len=args.seq_len, return_fake_type=True,
+                              use_native=use_native, boxes=args.boxes)
+        return train, val
+    train = VideoSeqDataset(root=args.data_root, quality=args.quality,
+                            transform=tf["train"], size=args.input_size,
+                            mode="Train", seq_len=args.seq_len,
+                            dataset_len=args.dataset_len, seed=args.seed,
+                            use_native=use_native)
+    val = VideoSeqDataset(root=args.data_root, quality=args.quality,
+                          transform=tf["val"], size=args.input_size,
+                          mode="Test", seq_len=args.seq_len,
+                          return_fake_type=True, use_native=use_native)
+    return train, val
 
 
 def build(args):
@@ -134,7 +201,7 @@ def build(args):
     from istvt_tpu_torch.core.config import (DataConfig, ISTVTConfig,
                                              TrainConfig)
     from istvt_tpu_torch.core.device import require_cuda
-    from istvt_tpu_torch.data import ClipLoader, SyntheticVideoDataset
+    from istvt_tpu_torch.data import ClipLoader
     from istvt_tpu_torch.models.istvt import infer_feat_hw
     from istvt_tpu_torch.models.registry import model_selection
     from istvt_tpu_torch.train.trainer import Trainer
@@ -155,20 +222,50 @@ def build(args):
                     seq_len=args.seq_len, input_size=args.input_size,
                     batch_size=args.batch_size, dataset=args.dataset,
                     dataset_len=args.dataset_len)
-    train_ds = SyntheticVideoDataset(args.dataset_len or 64, args.seq_len,
-                                     args.input_size, seed=args.seed)
-    val_ds = SyntheticVideoDataset(16, args.seq_len, args.input_size,
-                                   seed=args.seed + 1)
+    train_ds, val_ds = make_datasets(args)
+    if getattr(train_ds, "entries", True) in ([], None):
+        raise SystemExit(f"--dataset {args.dataset}: no videos of "
+                         f"{args.seq_len} frames under --data_root "
+                         f"'{args.data_root}' (the docs/DATA.md layout)")
     train_loader = ClipLoader(train_ds, batch_size=args.batch_size,
-                              shuffle=True, seed=args.seed)
+                              shuffle=True, num_workers=args.num_workers,
+                              seed=args.seed)
     val_loader = ClipLoader(val_ds, batch_size=args.batch_size,
-                            shuffle=False)
+                            shuffle=False, num_workers=args.num_workers)
     trainer = Trainer(model, tc, dc,
                       steps_per_epoch=max(len(train_loader), 1),
                       use_reference_schedule=args.reference_schedule,
                       grad_accum=args.grad_accum,
                       recal_bn_batches=args.recal_bn)
     return trainer, train_loader, val_loader
+
+
+def test(args, trainer, val_loader):
+    """--test_mode: evaluate each quality, hq and lq for ff++ with a
+    --data_root (the reference's per-quality loop, train_CNN.py:843-984),
+    with ACER for oulu, printing one line per quality."""
+    from istvt_tpu_torch.data import ClipLoader, VideoSeqDataset
+    from istvt_tpu_torch.train.trainer import evaluate
+
+    qualities = [args.quality]
+    if args.dataset == "ff++" and args.data_root:
+        qualities = ["hq", "lq"]
+    for q in qualities:
+        loader = val_loader
+        if q != args.quality:
+            ds = VideoSeqDataset(
+                root=args.data_root, quality=q,
+                transform=val_loader.dataset.transform,
+                size=args.input_size, mode="Test", seq_len=args.seq_len,
+                return_fake_type=True)
+            if len(ds.entries) == 0:
+                continue
+            loader = ClipLoader(ds, batch_size=args.batch_size,
+                                shuffle=False, num_workers=args.num_workers)
+        ev = evaluate(trainer.model, loader,
+                      compute_acer=args.dataset == "oulu")
+        print(q, {k: round(v, 4) if isinstance(v, float) else v
+                  for k, v in ev.items()})
 
 
 def main(argv=None):
@@ -180,10 +277,7 @@ def main(argv=None):
     if args.continue_train or args.test_mode:
         ts = trainer.restore(ts)
     if args.test_mode:
-        from istvt_tpu_torch.train.trainer import evaluate
-        ev = evaluate(trainer.model, val_loader)
-        print(args.quality, {k: round(v, 4) if isinstance(v, float) else v
-                             for k, v in ev.items()})
+        test(args, trainer, val_loader)
         return
     trainer.fit(train_loader, val_loader, ts=ts)
 

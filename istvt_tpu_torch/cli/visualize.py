@@ -15,8 +15,11 @@ directory's latest step (cli/train.py -o) or of a bare save_pytree file
 
     python -m istvt_tpu_torch.cli.visualize --dataset synthetic
 
-The card is the default; `--device cpu` runs on the CPU. --dataset ff++
-and --mode channels exit naming their ROADMAP.md items.
+--dataset ff++ (the default) explains the clips of a face-crop frame tree
+(--data_root, --quality; docs/DATA.md) in Vis mode: centred clips whose
+files name the PNGs, the clip's own frames under the overlays; --dataset
+synthetic needs no disk. The card is the default; `--device cpu` runs on
+the CPU. --mode channels exits naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -70,9 +73,6 @@ def check_args(args):
     if args.model_name != "istvt":
         raise SystemExit(f"--model_name {args.model_name} is not ported yet "
                          f"({_Q1}, 'Rest of the model zoo')")
-    if args.dataset != "synthetic":
-        raise SystemExit(f"--dataset {args.dataset} is not ported yet "
-                         f"({_Q1}, 'Training': the real datasets)")
 
 
 def restore(model, path: str):
@@ -101,7 +101,8 @@ def build(args):
 
     from istvt_tpu_torch.core.config import ISTVTConfig
     from istvt_tpu_torch.core.device import require_cuda
-    from istvt_tpu_torch.data import SyntheticVideoDataset
+    from istvt_tpu_torch.data import (SyntheticVideoDataset, Transform,
+                                      VideoSeqDataset)
     from istvt_tpu_torch.models import istvt
 
     dev = require_cuda() if args.device == "cuda" else torch.device("cpu")
@@ -111,8 +112,20 @@ def build(args):
     model = istvt.init(cfg, torch.Generator().manual_seed(0), dev)
     if args.model_path:
         restore(model, args.model_path)
-    ds = SyntheticVideoDataset(min(args.max_clips, 8), args.seq_len,
-                               args.input_size)
+    if args.dataset == "synthetic":
+        ds = SyntheticVideoDataset(min(args.max_clips, 8), args.seq_len,
+                                   args.input_size)
+    else:
+        ds = VideoSeqDataset(root=args.data_root, quality=args.quality,
+                             transform=Transform(args.input_size),
+                             size=args.input_size, mode="Vis",
+                             seq_len=args.seq_len)
+        if len(ds) == 0:
+            raise SystemExit(
+                f"--dataset {args.dataset}: no clips of {args.seq_len} "
+                f"frames under '{args.data_root}' (quality "
+                f"'{args.quality}'): the real datasets read a face-crop "
+                f"frame tree, docs/DATA.md")
     return model, ds
 
 

@@ -47,8 +47,8 @@ class Predictor:
             tree.cast(model, compute_dtype)
         self.n_forwards = 0   # model calls made by predict()
 
-    def _forward(self, x: np.ndarray) -> np.ndarray:
-        t = torch.from_numpy(x).to(self.device)
+    def _forward(self, x: torch.Tensor) -> np.ndarray:
+        t = x.to(self.device)
         dtype = self.compute_dtype or self.input_dtype
         if dtype is not None:
             t = t.to(dtype)
@@ -64,20 +64,23 @@ class Predictor:
                 return b
         return self.batch_sizes[-1]
 
-    def predict(self, clips: np.ndarray) -> Dict[str, np.ndarray]:
-        """clips: (N, ...) normalized inputs -> {'logits', 'probs',
-        'preds'} of length N, batched over the bucket sizes."""
+    def predict(self, clips) -> Dict[str, np.ndarray]:
+        """clips: (N, ...) normalized inputs, a numpy array or a tensor (a
+        batch that data/loader.device_feed put on the card is used where
+        it lies) -> {'logits', 'probs', 'preds'} numpy arrays of length N,
+        batched over the bucket sizes."""
+        if not isinstance(clips, torch.Tensor):
+            clips = torch.from_numpy(np.ascontiguousarray(clips))
         n = clips.shape[0]
         logits: List[np.ndarray] = []
         i = 0
         while i < n:
             take = min(self._bucket(n - i), n - i)
             bucket = self._bucket(take)
-            chunk = np.ascontiguousarray(clips[i:i + take])
+            chunk = clips[i:i + take]
             if take < bucket:
-                pad = np.zeros((bucket - take,) + chunk.shape[1:],
-                               chunk.dtype)
-                chunk = np.concatenate([chunk, pad])
+                chunk = torch.cat([chunk, chunk.new_zeros(
+                    (bucket - take,) + tuple(chunk.shape[1:]))])
             logits.append(self._forward(chunk)[:take])
             i += take
         logits = np.concatenate(logits)

@@ -1,7 +1,9 @@
 """The training loop: epochs + eval + checkpointing (counterpart of
 istvt_tpu/train/trainer.py).
 
-Trainer.fit runs the train step over a ClipLoader for num_epochs, logs
+Trainer.fit runs the train step over a ClipLoader's batches, fed to the
+model's device by data/loader.device_feed (on the card: pinned copies on
+a side stream, one batch ahead), for num_epochs, logs
 the running loss and accuracy, and evaluates after each epoch. With a
 checkpoint_dir it saves the whole train state after each epoch on a
 background thread (core/checkpoint.py), with the epoch's metric (val
@@ -20,6 +22,7 @@ parameters yet.
 """
 from __future__ import annotations
 
+import contextlib
 import signal
 import time
 from typing import Callable, Dict, Optional
@@ -28,6 +31,7 @@ import torch
 
 from istvt_tpu_torch.core.checkpoint import CheckpointManager
 from istvt_tpu_torch.core.config import DataConfig, TrainConfig
+from istvt_tpu_torch.data.loader import device_feed
 from istvt_tpu_torch.train import metrics as M
 from istvt_tpu_torch.train import step as S
 from istvt_tpu_torch.train.logging import MetricsLogger
@@ -37,19 +41,38 @@ from istvt_tpu_torch.train.schedule import (cosine_schedule,
 _ROADMAP = "ROADMAP.md queue 1"
 
 
-def evaluate(model, loader) -> Dict[str, float]:
-    """Eval pass: accuracy and AUC over the loader (reference
-    train_CNN.py:837-984; AUC added as in the JAX package)."""
+def evaluate(model, loader, compute_acer: bool = False,
+             num_fake_types: int = 5) -> Dict[str, float]:
+    """Eval pass over the loader's batches, fed to the model's device by
+    data/loader.device_feed: accuracy, AUC (added as in the JAX package),
+    APCER / BPCER / ACER with compute_acer, and `acc_type_{i}` for each
+    manipulation type present when the batches carry 'fake_types'
+    (reference train_CNN.py:837-984)."""
     eval_fn = S.make_eval_step()
-    logits, labels = [], []
-    for batch in loader:
-        out = eval_fn(model, batch)
-        logits.append(out["logits"].cpu())
-        labels.append(out["labels"].cpu())
+    logits, labels, ftypes = [], [], []
+    dev = next(model.parameters()).device
+    with contextlib.closing(device_feed(loader, dev)) as feed:
+        for batch in feed:
+            out = eval_fn(model, batch)
+            logits.append(out["logits"].cpu())
+            labels.append(out["labels"].cpu())
+            if "fake_types" in batch:
+                ftypes.append(torch.as_tensor(batch["fake_types"]).cpu()
+                              .reshape(-1))
     logits, labels = torch.cat(logits), torch.cat(labels)
     preds = (logits > 0).to(torch.int64)
-    return {"accuracy": float((preds == labels).float().mean()),
-            "auc": float(M.auc(logits, labels)), "n": int(labels.numel())}
+    result = {"accuracy": float((preds == labels).float().mean()),
+              "auc": float(M.auc(logits, labels)), "n": int(labels.numel())}
+    if compute_acer:
+        c = M.confusion_counts(logits, labels)
+        result.update({k: float(v) for k, v in M.acer(c).items()})
+    if ftypes:
+        acc_t, cnt = M.per_type_accuracy(logits, labels, torch.cat(ftypes),
+                                         num_types=num_fake_types)
+        for i in range(num_fake_types):
+            if float(cnt[i]) > 0:
+                result[f"acc_type_{i}"] = float(acc_t[i])
+    return result
 
 
 class Trainer:
@@ -82,8 +105,8 @@ class Trainer:
             else None
         # the dropout masks' source, as JAX's PRNGKey(seed + 1); its state
         # is saved and restored with the train state
-        dev = next(model.parameters()).device
-        self.rng = torch.Generator(device=dev).manual_seed(tc.seed + 1)
+        self.dev = next(model.parameters()).device
+        self.rng = torch.Generator(device=self.dev).manual_seed(tc.seed + 1)
         self.step_fn = S.make_train_step(compute_dtype=compute_dtype,
                                          grad_accum=grad_accum, rng=self.rng)
         self.ckpt = CheckpointManager(tc.checkpoint_dir, async_save=True) \
@@ -170,17 +193,21 @@ class Trainer:
             run_loss, run_acc, seen = M.Welford(), M.Welford(), 0
             batches = (train_loader.iter_from(skip)
                        if epoch == start_epoch else iter(train_loader))
-            for batch in batches:
-                if pending:
-                    self._snapshot_and_exit(ts, pending[0])
-                m = self.step_fn(ts, batch)
-                bs = len(batch["labels"])
-                run_loss.update(float(m["loss"]), bs)
-                run_acc.update(float(m["accuracy"]), bs)
-                seen += bs
-                if seen % (self.tc.log_every * bs) < bs:
-                    self.log(f"epoch {epoch} seen {seen}: loss "
-                             f"{run_loss.mean:.4f} acc {run_acc.mean:.4f}")
+            # the feed (and with it the loader's producer) is closed when
+            # the loop ends, a snapshot's SystemExit included
+            with contextlib.closing(device_feed(batches, self.dev)) as feed:
+                for batch in feed:
+                    if pending:
+                        self._snapshot_and_exit(ts, pending[0])
+                    m = self.step_fn(ts, batch)
+                    bs = len(batch["labels"])
+                    run_loss.update(float(m["loss"]), bs)
+                    run_acc.update(float(m["accuracy"]), bs)
+                    seen += bs
+                    if seen % (self.tc.log_every * bs) < bs:
+                        self.log(f"epoch {epoch} seen {seen}: loss "
+                                 f"{run_loss.mean:.4f} acc "
+                                 f"{run_acc.mean:.4f}")
             if pending:
                 self._snapshot_and_exit(ts, pending[0])
             dt = time.time() - t0

@@ -404,13 +404,16 @@ def test_cli_trains_two_steps_on_cpu(capsys, tmp_path):
     assert "val {" in out
     assert sorted(os.listdir(tmp_path / "ck"))[:2] == ["2.json", "2.pt"]
     parser = cli_train.build_parser()
-    for bad in (["--dataset", "ff++"], ["--mesh_model", "2"]):
+    for bad in (["--distill_from", "x"], ["--mesh_model", "2"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             cli_train.check_args(parser.parse_args(CLI + bad), parser)
-    # the reference's defaults and the checkpoint flags are ported
-    # (tests/test_torch_checkpoint.py runs them)
+    # the reference's defaults, the checkpoint flags and the real datasets
+    # are ported (tests/test_torch_checkpoint.py and
+    # tests/test_torch_data_cli.py run them)
     for works in (["--dropout", "0.5"], ["--checkpoint_dir", "out"],
                   ["--remat"], ["--recal_bn", "2"], ["--continue_train"],
-                  ["--test_mode"], ["--model_path", "x"]):
+                  ["--test_mode"], ["--model_path", "x"],
+                  ["--dataset", "ff++"], ["--num_workers", "2"],
+                  ["--data_root", "x"], ["--use_native_decode"]):
         cli_train.check_args(parser.parse_args(CLI + works), parser)
     assert parser.parse_args([]).checkpoint_dir == "./output"
