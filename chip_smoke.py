@@ -21,7 +21,9 @@ data path from disk (a frame tree scored by `cli/score.py --int8` and
 trained on by `cli/train.py --dataset ff++`), and the LRP relevance maps
 (`interpret/`, `cli/visualize.py`) in f32, then the kernel API
 (`istvt_tpu_torch.kernels`, `kernels/conv.py`), which no model path
-reaches. In phases; any failure raises and exits non-zero:
+reaches, and last distillation (`cli/train.py --distill_from`) and the
+recipe's certification (`cli/certify.py`). In phases; any failure raises
+and exits non-zero:
 
   1. device   - a CUDA device is required; prints nvidia-smi's name and
                 power limit and the torch / CUDA versions
@@ -214,6 +216,26 @@ reaches. In phases; any failure raises and exits non-zero:
                 JAX's XLA references (2e-4), sepconv_bn vs the stem's own
                 cuDNN composition (atol = rtol = 1e-5, its gradient 1e-5
                 max)
+ 12. distill - distillation and certification (train/distill.py,
+                train/certify.py), counted: `cli/train.py --distill_from` a
+                seed-0 300^2 / depth-12 checkpoint (--teacher_input_size
+                300, -is 224 --depth 6 --use_pallas --dropout 0 --bf16), 2
+                steps of B=8 and one val pass, exactly the teacher's float
+                forward x 12 a batch, the student's train step x 6 a step
+                and each val forward x 6, and the step time with and
+                without the teacher hook; one depth-2 B=2 distill step at
+                224^2 card (f32) vs CPU (plain, f32), logit-only with
+                use_pallas and with attention transfer (attn_weight 2,
+                XLA-math): |dloss| <= 1e-5, gradient cosine >= 0.99999; the
+                teacher hook at 300^2 / depth 2 with cams, resized to
+                224^2, card vs CPU: logits 1e-4, cams rel-L2 1e-3, the
+                antialiased resize 1e-4 (max|d|); `cli/certify.py` at
+                300^2/d12 -> 224^2/d6 on a reduced budget (1 + 1 epochs,
+                16 + 16 clips):
+                CERT_RECIPE.json's keys and criteria (less the export's),
+                the int8 leg exactly #1-#3 x 6, each leg's wall time and
+                peak memory, and a second run restoring the teacher from
+                --teacher_ckpt with the same teacher_auc
 
 The line before the last is the kernels' JSON record (`launches`: each
 kernel's launches over every counted run above; a kernel that no counted
@@ -227,6 +249,7 @@ with its device time summed by kernel family.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import http.client
@@ -265,6 +288,10 @@ from istvt_tpu_torch.interpret.heatmap import png_bytes  # noqa: E402
 from istvt_tpu_torch.kernels import _lib, selfcheck  # noqa: E402
 from istvt_tpu_torch.models import istvt  # noqa: E402
 from istvt_tpu_torch.serve_daemon import ServeDaemon  # noqa: E402
+from istvt_tpu_torch.cli import certify as cli_certify  # noqa: E402
+from istvt_tpu_torch.core.checkpoint import CheckpointManager  # noqa: E402
+from istvt_tpu_torch.train import distill as D  # noqa: E402
+from istvt_tpu_torch.train import losses as L  # noqa: E402
 from istvt_tpu_torch.train import step as S  # noqa: E402
 from torch_forward_ms import INT8_MODES as TOOL_MODES  # noqa: E402
 from torch_forward_ms import (ITERS, PACKED, PATH_FLAGS,  # noqa: E402
@@ -1762,6 +1789,272 @@ def kernel_api_phase(dev):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# 12. distillation and certification
+
+
+STUDENT_SIZE, STUDENT_DEPTH = 224, 6
+# cli/train.py --distill_from at the serving recipe's geometry: 2 steps of
+# B=8 from a 300^2 / depth-12 teacher, and one val pass (16 clips)
+DISTILL_FLAGS = ["--dataset", "synthetic", "--teacher_depth", str(DEPTH),
+                 "--teacher_input_size", str(PAPER.image_size),
+                 "--input_size", str(STUDENT_SIZE), "--depth",
+                 str(STUDENT_DEPTH), "--use_pallas", "--dropout", "0",
+                 "--bf16", "--batch_size", "8", "--dataset_len", "16",
+                 "--epochs", "1"]
+HOOK_TIMED = 4       # timed steps with and without the teacher hook
+# cli/certify.py at the production geometry on a reduced budget; the second
+# run restores the teacher and stops after its AUC and the student leg
+CERT_FLAGS = ["--teacher_epochs", "1", "--distill_epochs", "1",
+              "--train_clips", "16", "--val_clips", "16", "--batch_size", "8"]
+CERT_RESTORE = ["--no_int8", "--no_lrp", "--distill_epochs", "0"]
+
+
+def _per(per_layer, layers):
+    return {n: k * layers for n, k in per_layer.items()}
+
+
+def _sum(*counts):
+    out = {}
+    for c in counts:
+        for n, k in c.items():
+            out[n] = out.get(n, 0) + k
+    return out
+
+
+def _grad_vector(model):
+    return torch.cat([p.grad.double().cpu().ravel()
+                      for p in model.parameters()])
+
+
+def distill_train_phase(card):
+    """12a: cli/train.py --distill_from at 300^2/d12 -> 224^2/d6, counted
+    exactly; then the step time with and without the teacher hook."""
+    t0 = time.perf_counter()
+    teacher_dir = _workdir("distill_teacher")
+    teacher = istvt.init(PAPER, torch.Generator().manual_seed(0))
+    CheckpointManager(teacher_dir).save(0, {"model": teacher.state_dict(),
+                                            "step": 0})
+    del teacher
+    args = cli_train.build_parser().parse_args(
+        DISTILL_FLAGS + ["--distill_from", teacher_dir, "-o",
+                         _workdir("distill_student")])
+    cli_train.check_args(args)
+    trainer, loader, val_loader = cli_train.build(args)
+    phase("distill", f"seed-0 teacher saved and the trainer built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    ts = trainer.fit(loader, val_loader)
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, n_val = ts.step, len(val_loader)
+    fwd = SERVE_PER_LAYER["float"]
+    counts = _tally(_sum(_per(fwd, DEPTH * steps),
+                         _per(TRAIN_PER_LAYER, STUDENT_DEPTH * steps),
+                         _per(fwd, STUDENT_DEPTH * n_val)))
+    phase("distill", f"cli/train.py --distill_from (teacher {PAPER.image_size}"
+          f"^2/d{DEPTH} f32, student {STUDENT_SIZE}^2/d{STUDENT_DEPTH} bf16, "
+          f"B=8): {steps} steps + {n_val} val forwards in {fit_s:.1f} s, "
+          f"peak device memory {peak:.2f} GiB; launches (exact: the "
+          f"teacher's float forward x {DEPTH} a batch, the student's step x "
+          f"{STUDENT_DEPTH} a step, each val forward x {STUDENT_DEPTH}) "
+          f"{ {n: k for n, k in counts.items() if k} }")
+    dev = trainer.dev
+    raw = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+           for b in loader]
+    pre = [trainer.batch_hook(b) for b in raw]
+
+    def step_ms(batch_of):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        float(trainer.step_fn(ts, batch_of())["loss"])
+        return 1e3 * (time.perf_counter() - t1)
+
+    # in turns, with and without the hook; the first pair warms up
+    hooked, plain = [], []
+    for i in range(HOOK_TIMED + 1):
+        k = i % len(raw)
+        pair = (step_ms(lambda: trainer.batch_hook(raw[k])),
+                step_ms(lambda: pre[k]))
+        if i:
+            hooked.append(pair[0])
+            plain.append(pair[1])
+    _lib.reset_launches()
+    phase("distill", f"B=8 step with the teacher hook (ms) "
+          f"{[round(t, 3) for t in hooked]}: median "
+          f"{float(np.median(hooked)):.3f} ms; on hooked batches, in turns "
+          f"{[round(t, 3) for t in plain]}: median "
+          f"{float(np.median(plain)):.3f} ms, on {card} (informative)")
+    del trainer, ts, raw, pre
+
+
+def distill_step_e2e_phase(dev):
+    """12b: one depth-2 B=2 distill step at 224^2, card (f32) vs CPU
+    (plain, f32), from the same weights, batch and teacher signal:
+    logit-only with use_pallas (counted: the step's kernels x 2 layers),
+    and with attention transfer on the XLA-math path (no kernel)."""
+    from istvt_tpu_torch.core.config import TrainConfig
+    from istvt_tpu_torch.train.schedule import cosine_schedule
+    rng = np.random.RandomState(9)
+    t, hw = PAPER.num_frames, istvt.infer_feat_hw(STUDENT_SIZE)
+    batch = {"clips": rng.randn(2, t, STUDENT_SIZE, STUDENT_SIZE, 3).astype(
+                 np.float32),
+             "labels": np.array([1, 0], np.int32),
+             "teacher_logits": rng.randn(2, 1).astype(np.float32),
+             "teacher_cam_s": rng.dirichlet(np.ones(hw * hw), (2, t)).astype(
+                 np.float32),
+             "teacher_cam_t": rng.dirichlet(np.ones(t), 2).astype(np.float32),
+             "cam_s_mask": np.ones(2, np.float32)}
+    for name, use_pallas, attn_weight in (
+            ("logit-only, use_pallas", True, 0.0),
+            ("attention transfer (attn_weight 2), XLA-math", False, 2.0)):
+        cfg = dataclasses.replace(PAPER, image_size=STUDENT_SIZE, feat_hw=hw,
+                                  depth=2, use_pallas=use_pallas)
+        cpu = istvt.init(cfg, torch.Generator().manual_seed(5))
+        out = []
+        t0 = time.perf_counter()
+        for model in (copy.deepcopy(cpu).to(dev), cpu):
+            ts = S.create_train_state(model, S.make_optimizer(
+                TrainConfig(checkpoint_dir=""), cosine_schedule(1e-4, 100)))
+            step = S.make_train_step(
+                loss_fn=L.make_distill_loss(0.5, 2.0, attn_weight))
+            _lib.reset_launches()
+            with highest():
+                m = step(ts, batch)
+            loss = float(m["loss"])
+            if model is not cpu:
+                counts = _tally(_per(TRAIN_PER_LAYER, 2) if use_pallas
+                                else {})
+            out.append((loss, _grad_vector(model)))
+        (l_card, g_card), (l_cpu, g_cpu) = out
+        cos = float(F.cosine_similarity(g_card, g_cpu, dim=0))
+        dl = abs(l_card - l_cpu)
+        phase("distill e2e", f"{name}, depth 2, B=2, {STUDENT_SIZE}^2: loss "
+              f"card {l_card:.6f} vs CPU plain f32 {l_cpu:.6f} (|d| "
+              f"{dl:.3e}, limit 1e-5); gradient cosine {cos:.8f} (limit "
+              f"0.99999); launches "
+              f"{ {n: k for n, k in counts.items() if k} } "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not (dl <= 1e-5 and cos >= 0.99999):
+            raise SystemExit(f"the card's {name} distill step disagrees with "
+                             f"the CPU reference")
+
+
+def teacher_hook_e2e_phase(dev):
+    """12c: the teacher hook with cams at 300^2 / depth 2 (use_pallas, as
+    cli/train.py builds its teacher), resizing to 224^2 / 14^2, card vs
+    CPU (plain), counted: the float forward x 2 and fused_ff x 2."""
+    cfg = dataclasses.replace(PAPER, depth=2, use_pallas=True)
+    cpu = istvt.init(cfg, torch.Generator().manual_seed(6))
+    clips = np.random.RandomState(10).randn(2, *CLIP).astype(np.float32)
+    out = []
+    t0 = time.perf_counter()
+    for model in (copy.deepcopy(cpu).to(dev), cpu):
+        hook = D.augment_with_teacher(
+            D.make_teacher_fn(model, cam_cfg=model.cfg),
+            student_size=STUDENT_SIZE,
+            student_feat_hw=istvt.infer_feat_hw(STUDENT_SIZE))
+        x = torch.from_numpy(clips).to(next(model.parameters()).device)
+        _lib.reset_launches()
+        with highest():
+            got = hook({"clips": x})
+        if model is not cpu:
+            counts = _tally(_sum(_per(SERVE_PER_LAYER["float"], 2),
+                                 {"fused_ff": 2}))
+        out.append({k: v.double().cpu() for k, v in got.items()})
+    card_out, cpu_out = out
+    dlogit = float((card_out["teacher_logits"]
+                    - cpu_out["teacher_logits"]).abs().max())
+    rel = {k: float((card_out[k] - cpu_out[k]).norm()
+                    / cpu_out[k].norm().clamp_min(1e-30))
+           for k in ("teacher_cam_s", "teacher_cam_t")}
+    dclip = float((card_out["clips"] - cpu_out["clips"]).abs().max())
+    x = torch.from_numpy(clips)
+    dres = float((D.resize_bilinear(x.to(dev), STUDENT_SIZE).cpu()
+                  - D.resize_bilinear(x, STUDENT_SIZE)).abs().max())
+    phase("distill hook", f"depth 2, B=2, {PAPER.image_size}^2 -> "
+          f"{STUDENT_SIZE}^2: teacher_logits |d| {dlogit:.3e} (limit 1e-4); "
+          f"teacher_cam_s / teacher_cam_t rel-L2 {rel['teacher_cam_s']:.3e} "
+          f"/ {rel['teacher_cam_t']:.3e} (limit 1e-3); resized clips max|d| "
+          f"{dclip:.3e}, resize_bilinear (CUDA antialiased bilinear vs CPU) "
+          f"max|d| {dres:.3e} (limit 1e-4, the CPU test's 300 -> 224 bound "
+          f"against jax.image.resize); launches "
+          f"{ {n: k for n, k in counts.items() if k} } "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not (dlogit <= 1e-4 and max(rel.values()) <= 1e-3
+            and max(dclip, dres) <= 1e-4):
+        raise SystemExit("the card's teacher hook disagrees with the CPU "
+                         "reference")
+
+
+def _certify(argv):
+    """cli/certify.py main(argv), its '[certify]' log lines printed as
+    phase lines (the JSON goes to --out); (exit code, result)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_certify.main(argv)
+    for ln in buf.getvalue().splitlines():
+        if ln.startswith("[certify]"):
+            phase("certify", ln[len("[certify] "):])
+    with open(argv[argv.index("--out") + 1]) as f:
+        return rc, json.load(f)
+
+
+def certify_phase(card):
+    """12d: cli/certify.py at the production geometry on a reduced budget,
+    counted (the int8 leg's one forward of the 16 val clips: #1-#3 x
+    STUDENT_DEPTH; no other leg runs a kernel, as in JAX), then a second
+    run restoring the teacher."""
+    with open(os.path.join(_ROOT, "CERT_RECIPE.json")) as f:
+        rec = json.load(f)
+    want_keys = (set(rec) - {"export_dir", "artifact_max_logit_delta"}) \
+        | {"legs"}
+    want_crit = set(rec["criteria"]) - {"artifact_matches"}
+    work = _workdir("certify")
+    ckpt, out = os.path.join(work, "teacher.pt"), os.path.join(work, "c.json")
+    argv = CERT_FLAGS + ["--teacher_ckpt", ckpt, "--out", out]
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    rc, res = _certify(argv)
+    wall = time.perf_counter() - t0
+    counts = _tally(_per(SERVE_PER_LAYER["int8"], STUDENT_DEPTH))
+    if set(res) != want_keys or set(res["criteria"]) != want_crit:
+        raise SystemExit(f"cli/certify.py keys {sorted(res)} / criteria "
+                         f"{sorted(res['criteria'])}, want {sorted(want_keys)}"
+                         f" / {sorted(want_crit)}")
+    phase("certify", f"300^2/d12 -> 224^2/d6, budget {res['budget']}: exit "
+          f"{rc}, pass {res['pass']}, criteria {res['criteria']}; "
+          f"CERT_RECIPE.json's keys and criteria (less the export's); "
+          f"{wall:.1f} s on {card}; int8 leg launches "
+          f"{ {n: k for n, k in counts.items() if k} } (exact)")
+    for leg, v in res["legs"].items():
+        phase("certify", f"leg {leg}: {v['wall_s']:.1f} s, peak device "
+              f"memory {v['peak_gib']:.2f} GiB")
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    _, again = _certify(argv + CERT_RESTORE)
+    _tally({})
+    phase("certify", f"second run, teacher restored from --teacher_ckpt: "
+          f"teacher_auc {again['teacher_auc']!r} vs {res['teacher_auc']!r} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if again["teacher_auc"] != res["teacher_auc"]:
+        raise SystemExit("the restored teacher gives another teacher_auc")
+
+
+def distill_phase(dev, card):
+    t0 = time.perf_counter()
+    distill_train_phase(card)
+    torch.cuda.empty_cache()
+    distill_step_e2e_phase(dev)
+    torch.cuda.empty_cache()
+    teacher_hook_e2e_phase(dev)
+    torch.cuda.empty_cache()
+    certify_phase(card)
+    phase("distill", f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None,
@@ -1896,6 +2189,10 @@ def main():
 
     # 11 the kernel API
     kernel_api_phase(dev)
+    torch.cuda.empty_cache()
+
+    # 12 distillation and certification
+    distill_phase(dev, card)
 
     idle = [n for n, k in TOTAL.items() if k == 0]
     if idle:

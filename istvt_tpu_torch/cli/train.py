@@ -22,10 +22,16 @@ two ahead, and the Trainer feeds them to the card through pinned copies
 latest), --test_mode (restore the latest and evaluate: hq and lq for ff++
 with a --data_root, ACER for oulu), --recal_bn N (recalibrate BatchNorm
 over N train batches after the last epoch). --model_path is parsed and
-never read, as in the JAX CLI. The parallelism, distillation and
---dump_attns_every flags exit naming their ROADMAP.md items. The card is
-the default; `--device cpu` runs the plain versions of the kernels (the
-tests use it).
+never read, as in the JAX CLI. Distillation (train/distill.py):
+--distill_from DIR restores a teacher from the newest checkpoint under
+DIR (its model state only, so any --teacher_optimizer restores) at
+--teacher_depth and --teacher_input_size, and the student trains on
+losses.distillation_bce (--distill_alpha, --distill_T) against its
+logits; with a --teacher_input_size other than -is the train clips load
+at the teacher's size and the student gets them resized, the val clips
+at the student's. The parallelism and --dump_attns_every flags exit
+naming their ROADMAP.md items. The card is the default; `--device cpu`
+runs the plain versions of the kernels (the tests use it).
 """
 from __future__ import annotations
 
@@ -41,12 +47,6 @@ _NOT_PORTED = {
     "mesh_pipe": "'Parallelism'",
     "microbatches": "'Parallelism'",
     "dump_attns_every": "'Interpretation'",
-    "distill_from": "'Distillation and certification'",
-    "teacher_depth": "'Distillation and certification'",
-    "teacher_input_size": "'Distillation and certification'",
-    "teacher_optimizer": "'Distillation and certification'",
-    "distill_alpha": "'Distillation and certification'",
-    "distill_T": "'Distillation and certification'",
 }
 
 
@@ -106,13 +106,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ff++video only: external detector crop boxes "
                         "{video: {frame: [y0,x0,h,w]}} (docs/DATA.md)")
     p.add_argument("--dump_attns_every", type=int, default=0)
-    p.add_argument("--distill_from", default=None)
-    p.add_argument("--teacher_depth", type=int, default=12)
-    p.add_argument("--teacher_input_size", type=int, default=None)
+    p.add_argument("--distill_from", default=None, metavar="CKPT_DIR",
+                   help="knowledge distillation (train/distill.py): "
+                        "checkpoint dir of a TEACHER (same model_name; its "
+                        "depth via --teacher_depth). Teacher logits are "
+                        "injected per batch and the loss becomes "
+                        "losses.distillation_bce: train a shallower --depth "
+                        "student that serves proportionally faster")
+    p.add_argument("--teacher_depth", type=int, default=12,
+                   help="--distill_from: the teacher's ST-layer count")
+    p.add_argument("--teacher_input_size", type=int, default=None,
+                   help="--distill_from: the teacher's input size when it "
+                        "differs from the student's -is (cross-geometry "
+                        "distillation: train clips are loaded at the "
+                        "TEACHER size, the teacher scores them, and the "
+                        "student sees their bilinear downscale)")
     p.add_argument("--teacher_optimizer", choices=["adamw", "sgd"],
-                   default="adamw")
-    p.add_argument("--distill_alpha", type=float, default=0.5)
-    p.add_argument("--distill_T", type=float, default=2.0)
+                   default="adamw",
+                   help="--distill_from: optimizer the teacher ckpt was "
+                        "trained with (its moments are not restored, so "
+                        "either value restores)")
+    p.add_argument("--distill_alpha", type=float, default=0.5,
+                   help="hard-label loss weight (1-alpha on the soft "
+                        "teacher term); 0 = learn from the teacher only")
+    p.add_argument("--distill_T", type=float, default=2.0,
+                   help="distillation temperature")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cpu: the kernels' plain versions (tests only)")
     return p
@@ -222,7 +240,18 @@ def build(args):
                     seq_len=args.seq_len, input_size=args.input_size,
                     batch_size=args.batch_size, dataset=args.dataset,
                     dataset_len=args.dataset_len)
-    train_ds, val_ds = make_datasets(args)
+    cross_geo = bool(args.distill_from and args.teacher_input_size
+                     and args.teacher_input_size != args.input_size)
+    if cross_geo:
+        # train clips load at the teacher's size (the batch hook resizes
+        # them for the student after the teacher scores them); val clips
+        # at the student's: eval runs the student alone
+        targs = copy.copy(args)
+        targs.input_size = args.teacher_input_size
+        train_ds, _ = make_datasets(targs)
+        _, val_ds = make_datasets(args)
+    else:
+        train_ds, val_ds = make_datasets(args)
     if getattr(train_ds, "entries", True) in ([], None):
         raise SystemExit(f"--dataset {args.dataset}: no videos of "
                          f"{args.seq_len} frames under --data_root "
@@ -232,12 +261,60 @@ def build(args):
                               seed=args.seed)
     val_loader = ClipLoader(val_ds, batch_size=args.batch_size,
                             shuffle=False, num_workers=args.num_workers)
+    loss_fn, batch_hook = (distill_setup(args, cfg, dev, cross_geo)
+                           if args.distill_from else (None, None))
     trainer = Trainer(model, tc, dc,
                       steps_per_epoch=max(len(train_loader), 1),
                       use_reference_schedule=args.reference_schedule,
                       grad_accum=args.grad_accum,
-                      recal_bn_batches=args.recal_bn)
+                      recal_bn_batches=args.recal_bn, loss_fn=loss_fn,
+                      batch_hook=batch_hook)
     return trainer, train_loader, val_loader
+
+
+def load_teacher(args, cfg, dev):
+    """The --distill_from teacher: the student's cfg at --teacher_depth
+    and --teacher_input_size, dropout 0, its model state restored from the
+    newest checkpoint under --distill_from (its optimizer moments are not
+    read), in eval mode on dev."""
+    import dataclasses
+    import os
+
+    from istvt_tpu_torch.core.checkpoint import CheckpointManager
+    from istvt_tpu_torch.models.istvt import infer_feat_hw
+    from istvt_tpu_torch.models.registry import model_selection
+
+    tsize = args.teacher_input_size or args.input_size
+    tcfg = dataclasses.replace(cfg, depth=args.teacher_depth, dropout=0.0,
+                               image_size=tsize, feat_hw=infer_feat_hw(tsize))
+    restored = None
+    if os.path.isdir(args.distill_from):
+        restored = CheckpointManager(args.distill_from).restore(
+            map_location="cpu")
+    if restored is None:
+        raise SystemExit(f"--distill_from: no checkpoint under "
+                         f"{args.distill_from}")
+    teacher = model_selection(args.model_name, num_out_classes=1,
+                              dropout=0.0, device=dev, cfg=tcfg)
+    teacher.load_state_dict(restored["model"])
+    return teacher.eval()
+
+
+def distill_setup(args, cfg, dev, cross_geo: bool):
+    """(loss_fn, batch_hook) of --distill_from (JAX cli/train.py:222-255):
+    the teacher's logits injected into every train batch, the loss
+    losses.make_distill_loss(--distill_alpha, --distill_T)."""
+    from istvt_tpu_torch.train import distill as D
+    from istvt_tpu_torch.train import losses as L
+
+    teacher = load_teacher(args, cfg, dev)
+    hook = D.augment_with_teacher(
+        D.make_teacher_fn(teacher),
+        student_size=args.input_size if cross_geo else None)
+    print(f"distilling from {args.distill_from} (teacher depth "
+          f"{args.teacher_depth}, size {teacher.cfg.image_size}, "
+          f"alpha={args.distill_alpha}, T={args.distill_T})")
+    return L.make_distill_loss(args.distill_alpha, args.distill_T), hook
 
 
 def test(args, trainer, val_loader):

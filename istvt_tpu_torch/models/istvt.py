@@ -45,8 +45,10 @@ XLA-math path (`use_pallas=False`: the unfused layer below under
 autograd, no kernel), either with `remat` (torch.utils.checkpoint a
 layer); and the unfused layer of models/istvt.py:378-394, which the
 attention-map path (`forward(clips, return_attn=True)` or
-`attn_bias=...`; interpret/ drives it, eval mode) and the XLA-math
-forward run:
+`attn_bias=...`; interpret/ drives it in eval mode, the
+attention-transfer loss of train/losses.py in train mode, where the maps
+keep their autograd graph and the feed-forward its dropout masks) and the
+XLA-math forward run:
 
     o = temporal_residual_attention(LN x)    (nn/attention.py, plain
     x = spatial_only_attention(LN o) + x      torch)
@@ -457,8 +459,10 @@ class DSTTr(nn.Module):
                 continue
             bias = ((None, None) if attn_bias is None
                     else (attn_bias["t"][i], attn_bias["s"][i]))
+            masks = self.ff_masks(layer, x, rng) if draw else ()
             x, a_t, a_s = self.run_layer_unfused(layer, x, s, *bias,
-                                                 need_attn=need_attn)
+                                                 need_attn=need_attn,
+                                                 masks=masks)
             attns["t"].append(a_t)
             attns["s"].append(a_s)
         logits = self.head(x)
@@ -489,7 +493,7 @@ class ISTVT(nn.Module):
     def _check_path(self, need_attn: bool = False):
         cfg = self.cfg
         if self.training:
-            self._check_train(need_attn)
+            self._check_train()
             return
         if cfg.quantize not in ("int8", "none"):
             raise ValueError(f"quantize={cfg.quantize!r}")
@@ -515,15 +519,12 @@ class ISTVT(nn.Module):
                                f"(in, out) weight copies: run "
                                f"pack_params(model)")
 
-    def _check_train(self, need_attn: bool = False):
+    def _check_train(self):
         """Train mode runs the float model: the fused path with
         use_pallas, else the unfused XLA-math layer, with any dropout and
-        remat; not the int8 path, and no attention maps."""
+        remat; with attention maps the unfused layer (DSTTr.forward); not
+        the int8 path."""
         cfg = self.cfg
-        if need_attn:
-            raise NotImplementedError(
-                f"attention maps in train mode (train/attn_dump.py) are not "
-                f"ported yet ({_ROADMAP}, 'Interpretation')")
         if cfg.quantize != "none":
             raise NotImplementedError(
                 f"train mode with quantize={cfg.quantize!r} (the JAX package "
@@ -534,8 +535,9 @@ class ISTVT(nn.Module):
                 rng=None):
         """clips (B, T, H, W, 3) NHWC -> logits (B, num_classes); with
         return_attn (logits, {'t': [...], 's': [...]}), every layer's maps
-        (DSTTr.forward). attn_bias (eval mode) is added to every
-        post-softmax map. In train mode the stem's BN running statistics
+        (DSTTr.forward), in train mode too, where they keep their autograd
+        graph. attn_bias is added to every post-softmax map. In train
+        mode the stem's BN running statistics
         are updated in place, and `rng` gives the dropout masks
         (DSTTr.forward)."""
         self._check_path(return_attn or attn_bias is not None)

@@ -1,6 +1,8 @@
 """Training and evaluation steps (counterpart of istvt_tpu/train/step.py).
 
-One train step: forward in train mode, BCE-with-logits loss, backward
+One train step: forward in train mode, the loss (BCE-with-logits, or a
+given loss_fn such as train/losses.make_distill_loss's, which reads the
+whole batch and, where it needs_attn, the attention maps), backward
 through the kernels' backward passes, optimizer update, metrics. With
 compute_dtype=torch.bfloat16 the parameters are cast inside the
 differentiated function (torch.func.functional_call on the casts), as
@@ -17,14 +19,14 @@ point of their train-mode update on given batches (JAX's recalibrate_bn).
 `train_state_dict` / `load_train_state` are a TrainState as the tensors
 that core/checkpoint.py saves.
 
-Not ported (raise, naming ROADMAP.md queue 1): a device mesh. Other
-losses (distillation, attention transfer) are queue 1 work.
+Not ported (raise, naming ROADMAP.md queue 1): a device mesh.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -106,13 +108,33 @@ def _clips(batch, dev):
     return torch.as_tensor(x).to(dev)
 
 
+def _on_device(batch, dev) -> Dict:
+    """The batch with every array entry (numpy or tensor) as a tensor on
+    dev; other entries as they are."""
+    return {k: torch.as_tensor(v).to(dev)
+            if isinstance(v, (torch.Tensor, np.ndarray)) else v
+            for k, v in batch.items()}
+
+
+def _microbatch(batch: Dict, b: int, sl: slice) -> Dict:
+    """The rows `sl` of every entry with a leading batch axis of b."""
+    return {k: v[sl] if isinstance(v, torch.Tensor) and v.dim()
+            and v.shape[0] == b else v for k, v in batch.items()}
+
+
 def make_train_step(compute_dtype: Optional[torch.dtype] = None,
-                    grad_accum: int = 1, mesh=None, rng=None):
+                    grad_accum: int = 1, mesh=None, rng=None,
+                    loss_fn: Optional[Callable] = None):
     """Returns step(ts, batch) -> {'loss', 'accuracy', 'grad_norm'} (0-dim
     f32 tensors), updating ts in place.
 
-    batch: {'clips': (B, T, H, W, 3), 'labels': (B,)} (numpy or tensors).
-    grad_accum=k > 1 splits the batch into k microbatches run one after
+    batch: {'clips': (B, T, H, W, 3), 'labels': (B,), ...} (numpy or
+    tensors). loss_fn(logits, batch) -> loss (default: BCE-with-logits on
+    batch['labels']) gets the microbatch's whole dict; a loss_fn with
+    `needs_attn` set runs the forward with return_attn=True and is called
+    as loss_fn(logits, batch, attns=maps) (JAX step.py:85-110).
+    grad_accum=k > 1 splits every batch entry with a leading batch axis
+    (the teacher's logits and cams too) into k microbatches run one after
     the other: gradients are averaged into one update, the BN running
     statistics thread through the microbatches in order, and loss and
     accuracy are the microbatch means (JAX's _accumulate).
@@ -128,23 +150,30 @@ def make_train_step(compute_dtype: Optional[torch.dtype] = None,
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum}")
 
-    def compute_loss(model, x, labels):
+    loss_fn = loss_fn or (lambda logits, batch:
+                          losses.bce_with_logits(logits, batch["labels"]))
+    needs_attn = getattr(loss_fn, "needs_attn", False)
+
+    def compute_loss(model, batch):
+        x = batch.get("clips", batch.get("images"))
+        kwargs = {"rng": rng, "return_attn": needs_attn}
         if compute_dtype is None:
-            logits = model(x, rng=rng)
+            out = model(x, **kwargs)
         else:
             cast = {n: p.to(compute_dtype) if p.is_floating_point() else p
                     for n, p in model.named_parameters()}
-            logits = torch.func.functional_call(model, cast,
-                                                (x.to(compute_dtype),),
-                                                {"rng": rng})
-        return losses.bce_with_logits(logits, labels), logits
+            out = torch.func.functional_call(model, cast,
+                                             (x.to(compute_dtype),), kwargs)
+        if needs_attn:
+            logits, attns = out
+            return loss_fn(logits, batch, attns=attns), logits
+        return loss_fn(out, batch), out
 
     def step(ts: TrainState, batch) -> Dict[str, torch.Tensor]:
         model = ts.model.train()
         dev = _device(model)
-        x = _clips(batch, dev)
-        labels = torch.as_tensor(batch["labels"]).to(dev)
-        b = x.shape[0]
+        batch = _on_device(batch, dev)
+        b = batch.get("clips", batch.get("images")).shape[0]
         if b % grad_accum:
             raise ValueError(f"batch {b} not divisible by "
                              f"grad_accum={grad_accum}")
@@ -153,11 +182,11 @@ def make_train_step(compute_dtype: Optional[torch.dtype] = None,
         loss_sum = torch.zeros((), device=dev)
         acc_sum = torch.zeros((), device=dev)
         for i in range(grad_accum):
-            sl = slice(i * mb, (i + 1) * mb)
-            loss, logits = compute_loss(model, x[sl], labels[sl])
+            part = _microbatch(batch, b, slice(i * mb, (i + 1) * mb))
+            loss, logits = compute_loss(model, part)
             loss.backward()
             loss_sum += loss.detach()
-            acc_sum += metrics.accuracy(logits.detach(), labels[sl])
+            acc_sum += metrics.accuracy(logits.detach(), part["labels"])
         params = list(model.parameters())
         for p in params:
             if p.grad is None:

@@ -15,10 +15,15 @@ run takes the steps an uninterrupted one would have. SIGTERM or SIGINT
 during fit saves the whole state at the next step boundary and exits
 with 128 + signum. recal_bn_batches > 0 recalibrates the BatchNorm
 running statistics after the last epoch (train/step.recalibrate_bn).
+loss_fn replaces the step's BCE (train/step.make_train_step; distillation
+passes train/losses.make_distill_loss's), and batch_hook transforms every
+train batch after the device feed and before the step, the recalibration
+batches too, so that calibration sees what the step saw (distillation
+passes train/distill.augment_with_teacher's hook).
 
 Not ported (each raises, naming ROADMAP.md queue 1 'Parallelism' or
-'Tooling'): a device mesh, debug_nans; step and batch hooks are not
-parameters yet.
+'Tooling'): a device mesh, debug_nans; a step hook is not a parameter
+yet.
 """
 from __future__ import annotations
 
@@ -82,7 +87,9 @@ class Trainer:
                  steps_per_epoch: Optional[int] = None,
                  use_reference_schedule: bool = False,
                  log_fn: Callable[[str], None] = print,
-                 grad_accum: int = 1, mesh=None, recal_bn_batches: int = 0):
+                 grad_accum: int = 1, mesh=None, recal_bn_batches: int = 0,
+                 loss_fn: Optional[Callable] = None,
+                 batch_hook: Optional[Callable[[Dict], Dict]] = None):
         if mesh is not None:
             raise NotImplementedError(f"a device mesh is not ported yet "
                                       f"({_ROADMAP}, 'Parallelism')")
@@ -92,6 +99,7 @@ class Trainer:
         self.model, self.tc, self.dc = model, tc, dc
         self.log = log_fn
         self.recal_bn_batches = recal_bn_batches
+        self.batch_hook = batch_hook
         spe = steps_per_epoch or 1000
         if use_reference_schedule:
             sched = reference_epoch_schedule(tc.base_lr, tc.warmup_epochs,
@@ -108,7 +116,8 @@ class Trainer:
         self.dev = next(model.parameters()).device
         self.rng = torch.Generator(device=self.dev).manual_seed(tc.seed + 1)
         self.step_fn = S.make_train_step(compute_dtype=compute_dtype,
-                                         grad_accum=grad_accum, rng=self.rng)
+                                         grad_accum=grad_accum, rng=self.rng,
+                                         loss_fn=loss_fn)
         self.ckpt = CheckpointManager(tc.checkpoint_dir, async_save=True) \
             if tc.checkpoint_dir else None
         self.metrics = MetricsLogger(tc.checkpoint_dir) \
@@ -136,6 +145,9 @@ class Trainer:
             self.rng.set_state(sd["rng"].cpu())
         self.log(f"resumed from step {step}")
         return ts
+
+    def _hooked(self, batch: Dict) -> Dict:
+        return batch if self.batch_hook is None else self.batch_hook(batch)
 
     def _snapshot_and_exit(self, ts: S.TrainState, signum: int):
         """Save the whole state at this step boundary (after any async
@@ -170,10 +182,12 @@ class Trainer:
         if self.recal_bn_batches > 0:
             batches = []
             train_loader.set_epoch(self.tc.num_epochs)  # a fresh order
-            for batch in train_loader:
-                batches.append(batch)
-                if len(batches) >= self.recal_bn_batches:
-                    break
+            with contextlib.closing(device_feed(train_loader,
+                                                self.dev)) as feed:
+                for batch in feed:
+                    batches.append(self._hooked(batch))
+                    if len(batches) >= self.recal_bn_batches:
+                        break
             S.recalibrate_bn(self.model, batches)
             self.log(f"recalibrated BN stats over {len(batches)} batches")
             if self.ckpt:
@@ -199,6 +213,7 @@ class Trainer:
                 for batch in feed:
                     if pending:
                         self._snapshot_and_exit(ts, pending[0])
+                    batch = self._hooked(batch)
                     m = self.step_fn(ts, batch)
                     bs = len(batch["labels"])
                     run_loss.update(float(m["loss"]), bs)

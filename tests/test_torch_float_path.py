@@ -145,8 +145,14 @@ def test_float_model_rejects_unported_options(jax_run):
     assert logits.shape == (1, 1)
     assert [a.shape for a in attns["s"]] == [(1, 8, 3, 26, 26)] * 2
     assert [a.shape for a in attns["t"]] == [(1, 8, 26, 3, 3)] * 2
-    with pytest.raises(NotImplementedError, match="Interpretation"):
-        model.train()(clips, return_attn=True)
+    # in train mode too, the maps keeping their autograd graph (ported:
+    # tests/test_torch_distill.py holds them against JAX); the int8 path
+    # in train mode still raises
+    _, attns = model.train()(clips, return_attn=True)
+    assert all(a.requires_grad for a in attns["s"] + attns["t"])
+    model.cfg = ISTVTConfig(**{**TINY, "quantize": "int8"})
+    with pytest.raises(NotImplementedError, match="quantize='int8'"):
+        model(clips, return_attn=True)
     model.eval()
     model.cfg = ISTVTConfig(**{**TINY, "quantize": "int4"})
     with pytest.raises(ValueError, match="quantize"):

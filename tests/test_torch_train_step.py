@@ -404,16 +404,20 @@ def test_cli_trains_two_steps_on_cpu(capsys, tmp_path):
     assert "val {" in out
     assert sorted(os.listdir(tmp_path / "ck"))[:2] == ["2.json", "2.pt"]
     parser = cli_train.build_parser()
-    for bad in (["--distill_from", "x"], ["--mesh_model", "2"]):
+    for bad in (["--dump_attns_every", "2"], ["--mesh_model", "2"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             cli_train.check_args(parser.parse_args(CLI + bad), parser)
-    # the reference's defaults, the checkpoint flags and the real datasets
-    # are ported (tests/test_torch_checkpoint.py and
-    # tests/test_torch_data_cli.py run them)
+    # the reference's defaults, the checkpoint flags, the real datasets
+    # and distillation are ported (tests/test_torch_checkpoint.py,
+    # tests/test_torch_data_cli.py and tests/test_torch_distill.py run
+    # them)
     for works in (["--dropout", "0.5"], ["--checkpoint_dir", "out"],
                   ["--remat"], ["--recal_bn", "2"], ["--continue_train"],
                   ["--test_mode"], ["--model_path", "x"],
                   ["--dataset", "ff++"], ["--num_workers", "2"],
-                  ["--data_root", "x"], ["--use_native_decode"]):
+                  ["--data_root", "x"], ["--use_native_decode"],
+                  ["--distill_from", "x", "--teacher_depth", "1",
+                   "--teacher_input_size", "96", "--teacher_optimizer",
+                   "sgd", "--distill_alpha", "0", "--distill_T", "4"]):
         cli_train.check_args(parser.parse_args(CLI + works), parser)
     assert parser.parse_args([]).checkpoint_dir == "./output"
