@@ -236,15 +236,38 @@ and exits non-zero:
                 the int8 leg exactly #1-#3 x 6, each leg's wall time and
                 peak memory, and a second run restoring the teacher from
                 --teacher_ckpt with the same teacher_auc
+ 13. artifact - the serving artifact (serve_export.py; the forward
+                kernels as istvt:: dispatcher ops, kernels/ops.py), for the
+                int8, the bf16 float and the f32 float path in turn:
+                `cli/export.py --batch_sizes 1 16 --selftest` at depth 12
+                (ARTIFACT_DEPTH), 300^2 x 6 (export and load seconds, the
+                directory's size, the selftest within 1e-3); the program
+                holds exactly the path's ops (SERVE_PER_LAYER x depth, #20's
+                two counters one op) and no other istvt:: op; 16 clips
+                through the loaded artifact and the live Predictor on the
+                same weights, each counted: exactly the path's launches a
+                forward, every other 0, no K-major copy built; their
+                logits within 1e-3 (whether bit for bit is printed); the
+                B=16 forward median of the artifact and of the live model
+                (both from f32 clips, cast inside), in turns, counted, with
+                the interpreter's garbage collections over them; then
+                for the int8 and the f32 artifact `cli/serve.py --artifact
+                DIR` as a subprocess: one HTTP request whose logit matches
+                the artifact's own in this process (1e-3; bit equality
+                printed), the daemon under 16 client threads of 8
+                one-clip requests (clips/s, p50 / p99 and batches from
+                /v1/stats) and 50 sequential one-clip requests (median and
+                p99 ms, client side), all informative
 
 The line before the last is the kernels' JSON record (`launches`: each
 kernel's launches over every counted run above; a kernel that no counted
 run launched fails the script; a kernel's cases at other shapes under
 `variants`); the last line is {"ok": true, "device":
 {...}}. With --profile PATH, torch.profiler tables of one B=16 forward of
-each serving path and int8 mode, of one B=16 train step and of one B=1
-generate_lrp call with and without use_pallas are written to PATH, each
-with its device time summed by kernel family.
+each serving path and int8 mode, of one B=16 train step, of one B=1
+generate_lrp call with and without use_pallas and of one B=16 forward of
+each serving artifact and its live model are written to PATH, each with
+its device time summed by kernel family.
 """
 from __future__ import annotations
 
@@ -289,13 +312,16 @@ from istvt_tpu_torch.kernels import _lib, selfcheck  # noqa: E402
 from istvt_tpu_torch.models import istvt  # noqa: E402
 from istvt_tpu_torch.serve_daemon import ServeDaemon  # noqa: E402
 from istvt_tpu_torch.cli import certify as cli_certify  # noqa: E402
+from istvt_tpu_torch.cli import export as cli_export  # noqa: E402
+from istvt_tpu_torch.kernels import ops as kernel_ops  # noqa: E402
 from istvt_tpu_torch.core.checkpoint import CheckpointManager  # noqa: E402
 from istvt_tpu_torch.train import distill as D  # noqa: E402
 from istvt_tpu_torch.train import losses as L  # noqa: E402
 from istvt_tpu_torch.train import step as S  # noqa: E402
 from torch_forward_ms import INT8_MODES as TOOL_MODES  # noqa: E402
 from torch_forward_ms import (ITERS, PACKED, PATH_FLAGS,  # noqa: E402
-                              WARMUP, forward_times, input_dtype, set_mode)
+                              WARMUP, alloc_counters, forward_times,
+                              gc_pauses, input_dtype, set_mode)
 from torch_train_ms import (TRAIN_BATCH, build_trainer,  # noqa: E402
                             kernel_families, paper_trainer, train_times,
                             warm_up)
@@ -2055,13 +2081,360 @@ def distill_phase(dev, card):
     phase("distill", f"phase 12 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 13. the serving artifact
+
+
+ARTIFACT_DEPTH = {"int8": DEPTH, "float": DEPTH, "float32": DEPTH}
+ARTIFACT_BUCKETS = ["1", "16"]
+LATENCY_PATHS = ("int8", "float32")   # served by cli/serve.py --artifact
+LOAD_THREADS, LOAD_REQUESTS, SEQUENTIAL = 16, 8, 50
+
+
+def artifact_ops(path, depth):
+    """{istvt::op: calls} of a path's serving program at `depth`: its
+    launch counters a layer, #20's two (with and without r) one op."""
+    out = {}
+    for n, k in SERVE_PER_LAYER[path].items():
+        op = f"istvt::{n.split('/')[0]}"
+        out[op] = out.get(op, 0) + k * depth
+    return out
+
+
+def _counted(path, depth, forwards, fn):
+    """fn() counted from 0: exactly the path's launches a forward x
+    forwards, every other counter 0, no K-major copy built."""
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _tally({n: k * depth * forwards()
+                     for n, k in SERVE_PER_LAYER[path].items()})
+    return out, counts
+
+
+def _get(port, route):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", route)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+class _ServeProcess:
+    """`python -m istvt_tpu_torch.cli.serve --artifact DIR --port 0` from
+    the checkout, its output read on a thread; the port from its
+    'serving ... on http://host:port' line. Stopped on exit."""
+
+    def __init__(self, artifact, timeout=600):
+        import queue
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "istvt_tpu_torch.cli.serve", "--artifact",
+             artifact, "--port", "0"], cwd=_ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines = queue.Queue()
+        self.log = []
+        threading.Thread(target=self._read, daemon=True).start()
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                ln = self.lines.get(timeout=max(deadline - time.monotonic(),
+                                                0.1))
+            except queue.Empty:
+                ln = None
+            if ln is None:
+                self.close()
+                raise SystemExit("cli/serve.py --artifact did not come up:\n"
+                                 + "".join(self.log[-40:]))
+            if ln.startswith("serving ") and " on http://" in ln:
+                self.port = int(ln.split(" on http://", 1)[1].split()[0]
+                                .rsplit(":", 1)[1])
+                return
+
+    def _read(self):
+        for ln in self.proc.stdout:
+            self.log.append(ln)
+            self.lines.put(ln)
+        self.lines.put(None)
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def _load_figures(port, clip_of):
+    """16 client threads of 8 one-clip requests each: (clips/s over the
+    wall time, /v1/stats after them)."""
+    errors = []
+
+    def client(i):
+        for j in range(LOAD_REQUESTS):
+            status, body = _post(port, clip_of(i * LOAD_REQUESTS + j))
+            if status != 200 or not np.all(np.isfinite(body["logits"])):
+                errors.append((status, body))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(LOAD_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"the artifact daemon under load: {errors[:3]}")
+    status, stats = _get(port, "/v1/stats")
+    if status != 200:
+        raise SystemExit(f"/v1/stats: HTTP {status}")
+    return LOAD_THREADS * LOAD_REQUESTS / wall, stats
+
+
+def artifact_daemon_phase(path, out_dir, scorer, card):
+    """cli/serve.py --artifact as a subprocess: one request against the
+    artifact's own logit, the daemon under load, 1-clip latency."""
+    rng = np.random.RandomState(14)
+    clips = rng.randn(LOAD_THREADS * LOAD_REQUESTS + 1, *CLIP).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    server = _ServeProcess(out_dir)
+    try:
+        up = time.perf_counter() - t0
+        status, body = _post(server.port, clips[0])
+        _expect(status, body, 1, f"{path} artifact daemon, 1 clip")
+        own = scorer.predict(clips[:1])["logits"]
+        got = np.asarray(body["logits"], np.float32)
+        d = float(np.abs(got - own).max())
+        phase("artifact", f"{path}: cli/serve.py --artifact up in {up:.1f} "
+              f"s; its logit {got.tolist()} vs the artifact's own "
+              f"{own.tolist()}: |d| {d:.3e} (limit 1e-3), bit-equal "
+              f"{bool(np.array_equal(got, own))}")
+        if not d <= 1e-3:
+            raise SystemExit(f"{path}: the artifact daemon's logit differs "
+                             f"from the artifact's")
+        rate, stats = _load_figures(server.port, lambda i: clips[1 + i])
+        lat = stats["latency_ms"]
+        phase("artifact", f"{path}: daemon under {LOAD_THREADS} client "
+              f"threads x {LOAD_REQUESTS} one-clip requests: "
+              f"{rate:.2f} clips/s; /v1/stats: p50 {lat['p50']:.3f} ms, "
+              f"p99 {lat['p99']:.3f} ms, {stats['batches']} batches, "
+              f"occupancy {stats['batch_occupancy']} (requests "
+              f"{stats['requests']}, the first one above included) on "
+              f"{card} (informative)")
+        ms = []
+        for i in range(SEQUENTIAL):
+            t1 = time.perf_counter()
+            status, body = _post(server.port, clips[i % len(clips)])
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if status != 200:
+                raise SystemExit(f"{path}: HTTP {status} {body}")
+        phase("artifact", f"{path}: 1-clip HTTP latency over {SEQUENTIAL} "
+              f"sequential requests: median {np.median(ms):.3f} ms, p99 "
+              f"{np.percentile(ms, 99):.3f} ms, min {min(ms):.3f} on {card} "
+              f"(informative)")
+    finally:
+        server.close()
+
+
+def _write_pyprofile(fn, x, title, profile, rows=30):
+    """cProfile's statistics of one call fn(x) (after a warm-up one), the
+    Python functions by their own time, appended to `profile`."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    with torch.inference_mode():
+        fn(x)
+        torch.cuda.synchronize()
+        prof.enable()
+        fn(x)
+        torch.cuda.synchronize()
+        prof.disable()
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(rows)
+    with open(profile, "a") as f:
+        f.write(f"{title}, cProfile\n{buf.getvalue()}\n")
+
+
+def _host_state(after):
+    """The host as a run left it: load average, Python's trace and profile
+    hooks, torch's intra-op threads, the ns of a pure-Python call (os.getenv,
+    20,000 times) and the busiest processes (ps)."""
+    t0 = time.perf_counter()
+    for _ in range(20000):
+        os.getenv("ISTVT_UNSET")
+    ns = (time.perf_counter() - t0) / 20000 * 1e9
+    ps = subprocess.run(["ps", "-eo", "pid,pcpu,etime,comm", "--sort=-pcpu"],
+                        capture_output=True, text=True).stdout.splitlines()
+    return (f"after {after}: loadavg {os.getloadavg()}, trace "
+            f"{sys.gettrace()}, profile {sys.getprofile()}, torch threads "
+            f"{torch.get_num_threads()}, os.getenv {ns:.0f} ns a call; ps "
+            f"{ps[:6]}")
+
+
+def _op_call_costs(model, profile, calls=100):
+    """Host us a call of #1 on layer 0's weights at B=1, called through its
+    op's overload (as a program calls it), its overload packet (as the
+    wrapper does) and its CUDA implementation directly; appended to
+    `profile` and printed."""
+    from istvt_tpu_torch.kernels import quant
+    pt = model.vit.transformer.layers[0][0]
+    at = pt.fn
+    x = torch.randn(1, CLIP[0] + 1, 368, PAPER.dim, device="cuda",
+                    dtype=torch.bfloat16)
+    args = (x, pt.norm.weight, pt.norm.bias, at.qkv_wq, at.qkv_ws,
+            PAPER.heads, [at.qkv_wk])
+    ways = {"overload": torch.ops.istvt.ln_qkv_q8_temporal_attention.default,
+            "packet": torch.ops.istvt.ln_qkv_q8_temporal_attention,
+            "direct": quant._ln_qkv_q8_temporal_cuda}
+    us = {}
+    with torch.inference_mode():
+        for name, fn in ways.items():
+            fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(*args)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            us[name] = round(host / calls * 1e6, 1)
+    _lib.reset_launches()
+    phase("artifact", f"int8: host us a call of #1 at B=1: {us}")
+    with open(profile, "a") as f:
+        f.write(f"host us a call of #1 at B=1: {us}\n")
+
+
+def artifact_phase(path, card, profile=None):
+    """13 for one path: export through cli/export.py, the program's ops,
+    the artifact vs the live Predictor (logits, launches, B=16 time; with
+    `profile`, a profiled B=16 forward of each)."""
+    depth = ARTIFACT_DEPTH[path]
+    out_dir = _workdir(f"artifact_{path}")
+    argv = PATHS[path] + ["--depth", str(depth), "--batch_sizes",
+                          *ARTIFACT_BUCKETS, "--selftest", "--out", out_dir]
+    t0 = time.perf_counter()
+    res = cli_export.export(cli_export.build_parser().parse_args(argv))
+    wall = time.perf_counter() - t0
+    live, scorer, man = res["predictor"], res["scorer"], res["manifest"]
+    phase("artifact", f"{path}: cli/export.py {' '.join(argv[:-2])} (depth "
+          f"{depth}, {CLIP[1]}^2 x {CLIP[0]}): export {res['export_s']:.1f} "
+          f"s, load {res['load_s']:.1f} s, {res['bytes']} bytes "
+          f"({', '.join(sorted(os.listdir(out_dir)))}); selftest max|d| "
+          f"{res['delta']:.3e} over {res['n_clips']} clips (limit 1e-3); "
+          f"the command {wall:.1f} s, model build included, on {card}")
+    if not res["delta"] <= 1e-3:
+        raise SystemExit(f"{path}: the artifact's selftest failed")
+    want = artifact_ops(path, depth)
+    held = {f"istvt::{n}": k
+            for n, k in kernel_ops.op_counts(scorer.program.graph).items()
+            if k}
+    phase("artifact", f"{path}: the program's istvt:: ops {held} (manifest "
+          f"{man['custom_ops']}; want exactly {want})")
+    if held != want or man["custom_ops"] != want:
+        raise SystemExit(f"{path}: the program holds other ops than the "
+                         f"path's kernels")
+    clips = np.random.RandomState(13).randn(16, *CLIP).astype(np.float32)
+    scorer.n_forwards = live.n_forwards = 0
+    got, c_art = _counted(path, depth, lambda: scorer.n_forwards,
+                          lambda: scorer.predict(clips)["logits"])
+    want_l, c_live = _counted(path, depth, lambda: live.n_forwards,
+                              lambda: live.predict(clips)["logits"])
+    d = float(np.abs(got - want_l).max())
+    phase("artifact", f"{path}: 16 clips, artifact vs live Predictor on the "
+          f"same weights: max|d| {d:.3e} (limit 1e-3), bit-equal "
+          f"{bool(np.array_equal(got, want_l))}; launches, artifact "
+          f"{ {n: k for n, k in c_art.items() if k} }, live "
+          f"{ {n: k for n, k in c_live.items() if k} } (exact; K-major "
+          f"copies built 0)")
+    if not d <= 1e-3:
+        raise SystemExit(f"{path}: the artifact's logits differ from the "
+                         f"live model's")
+    dt = live.compute_dtype or live.input_dtype or torch.float32
+    runs = {"artifact": lambda x: scorer._fn(x),
+            "live": lambda x: live.model(x.to(dt))}
+    med = {n: [] for n in runs}
+    gcs = {n: [] for n in runs}       # the interpreter's collections
+    allocs = {n: dict.fromkeys(alloc_counters(), 0) for n in runs}
+    free, total = torch.cuda.mem_get_info()
+    threads = sorted(t.name for t in threading.enumerate())
+    for _ in range(2):
+        for name, fn in runs.items():
+            before = alloc_counters()
+            with gc_pauses() as pauses:
+                times, _ = _counted(path, depth, lambda: WARMUP + ITERS,
+                                    lambda fn=fn: forward_times(
+                                        fn, CLIP, torch.float32))
+            med[name].append(float(np.median(times)))
+            gcs[name] += pauses
+            for k, v in alloc_counters().items():
+                allocs[name][k] += v - before[k]
+    gc_line = {n: f"{len(p)} ({sum(g == 2 for g, _ in p)} of generation "
+                  f"2), {sum(ms for _, ms in p):.1f} ms"
+               for n, p in gcs.items()}
+    phase("artifact", f"{path}: B=16 forward median ms, in turns (artifact, "
+          f"live, artifact, live), f32 clips cast inside: artifact "
+          f"{med['artifact']}, live {med['live']} on {card}; launches "
+          f"exactly {WARMUP + ITERS} forwards' each; over the 44 forwards "
+          f"of each: garbage collections {gc_line}, the caching "
+          f"allocator's driver calls {allocs}; the card's memory free "
+          f"before {free / 2**30:.2f} of {total / 2**30:.2f} GiB; threads "
+          f"{threads} (informative)")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        x = torch.randn(16, *CLIP, device="cuda")
+        for name, fn in runs.items():
+            with torch.inference_mode():
+                for _ in range(3):
+                    fn(x)
+            phase("artifact", f"{path} {name}: " + _host_state(
+                "3 B=16 forwards"))
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                with torch.inference_mode():
+                    fn(x)
+                torch.cuda.synchronize()
+            _write_profile(prof, f"{card}, {path} {name}, B=16 forward",
+                           profile)
+            _write_pyprofile(fn, x, f"{card}, {path} {name}, B=16 forward",
+                             profile)
+        if path == "int8":
+            _op_call_costs(live.model, profile)
+            n = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                one = {name: float(np.median(forward_times(
+                    fn, CLIP, torch.float32))) for name, fn in runs.items()}
+            finally:
+                torch.set_num_threads(n)
+            _lib.reset_launches()
+            phase("artifact", f"int8: B=16 forward median ms with torch's "
+                  f"intra-op threads at 1 (from {n}): {one}")
+        phase("artifact", f"{path}: profile tables appended to {profile}")
+    if path in LATENCY_PATHS:
+        artifact_daemon_phase(path, out_dir, scorer, card)
+
+
+def artifact_phases(card, profile=None):
+    t0 = time.perf_counter()
+    for path in PATHS:
+        artifact_phase(path, card, profile)
+        torch.cuda.empty_cache()
+    phase("artifact", f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of a B=16 forward of "
                          "each serving path and int8 mode, a B=16 train "
-                         "step and a B=1 generate_lrp call with and "
-                         "without use_pallas here")
+                         "step, a B=1 generate_lrp call with and "
+                         "without use_pallas and a B=16 forward of each "
+                         "serving artifact and its live model here")
     args = ap.parse_args()
 
     # 1. device
@@ -2193,6 +2566,10 @@ def main():
 
     # 12 distillation and certification
     distill_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # 13 the serving artifact
+    artifact_phases(card, args.profile)
 
     idle = [n for n, k in TOTAL.items() if k == 0]
     if idle:

@@ -19,12 +19,15 @@ maps, attn_bias gradients, LRP relevance; the XLA-math eval forward):
              for sm_90a (csrc/), each with a plain PyTorch version beside it
   models/    Xception stem, ISTVT, the `istvt` registry key
   compat/    JAX params and TrainState <-> port state_dict and optimizer
-  serve.py   bucketed Predictor; serve_daemon.py the HTTP batch server
+  serve.py   bucketed Predictor; serve_daemon.py the HTTP batch server;
+             serve_export.py the serving artifact (torch.export program
+             with the kernels as istvt:: ops, kernels/ops.py)
   train/     loss, metrics, schedules, the train / eval steps, Trainer,
              recalibrate_bn, the metrics logger
   data/      synthetic clips and a synchronous ClipLoader
   interpret/ LRP rollout, full epsilon-rule LRP, saliency PNGs
   cli/       `python -m istvt_tpu_torch.cli.serve --int8`,
+             `python -m istvt_tpu_torch.cli.export --int8 --out DIR`,
              `python -m istvt_tpu_torch.cli.train --dataset synthetic`,
              `python -m istvt_tpu_torch.cli.visualize --dataset synthetic`
 """

@@ -8,8 +8,9 @@ scored on a disjoint val split) on the card and prints the result as
 JSON, with 'backend' and each leg's wall time and peak device memory
 under 'legs'; --out also writes it. Exits 0 only when every criterion
 passes. `--cpu` runs everything on the CPU through the kernels' plain
-versions (the tests use it). --export exits naming ROADMAP.md queue 1
-'Serving extras'.
+versions (the tests use it). --export DIR also exports the certified
+int8 student as a serving artifact (serve_export) and holds the reloaded
+artifact's val logits to the certified ones (criterion artifact_matches).
 """
 from __future__ import annotations
 
@@ -78,9 +79,10 @@ def build_parser():
     p.add_argument("--int8_delta_max", type=float, default=1.0)
     p.add_argument("--out", default=None, help="JSON artifact path")
     p.add_argument("--export", default=None, metavar="DIR",
-                   help="export the certified int8 student as a serving "
-                        "artifact: not ported yet (ROADMAP.md queue 1, "
-                        "'Serving extras')")
+                   help="also export the certified int8 student as a "
+                        "serving artifact (serve_export) and selftest it "
+                        "against the certification's own val logits "
+                        "(criterion artifact_matches)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU: the kernels' plain versions")
     return p
@@ -88,9 +90,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.export:
-        raise SystemExit("--export is not ported yet (ROADMAP.md queue 1, "
-                         "'Serving extras')")
     import torch
 
     from istvt_tpu_torch.core.device import require_cuda
@@ -115,7 +114,8 @@ def main(argv=None):
         int8_delta_max=args.int8_delta_max,
         run_int8=not args.no_int8, run_lrp=not args.no_lrp,
         diag_teacher_lrp=not args.no_teacher_lrp,
-        teacher_ckpt=args.teacher_ckpt, device=dev, legs=legs)
+        export_dir=args.export, teacher_ckpt=args.teacher_ckpt, device=dev,
+        legs=legs)
     result["backend"] = dev.type
     result["legs"] = legs
     blob = json.dumps(result, indent=2, default=float)

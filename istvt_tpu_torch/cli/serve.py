@@ -5,8 +5,10 @@ Stands up the HTTP batch-scoring daemon (serve_daemon.ServeDaemon) on the
 port's ISTVT on the GPU: the int8 W8A8 serving path with --int8, else the
 float fused path (bf16 with --bf16, f32 otherwise), with the weights of
 the latest train checkpoint under --checkpoint_dir (cli/train.py -o), or
-random-init weights without it. Not yet ported (exits with a message):
-AOT artifacts (--artifact).
+random-init weights without it; or, with --artifact DIR, a serving
+artifact of cli/export.py (serve_export.load_artifact: no model code, the
+buckets and clip shape from its manifest, on the device type it was
+exported on).
 """
 from __future__ import annotations
 
@@ -23,7 +25,10 @@ def build_parser():
     p.add_argument("--checkpoint_dir", "-o", default=None,
                    help="serve the latest train checkpoint under this dir")
     p.add_argument("--artifact", default=None,
-                   help="AOT artifact dir (not ported yet)")
+                   help="serve a cli/export artifact directory instead of "
+                        "building a model (model/checkpoint/quantize flags "
+                        "are ignored; buckets and clip shape come from the "
+                        "manifest)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8753)
     p.add_argument("--bf16", action="store_true")
@@ -57,9 +62,10 @@ def build_predictor(args, device=None):
     from istvt_tpu_torch.models.registry import model_selection
     from istvt_tpu_torch.serve import Predictor
 
-    if args.artifact:
-        raise SystemExit("--artifact: not ported yet (ROADMAP.md queue 1, "
-                         "'Serving extras')")
+    if getattr(args, "artifact", None):
+        raise ValueError("--artifact: an artifact is served as it was "
+                         "exported (serve_export.load_artifact), not built "
+                         "into a model")
     device = require_cuda() if device is None else torch.device(device)
     cfg = ISTVTConfig(num_frames=args.seq_len, image_size=args.input_size,
                       feat_hw=istvt.infer_feat_hw(args.input_size),
@@ -92,8 +98,15 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     from istvt_tpu_torch.serve_daemon import ServeDaemon
 
-    predictor = build_predictor(args)
-    clip_shape = (args.seq_len, args.input_size, args.input_size, 3)
+    if args.artifact:
+        from istvt_tpu_torch.serve_export import load_artifact
+        predictor = load_artifact(args.artifact)
+        clip_shape = tuple(predictor.manifest["input_shape"])
+        args.model_name = predictor.manifest.get("model_name",
+                                                 args.model_name)
+    else:
+        predictor = build_predictor(args)
+        clip_shape = (args.seq_len, args.input_size, args.input_size, 3)
     if not args.no_warmup:
         for b in predictor.batch_sizes:
             predictor.predict(np.zeros((b,) + clip_shape, np.float32))

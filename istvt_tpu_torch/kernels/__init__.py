@@ -19,7 +19,9 @@ attention.py, linear.py, mlp.py (float fused path):
   fused_ff                           fc2(gelu_tanh(fc1 x)), the attention-map
                                      path's feed-forward
 Sources in csrc/, built at first use by _lib.py, which also holds the
-launch counts of every wrapper (_lib.LAUNCHES).
+launch counts of every wrapper (_lib.LAUNCHES). The forwards of the serving
+paths are dispatcher ops (ops.py, istvt::<wrapper name>), registered when
+this package is imported.
 
 The kernel API, exported here under the names of istvt_tpu.kernels:
   fused_frame_attention        (G, S, dh) per-frame attention (#14)
@@ -50,3 +52,4 @@ from istvt_tpu_torch.kernels.attention import (  # noqa: F401
     temporal_attention_pallas,
 )
 from istvt_tpu_torch.kernels.mlp import fused_ff  # noqa: F401
+from istvt_tpu_torch.kernels import ops  # noqa: F401,E402  (registers)

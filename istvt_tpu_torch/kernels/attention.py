@@ -15,8 +15,10 @@ Both are differentiable: where autograd records the call, the wrapper is
 a torch.autograd.Function whose backward is temporal_attention_packed_bwd
 (TPU kernel fused_temporal_attention_packed_bwd) or
 spatial_attention_packed_bwd (TPU kernel fused_frame_attention_bwd).
-A CUDA tensor launches the core (or raises on a shape the core does not
-take); a CPU tensor runs the plain version. The spatial core and its
+Each forward is a dispatcher op (kernels/ops.py, istvt::<wrapper name>):
+for CUDA tensors its CUDA implementation (`_temporal_cuda`,
+`_spatial_cuda`) launches the core (or raises on a shape the core does not
+take) and counts the launch; for CPU tensors it runs the plain version. The spatial core and its
 backward run on the tensor cores in both dtypes: bf16 products for bf16
 activations, three TF32 products each for f32 ones (chosen by dtype when
 the kernels are compiled); the
@@ -44,6 +46,10 @@ from __future__ import annotations
 import torch
 
 from istvt_tpu_torch.kernels import _lib
+
+# the dispatcher ops of kernels/ops.py (resolved at call time; the package's
+# __init__ registers them)
+_ops = torch.ops.istvt
 
 
 # ---------------------------------------------------------------------------
@@ -335,17 +341,15 @@ def spatial_attention_packed_bwd(qkv, g, heads: int, n_valid: int = -1):
 # wrappers
 
 
-def _temporal_fwd(qkv, heads):
-    if not qkv.is_cuda:
-        return temporal_packed_plain(qkv, heads)
+def _temporal_cuda(qkv, heads: int):
+    """#11 on the card (its op's CUDA implementation)."""
     out = temporal_core(qkv, heads)
     _lib.LAUNCHES["temporal_attention_packed"] += 1
     return out
 
 
-def _spatial_fwd(qkv, heads, n_valid):
-    if not qkv.is_cuda:
-        return spatial_packed_plain(qkv, heads, n_valid)
+def _spatial_cuda(qkv, heads: int, n_valid: int):
+    """#10 on the card (its op's CUDA implementation)."""
     out = spatial_core(qkv, heads, qkv.shape[1] if n_valid < 0 else n_valid)
     _lib.LAUNCHES["spatial_attention_packed"] += 1
     return out
@@ -356,7 +360,7 @@ class _TemporalPacked(torch.autograd.Function):
     def forward(ctx, qkv, heads):
         ctx.save_for_backward(qkv)
         ctx.heads = heads
-        return _temporal_fwd(qkv, heads)
+        return _ops.temporal_attention_packed(qkv, heads)
 
     @staticmethod
     def backward(ctx, g):
@@ -370,7 +374,7 @@ class _SpatialPacked(torch.autograd.Function):
     def forward(ctx, qkv, heads, n_valid):
         ctx.save_for_backward(qkv)
         ctx.heads, ctx.n_valid = heads, n_valid
-        return _spatial_fwd(qkv, heads, n_valid)
+        return _ops.spatial_attention_packed(qkv, heads, n_valid)
 
     @staticmethod
     def backward(ctx, g):
@@ -385,7 +389,7 @@ def temporal_attention_packed(qkv, heads: int):
     Differentiable (backward #12)."""
     if _lib.needs_grad(qkv):
         return _TemporalPacked.apply(qkv, heads)
-    return _temporal_fwd(qkv, heads)
+    return _ops.temporal_attention_packed(qkv, heads)
 
 
 def spatial_attention_packed(qkv, heads: int, n_valid: int = -1):
@@ -394,7 +398,7 @@ def spatial_attention_packed(qkv, heads: int, n_valid: int = -1):
     Differentiable (backward #13)."""
     if _lib.needs_grad(qkv):
         return _SpatialPacked.apply(qkv, heads, n_valid)
-    return _spatial_fwd(qkv, heads, n_valid)
+    return _ops.spatial_attention_packed(qkv, heads, n_valid)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,11 @@ products accumulate in f32 and the f32 epilogue rounds once to x's dtype,
 in the JAX order. A CUDA tensor runs the hand-written kernels of
 csrc/float_gemm.cu (LN rows, the GEMM with its fused epilogue, and for the
 backward the LN-backward rows and column sums); a CPU tensor runs the
-plain version beside each wrapper. Where autograd records the call, both
-wrappers are torch.autograd.Functions whose backward runs the same way.
+plain version beside each wrapper. Each forward is a dispatcher op
+(kernels/ops.py, istvt::<wrapper name>) that chooses so by the device of
+its tensors. Where autograd records the call, both wrappers are
+torch.autograd.Functions whose forward calls the same op and whose
+backward runs the same way.
 The GEMM runs bf16 inputs on the bf16 tensor cores and f32 inputs as three
 TF32 products on them (split_tf32), within f32's rounding of the plain
 f32 product.
@@ -25,6 +28,10 @@ from typing import NamedTuple, Tuple
 import torch
 
 from istvt_tpu_torch.kernels import _lib
+
+# the dispatcher ops of kernels/ops.py (resolved at call time; the package's
+# __init__ registers them)
+_ops = torch.ops.istvt
 
 _EPS = 1e-5
 
@@ -91,9 +98,8 @@ def matmul_bias_residual_plain(x, w, b, r=None):
 # kernel wrappers (count their launches)
 
 
-def _ln_matmul_fwd(x, s, b, w):
-    if not x.is_cuda:
-        return ln_matmul_plain(x, s, b, w)
+def _ln_matmul_cuda(x, s, b, w):
+    """#18 on the card (its op's CUDA implementation)."""
     lead, d = x.shape[:-1], x.shape[-1]
     _lib.check_act(x, "x")
     y = ln_rows(x.reshape(-1, d), _lib.f32(s), _lib.f32(b))
@@ -127,7 +133,7 @@ class _LnMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, s, b, w):
         ctx.save_for_backward(x, s, b, w)
-        return _ln_matmul_fwd(x, s, b, w)
+        return _ops.ln_matmul(x, s, b, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -145,12 +151,12 @@ def ln_matmul(x, s, b, w):
     CPU tensors take the plain version. Differentiable (backward #19)."""
     if _lib.needs_grad(x, s, b, w):
         return _LnMatmul.apply(x, s, b, w)
-    return _ln_matmul_fwd(x, s, b, w)
+    return _ops.ln_matmul(x, s, b, w)
 
 
-def _matmul_bias_residual_fwd(x, w, b, r):
-    if not x.is_cuda:
-        return matmul_bias_residual_plain(x, w, b, r)
+def _matmul_bias_residual_cuda(x, w, b, r):
+    """#20 on the card (its op's CUDA implementation), counted with or
+    without r."""
     lead, k = x.shape[:-1], w.shape[1]
     _lib.check_act(x, "x")
     if r is not None:
@@ -187,7 +193,7 @@ class _MatmulBiasResidual(torch.autograd.Function):
     def forward(ctx, x, w, b, r):
         ctx.save_for_backward(x, w, b)
         ctx.has_r = r is not None
-        return _matmul_bias_residual_fwd(x, w, b, r)
+        return _ops.matmul_bias_residual(x, w, b, r)
 
     @staticmethod
     def backward(ctx, g):
@@ -205,7 +211,7 @@ def matmul_bias_residual(x, w, b, r=None):
     Differentiable (backward in plain math, as JAX's _mbr_bwd)."""
     if _lib.needs_grad(x, w, b, r):
         return _MatmulBiasResidual.apply(x, w, b, r)
-    return _matmul_bias_residual_fwd(x, w, b, r)
+    return _ops.matmul_bias_residual(x, w, b, r)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ The TPU kernel keeps the (N, 4D) hidden in VMEM; here it makes a round
 trip through device memory in x's dtype (240 MB at B=16 in bf16). The
 numbers are the same, because JAX casts the hidden to x's dtype before fc2
 (mlp.py:95); removing that round trip (fc1 and fc2 in one kernel) is later
-work. A CPU tensor runs the plain version.
+work. A CPU tensor runs the plain version. The forward is the dispatcher
+op istvt::ln_ff_residual (kernels/ops.py), which chooses so by the device
+of its tensors.
 
 Where autograd records the call, ln_ff_residual is a torch.autograd.Function
 as JAX's custom_vjp is: its forward is the h1-stash variant
@@ -40,6 +42,10 @@ from istvt_tpu_torch.kernels import _lib
 from istvt_tpu_torch.kernels.linear import (_ln, _ln_bwd_rows, _ln_stats,
                                             colsum, gemm, gemm_row_tile,
                                             ln_bwd, ln_rows)
+
+# the dispatcher ops of kernels/ops.py (resolved at call time; the package's
+# __init__ registers them)
+_ops = torch.ops.istvt
 
 _GC = 0.7978845608028654   # sqrt(2/pi)
 _GA = 0.044715
@@ -166,9 +172,8 @@ def ln_ff_residual_bwd(x, s, bn, w1, h1, w2, g):
     return dx, ds, dbn, dw1, db1, dw2, db2
 
 
-def _ln_ff_residual_fwd(x, s, bn, w1, b1, w2, b2):
-    if not x.is_cuda:
-        return ln_ff_residual_plain(x, s, bn, w1, b1, w2, b2)
+def _ln_ff_residual_cuda(x, s, bn, w1, b1, w2, b2):
+    """#21 on the card (its op's CUDA implementation)."""
     out, _ = _ff_cuda(x, s, bn, w1, b1, w2, b2, stash=False)
     _lib.LAUNCHES["ln_ff_residual"] += 1
     return out
@@ -199,7 +204,7 @@ def ln_ff_residual(x, s, bn, w1, b1, w2, b2):
     version. Differentiable (h1-stash forward, backward #23)."""
     if _lib.needs_grad(x, s, bn, w1, b1, w2, b2):
         return _LnFFResidual.apply(x, s, bn, w1, b1, w2, b2)
-    return _ln_ff_residual_fwd(x, s, bn, w1, b1, w2, b2)
+    return _ops.ln_ff_residual(x, s, bn, w1, b1, w2, b2)
 
 
 # ---------------------------------------------------------------------------

@@ -38,12 +38,16 @@ q8_attn); #n is the kernel's row in PERF.md's table of the TPU kernels
     other    ln_ff_residual_q8_full     LN -> int8 fc1 -> GELU -> int8
                                         fc2 + b2 + x          (TPU #7)
 
-Each wrapper, for a CUDA tensor, launches the hand-written CUDA kernels in
-csrc/ (built at first use, kernels/_lib.py) and counts one launch in
-_lib.LAUNCHES under its own name however many CUDA launches it makes;
-for a CPU tensor it runs the plain PyTorch version beside it. There is no
-fallback from one to the other: a CUDA tensor that the kernel cannot take
-raises.
+Each wrapper calls its dispatcher op istvt::<wrapper name> (kernels/ops.py),
+which chooses by the device of its tensors: for CUDA tensors the op's CUDA
+implementation (`_<name>_cuda` here) checks its operands, launches the
+hand-written CUDA kernels in csrc/ (built at first use, kernels/_lib.py)
+and counts one launch in _lib.LAUNCHES under the wrapper's name however
+many CUDA launches it makes; for CPU tensors the op runs the plain PyTorch
+version beside the wrapper. There is no fallback from one to the other: a
+CUDA tensor that the kernel cannot take raises. Since the kernels are
+ops, a torch.export program of a model holds them, and a loaded program
+launches (and counts) them as the live model does (serve_export.py).
 
 Every wrapper runs its GEMMs on the int8 wgmma GEMM (csrc/q8_rows_gemm.cu,
 gemm_q8 below; #9 the same device code inside its one launch), which reads
@@ -78,6 +82,16 @@ from istvt_tpu_torch.kernels.attention import (check_spatial, check_temporal,
                                                temporal_packed_plain)
 from istvt_tpu_torch.kernels.linear import _ln, gemm
 from istvt_tpu_torch.kernels.mlp import _gelu_tanh
+
+# the dispatcher ops of kernels/ops.py (resolved at call time; the package's
+# __init__ registers them)
+_ops = torch.ops.istvt
+
+
+def _wk(wk):
+    """A wrapper's `wk` (a sequence of K-major copies, or None) as its op's
+    tensor-list argument: the copies, or an empty list where none is given."""
+    return [] if wk is None else list(wk)
 
 
 # ---------------------------------------------------------------------------
@@ -143,15 +157,19 @@ def ln_qkv_q8_temporal_plain(x, s, b, wq, ws, heads: int):
     return temporal_packed_plain(ln_matmul_q8_plain(x, s, b, wq, ws), heads)
 
 
+def _ln_qkv_q8_temporal_cuda(x, s, b, wq, ws, heads: int, wk):
+    """Kernel A on the card (its op's CUDA implementation)."""
+    out = temporal_core(_ln_matmul_q8_launch(x, s, b, wq, ws, wk), heads)
+    _lib.LAUNCHES["ln_qkv_q8_temporal_attention"] += 1
+    return out
+
+
 def ln_qkv_q8_temporal_attention(x, s, b, wq, ws, heads: int, wk=None):
     """Fused LN -> int8 QKV -> self-subtract temporal attention:
     x (B, T1, S, D) -> (B, T1, S, I); wk: (kmajor(wq),) or None. CPU
     tensors take the plain version."""
-    if not x.is_cuda:
-        return ln_qkv_q8_temporal_plain(x, s, b, wq, ws, heads)
-    out = temporal_core(_ln_matmul_q8_cuda(x, s, b, wq, ws, wk), heads)
-    _lib.LAUNCHES["ln_qkv_q8_temporal_attention"] += 1
-    return out
+    return _ops.ln_qkv_q8_temporal_attention(x, s, b, wq, ws, heads,
+                                             _wk(wk))
 
 
 # ---------------------------------------------------------------------------
@@ -172,10 +190,14 @@ def mm_q8_ln_qkv_q8_spatial_attention(a, woq, wos, bo, s, b, wq, ws,
     """Fused t-out-proj (W8A8) -> LN -> int8 QKV -> spatial attention:
     a (G, S, I_in) -> (G, S, I); wk: (kmajor(woq), kmajor(wq)) or None.
     CPU tensors take the plain version."""
-    if not a.is_cuda:
-        return mm_q8_ln_qkv_q8_spatial_plain(a, woq, wos, bo, s, b, wq, ws,
-                                             heads, n_valid)
-    qkv = _matmul_q8_ln_matmul_q8_cuda(a, woq, wos, bo, s, b, wq, ws, wk)
+    return _ops.mm_q8_ln_qkv_q8_spatial_attention(
+        a, woq, wos, bo, s, b, wq, ws, heads, n_valid, _wk(wk))
+
+
+def _mm_q8_ln_qkv_q8_spatial_cuda(a, woq, wos, bo, s, b, wq, ws, heads: int,
+                                  n_valid: int, wk):
+    """Kernel B on the card (its op's CUDA implementation)."""
+    qkv = _matmul_q8_ln_matmul_q8_launch(a, woq, wos, bo, s, b, wq, ws, wk)
     out = spatial_core(qkv, heads, a.shape[1] if n_valid < 0 else n_valid)
     _lib.LAUNCHES["mm_q8_ln_qkv_q8_spatial_attention"] += 1
     return out
@@ -203,9 +225,13 @@ def matmul_q8_res_ln_ff_q8_full(a, r, wqo, wso, bo, s, b, w1q, w1s, b1,
     a (..., N, I_in), r (..., N, D) -> (..., N, D); wk: (kmajor(wqo),
     kmajor(w1q), kmajor(w2q)) or None. CPU tensors take the plain
     version."""
-    if not a.is_cuda:
-        return matmul_q8_res_ln_ff_q8_full_plain(a, r, wqo, wso, bo, s, b,
-                                                 w1q, w1s, b1, w2q, w2s, b2)
+    return _ops.matmul_q8_res_ln_ff_q8_full(a, r, wqo, wso, bo, s, b, w1q,
+                                            w1s, b1, w2q, w2s, b2, _wk(wk))
+
+
+def _matmul_q8_res_ln_ff_q8_full_cuda(a, r, wqo, wso, bo, s, b, w1q, w1s,
+                                      b1, w2q, w2s, b2, wk):
+    """Kernel C on the card (its op's CUDA implementation)."""
     d_in, d, hdim = a.shape[-1], wqo.shape[1], w1q.shape[1]
     _lib.check_act(a, "a")
     _check_res(r, a, d)
@@ -236,9 +262,9 @@ def ln_matmul_q8_plain(x, s, b, wq, ws):
     return o.to(x.dtype).reshape(*lead, wq.shape[1])
 
 
-def _ln_matmul_q8_cuda(x, s, b, wq, ws, wk):
-    """#4 on the card, counted by its caller: LN + row quant, then the
-    W8A8 GEMM whose epilogue scales and rounds to x's dtype."""
+def _ln_matmul_q8_launch(x, s, b, wq, ws, wk):
+    """#4's launches on the card, counted by the caller: LN + row quant,
+    then the W8A8 GEMM whose epilogue scales and rounds to x's dtype."""
     d, k = x.shape[-1], wq.shape[1]
     _lib.check_act(x, "x")
     _check_q8(wq, ws, d, k)
@@ -254,9 +280,12 @@ def ln_matmul_q8(x, s, b, wq, ws, wk=None):
     """LayerNorm(x) @ dequant(wq, ws): x (..., N, D), wq int8 (D, K), ws
     (K,) -> (..., N, K) in x.dtype; the rows quantize after the LN, no
     bias; wk: (kmajor(wq),) or None. CPU tensors take the plain version."""
-    if not x.is_cuda:
-        return ln_matmul_q8_plain(x, s, b, wq, ws)
-    out = _ln_matmul_q8_cuda(x, s, b, wq, ws, wk)
+    return _ops.ln_matmul_q8(x, s, b, wq, ws, _wk(wk))
+
+
+def _ln_matmul_q8_cuda(x, s, b, wq, ws, wk):
+    """#4 on the card (its op's CUDA implementation)."""
+    out = _ln_matmul_q8_launch(x, s, b, wq, ws, wk)
     _lib.LAUNCHES["ln_matmul_q8"] += 1
     return out
 
@@ -281,8 +310,12 @@ def matmul_q8_bias_residual(x, wq, ws, b, r=None, wk=None):
     None -> (..., N, K) in x.dtype, the int8 form of
     kernels/linear.matmul_bias_residual; wk: (kmajor(wq),) or None. CPU
     tensors take the plain version."""
-    if not x.is_cuda:
-        return matmul_q8_bias_residual_plain(x, wq, ws, b, r)
+    return _ops.matmul_q8_bias_residual(x, wq, ws, b, r, _wk(wk))
+
+
+def _matmul_q8_bias_residual_cuda(x, wq, ws, b, r, wk):
+    """#5 on the card (its op's CUDA implementation), counted with or
+    without r."""
     d_in, k = x.shape[-1], wq.shape[1]
     _lib.check_act(x, "x")
     if r is not None:
@@ -311,9 +344,10 @@ def matmul_q8_ln_matmul_q8_plain(a, wq1, ws1, b1, s, b, wq2, ws2):
     return o.to(a.dtype).reshape(*a.shape[:-1], wq2.shape[1])
 
 
-def _matmul_q8_ln_matmul_q8_cuda(a, wq1, ws1, b1, s, b, wq2, ws2, wk):
-    """#8 on the card, counted by its caller: row quant, W8A8 + b1 into an
-    f32 intermediate, LN + row quant of it, W8A8 rounded to a's dtype."""
+def _matmul_q8_ln_matmul_q8_launch(a, wq1, ws1, b1, s, b, wq2, ws2, wk):
+    """#8's launches on the card, counted by the caller: row quant, W8A8 +
+    b1 into an f32 intermediate, LN + row quant of it, W8A8 rounded to a's
+    dtype."""
     d_in, d_mid, k = a.shape[-1], wq1.shape[1], wq2.shape[1]
     _lib.check_act(a, "a")
     _check_q8(wq1, ws1, d_in, d_mid)
@@ -334,9 +368,13 @@ def matmul_q8_ln_matmul_q8(a, wq1, ws1, b1, s, b, wq2, ws2, wk=None):
     """LN(a @ dequant(wq1, ws1) + b1) @ dequant(wq2, ws2): a (..., N,
     D_in) -> (..., N, K) in a.dtype; wk: (kmajor(wq1), kmajor(wq2)) or
     None. CPU tensors take the plain version."""
-    if not a.is_cuda:
-        return matmul_q8_ln_matmul_q8_plain(a, wq1, ws1, b1, s, b, wq2, ws2)
-    out = _matmul_q8_ln_matmul_q8_cuda(a, wq1, ws1, b1, s, b, wq2, ws2, wk)
+    return _ops.matmul_q8_ln_matmul_q8(a, wq1, ws1, b1, s, b, wq2, ws2,
+                                       _wk(wk))
+
+
+def _matmul_q8_ln_matmul_q8_cuda(a, wq1, ws1, b1, s, b, wq2, ws2, wk):
+    """#8 on the card (its op's CUDA implementation)."""
+    out = _matmul_q8_ln_matmul_q8_launch(a, wq1, ws1, b1, s, b, wq2, ws2, wk)
     _lib.LAUNCHES["matmul_q8_ln_matmul_q8"] += 1
     return out
 
@@ -362,8 +400,11 @@ def ln_ff_residual_q8(x, s, b, w1q, w1s, b1, w2, b2, wk=None):
     """x + fc2(gelu_tanh(fc1_q8(LN x))): x (..., N, D), w1q int8 (D, H),
     w2 (H, D) float in the (in, out) layout -> (..., N, D) in x.dtype; wk:
     (kmajor(w1q),) or None. CPU tensors take the plain version."""
-    if not x.is_cuda:
-        return ln_ff_residual_q8_plain(x, s, b, w1q, w1s, b1, w2, b2)
+    return _ops.ln_ff_residual_q8(x, s, b, w1q, w1s, b1, w2, b2, _wk(wk))
+
+
+def _ln_ff_residual_q8_cuda(x, s, b, w1q, w1s, b1, w2, b2, wk):
+    """#6 on the card (its op's CUDA implementation)."""
     d, hdim = x.shape[-1], w1q.shape[1]
     _lib.check_act(x, "x")
     _check_q8(w1q, w1s, d, hdim)
@@ -416,9 +457,12 @@ def ln_ff_residual_q8_full(x, s, b, w1q, w1s, b1, w2q, w2s, b2, wk=None):
     """x + fc2_q8(gelu_tanh(fc1_q8(LN x))): x (..., N, D), w1q int8 (D, H),
     w2q int8 (H, D) -> (..., N, D) in x.dtype; wk: (kmajor(w1q),
     kmajor(w2q)) or None. CPU tensors take the plain version."""
-    if not x.is_cuda:
-        return ln_ff_residual_q8_full_plain(x, s, b, w1q, w1s, b1, w2q, w2s,
-                                            b2)
+    return _ops.ln_ff_residual_q8_full(x, s, b, w1q, w1s, b1, w2q, w2s, b2,
+                                       _wk(wk))
+
+
+def _ln_ff_residual_q8_full_cuda(x, s, b, w1q, w1s, b1, w2q, w2s, b2, wk):
+    """#7 on the card (its op's CUDA implementation)."""
     d, hdim = x.shape[-1], w1q.shape[1]
     _lib.check_act(x, "x")
     _check_q8(w1q, w1s, d, hdim)
@@ -503,20 +547,26 @@ def st_layer_q8(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss, wos,
     kmajor(wot), kmajor(wqs), kmajor(wos), kmajor(w1q), kmajor(w2q)) or None,
     checked on any device. On the card one launch: a persistent kernel that
     walks the layer's phases with its intermediates in a workspace
-    allocated here (layer_workspace: 889 MB at B=16 in bf16); `stamps`, an
-    int64 CUDA tensor of LAYER_STAMPS elements (dim_head 64 only), runs the
-    kernel's stamped instantiation instead, which writes there the
-    %globaltimer ns at its start and at the end of each phase
-    (tools/kernel_ms.py --layer-phases). CPU tensors take the plain
-    version."""
-    if wk is not None:
-        _kmajor_of(wk, wqt, wot, wqs, wos, w1q, w2q)
+    allocated in the call (layer_workspace: 889 MB at B=16 in bf16);
+    `stamps`, an int64 CUDA tensor of LAYER_STAMPS elements (dim_head 64
+    only), runs the kernel's stamped instantiation instead, outside the
+    dispatcher op, which writes there the %globaltimer ns at its start and
+    at the end of each phase (tools/kernel_ms.py --layer-phases). CPU
+    tensors take the plain version."""
+    args = (x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss, wos, sos,
+            bos, sf, bf, w1q, w1s, b1, w2q, w2s, b2, heads, n_valid, _wk(wk))
+    if stamps is None:
+        return _ops.st_layer_q8(*args)
     if not x.is_cuda:
-        if stamps is not None:
-            raise ValueError("phase stamps are the card kernel's")
-        return st_layer_q8_plain(x, st, bt, wqt, wst, wot, sot, bot, ss, bs,
-                                 wqs, wss, wos, sos, bos, sf, bf, w1q, w1s,
-                                 b1, w2q, w2s, b2, heads, n_valid)
+        raise ValueError("phase stamps are the card kernel's")
+    return _st_layer_q8_cuda(*args, stamps=stamps)
+
+
+def _st_layer_q8_cuda(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss,
+                      wos, sos, bos, sf, bf, w1q, w1s, b1, w2q, w2s, b2,
+                      heads: int, n_valid: int, wk, stamps=None):
+    """#9 on the card (its op's CUDA implementation; with `stamps`, the
+    stamped instantiation)."""
     if x.dim() != 4:
         raise ValueError(f"x {tuple(x.shape)}: expected (B, T1, S, D)")
     bsz, t1, s_len, d = x.shape
@@ -627,9 +677,9 @@ def kmajor_given(*copies):
 
 def _kmajor_of(wk, *wqs):
     """The K-major copies of the int8 weights wqs (checked, on the card):
-    wk's, in wqs' order, or, where wk is None, built now on the card (each
-    counted in _lib.KMAJOR_BUILDS)."""
-    if wk is None:
+    wk's, in wqs' order, or, where wk is None or empty, built now on the
+    card (each counted in _lib.KMAJOR_BUILDS)."""
+    if not wk:
         _lib.KMAJOR_BUILDS["q8_kmajor"] += len(wqs)
         return tuple(kmajor(wq) for wq in wqs)
     wk = tuple(wk)

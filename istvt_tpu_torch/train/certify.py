@@ -15,7 +15,11 @@ disjoint val split:
   3. int8 serving parity    - the same student through the W8A8 path
                               (use_pallas, quantize='int8', its kernels):
                               AUC, rank fidelity to its float logits, max
-                              |logit delta|;
+                              |logit delta|; with export_dir, that exact
+                              int8 student exported as a serving artifact
+                              (serve_export), reloaded, and its val logits
+                              held to the ones certified
+                              (artifact_matches);
   4. teacher-logit fidelity - Spearman rank correlation of student and
                               teacher val logits;
   5. interpretability       - the student's LRP maps put more cam_s mass
@@ -31,9 +35,9 @@ Departures from JAX, its advisor's findings (ADVICE.md r5) not carried
 over: a cam_chunk that does not divide a batch computes a ragged last
 slice (JAX's _lrp_eval silently ran the whole batch); teacher_ckpt keeps
 a meta record (seed, patch, train_amp_range, geometry, seq_len) beside
-the teacher's state_dict, and a restore under other settings raises.
-export_dir raises: the serving artifact is ROADMAP.md queue 1 'Serving
-extras', so `artifact_matches` is never a criterion.
+the teacher's state_dict, and a restore under other settings raises;
+export_dir without the int8 leg raises (JAX exported nothing then,
+silently).
 
 Drivers: `python -m istvt_tpu_torch.cli.certify`;
 tests/test_torch_certify.py runs the chain at a CPU-scaled geometry.
@@ -62,8 +66,6 @@ from istvt_tpu_torch.train import losses as L
 from istvt_tpu_torch.train import step as S
 from istvt_tpu_torch.train.metrics import auc
 from istvt_tpu_torch.train.schedule import cosine_schedule
-
-_ROADMAP = "ROADMAP.md queue 1"
 
 
 def _batches(ds, batch_size: int, device=None):
@@ -308,11 +310,9 @@ def certify_recipe(
     student, int8, lrp.
     compute_dtype: torch.bfloat16 trains both loops in bf16 over f32
     masters."""
-    if export_dir:
-        why = "" if run_int8 else " (and it would need the int8 leg)"
-        raise NotImplementedError(
-            f"export_dir: the serving artifact is not ported yet{why} "
-            f"({_ROADMAP}, 'Serving extras')")
+    if export_dir and not run_int8:
+        raise ValueError("export_dir exports the certified int8 student: "
+                         "it needs the int8 leg (run_int8=True)")
     if train_amp_range is not None and len(train_amp_range) != 2:
         raise ValueError(f"train_amp_range={train_amp_range!r}: want "
                          f"(lo, hi)")
@@ -439,6 +439,15 @@ def certify_recipe(
                 quantize="int8")
             istvt.quantize_params(student_q)
             q_logits = _eval_logits(student_q, vb_s)
+            if export_dir:
+                art_delta, batches_ = _export_certified(
+                    student_q, export_dir, vb_s["clips"], q_logits,
+                    seq_len=seq_len, student_size=student_size,
+                    batch_size=batch_size, geometry=result["geometry"],
+                    device=dev)
+                log(f"[certify] exported artifact {export_dir} "
+                    f"({batches_}): max |logit delta| vs certified int8 "
+                    f"logits {art_delta:.3e}")
             del student_q
         int8_auc = float(auc(torch.as_tensor(q_logits), labels))
         int8_delta = float(np.max(np.abs(q_logits - s_logits)))
@@ -451,6 +460,10 @@ def certify_recipe(
             int8_auc=int8_auc >= auc_frac * teacher_auc,
             int8_delta=int8_delta <= int8_delta_max,
             int8_rank_fidelity=int8_sp >= int8_spearman_min)
+        if export_dir:
+            result.update(export_dir=export_dir,
+                          artifact_max_logit_delta=art_delta)
+            criteria.update(artifact_matches=art_delta <= 1e-3)
 
     # -- LRP localization on the shipped student ------------------------
     if run_lrp:
@@ -470,6 +483,34 @@ def certify_recipe(
     log(f"[certify] PASS={result['pass']} in {result['wall_s']}s "
         f"({sum(criteria.values())}/{len(criteria)} criteria)")
     return result
+
+
+def _export_certified(student_q, export_dir, clips, q_logits, *, seq_len,
+                      student_size, batch_size, geometry, device):
+    """Export the EXACT quantized student just scored
+    (serve_export.save_artifact, the input cast to its parameters' dtype as
+    the eval step casts it), reload it and score the val clips: (max
+    |logit delta| vs the certified int8 logits, the manifest's buckets).
+    The artifact a deployer ships is the one the criteria certify, not a
+    re-derived cousin (JAX train/certify.py:455-470). Its buckets are
+    JAX's 1 and batch_size, and the val split's size, which the one
+    program serves too: the val clips then run in one forward, as the
+    certified logits did. At another batch size the stem's convolutions
+    may sum in another order, and an ulp there can flip an int8 code (a
+    toy CPU run on one thread: 2.7e-3 at buckets of 4 against one forward
+    of 8)."""
+    from istvt_tpu_torch import serve_export as SE
+
+    dtype = next(student_q.parameters()).dtype
+    man = SE.save_artifact(
+        export_dir, student_q,
+        input_shape=(seq_len, student_size, student_size, 3),
+        batch_sizes=sorted({1, batch_size, len(clips)}),
+        input_dtype=None if dtype == torch.float32 else dtype,
+        device=device, extra_meta={"certified": True, "geometry": geometry})
+    scorer = SE.load_artifact(export_dir, device)
+    a_logits = scorer.predict(clips.float())["logits"].reshape(-1)
+    return float(np.max(np.abs(a_logits - q_logits))), man["batch_sizes"]
 
 
 def _lrp_checks(result, criteria, teacher, student, val_items, *, seq_len,

@@ -12,10 +12,12 @@ _spatial_ratios) on the same val split and probes, within 1e-4; the
 whole JAX chain takes about two minutes on one core of a CPU, past this
 file's share of the suite. The result's keys and criteria names are held
 to CERT_RECIPE.json, the JAX CLI's production result (less its export
-keys and the CLI's 'backend'). Then the guards of the JAX advisor's
-findings that the port does not carry over: a ragged cam_chunk, a
-teacher checkpoint restored under other settings, --train_amp with one
-value, and --export.
+keys and the CLI's 'backend'); a reduced run with export_dir adds the
+export keys and artifact_matches, the reloaded artifact's val logits
+within 1e-3 of the certified int8 ones. Then the guards of the JAX
+advisor's findings that the port does not carry over: a ragged cam_chunk,
+a teacher checkpoint restored under other settings, --train_amp with one
+value, and --export without the int8 leg.
 """
 import json
 import os
@@ -179,6 +181,35 @@ def test_certify_chain_matches_jax_teacher(teacher):
             assert abs(e["teacher_share"] - share) <= 1e-4, (e, share)
 
 
+def test_certify_export_dir_ships_the_certified_student(teacher, tmp_path):
+    """export_dir: the int8 student just scored is exported, reloaded
+    (serve_export.load_artifact) and its val logits held to the certified
+    int8 logits (artifact_matches, <= 1e-3); the result gains JAX's export
+    keys; the artifact holds the int8 chain's ops, one each a layer."""
+    port = teacher[3]
+    out = str(tmp_path / "art")
+    res = tcert.certify_recipe(
+        teacher_size=SIZE, teacher_depth=2, student_size=56,
+        student_depth=1, seq_len=T, train_clips=4, val_clips=8,
+        batch_size=4, patch_size=PS, distill_epochs=0, attn_weight=0.0,
+        seed=0, run_lrp=False, teacher_bundle=port, export_dir=out,
+        device=torch.device("cpu"), log=lambda *_: None)
+    with open(CERT) as f:
+        rec = json.load(f)
+    assert {"export_dir", "artifact_max_logit_delta"} <= set(res) <= set(rec)
+    assert res["export_dir"] == out
+    assert res["criteria"]["artifact_matches"] is True
+    assert 0.0 <= res["artifact_max_logit_delta"] <= 1e-3
+    with open(os.path.join(out, "manifest.json")) as f:
+        man = json.load(f)
+    assert man["batch_sizes"] == [1, 4, 8] and man["platforms"] == ["cpu"]
+    assert man["extra"]["certified"] is True
+    assert man["custom_ops"] == {
+        "istvt::ln_qkv_q8_temporal_attention": 1,
+        "istvt::mm_q8_ln_qkv_q8_spatial_attention": 1,
+        "istvt::matmul_q8_res_ln_ff_q8_full": 1}
+
+
 def test_ragged_cam_chunk_is_one_more_slice(teacher):
     """A cam_chunk that does not divide the batch: 3 clips in slices of 2
     equal the whole batch's logits and cams (JAX's _lrp_eval ran the whole
@@ -219,7 +250,8 @@ def test_cli_teacher_checkpoint_round_trip(tmp_path, capsys):
 
 def test_cli_flags_and_refusals(capsys):
     """JAX's flags and defaults; --train_amp wants exactly 'lo,hi' with lo
-    <= hi or 'none'; --export and export_dir name 'Serving extras'."""
+    <= hi or 'none'; --export / export_dir without the int8 leg raise
+    before anything runs (JAX exported nothing then, silently)."""
     j_parser, t_parser = jcli.build_parser(), tcli.build_parser()
     opts = lambda p: {o for a in p._actions for o in a.option_strings}  # noqa
     assert opts(t_parser) == opts(j_parser)
@@ -231,9 +263,8 @@ def test_cli_flags_and_refusals(capsys):
         with pytest.raises(SystemExit):
             t_parser.parse_args(["--train_amp", bad])
     assert "--train_amp" in capsys.readouterr().err
-    with pytest.raises(SystemExit, match="Serving extras"):
-        tcli.main(["--cpu", "--export", "art"])
-    for run_int8 in (True, False):
-        with pytest.raises(NotImplementedError, match="Serving extras"):
-            tcert.certify_recipe(export_dir="art", run_int8=run_int8,
-                                 device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="int8 leg"):
+        tcli.main(["--cpu", "--export", "art", "--no_int8"])
+    with pytest.raises(ValueError, match="int8 leg"):
+        tcert.certify_recipe(export_dir="art", run_int8=False,
+                             device=torch.device("cpu"))

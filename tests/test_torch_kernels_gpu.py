@@ -20,7 +20,8 @@ forward's rows, at M off its tile and in every (output, residual, GELU)
 combination its callers use, bit for bit against its plain version
 without GELU, with its padding never read and its weight copies built in
 a call where none is given; then small models on the card against the
-CPU.
+CPU, and small serving artifacts exported on the card against the live
+model.
 
 Needs an NVIDIA GPU with nvcc: marked `gpu`, and skipped (inside the
 fixture, not at import) where torch sees no CUDA device. Run on the card:
@@ -752,6 +753,54 @@ def test_int8_mode_on_card_matches_cpu(cuda, q8_ff, q8_attn):
                       **{n: k * cfg.depth for n, k in per_layer.items()}}
     assert _lib.KMAJOR_BUILDS["q8_kmajor"] == 0     # the model's copies
     assert (got - want).abs().max() <= 5e-2, (got, want)
+
+
+@pytest.mark.parametrize("flags, per_layer", [
+    (["--int8"], {"ln_qkv_q8_temporal_attention": 1,
+                  "mm_q8_ln_qkv_q8_spatial_attention": 1,
+                  "matmul_q8_res_ln_ff_q8_full": 1}),
+    (["--bf16"], {"ln_matmul": 2, "temporal_attention_packed": 1,
+                  "spatial_attention_packed": 1, "matmul_bias_residual": 1,
+                  "matmul_bias_residual/no_r": 1, "ln_ff_residual": 1})],
+    ids=["int8", "bf16"])
+def test_artifact_on_card_matches_the_live_model(cuda, tmp_path, flags,
+                                                 per_layer):
+    """A small model exported on the card (serve_export, its kernels as
+    istvt:: ops), reloaded: over 3 clips in buckets (2, 4) its logits equal
+    the live Predictor's within 1e-3 (bit for bit expected: the same
+    kernels on the same weights), and its forwards launch exactly the
+    live forwards' kernels, the model's K-major copies built 0 times."""
+    import numpy as np
+
+    from istvt_tpu_torch import serve_export
+    from istvt_tpu_torch.cli.serve import build_parser, build_predictor
+
+    args = build_parser().parse_args(flags + [
+        "-sl", "2", "-is", "72", "--depth", "2", "--buckets", "2", "4"])
+    live = build_predictor(args, cuda)
+    out = str(tmp_path / "artifact")
+    manifest = serve_export.save_artifact(
+        out, live.model, input_shape=(2, 72, 72, 3), batch_sizes=(2, 4),
+        input_dtype=torch.bfloat16)
+    assert manifest["platforms"] == ["cuda"]
+    scorer = serve_export.load_artifact(out)
+    clips = np.random.RandomState(3).randn(3, 2, 72, 72, 3).astype(
+        np.float32)
+    counts = []
+    for pred in (scorer, live):
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        pred.n_forwards = 0
+        logits = pred.predict(clips)["logits"]
+        torch.cuda.synchronize()
+        counts.append(dict(_lib.LAUNCHES))
+        assert pred.n_forwards == 1
+        assert counts[-1] == {**dict.fromkeys(_lib.LAUNCHES, 0),
+                              **{n: k * 2 for n, k in per_layer.items()}}
+        assert _lib.KMAJOR_BUILDS["q8_kmajor"] == 0
+        if pred is scorer:
+            got = logits
+    assert np.abs(got - logits).max() <= 1e-3, (got, logits)
 
 
 def _layer_case(cuda, **geometry):

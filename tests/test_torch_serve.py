@@ -133,7 +133,7 @@ def test_cli_build_predictor_int8_only():
     assert pred.model.cfg.quantize == "int8" and pred.model.cfg.feat_hw == 5
     out = pred.predict(np.zeros((1,) + CLIP, np.float32))
     assert np.isfinite(out["logits"]).all()
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(ValueError, match="load_artifact"):
         build_predictor(SimpleNamespace(int8=True, artifact="x",
                                         checkpoint_dir=None), device=CPU)
 
