@@ -21,9 +21,10 @@ data path from disk (a frame tree scored by `cli/score.py --int8` and
 trained on by `cli/train.py --dataset ff++`), and the LRP relevance maps
 (`interpret/`, `cli/visualize.py`) in f32, then the kernel API
 (`istvt_tpu_torch.kernels`, `kernels/conv.py`), which no model path
-reaches, and last distillation (`cli/train.py --distill_from`) and the
-recipe's certification (`cli/certify.py`). In phases; any failure raises
-and exits non-zero:
+reaches, distillation (`cli/train.py --distill_from`) and the recipe's
+certification (`cli/certify.py`), the serving artifact, and last the bench
+CLI (`cli/bench.py`) and the tooling (`utils/`). In phases; any failure
+raises and exits non-zero:
 
   1. device   - a CUDA device is required; prints nvidia-smi's name and
                 power limit and the torch / CUDA versions
@@ -258,6 +259,25 @@ and exits non-zero:
                 one-clip requests (clips/s, p50 / p99 and batches from
                 /v1/stats) and 50 sequential one-clip requests (median and
                 p99 ms, client side), all informative
+ 14. bench    - the bench CLI and the tooling: `cli/bench.main` in this
+                process at 300^2 x 6, depth 12 (BENCH_RUNS): --quantize
+                int8 -bs 16 --chained, -bs 16 and -bs 1 per call in bf16,
+                --train_step -bs 16 --grad_accum 2 and with --remat,
+                --pipeline -bs 16 over a synthetic 300^2 JPEG tree (uint8,
+                --f32_ingest, --f32_ingest --no_native): each JSON line has
+                the keys of JAX's CLI for its mode (BENCH_KEYS) and platform
+                'gpu'; counted from 0, each kernel exactly its launches a
+                forward or a microbatch's step x the run's forwards or steps
+                (bench_launches), every other 0; utils/debug.debug_nans on a
+                depth-2 B=2 bf16 fused step (cli/train.py's build, cuDNN
+                deterministic): loss and gradient norm bit-equal to the
+                same step's without the mode (parameters: printed), the
+                host ms a step with and without it, one NaN pixel raises
+                FloatingPointError, and the mode is gone after; one B=16
+                bf16 train step at depth 12 inside utils/profiling.trace,
+                summarized by utils/trace_summary: device time by the
+                operator that launched it, the port's (istvt::) apart, the
+                top 25 rows, copies and memsets apart
 
 The line before the last is the kernels' JSON record (`launches`: each
 kernel's launches over every counted run above; a kernel that no counted
@@ -311,6 +331,7 @@ from istvt_tpu_torch.interpret.heatmap import png_bytes  # noqa: E402
 from istvt_tpu_torch.kernels import _lib, selfcheck  # noqa: E402
 from istvt_tpu_torch.models import istvt  # noqa: E402
 from istvt_tpu_torch.serve_daemon import ServeDaemon  # noqa: E402
+from istvt_tpu_torch.cli import bench as cli_bench  # noqa: E402
 from istvt_tpu_torch.cli import certify as cli_certify  # noqa: E402
 from istvt_tpu_torch.cli import export as cli_export  # noqa: E402
 from istvt_tpu_torch.kernels import ops as kernel_ops  # noqa: E402
@@ -318,6 +339,10 @@ from istvt_tpu_torch.core.checkpoint import CheckpointManager  # noqa: E402
 from istvt_tpu_torch.train import distill as D  # noqa: E402
 from istvt_tpu_torch.train import losses as L  # noqa: E402
 from istvt_tpu_torch.train import step as S  # noqa: E402
+from istvt_tpu_torch.utils import trace_summary  # noqa: E402
+from istvt_tpu_torch.utils.debug import (  # noqa: E402
+    debug_nans, nan_check_active)
+from istvt_tpu_torch.utils.profiling import trace  # noqa: E402
 from torch_forward_ms import INT8_MODES as TOOL_MODES  # noqa: E402
 from torch_forward_ms import (ITERS, PACKED, PATH_FLAGS,  # noqa: E402
                               WARMUP, alloc_counters, forward_times,
@@ -2427,6 +2452,214 @@ def artifact_phases(card, profile=None):
     phase("artifact", f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 14. the bench CLI and the tooling
+
+# cli/bench.py runs (arguments beside the CLI's defaults: the paper model,
+# 300^2 x 6, depth 12, bf16 on the card); --iters small enough for the
+# phase's budget
+BENCH_RUNS = {
+    "int8 chained": ["--quantize", "int8", "-bs", "16", "--chained",
+                     "--iters", "10"],
+    "bf16 B=16": ["-bs", "16", "--iters", "10"],
+    "bf16 B=1": ["-bs", "1", "--iters", "20"],
+    "train grad_accum 2": ["--train_step", "-bs", "16", "--grad_accum", "2",
+                           "--iters", "3"],
+    "train remat": ["--train_step", "-bs", "16", "--remat", "--iters", "2"],
+    # 12 batches: at 4 the loader's prefetch covers most of the e2e leg
+    "pipeline uint8": ["--pipeline", "-bs", "16", "--iters", "12"],
+    "pipeline f32": ["--pipeline", "-bs", "16", "--f32_ingest",
+                     "--iters", "12"],
+    "pipeline f32 no_native": ["--pipeline", "-bs", "16", "--f32_ingest",
+                               "--no_native", "--iters", "12"],
+}
+# the JSON keys, in order, of each mode of the JAX package's CLI
+# (istvt_tpu/cli/bench.py:393-400, 368-377, 337-348, 225-250)
+BENCH_KEYS = {
+    "forward": ["model", "mode", "batch", "median_ms", "items_per_sec",
+                "platform"],
+    "forward_chained": ["model", "mode", "batch", "input_size", "quantize",
+                        "mean_ms", "items_per_sec", "platform"],
+    "train_step": ["model", "mode", "batch", "grad_accum", "remat",
+                   "mean_ms", "items_per_sec", "platform"],
+    "pipeline": ["mode", "model", "batch", "batches", "platform",
+                 "native_decode", "ingest", "h2d_mb_per_batch",
+                 "num_workers", "host_decode_clips_per_sec",
+                 "h2d_transfer_clips_per_sec", "device_clips_per_sec",
+                 "e2e_clips_per_sec", "overlap_fraction"],
+}
+TRACE_TOP = 25
+# the trace's rows outside the port, by the operators that launched them
+# (and AdamW's: every aten::_foreach_* / aten::_fused_adam*)
+TRACE_GROUPS = {
+    "convolutions": ("aten::conv2d", "aten::convolution",
+                     "aten::convolution_backward"),
+    "casts and copies": ("aten::to", "aten::_to_copy", "aten::copy_"),
+    "pooling": ("aten::max_pool2d", "aten::max_pool2d_with_indices",
+                "aten::max_pool2d_with_indices_backward"),
+}
+
+
+def _trace_group(prefix):
+    if prefix.startswith(("aten::_foreach_", "aten::_fused_adam")):
+        return "optimizer"
+    return next((g for g, ops in TRACE_GROUPS.items() if prefix in ops),
+                "other aten")
+
+
+def bench_launches(argv):
+    """{kernel: launches} of one cli/bench.py run: per forward (the
+    path's SERVE_PER_LAYER) or per microbatch of a train step
+    (TRAIN_PER_LAYER, the forward kernels twice with --remat) x depth x the
+    forwards or steps the mode runs (a warm-up + --iters forwards; two
+    untimed + --iters steps; the pipeline's 2 max(--iters, 4) forwards at
+    the paper depth)."""
+    a = cli_bench.build_parser().parse_args(argv)
+    if a.pipeline:
+        return _per(SERVE_PER_LAYER["int8"], DEPTH * 2 * max(a.iters, 4))
+    if a.train_step:
+        per = {n: k * (2 if a.remat and not n.endswith("/bwd") else 1)
+               for n, k in TRAIN_PER_LAYER.items()}
+        return _per(per, a.depth * (a.iters + 2) * a.grad_accum)
+    path = "int8" if a.quantize == "int8" else "float"
+    return _per(SERVE_PER_LAYER[path], a.depth * (a.iters + 1))
+
+
+def bench_runs():
+    """Each BENCH_RUNS entry through cli/bench.main in this process,
+    counted from 0: its JSON line's keys are JAX's for its mode and its
+    platform 'gpu'; every kernel launched exactly bench_launches, every
+    other counter 0."""
+    tree_root = cli_bench._ensure_frame_tree(_workdir("bench_tree"),
+                                             PAPER.image_size)
+    for name, argv in BENCH_RUNS.items():
+        if "--pipeline" in argv:
+            argv = argv + ["--data_root", tree_root]
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        out = cli_bench.main(argv)
+        torch.cuda.synchronize()
+        counts = _tally(bench_launches(argv))
+        if list(out) != BENCH_KEYS[out["mode"]] or out["platform"] != "gpu":
+            raise SystemExit(f"bench {name}: keys {list(out)}, platform "
+                             f"{out['platform']}; want "
+                             f"{BENCH_KEYS[out['mode']]} on 'gpu'")
+        phase("bench", f"{name} ({' '.join(argv)}): JAX's keys; launches "
+              f"{ {n: k for n, k in counts.items() if k} } exactly (every "
+              f"other counter 0); {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+
+def _nan_steps(card):
+    """One depth-2 B=2 bf16 fused step (--use_pallas, cli/train.py's build)
+    of two models from one seed, one inside utils/debug.debug_nans: loss
+    and gradient norm bit-equal, counted; the host ms of two more steps
+    each, in turns; then one NaN pixel raises FloatingPointError inside the
+    mode, and the mode is gone after."""
+    flags = ["--depth", "2", "--batch_size", "2", "--dataset_len", "2",
+             "--epochs", "1"]
+    built = [_trainer(flags) for _ in range(2)]
+    trainers = [tr for tr, _, _ in built]
+    dev = next(trainers[0].model.parameters()).device
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in next(iter(built[0][1])).items()}
+    states = [tr.init_state() for tr in trainers]
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        def step(i, checked):
+            t0 = time.perf_counter()
+            with debug_nans(checked):
+                m = trainers[i].step_fn(states[i], batch)
+                m = {k: float(v) for k, v in m.items()}
+            return m, 1e3 * (time.perf_counter() - t0)
+
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        (plain, _), (checked, _) = step(0, False), step(1, True)
+        counts = _tally(_per(TRAIN_PER_LAYER, 2 * 2))
+        same_params = all(torch.equal(p, q) for p, q in zip(
+            trainers[0].model.parameters(), trainers[1].model.parameters()))
+        phase("debug_nans", f"depth 2, B=2 bf16 fused step: without the "
+              f"mode {plain}, inside it {checked}: loss and gradient norm "
+              f"bit-equal {plain == checked}; parameters after the step "
+              f"bit-equal {same_params}; launches "
+              f"{ {n: k for n, k in counts.items() if k} } exactly (2 steps, "
+              f"every other counter 0)")
+        if plain["loss"] != checked["loss"] or \
+                plain["grad_norm"] != checked["grad_norm"]:
+            raise SystemExit("debug_nans changed a clean step")
+        ms = {False: [], True: []}
+        for checked_ in (False, True, True, False):
+            ms[checked_].append(step(int(checked_), checked_)[1])
+        phase("debug_nans", f"host ms a step without the mode "
+              f"{[round(t, 3) for t in ms[False]]}, inside it "
+              f"{[round(t, 3) for t in ms[True]]} on {card} (informative)")
+        batch["clips"][0, 0, 0, 0, 0] = float("nan")
+        try:
+            step(1, True)
+        except FloatingPointError as e:
+            phase("debug_nans", f"one NaN pixel: FloatingPointError: {e}")
+        else:
+            raise SystemExit("debug_nans let a NaN pixel through")
+        if nan_check_active() or torch.is_anomaly_enabled():
+            raise SystemExit("debug_nans left its mode on")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+        _lib.reset_launches()
+
+
+def _trace_step(card):
+    """One B=16 depth-12 bf16 train step (phase 7's trainer) inside
+    utils/profiling.trace, summarized by utils/trace_summary: device time by
+    the operator that launched it, the port's (istvt::) apart from the
+    rest, copies apart."""
+    trainer, ts, batches = paper_trainer(cli_train, _workdir("train"))
+    warm_up(trainer, ts, batches[0])
+    t0 = time.perf_counter()
+    with trace(_workdir("trace")) as log_dir:
+        float(trainer.step_fn(ts, batches[1])["loss"])
+    wall = 1e3 * (time.perf_counter() - t0)
+    path = trace_summary.find_traces(log_dir)[-1]
+    rows = trace_summary.aggregate(trace_summary.parse_file(path))
+    busy = [r for r in rows if not r.asynchronous]
+    port = sum(r.total_ms for r in busy if r.prefix.startswith("istvt::"))
+    total = sum(r.total_ms for r in busy)
+    phase("trace", f"B={TRAIN_BATCH} bf16 train step at depth {DEPTH} on "
+          f"{card}: host {wall:.3f} ms under the profiler; kernels "
+          f"{total:.3f} ms, the port's (istvt::) {port:.3f}, outside them "
+          f"{total - port:.3f}; by launching operator (top {TRACE_TOP}):\n"
+          + trace_summary.format_table(busy, top=TRACE_TOP))
+    groups = {}
+    for r in busy:
+        if r.prefix.startswith("istvt::"):
+            continue
+        g = _trace_group(r.prefix)
+        ms, n = groups.get(g, (0.0, 0))
+        groups[g] = (ms + r.total_ms, n + r.count)
+    phase("trace", "outside the port, every row grouped: " + "; ".join(
+        f"{g} {ms:.3f} ms ({n} kernels)" for g, (ms, n) in sorted(
+            groups.items(), key=lambda kv: -kv[1][0])))
+    phase("trace", "copies and memsets (not busy time):\n"
+          + trace_summary.format_table(
+              [r for r in rows if r.asynchronous], top=TRACE_TOP))
+    del trainer, ts, batches
+
+
+def bench_phase(card):
+    """Phase 14."""
+    t0 = time.perf_counter()
+    bench_runs()
+    _nan_steps(card)
+    torch.cuda.empty_cache()
+    _trace_step(card)
+    torch.cuda.empty_cache()
+    phase("bench", f"phase 14 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None,
@@ -2570,6 +2803,9 @@ def main():
 
     # 13 the serving artifact
     artifact_phases(card, args.profile)
+
+    # 14 the bench CLI and the tooling
+    bench_phase(card)
 
     idle = [n for n, k in TOTAL.items() if k == 0]
     if idle:

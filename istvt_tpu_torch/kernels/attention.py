@@ -46,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from istvt_tpu_torch.kernels import _lib
+from istvt_tpu_torch.utils.debug import check_outputs
 
 # the dispatcher ops of kernels/ops.py (resolved at call time; the package's
 # __init__ registers them)
@@ -311,6 +312,7 @@ def temporal_attention_packed_bwd(qkv, g, heads: int):
         *temporal_plan(qkv.dtype, inner // heads, backward=True),
         _lib.stream()), "temporal_attn_bwd")
     _lib.LAUNCHES["temporal_attention_packed/bwd"] += 1
+    check_outputs("temporal_attention_packed/bwd", dqkv)
     return dqkv
 
 
@@ -334,6 +336,7 @@ def spatial_attention_packed_bwd(qkv, g, heads: int, n_valid: int = -1):
         s_len if n_valid < 0 else n_valid, (inner // heads) ** -0.5,
         _lib.stream()), "spatial_attn_bwd")
     _lib.LAUNCHES["spatial_attention_packed/bwd"] += 1
+    check_outputs("spatial_attention_packed/bwd", dqkv)
     return dqkv
 
 

@@ -28,6 +28,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from istvt_tpu_torch.kernels import _lib
+from istvt_tpu_torch.utils.debug import check_outputs
 
 # the dispatcher ops of kernels/ops.py (resolved at call time; the package's
 # __init__ registers them)
@@ -126,6 +127,7 @@ def ln_matmul_bwd(x, s, b, w, g):
     dw = torch.empty(w.shape, dtype=torch.float32, device=x.device)
     gemm(y, g, dw, layout="tn")
     _lib.LAUNCHES["ln_matmul/bwd"] += 1
+    check_outputs("ln_matmul/bwd", dx, ds, db, dw)
     return dx, ds, db, dw
 
 

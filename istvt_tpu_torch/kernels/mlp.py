@@ -42,6 +42,7 @@ from istvt_tpu_torch.kernels import _lib
 from istvt_tpu_torch.kernels.linear import (_ln, _ln_bwd_rows, _ln_stats,
                                             colsum, gemm, gemm_row_tile,
                                             ln_bwd, ln_rows)
+from istvt_tpu_torch.utils.debug import check_outputs
 
 # the dispatcher ops of kernels/ops.py (resolved at call time; the package's
 # __init__ registers them)
@@ -134,6 +135,7 @@ def ln_ff_residual_h1(x, s, bn, w1, b1, w2, b2):
         return ln_ff_residual_h1_plain(x, s, bn, w1, b1, w2, b2)
     out, h1 = _ff_cuda(x, s, bn, w1, b1, w2, b2, stash=True)
     _lib.LAUNCHES["ln_ff_residual/h1"] += 1
+    check_outputs("ln_ff_residual/h1", out, h1)
     return out, h1.reshape(x.shape[:-1] + (w1.shape[1],))
 
 
@@ -169,6 +171,7 @@ def ln_ff_residual_bwd(x, s, bn, w1, h1, w2, g):
     gemm(dh1, w1, dy, layout="nt")
     dx, (ds, dbn, db2) = ln_bwd(x, s32, dy, res=g)
     _lib.LAUNCHES["ln_ff_residual/bwd"] += 1
+    check_outputs("ln_ff_residual/bwd", dx, ds, dbn, dw1, db1, dw2, db2)
     return dx, ds, dbn, dw1, db1, dw2, db2
 
 
@@ -234,6 +237,7 @@ def _fused_ff_fwd(x, w1, b1, w2, b2):
                       device=x.device)
     gemm(hid, w2, out, bias32=_lib.f32(b2.to(dt)))
     _lib.LAUNCHES["fused_ff"] += 1
+    check_outputs("fused_ff", out)
     return out
 
 

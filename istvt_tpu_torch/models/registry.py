@@ -1,6 +1,8 @@
 """Model registry (counterpart of istvt_tpu/models/registry.py).
 
-Only the `istvt` key is ported; the rest of the zoo is ROADMAP.md work.
+The `istvt` key and `resnet_3d`, the reference's registry key for the same
+model (istvt_tpu/models/zoo.py:34-37), are ported; the rest of the zoo is
+ROADMAP.md work.
 """
 from __future__ import annotations
 
@@ -11,8 +13,13 @@ import torch
 from istvt_tpu_torch.core.config import ISTVTConfig
 
 
+# 'istvt' is the canonical name; 'resnet_3d' is the reference's registry key
+# for the trained ISTVT (reference models.py:180)
+_ISTVT_KEYS = ("istvt", "resnet_3d")
+
+
 def available_models():
-    return ["istvt"]
+    return list(_ISTVT_KEYS)
 
 
 def model_selection(modelname: str, num_out_classes: int = 1,
@@ -20,7 +27,7 @@ def model_selection(modelname: str, num_out_classes: int = 1,
                     cfg: Optional[ISTVTConfig] = None, seed: int = 0):
     """A randomly initialised model from `seed` on `device` (eval mode).
     `dropout` is accepted for signature parity; the serving path has none."""
-    if modelname != "istvt":
+    if modelname not in _ISTVT_KEYS:
         raise NotImplementedError(
             f"model '{modelname}' is not ported yet; available: "
             f"{available_models()} (ROADMAP.md queue 1, "

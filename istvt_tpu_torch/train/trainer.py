@@ -19,11 +19,14 @@ loss_fn replaces the step's BCE (train/step.make_train_step; distillation
 passes train/losses.make_distill_loss's), and batch_hook transforms every
 train batch after the device feed and before the step, the recalibration
 batches too, so that calibration sees what the step saw (distillation
-passes train/distill.augment_with_teacher's hook).
+passes train/distill.augment_with_teacher's hook). TrainConfig.debug_nans
+runs fit (its steps, evaluations and recalibration) inside
+utils/debug.debug_nans, JAX's jax_debug_nans: an operator that makes a
+NaN raises FloatingPointError naming it; without the flag no check is
+entered.
 
-Not ported (each raises, naming ROADMAP.md queue 1 'Parallelism' or
-'Tooling'): a device mesh, debug_nans; a step hook is not a parameter
-yet.
+Not ported (raises, naming ROADMAP.md queue 1 'Parallelism'): a device
+mesh; a step hook is not a parameter yet.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from istvt_tpu_torch.train import step as S
 from istvt_tpu_torch.train.logging import MetricsLogger
 from istvt_tpu_torch.train.schedule import (cosine_schedule,
                                             reference_epoch_schedule)
+from istvt_tpu_torch.utils.debug import debug_nans
 
 _ROADMAP = "ROADMAP.md queue 1"
 
@@ -93,11 +97,10 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(f"a device mesh is not ported yet "
                                       f"({_ROADMAP}, 'Parallelism')")
-        if tc.debug_nans:
-            raise NotImplementedError(f"debug_nans is not ported yet "
-                                      f"({_ROADMAP}, 'Tooling')")
         self.model, self.tc, self.dc = model, tc, dc
         self.log = log_fn
+        if tc.debug_nans:
+            self.log("debug_nans: enabled")
         self.recal_bn_batches = recal_bn_batches
         self.batch_hook = batch_hook
         spe = steps_per_epoch or 1000
@@ -174,29 +177,32 @@ class Trainer:
                     sig, lambda signum, frame: pending.append(signum))
             except ValueError:  # not the main thread
                 pass
-        try:
-            self._epochs(train_loader, val_loader, ts, pending)
-        finally:
-            for sig, handler in prev_handlers.items():
-                signal.signal(sig, handler)
-        if self.recal_bn_batches > 0:
-            batches = []
-            train_loader.set_epoch(self.tc.num_epochs)  # a fresh order
-            with contextlib.closing(device_feed(train_loader,
-                                                self.dev)) as feed:
-                for batch in feed:
-                    batches.append(self._hooked(batch))
-                    if len(batches) >= self.recal_bn_batches:
-                        break
-            S.recalibrate_bn(self.model, batches)
-            self.log(f"recalibrated BN stats over {len(batches)} batches")
-            if self.ckpt:
-                # step + 1 marks the calibration pass, as in JAX
-                self.ckpt.save(ts.step + 1, self.state_dict(ts),
-                               metric=self.best_metric, wait=True)
+        with debug_nans(self.tc.debug_nans):
+            try:
+                self._epochs(train_loader, val_loader, ts, pending)
+            finally:
+                for sig, handler in prev_handlers.items():
+                    signal.signal(sig, handler)
+            if self.recal_bn_batches > 0:
+                self._recalibrate(train_loader, ts)
         if self.ckpt:
             self.ckpt.wait()
         return ts
+
+    def _recalibrate(self, train_loader, ts):
+        batches = []
+        train_loader.set_epoch(self.tc.num_epochs)  # a fresh order
+        with contextlib.closing(device_feed(train_loader, self.dev)) as feed:
+            for batch in feed:
+                batches.append(self._hooked(batch))
+                if len(batches) >= self.recal_bn_batches:
+                    break
+        S.recalibrate_bn(self.model, batches)
+        self.log(f"recalibrated BN stats over {len(batches)} batches")
+        if self.ckpt:
+            # step + 1 marks the calibration pass, as in JAX
+            self.ckpt.save(ts.step + 1, self.state_dict(ts),
+                           metric=self.best_metric, wait=True)
 
     def _epochs(self, train_loader, val_loader, ts, pending):
         spe = max(len(train_loader), 1)
