@@ -55,7 +55,8 @@ raises and exits non-zero:
                 serialized a kernel's wgmma are printed, and every head
                 layout of
                 the temporal core #11 and its backward #12 is built (17
-                and 18 instantiations, selfcheck.TEMPORAL_KERNELS) with
+                and 18 instantiations, selfcheck.TEMPORAL_KERNELS), and of
+                their general lanes' kernels for T1 > 8 (17 and 18), with
                 none spilled
   3. kernels  - each of the 24 kernels (kernels/selfcheck.CASES: one case
                 per launch counter -- #20 and #5 with and without their
@@ -64,7 +65,12 @@ raises and exits non-zero:
                 5,068 unpadded rows; the kernel API's #13 unpacked entry,
                 #14-#17 and #24 -- and #16, #17 at S = 362, #11, #12 at
                 the B=16 forward's and step's 16 clips and #24 at the
-                stem's other stride-1 units) vs its plain PyTorch version
+                stem's other stride-1 units; and at the geometries past the
+                paper's, selfcheck.GEOMETRY_VARIANTS: #11 at T1 = 9, 17,
+                33 and #12 at 9, 17 (16 clips: the general lanes), #10 and
+                #13 at S = 408 and 792 (16 clips), #1 at T1 = 9, #2 and
+                #15, #13's unpacked entry at S = 408, #9 at T1 = 9 and S =
+                408, #16 / #17 at T1 = 9) vs its plain PyTorch version
                 on the card at the slice's shapes (2 clips, T+1 = 7, S =
                 368, n_valid = 362; #24 12 frames): f32 at atol = rtol =
                 2e-3 (int8 kernels) or
@@ -278,6 +284,21 @@ raises and exits non-zero:
                 summarized by utils/trace_summary: device time by the
                 operator that launched it, the port's (istvt::) apart, the
                 top 25 rows, copies and memsets apart
+ 15. geometry - the fused paths at geometries past the paper's that the
+                JAX package runs (GEOMETRIES: --seq_len 8 and 16 at 300^2,
+                T1 = 9 and 17; -is 320 and 448 at --seq_len 6, S = 408 and
+                792), depth 2, B=2, full width: the int8 (`ingest`), bf16
+                and f32 float forwards (cli/serve.build_predictor) vs the
+                same model on the CPU (plain versions, f32): |dlogit| <=
+                5e-2 (the f32 maximum printed), counted: exactly the path's
+                launches a forward, every other 0; at --seq_len 8 the
+                `layer` mode's logits vs `ingest`'s (atol = rtol = 2e-2),
+                counted; one f32 --use_pallas train step at --seq_len 8,
+                -is 320 (#11, #12, #10, #13 at T1 = 9, S = 408), card vs
+                CPU from the same weights and batch: |dloss| <= 1e-5,
+                gradient cosine >= 0.99999, counted; then, informative, the
+                B=16 depth-12 int8 and bf16 forwards at --seq_len 8 and at
+                -is 320, counted
 
 The line before the last is the kernels' JSON record (`launches`: each
 kernel's launches over every counted run above; a kernel that no counted
@@ -612,7 +633,7 @@ def check_kernels(dev):
             phase("kernels", f"{name}: f32 median ms kernel {f32_ms[0]:.4f} "
                   f"plain {f32_ms[1]:.4f} library {lib32_ms} bound "
                   f"{b32:.4f} ({by32}{fma})")
-        crit = ("rel-L2 < " if name in selfcheck.FREE_RUNNING_CASES
+        crit = ("rel-L2 < " if counter in selfcheck.FREE_RUNNING_CASES
                 else "") + str(selfcheck.f32_tol(name))
         phase("kernels", f"{name}: f32 max|diff| {err32:.3e} "
               f"({'ok' if ok32 else 'FAIL'} at {crit}); "
@@ -2660,6 +2681,147 @@ def bench_phase(card):
     phase("bench", f"phase 14 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 15. geometries past the paper's
+
+# (seq_len, input_size) of the fused paths' other geometries: longer clips
+# (T1 = 9, 17: the temporal cores' general lanes) and larger frames (a
+# 20 x 20 and a 28 x 28 feature grid: S = 408, 792)
+GEOMETRIES = {"--seq_len 8": (8, 300), "--seq_len 16": (16, 300),
+              "-is 320": (6, 320), "-is 448": (6, 448)}
+GEOMETRY_DEPTH, GEOMETRY_BATCH = 2, 2
+
+
+def _geometry_predictor(path, seq_len, size, depth, dev):
+    args = cli_serve.build_parser().parse_args(
+        PATHS[path] + ["-sl", str(seq_len), "-is", str(size), "--depth",
+                       str(depth)])
+    return cli_serve.build_predictor(args, dev)
+
+
+def _counted_predict(predictor, clips, per_layer, depth):
+    """The predictor's logits of clips, counted from 0: exactly per_layer x
+    depth launches a forward."""
+    _lib.reset_launches()
+    predictor.n_forwards = 0
+    logits = predictor.predict(clips)["logits"]
+    torch.cuda.synchronize()
+    _tally({n: k * depth * predictor.n_forwards
+            for n, k in per_layer.items()})
+    return logits
+
+
+def _cpu_logits(path, model, clips):
+    """The same model on the CPU in f32 (plain versions)."""
+    cpu_model = tree.cast(copy.deepcopy(model).to("cpu"), torch.float32)
+    if path in PACKED:
+        istvt.pack_params(cpu_model)
+    with highest(), torch.inference_mode():
+        return cpu_model(torch.from_numpy(clips)).reshape(-1).numpy()
+
+
+def geometry_phase(dev, card):
+    """Phase 15: the serving paths, the layer mode and an f32 train step
+    at GEOMETRIES, card vs CPU; then B=16 depth-12 forwards there."""
+    t_all = time.perf_counter()
+    worst = {}
+    for name, (seq_len, size) in GEOMETRIES.items():
+        clips = np.random.RandomState(seq_len + size).randn(
+            GEOMETRY_BATCH, seq_len, size, size, 3).astype(np.float32)
+        for path in PATHS:
+            t0 = time.perf_counter()
+            pred = _geometry_predictor(path, seq_len, size, GEOMETRY_DEPTH,
+                                       dev)
+            got = _counted_predict(pred, clips, SERVE_PER_LAYER[path],
+                                   GEOMETRY_DEPTH)
+            t1 = time.perf_counter()
+            want = _cpu_logits(path, pred.model, clips)
+            t2 = time.perf_counter()
+            delta = float(np.abs(got - want).max())
+            worst[path] = max(worst.get(path, 0.0), delta)
+            phase("geometry", f"{name} (T1 = {seq_len + 1}, "
+                  f"{istvt.infer_feat_hw(size)}^2 + 1 tokens), {path}, depth "
+                  f"{GEOMETRY_DEPTH}, B={GEOMETRY_BATCH}: card "
+                  f"{np.round(got, 5).tolist()} vs CPU plain f32 "
+                  f"{np.round(want, 5).tolist()}: |dlogit| {delta:.3e} "
+                  f"(limit 5e-2); launches exact (card {t1 - t0:.1f} s, CPU "
+                  f"{t2 - t1:.1f} s)")
+            if not (np.isfinite(got).all() and delta <= 5e-2):
+                raise SystemExit(f"{name}, {path}: card logits disagree "
+                                 f"with the CPU reference")
+            if path == "int8" and seq_len == 8:
+                set_mode(pred.model, "layer")
+                layer = _counted_predict(pred, clips,
+                                         MODE_PER_LAYER["layer"],
+                                         GEOMETRY_DEPTH)
+                gap = np.abs(layer - got)
+                ok = bool((gap <= 2e-2 + 2e-2 * np.abs(got)).all())
+                phase("geometry", f"{name}: layer vs ingest logits: max|d| "
+                      f"{gap.max():.3e} ({'ok' if ok else 'FAIL'} at atol = "
+                      f"rtol = 2e-2); bit for bit equal: "
+                      f"{bool(np.array_equal(layer, got))}; launches exact")
+                if not ok:
+                    raise SystemExit(f"{name}: the layer path disagrees with "
+                                     f"the ingest chain")
+            del pred
+            torch.cuda.empty_cache()
+    phase("geometry", f"largest |dlogit| by path: "
+          + ", ".join(f"{p} {d:.3e}" for p, d in worst.items())
+          + " (f32: the float path in f32 against the same f32 math)")
+    t0 = time.perf_counter()
+    _geometry_train_step()
+    phase("geometry", f"train step phase {time.perf_counter() - t0:.1f} s")
+    for name in ("--seq_len 8", "-is 320"):
+        seq_len, size = GEOMETRIES[name]
+        for path in ("int8", "float"):
+            pred = _geometry_predictor(path, seq_len, size, DEPTH, dev)
+            _lib.reset_launches()
+            times = forward_times(pred.model, (seq_len, size, size, 3),
+                                  input_dtype(path))
+            _tally({n: k * DEPTH * (WARMUP + ITERS)
+                    for n, k in SERVE_PER_LAYER[path].items()})
+            ms = float(np.median(times))
+            phase("geometry", f"{name}, {path}: B=16 depth-{DEPTH} forward "
+                  f"median {ms:.3f} ms = {16e3 / ms:.2f} clips/s on {card}; "
+                  f"launches exact (informative)")
+            del pred
+            torch.cuda.empty_cache()
+    phase("geometry", f"phase 15 took {time.perf_counter() - t_all:.1f} s")
+
+
+def _geometry_train_step():
+    """One f32 --use_pallas step at --seq_len 8, -is 320, depth 2, B=2:
+    the card (kernels) vs the CPU (plain) from the same weights and batch,
+    at the f32 limits."""
+    flags = ["--depth", str(GEOMETRY_DEPTH), "--batch_size",
+             str(GEOMETRY_BATCH), "--dataset_len", str(GEOMETRY_BATCH),
+             "--epochs", "1", "--seq_len", "8", "--input_size", "320"]
+    card_tr, loader, _ = _trainer(flags, bf16=False)
+    cpu_tr, _, _ = _trainer(flags + ["--device", "cpu"], bf16=False)
+    batch = next(iter(loader))
+    out = []
+    for tr in (card_tr, cpu_tr):
+        ts = tr.init_state()
+        _lib.reset_launches()
+        with highest():
+            m = tr.step_fn(ts, batch)
+        out.append((float(m["loss"]), torch.cat([
+            p.grad.double().cpu().ravel() for p in tr.model.parameters()])))
+        if tr is card_tr:
+            torch.cuda.synchronize()
+            _tally({n: k * GEOMETRY_DEPTH for n, k in TRAIN_PER_LAYER.items()})
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    cos = float(F.cosine_similarity(g_card, g_cpu, dim=0))
+    phase("geometry", f"--seq_len 8 -is 320, f32 --use_pallas step, depth "
+          f"{GEOMETRY_DEPTH}, B={GEOMETRY_BATCH}: loss card {l_card:.7f} vs "
+          f"CPU plain f32 {l_cpu:.7f} (|d| {abs(l_card - l_cpu):.3e}, limit "
+          f"1e-5); gradient cosine {cos:.7f} (limit 0.99999); launches "
+          f"exact")
+    if not (abs(l_card - l_cpu) <= 1e-5 and cos >= 0.99999):
+        raise SystemExit("the card's train step at --seq_len 8 -is 320 "
+                         "disagrees with the CPU reference")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None,
@@ -2806,6 +2968,10 @@ def main():
 
     # 14 the bench CLI and the tooling
     bench_phase(card)
+    torch.cuda.empty_cache()
+
+    # 15 geometries past the paper's
+    geometry_phase(dev, card)
 
     idle = [n for n, k in TOTAL.items() if k == 0]
     if idle:

@@ -38,9 +38,9 @@ and conv.sepconv_bn, the fused [ReLU ->] sepconv -> folded BN (#24).
 the packed cores and the stem's cuDNN convolutions (the JAX package's
 docstring says its nn/attention.py uses these entry points; it uses the
 packed kernels). They are reached through this API and the tests only.
-Limits: S <= 384 and dh in 16/32/64/128 (#13: 16/32/64) for the spatial
-entries, T1 <= 8 and dh <= 128 for the temporal ones; outside them a CUDA
-tensor raises NotImplementedError.
+Limits: dh in 16/32/64/128 (#13: 16/32/64) at any S for the spatial
+entries, dh <= 128 at any T1 >= 2 for the temporal ones; outside them a
+CUDA tensor raises NotImplementedError.
 """
 from istvt_tpu_torch.kernels.attention import (  # noqa: F401
     fused_frame_attention,

@@ -107,15 +107,19 @@ _SIGNATURES = {
     # n_valid, scale, stamps (or null), stream
     "istvt_st_layer_q8": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           ctypes.c_float, _P, _P],
-    # qkv, out, dt, B, T1, S, H, inner, scale, vec, lanes, chunks, stream
+    # qkv, out, dt, B, T1, S, H, inner, scale, vec, lanes, chunks, scratch
+    # (or null), stream
     "istvt_temporal_attn": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                            _I, _I, _I, _P],
+                            _I, _I, _I, _P, _P],
+    # dt, backward, B, T1, S, H, vec, lanes, chunks, bytes (out)
+    "istvt_temporal_scratch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               ctypes.POINTER(ctypes.c_longlong)],
     # qkv, out, dt, G, S, H, inner, n_valid, scale, stream
     "istvt_spatial_attn": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # qkv, dout, dqkv, dt, B, T1, S, H, inner, scale, vec, lanes, chunks,
-    # stream
+    # scratch (or null), stream
     "istvt_temporal_attn_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                ctypes.c_float, _I, _I, _I, _P],
+                                ctypes.c_float, _I, _I, _I, _P, _P],
     # qkv, dout, dqkv, stats, dt, G, S, H, inner, n_valid, scale, stream
     "istvt_spatial_attn_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P],

@@ -23,7 +23,11 @@ backward run on the tensor cores in both dtypes: bf16 products for bf16
 activations, three TF32 products each for f32 ones (chosen by dtype when
 the kernels are compiled); the
 temporal core and its backward lay each head on a few lanes of a warp, in
-the layout temporal_plan picks (csrc/temporal.cuh). The int8 ingest kernels
+the layout temporal_plan picks (csrc/temporal.cuh), a clip of up to
+TEMPORAL_TMAX frames in registers and a longer one on the general lanes
+(its key frames in shared memory, or in a device scratch that the wrapper
+allocates when one warp's rows do not fit a block); the spatial cores
+stream the keys, at any S. The int8 ingest kernels
 (kernels/quant.py) run the same cores and plain helpers on their own
 packed qkv, through `temporal_core` / `spatial_core`, which count nothing:
 each wrapper counts its own launches only.
@@ -42,6 +46,8 @@ references (_spatial_reference, _temporal_reference) on the CPU, as JAX's
 custom_vjp branches on the TPU and elsewhere.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -217,9 +223,9 @@ def temporal_packed_bwd_plain(qkv, g, heads: int):
 
 
 def check_temporal(t1: int, inner: int, heads: int):
-    if t1 > 8 or inner % heads or inner // heads > 128:
+    if t1 < 2 or inner % heads or inner // heads > 128:
         raise NotImplementedError(
-            f"temporal attention core takes T1 <= 8 and dim_head <= 128 "
+            f"temporal attention core takes T1 >= 2 and dim_head <= 128 "
             f"(got T1={t1}, inner={inner}, heads={heads})")
 
 
@@ -246,13 +252,34 @@ def temporal_plan(dtype, dh: int, backward: bool = False):
     return 1, 32, 1 << (-(-dh // 32) - 1).bit_length()
 
 
-def check_spatial(s_len: int, inner: int, heads: int,
-                  dims=(16, 32, 64, 128)):
-    if s_len > 384 or inner % heads or inner // heads not in dims:
+def check_spatial(inner: int, heads: int, dims=(16, 32, 64, 128)):
+    """The spatial cores stream the keys past the query rows: any S; the
+    dim_heads they are instantiated at."""
+    if inner % heads or inner // heads not in dims:
         raise NotImplementedError(
-            f"spatial attention core takes S <= 384 and dim_head in "
-            f"{'/'.join(map(str, dims))} (got S={s_len}, inner={inner}, "
-            f"heads={heads})")
+            f"spatial attention core takes dim_head in "
+            f"{'/'.join(map(str, dims))} (got inner={inner}, heads={heads})")
+
+
+# the register lanes' T1 (csrc/temporal.cuh kTMax); past it the general
+# lanes run, whose slots may need a device scratch
+TEMPORAL_TMAX = 8
+
+
+def _temporal_scratch(qkv, backward: bool, heads: int, plan):
+    """The device scratch the general lanes need for this qkv (None unless
+    T1 > TEMPORAL_TMAX and not one warp's slots fit a block's shared
+    memory: csrc istvt_temporal_scratch)."""
+    bsz, t1, s_len, i3 = qkv.shape
+    if t1 <= TEMPORAL_TMAX:
+        return None
+    n = ctypes.c_longlong(0)
+    _lib.check(_lib.load().istvt_temporal_scratch(
+        _lib.DTYPE_CODE[qkv.dtype], int(backward), bsz, t1, s_len, heads,
+        *plan, ctypes.byref(n)), "temporal_scratch")
+    if n.value == 0:
+        return None
+    return torch.empty(n.value, dtype=torch.uint8, device=qkv.device)
 
 
 def temporal_core(qkv, heads: int):
@@ -264,11 +291,12 @@ def temporal_core(qkv, heads: int):
     check_temporal(t1, inner, heads)
     out = torch.empty((bsz, t1, s_len, inner), dtype=qkv.dtype,
                       device=qkv.device)
+    plan = temporal_plan(qkv.dtype, inner // heads)
+    scratch = _temporal_scratch(qkv, False, heads, plan)
     _lib.check(_lib.load().istvt_temporal_attn(
         qkv.data_ptr(), out.data_ptr(), _lib.DTYPE_CODE[qkv.dtype], bsz, t1,
-        s_len, heads, inner, (inner // heads) ** -0.5,
-        *temporal_plan(qkv.dtype, inner // heads), _lib.stream()),
-        "temporal_attn")
+        s_len, heads, inner, (inner // heads) ** -0.5, *plan,
+        _lib.ptr(scratch), _lib.stream()), "temporal_attn")
     return out
 
 
@@ -277,7 +305,7 @@ def spatial_core(qkv, heads: int, n_valid: int):
     g, s_len, i3 = qkv.shape
     inner = i3 // 3
     _lib.check_act(qkv, "qkv")
-    check_spatial(s_len, inner, heads)
+    check_spatial(inner, heads)
     out = torch.empty((g, s_len, inner), dtype=qkv.dtype, device=qkv.device)
     _lib.check(_lib.load().istvt_spatial_attn(
         qkv.data_ptr(), out.data_ptr(), _lib.DTYPE_CODE[qkv.dtype], g, s_len,
@@ -305,12 +333,13 @@ def temporal_attention_packed_bwd(qkv, g, heads: int):
     _check_grad(g, (bsz, t1, s_len, inner), qkv.dtype)
     check_temporal(t1, inner, heads)
     dqkv = torch.empty_like(qkv)
+    plan = temporal_plan(qkv.dtype, inner // heads, backward=True)
+    scratch = _temporal_scratch(qkv, True, heads, plan)
     _lib.check(_lib.load().istvt_temporal_attn_bwd(
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         _lib.DTYPE_CODE[qkv.dtype], bsz, t1, s_len, heads, inner,
-        (inner // heads) ** -0.5,
-        *temporal_plan(qkv.dtype, inner // heads, backward=True),
-        _lib.stream()), "temporal_attn_bwd")
+        (inner // heads) ** -0.5, *plan, _lib.ptr(scratch), _lib.stream()),
+        "temporal_attn_bwd")
     _lib.LAUNCHES["temporal_attention_packed/bwd"] += 1
     check_outputs("temporal_attention_packed/bwd", dqkv)
     return dqkv
@@ -326,7 +355,7 @@ def spatial_attention_packed_bwd(qkv, g, heads: int, n_valid: int = -1):
     inner = i3 // 3
     _lib.check_act(qkv, "qkv")
     _check_grad(g, (gsz, s_len, inner), qkv.dtype)
-    check_spatial(s_len, inner, heads, dims=(16, 32, 64))
+    check_spatial(inner, heads, dims=(16, 32, 64))
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((gsz, heads, s_len, 3), dtype=torch.float32,
                         device=qkv.device)
@@ -543,7 +572,7 @@ def _frame_cuda(q, k, v, heads: int):
     mask; counts nothing."""
     g, s_len, inner = q.shape
     _check_like(q, q=q, k=k, v=v)
-    check_spatial(s_len, inner, heads)
+    check_spatial(inner, heads)
     out = torch.empty_like(q)
     _lib.check(_lib.load().istvt_frame_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -554,7 +583,7 @@ def _frame_cuda(q, k, v, heads: int):
 
 def fused_frame_attention(q, k, v):
     """#14: softmax(q k^T / sqrt(dh)) v for each leading index: q, k, v
-    (G, S, dh) -> (G, S, dh); S <= 384, dh in 16/32/64/128. CPU tensors
+    (G, S, dh) -> (G, S, dh); any S, dh in 16/32/64/128. CPU tensors
     take the plain version."""
     if not q.is_cuda:
         return fused_frame_attention_plain(q, k, v)
@@ -565,7 +594,7 @@ def fused_frame_attention(q, k, v):
 
 def fused_frame_attention_mh(q, k, v, heads: int):
     """#15: every head of per-frame attention on the contiguous projection
-    layout, no mask: q, k, v (G, S, H*dh) -> (G, S, H*dh); S <= 384, dh in
+    layout, no mask: q, k, v (G, S, H*dh) -> (G, S, H*dh); any S, dh in
     16/32/64/128. CPU tensors take the plain version."""
     if not q.is_cuda:
         return fused_frame_attention_mh_plain(q, k, v, heads)
@@ -576,13 +605,13 @@ def fused_frame_attention_mh(q, k, v, heads: int):
 
 def fused_frame_attention_bwd(q, k, v, do, heads: int, n_valid: int = -1):
     """#13 under its JAX signature: q, k, v, do (G, S, H*dh) -> (dq, dk, dv),
-    keys >= n_valid masked (-1: none); S <= 384, dh in 16/32/64. CPU
+    keys >= n_valid masked (-1: none); any S, dh in 16/32/64. CPU
     tensors take the plain version."""
     if not q.is_cuda:
         return fused_frame_attention_bwd_plain(q, k, v, do, heads, n_valid)
     g, s_len, inner = q.shape
     _check_like(q, q=q, k=k, v=v, do=do)
-    check_spatial(s_len, inner, heads, dims=(16, 32, 64))
+    check_spatial(inner, heads, dims=(16, 32, 64))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = torch.empty((g, heads, s_len, 3), dtype=torch.float32,
                         device=q.device)
@@ -599,7 +628,7 @@ def fused_frame_attention_bwd(q, k, v, do, heads: int, n_valid: int = -1):
 def fused_temporal_attention(q, k, v, heads: int):
     """#16: self-subtract temporal attention on separate pre-subtract q, k,
     v (B, T1, S, H*dh) -> (B, T1, S, H*dh), in _temporal_kernel's rounding
-    order; T1 <= 8, dh <= 128. CPU tensors take the plain version."""
+    order; T1 >= 2, dh <= 128. CPU tensors take the plain version."""
     if not q.is_cuda:
         return fused_temporal_attention_plain(q, k, v, heads)
     b, t1, s_len, inner = q.shape
@@ -617,7 +646,7 @@ def fused_temporal_attention(q, k, v, heads: int):
 def fused_temporal_attention_bwd(q, k, v, do, heads: int):
     """#17: (dq, dk, dv) of fused_temporal_attention with respect to the
     pre-subtract q, k, v (B, T1, S, H*dh), in _temporal_bwd_kernel's
-    rounding order; T1 <= 8, dh <= 128. CPU tensors take the plain
+    rounding order; T1 >= 2, dh <= 128. CPU tensors take the plain
     version."""
     if not q.is_cuda:
         return fused_temporal_attention_bwd_plain(q, k, v, do, heads)

@@ -35,7 +35,9 @@
 // (16 bytes of f32, 8 of bf16); each lane stages its q, k, v and dO rows by cp.async
 // into its own slots of shared memory (all in flight at once), keeps only the dk / dv
 // accumulators in registers, finishes each score on one lane by a transposed reduction
-// and computes p and ds there once (temporal.cuh, temporal_attn_bwd_lane). The
+// and computes p and ds there once (temporal.cuh, temporal_attn_bwd_lane); past T1 = 8
+// the general lane keeps the dk / dv sums in two more slot rows in place of q and dO
+// (temporal_attn_bwd_lane_any, temporal_attn_bwd_any_kernel below). The
 // spatial backward is two flash-style passes that recompute the probabilities, so
 // nothing S x S is stored and no two blocks write the same output (no atomics): (a)
 // per query tile, the exact softmax, rowsum(P o dP), dS and dQ, and per query row the
@@ -80,6 +82,22 @@ __global__ void temporal_attn_bwd_kernel(
   temporal_attn_bwd_lane<T, V, L, C>(qkv, dout, dqkv, T1, S, H, inner, dh, scale, g, g < total,
                                      reinterpret_cast<uint32_t*>(tslots) + threadIdx.x * W,
                                      kTemporalBwdThreads * W);
+}
+
+// (i) at T1 > kTMax: thread g as above, in blocks of blockDim.x threads (as many warps as
+// their 4 T1 slots fit the block's shared memory) whose slots are in dynamic shared
+// memory, or in `scratch` where given (temporal.cuh, temporal_attn_bwd_lane_any).
+template <typename T, int V, int L, int C>
+__global__ void temporal_attn_bwd_any_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                                             T* __restrict__ dqkv, int T1, int S, int H,
+                                             int inner, int dh, float scale, long total,
+                                             uint32_t* __restrict__ scratch) {
+  extern __shared__ uint4 any_slots[];
+  const long g = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const TSlots sl = temporal_slots(reinterpret_cast<uint32_t*>(any_slots), scratch,
+                                   TRow<T, V, L, C>::W);
+  temporal_attn_bwd_lane_any<T, V, L, C>(qkv, dout, dqkv, T1, S, H, inner, dh, scale, g,
+                                         g < total, sl);
 }
 
 // (ii) Spatial backward: two passes, 128 query (a) or key (b) rows a block of 256
@@ -545,12 +563,23 @@ __global__ void __launch_bounds__(256, kSpatialBwdMinBlocks<T>) spatial_attn_bwd
 template <typename T>
 int launch_temporal_bwd(const void* qkv, const void* dout, void* dqkv, int B, int T1, int S,
                         int H, int inner, float scale, int vec, int lanes, int chunks,
-                        cudaStream_t st) {
+                        void* scratch, cudaStream_t st) {
   const long total = static_cast<long>(B) * S * H * lanes;
   const int blocks = static_cast<int>((total + kTemporalBwdThreads - 1) / kTemporalBwdThreads);
   auto in = static_cast<const T*>(qkv);
   auto g = static_cast<const T*>(dout);
   auto o = static_cast<T*>(dqkv);
+  if (T1 > kTMax) {
+    int err = 0;
+    const int rc = with_temporal_plan<kTemporalBwdVec>(vec, lanes, chunks, [&](auto plan) {
+      using P = decltype(plan);
+      err = launch_temporal_any<kTemporalBwdThreads>(
+          temporal_attn_bwd_any_kernel<T, P::V, P::L, P::C>, total, T1, 4,
+          TRow<T, P::V, P::L, P::C>::W, scratch, st, in, g, o, T1, S, H, inner, inner / H, scale,
+          total);
+    });
+    return rc != 0 ? rc : err;
+  }
   cudaError_t err = cudaSuccess;
   const int rc = with_temporal_plan<kTemporalBwdVec>(vec, lanes, chunks, [&](auto plan) {
     using P = decltype(plan);
@@ -627,21 +656,23 @@ using namespace istvt;
 extern "C" {
 
 // qkv (B, T1, S, 3 inner), dout (B, T1, S, inner) -> dqkv (B, T1, S, 3 inner); dt 0 f32,
-// 1 bf16; T1 <= 8, inner / H <= 128; (vec, lanes, chunks) as istvt_temporal_attn's.
+// 1 bf16; T1 >= 2, inner / H <= 128; (vec, lanes, chunks) and scratch as
+// istvt_temporal_attn's (istvt_temporal_scratch with backward 1).
 int istvt_temporal_attn_bwd(const void* qkv, const void* dout, void* dqkv, int dt, int B,
                             int T1, int S, int H, int inner, float scale, int vec, int lanes,
-                            int chunks, void* stream) {
+                            int chunks, void* scratch, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   int rc = dt == kBF16 ? launch_temporal_bwd<__nv_bfloat16>(qkv, dout, dqkv, B, T1, S, H, inner,
-                                                            scale, vec, lanes, chunks, st)
+                                                            scale, vec, lanes, chunks, scratch,
+                                                            st)
                        : launch_temporal_bwd<float>(qkv, dout, dqkv, B, T1, S, H, inner, scale,
-                                                    vec, lanes, chunks, st);
+                                                    vec, lanes, chunks, scratch, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 
 // qkv (G, S, 3 inner), dout (G, S, inner) -> dqkv (G, S, 3 inner); keys >= n_valid
-// masked; stats f32 (G, H, S, 3) scratch; S <= 384, inner / H in {16, 32, 64}.
+// masked; stats f32 (G, H, S, 3) scratch; any S, inner / H in {16, 32, 64}.
 int istvt_spatial_attn_bwd(const void* qkv, const void* dout, void* dqkv, void* stats, int dt,
                            int G, int S, int H, int inner, int n_valid, float scale,
                            void* stream) {
@@ -658,7 +689,7 @@ int istvt_spatial_attn_bwd(const void* qkv, const void* dout, void* dqkv, void* 
 }
 
 // q, k, v, dout (G, S, inner) -> dq, dk, dv (G, S, inner); keys >= n_valid masked;
-// stats f32 (G, H, S, 3) scratch; S <= 384, inner / H in {16, 32, 64}.
+// stats f32 (G, H, S, 3) scratch; any S, inner / H in {16, 32, 64}.
 int istvt_frame_attn_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
                          void* dk, void* dv, void* stats, int dt, int G, int S, int H, int inner,
                          int n_valid, float scale, void* stream) {

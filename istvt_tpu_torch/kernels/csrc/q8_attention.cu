@@ -74,6 +74,22 @@ __global__ void __launch_bounds__(kTemporalThreads) temporal_attn_kernel(
   temporal_attn_lane<T, V, L, C>(qkv, out, T1, S, H, inner, dh, scale, g, g < total);
 }
 
+// (iv) at T1 > kTMax: thread g as above, in blocks of blockDim.x threads (as many warps
+// as their slots of T1 rows fit the block's shared memory, temporal_any_warps) whose
+// slots are in dynamic shared memory, or in `scratch` where given (temporal.cuh). No
+// __launch_bounds__: with one, ptxas held 12 instantiations to 80 registers and spilled
+// 8-24 bytes around the division's slow-path calls.
+template <typename T, int V, int L, int C>
+__global__ void temporal_attn_any_kernel(
+    const T* __restrict__ qkv, T* __restrict__ out, int T1, int S, int H, int inner, int dh,
+    float scale, long total, uint32_t* __restrict__ scratch) {
+  extern __shared__ uint4 any_slots[];
+  const long g = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const TSlots sl = temporal_slots(reinterpret_cast<uint32_t*>(any_slots), scratch,
+                                   TRow<T, V, L, C>::W);
+  temporal_attn_lane_any<T, V, L, C>(qkv, out, T1, S, H, inner, dh, scale, g, g < total, sl);
+}
+
 // (v) Block = (query tile of spatial_q_tile(), head, frame). The bf16 tile's shared
 // memory is static; the f32 tile's, above the 48 KB a static array may take, dynamic
 // (spatial_smem_bytes, opted in by launch_tile). Launch bounds: for f32 two blocks an SM
@@ -131,16 +147,47 @@ int launch_tile(Kern kern, int G, int S, int H, cudaStream_t st, Args... args) {
 
 template <typename T>
 int launch_temporal(const void* qkv, void* out, int B, int T1, int S, int H, int inner,
-                    float scale, int vec, int lanes, int chunks, cudaStream_t st) {
+                    float scale, int vec, int lanes, int chunks, void* scratch, cudaStream_t st) {
   const long total = static_cast<long>(B) * S * H * lanes;
-  const int blocks = static_cast<int>((total + kTemporalThreads - 1) / kTemporalThreads);
   auto in = static_cast<const T*>(qkv);
   auto o = static_cast<T*>(out);
-  return with_temporal_plan<16 / sizeof(T)>(vec, lanes, chunks, [&](auto plan) {
+  if (T1 <= kTMax) {
+    const int blocks = static_cast<int>((total + kTemporalThreads - 1) / kTemporalThreads);
+    return with_temporal_plan<16 / sizeof(T)>(vec, lanes, chunks, [&](auto plan) {
+      using P = decltype(plan);
+      temporal_attn_kernel<T, P::V, P::L, P::C><<<blocks, kTemporalThreads, 0, st>>>(
+          in, o, T1, S, H, inner, inner / H, scale, total);
+    });
+  }
+  int err = 0;
+  const int rc = with_temporal_plan<16 / sizeof(T)>(vec, lanes, chunks, [&](auto plan) {
     using P = decltype(plan);
-    temporal_attn_kernel<T, P::V, P::L, P::C><<<blocks, kTemporalThreads, 0, st>>>(
-        in, o, T1, S, H, inner, inner / H, scale, total);
+    err = launch_temporal_any<kTemporalThreads>(
+        temporal_attn_any_kernel<T, P::V, P::L, P::C>, total, T1, 2,
+        TRow<T, P::V, P::L, P::C>::W, scratch, st, in, o, T1, S, H, inner, inner / H, scale,
+        total);
   });
+  return rc != 0 ? rc : err;
+}
+
+// The bytes of device scratch the general lanes need at T1 (0 where their slots fit
+// shared memory, or at T1 <= kTMax): nslots 2 (the forward) or 4 (the backward) rows a
+// thread of the plan (vec, lanes, chunks) in dtype dt.
+template <typename T, int VW, int kMaxThreads>
+int temporal_scratch(int nslots, int B, int T1, int S, int H, int vec, int lanes, int chunks,
+                     long long* bytes) {
+  *bytes = 0;
+  if (T1 <= kTMax) return 0;
+  int err = 0;
+  const long total = static_cast<long>(B) * S * H * lanes;
+  const int rc = with_temporal_plan<VW>(vec, lanes, chunks, [&](auto plan) {
+    using P = decltype(plan);
+    TemporalAnyLaunch la;
+    if (temporal_any_launch<kMaxThreads>(total, T1, nslots, TRow<T, P::V, P::L, P::C>::W, &la,
+                                         &err))
+      *bytes = la.scratch;
+  });
+  return rc != 0 ? rc : err;
 }
 
 template <typename T, int DH>
@@ -192,22 +239,40 @@ using namespace istvt;
 
 extern "C" {
 
-// qkv (B, T1, S, 3 inner) -> out (B, T1, S, inner); dt 0 f32, 1 bf16; T1 <= 8, inner / H <= 128;
-// (vec, lanes, chunks): the head's layout (kernels/attention.temporal_plan), one that
-// with_temporal_plan instantiates.
+// qkv (B, T1, S, 3 inner) -> out (B, T1, S, inner); dt 0 f32, 1 bf16; T1 >= 2, inner / H <=
+// 128; (vec, lanes, chunks): the head's layout (kernels/attention.temporal_plan), one that
+// with_temporal_plan instantiates; scratch: istvt_temporal_scratch's bytes of device
+// memory, or null where it gives 0.
 int istvt_temporal_attn(const void* qkv, void* out, int dt, int B, int T1, int S, int H,
-                        int inner, float scale, int vec, int lanes, int chunks, void* stream) {
+                        int inner, float scale, int vec, int lanes, int chunks, void* scratch,
+                        void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   int rc = dt == kBF16 ? launch_temporal<__nv_bfloat16>(qkv, out, B, T1, S, H, inner, scale,
-                                                        vec, lanes, chunks, st)
+                                                        vec, lanes, chunks, scratch, st)
                        : launch_temporal<float>(qkv, out, B, T1, S, H, inner, scale, vec, lanes,
-                                                chunks, st);
+                                                chunks, scratch, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 
-// qkv (G, S, 3 inner) -> out (G, S, inner); keys >= n_valid masked; S <= 384,
-// inner / H in {16, 32, 64, 128}.
+// The device scratch (bytes, in *bytes) that the temporal core (backward 0) or #12
+// (backward 1) needs at this geometry and plan: 0 unless T1 > 8 and not one warp's slots
+// of T1 rows fit a block's shared memory.
+int istvt_temporal_scratch(int dt, int backward, int B, int T1, int S, int H, int vec,
+                           int lanes, int chunks, long long* bytes) {
+  if (backward)
+    return dt == kBF16 ? temporal_scratch<__nv_bfloat16, kTemporalBwdVec, kTemporalBwdThreads>(
+                             4, B, T1, S, H, vec, lanes, chunks, bytes)
+                       : temporal_scratch<float, kTemporalBwdVec, kTemporalBwdThreads>(
+                             4, B, T1, S, H, vec, lanes, chunks, bytes);
+  return dt == kBF16 ? temporal_scratch<__nv_bfloat16, 8, kTemporalThreads>(
+                           2, B, T1, S, H, vec, lanes, chunks, bytes)
+                     : temporal_scratch<float, 4, kTemporalThreads>(2, B, T1, S, H, vec, lanes,
+                                                                     chunks, bytes);
+}
+
+// qkv (G, S, 3 inner) -> out (G, S, inner); keys >= n_valid masked; any S, inner / H in
+// {16, 32, 64, 128}.
 int istvt_spatial_attn(const void* qkv, void* out, int dt, int G, int S, int H, int inner,
                        int n_valid, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
@@ -218,7 +283,7 @@ int istvt_spatial_attn(const void* qkv, void* out, int dt, int G, int S, int H, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, k, v (G, S, inner) -> out (G, S, inner), no mask; S <= 384, inner / H in
+// q, k, v (G, S, inner) -> out (G, S, inner), no mask; any S, inner / H in
 // {16, 32, 64, 128}.
 int istvt_frame_attn(const void* q, const void* k, const void* v, void* out, int dt, int G, int S,
                      int H, int inner, float scale, void* stream) {

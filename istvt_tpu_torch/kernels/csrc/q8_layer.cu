@@ -219,15 +219,28 @@ __global__ void __launch_bounds__(kQThreads, 1)
                               smem_raw, true);
   next_phase();
   // 3. temporal core: the standalone kernel's threads, kQThreads a block-step (the
-  // loop bound is uniform in a block, so every lane of a warp runs its shuffles)
+  // loop bound is uniform in a block, so every lane of a warp runs its shuffles); past
+  // kTMax frames the general lane, its slots in the FF hidden's workspace (free until
+  // phase 12), thread g's at g W words, the warps' span of threads apart (a warp wholly
+  // past the last thread has no slots and skips the lane: no lane of it is needed). The
+  // STAMP instantiation has the register lane only (the paper's T1 = 7; with the
+  // general lane too, ptxas spilled its f32 instantiation at 168 registers)
   {
     using TP = typename TemporalWide<T, DH>::Plan;
     const long total = static_cast<long>(p.B) * p.S * p.H * TP::L;
     for (long g0 = static_cast<long>(blockIdx.x) * kQThreads; g0 < total;
          g0 += static_cast<long>(gridDim.x) * kQThreads) {
       const long g = g0 + threadIdx.x;
-      temporal_attn_lane<T, TP::V, TP::L, TP::C>(qkv, a, p.T1, p.S, p.H, I, DH, p.scale, g,
-                                                 g < total);
+      if (STAMP || p.T1 <= kTMax) {
+        temporal_attn_lane<T, TP::V, TP::L, TP::C>(qkv, a, p.T1, p.S, p.H, I, DH, p.scale, g,
+                                                   g < total);
+      } else if (g0 + (threadIdx.x & ~31) < total) {
+        constexpr int W = TRow<T, TP::V, TP::L, TP::C>::W;
+        const TSlots sl{reinterpret_cast<uint32_t*>(p.hid) + g * W, (total + 31) / 32 * 32 * W,
+                        false};
+        temporal_attn_lane_any<T, TP::V, TP::L, TP::C>(qkv, a, p.T1, p.S, p.H, I, DH, p.scale,
+                                                       g, g < total, sl);
+      }
     }
   }
   next_phase();
@@ -299,6 +312,15 @@ int launch_layer(const LayerQ8& p, const LayerMaps& maps, cudaStream_t st) {
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  if (STAMP && p.T1 > kTMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.T1 > kTMax) {
+    // phase 3's slots (2 T1 rows of W words for every thread of the warps' span) in the
+    // FF hidden's workspace of rows x hdim floats
+    using TP = typename TemporalWide<T, DH>::Plan;
+    const long total = static_cast<long>(p.B) * p.S * p.H * TP::L;
+    const long words = 2L * p.T1 * ((total + 31) / 32 * 32) * TRow<T, TP::V, TP::L, TP::C>::W;
+    if (words > static_cast<long>(p.rows) * p.hdim) return static_cast<int>(cudaErrorInvalidValue);
+  }
   LayerQ8 params = p;
   constexpr int QT = spatial_q_tile<LayerTile>();
   params.s_nqt = (p.S + QT - 1) / QT;
@@ -337,9 +359,10 @@ extern "C" {
 // ptrs: kLayerPtrs device pointers in kernels/quant._LAYER_PTRS' order, the int8
 // weights as their K-major copies (quant.kmajor: (N, padded_k(K)), contiguous); x (B,
 // T1, S, D) and out (not aliasing x) in dtype dt (0 f32, 1 bf16); the codes q hold B
-// T1 S rows of max(padded_k(D), padded_k(inner), padded_k(hdim)) bytes; T1 <= 8, S <=
-// 384, inner / H in {16, 64}, D, 3 inner and hdim divisible by 4. stamps: null, or
-// 15 u64 on the card for the phase stamps (inner / H 64 only).
+// T1 S rows of max(padded_k(D), padded_k(inner), padded_k(hdim)) bytes; any T1 >= 2 and
+// S, inner / H in {16, 64}, D, 3 inner and hdim divisible by 4 (past T1 = 8, phase 3's
+// slots must fit the FF hidden's workspace, else cudaErrorInvalidValue). stamps: null, or
+// 15 u64 on the card for the phase stamps (inner / H 64 and T1 <= 8 only).
 int istvt_st_layer_q8(const void* const* ptrs, int dt, int B, int T1, int S, int D, int H,
                       int inner, int hdim, int n_valid, float scale, void* stamps,
                       void* stream) {

@@ -7,7 +7,7 @@
 //
 // What they compute (istvt_tpu/kernels/attention.py _temporal_packed_kernel and
 // _temporal_packed_bwd_kernel): per (clip, location, head), softmax attention over the
-// T1 <= 8 frames after the self-subtract cat(x[:2], x[2:] - x[1:-1]) on q and k, taken
+// T1 frames after the self-subtract cat(x[:2], x[2:] - x[1:-1]) on q and k, taken
 // in the activation dtype; f32 logits x dh^-0.5, max-shifted exp, the weights left
 // unnormalised through PV and one division acc / den per output element. Backward: dq
 // summed in f32 over the key frames and rounded once; dk and dv summed over the query
@@ -54,7 +54,26 @@
 // its byte bound in bf16 and 87% in f32, #12 at 49% and 79%; #12 is held back by its
 // chains of dependent work more than by bytes (left out, its dk / dv updates took
 // only 0.178 -> 0.159 ms in bf16).
+//
+// Those lanes hold a row of every frame at once, so they take T1 <= kTMax = 8 (the
+// paper's T1 = 7). Longer clips (the JAX kernels take a whole clip of any T1 as one VMEM
+// block) go to the general lanes, temporal_attn_lane_any and temporal_attn_bwd_lane_any:
+// the same layout, plan and arithmetic, with nothing that scales with a compile-time T1
+// in registers. Each lane stages the subtracted k and the v of every frame in its own
+// slots (TSlots: dynamic shared memory, as many warps a block as the T1 slots fit, or a
+// device scratch where not one warp's fit) and walks the key frames kTMax at a time, so
+// that head_sum, head_max and head_bcast work on the same kTMax items as above. The
+// forward keeps JAX's order by two sweeps over the keys per query frame: the first
+// finds the max of the scaled scores, the second recomputes them (the same bits), takes
+// exp(s - max) and sums den and the unnormalised PV in ascending j, then one division
+// per element. The backward sweeps three times (the max; den and sum e dp; p, ds and the
+// updates), q and dO of the query frame read from device memory, dk and dv summed in
+// the activation dtype in two more slot rows (4 T1 slots a lane, as the kTMax lane's
+// staging). At T1 <= kTMax one sweep's block is the whole clip, and the general lanes'
+// arithmetic is the register lanes' step for step; they run only at T1 > kTMax.
 #pragma once
+
+#include <algorithm>
 
 #include <type_traits>
 
@@ -62,7 +81,7 @@
 
 namespace istvt {
 
-constexpr int kTMax = 8;                // T + 1 <= 8
+constexpr int kTMax = 8;                // the register lanes' T1; past it the general lanes
 constexpr int kTemporalThreads = 256;   // temporal_attn_kernel's block
 constexpr int kTemporalBwdThreads = 128;  // temporal_attn_bwd_kernel's block
 constexpr int kTemporalBwdVec = 4;  // its wide form's vector: 16 bytes of f32, 8 of bf16
@@ -141,6 +160,7 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
 template <typename T, int V, int L, int C>
 struct TRow {
   static constexpr int E = V * C;
+  static constexpr int kV = V;
   static constexpr bool kVec = V > 1;  // the wide form: one vector of kBytes a lane
   static constexpr int kBytes = V * sizeof(T);
   static constexpr bool kPacked = kVec && std::is_same<T, __nv_bfloat16>::value;
@@ -549,6 +569,351 @@ __device__ __forceinline__ void temporal_attn_bwd_lane(const T* qkv, const T* do
     const Row gk = t >= 1 && t + 1 < T1 ? Row::sub(dk[t], dk[next]) : dk[t];
     gk.store(out_row(t) + inner, lane, dh, on);
     dv[t].store(out_row(t) + 2 * inner, lane, dh, on);
+  }
+}
+
+
+// --- the general lanes, any T1 (see the header): staged rows and their slots
+
+// Where a general lane keeps its staged rows: slot (x, t) at base + (x T1 + t) stride
+// words, W = TRow::W words each. In dynamic shared memory the block's threads sit side
+// by side (base = smem + threadIdx.x W, stride = blockDim.x W, filled by cp.async); in
+// a device scratch the launch's threads do (base = scratch + g W, stride = threads x W).
+struct TSlots {
+  uint32_t* base;
+  long stride;
+  bool shared;
+  __device__ __forceinline__ uint32_t* at(int x, int t, int T1) const {
+    return base + static_cast<size_t>(x * T1 + t) * stride;
+  }
+};
+
+// The slots of thread threadIdx.x of a launch of 1-D blocks with W-word rows: in the
+// block's dynamic shared memory `smem`, or in `scratch` where it is given.
+__device__ __forceinline__ TSlots temporal_slots(uint32_t* smem, uint32_t* scratch, int W) {
+  if (scratch != nullptr) {
+    const long g = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    return {scratch + g * W, static_cast<long>(gridDim.x) * blockDim.x * W, false};
+  }
+  return {smem + threadIdx.x * W, static_cast<long>(blockDim.x) * W, true};
+}
+
+// This lane's part of the head row at p (its first element) into slot s, zeros where
+// !on: by cp.async where the slots are in shared memory and the row is one vector a
+// lane (any: a valid address for the zero fill), else through registers. Completed by
+// the caller's cp_async_commit / cp_async_wait.
+template <typename Row, typename T>
+__device__ __forceinline__ void stage_row(uint32_t* s, const T* p, const T* any, int lane, int dh,
+                                          bool on, bool shared) {
+  if constexpr (Row::kVec) {
+    if (shared) {
+      const bool in = on && lane * Row::kV < dh;
+      const T* src = in ? p + lane * Row::kV : any;
+      if constexpr (Row::kBytes == 16) cp_async16(s, src, in);
+      else cp_async8(s, src, in);
+      return;
+    }
+  }
+  Row r;
+  r.load(p, lane, dh, on);
+  r.to_shared(s);
+}
+
+// Warps a block of a general lane's kernel: as many as the block's shared memory holds
+// at `words` slot words a thread, at most max_warps; 0 where not one warp's slots fit
+// (the launch then puts them in a device scratch). < 0: a CUDA error.
+inline int temporal_any_warps(long words, int max_warps) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  return static_cast<int>(std::min<long>(max_warps, optin / (32L * 4 * words)));
+}
+
+// A general lane's launch: (threads a block, dynamic shared memory bytes, scratch
+// bytes) for nslots T1 slots of W words a thread, blocks of at most kMaxThreads; scratch
+// 0 unless not one warp's slots fit the block's shared memory. false on a CUDA error
+// (in *err).
+struct TemporalAnyLaunch {
+  int threads, smem;
+  long long scratch;
+};
+
+template <int kMaxThreads>
+bool temporal_any_launch(long total, int T1, int nslots, int W, TemporalAnyLaunch* out,
+                         int* err) {
+  const long words = static_cast<long>(nslots) * T1 * W;
+  const int warps = temporal_any_warps(words, kMaxThreads / 32);
+  if (warps < 0) {
+    *err = -warps;
+    return false;
+  }
+  if (warps > 0) {
+    *out = {32 * warps, static_cast<int>(32 * warps * words * 4), 0};
+  } else {
+    const long blocks = (total + kMaxThreads - 1) / kMaxThreads;
+    *out = {kMaxThreads, 0, static_cast<long long>(blocks) * kMaxThreads * words * 4};
+  }
+  return true;
+}
+
+// Launches a general lane's kernel over `total` threads: blocks and shared memory by
+// temporal_any_launch, its arguments then the scratch (passed where the slots go there;
+// a null scratch then is cudaErrorInvalidValue). 0 or the CUDA error.
+template <int kMaxThreads, typename Kern, typename... Args>
+int launch_temporal_any(Kern kern, long total, int T1, int nslots, int W, void* scratch,
+                        cudaStream_t st, Args... args) {
+  TemporalAnyLaunch la;
+  int err = 0;
+  if (!temporal_any_launch<kMaxThreads>(total, T1, nslots, W, &la, &err)) return err;
+  if (la.scratch > 0 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (la.smem > 0) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, la.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long blocks = (total + la.threads - 1) / la.threads;
+  kern<<<static_cast<unsigned>(blocks), la.threads, la.smem, st>>>(
+      args..., la.scratch > 0 ? static_cast<uint32_t*>(scratch) : nullptr);
+  return 0;
+}
+
+// q of frame i, self-subtracted in the activation dtype (frames 0 and 1 as projected);
+// prev holds frame i - 1's projected q on entry and frame i's on return.
+template <typename Row, typename T>
+__device__ __forceinline__ Row subtracted_q(const T* qkv, const TemporalSite& at, int i, int T1,
+                                            int S, int inner, int dh, bool on, Row& prev) {
+  Row q;
+  q.load(qkv + at.row(i, T1, S, 3 * inner, dh), at.lane, dh, on);
+  const Row raw = q;
+  if (i >= 2) q = Row::sub(q, prev);
+  prev = raw;
+  return q;
+}
+
+// A general lane's scores q_i . k_j of key frames j0 .. j0 + kTMax - 1 (0 past T1),
+// item j of head_sum's, then this lane's items scaled (-inf past T1); k_j from slot
+// (0, j).
+template <typename Row, typename It, int L>
+__device__ __forceinline__ void any_scores(float (&l)[kTMax], const Row& qi, const TSlots& sl,
+                                           int j0, int T1, int lane, float scale) {
+#pragma unroll
+  for (int j = 0; j < kTMax; ++j) {
+    float p = 0.f;
+    if (j0 + j < T1) {
+      Row kj;
+      kj.from_shared(sl.at(0, j0 + j, T1));
+#pragma unroll
+      for (int e = 0; e < Row::E; ++e) p = __fadd_rn(p, __fmul_rn(qi.at(e), kj.at(e)));
+    }
+    l[j] = p;
+  }
+  head_sum<kTMax, 1, L>(l, lane);
+#pragma unroll
+  for (int r = 0; r < It::R; ++r)
+    l[r] = j0 + It::item(lane, r) < T1 ? __fmul_rn(l[r], scale) : -INFINITY;
+}
+
+// The backward's (l_j, dp_j) = (q_i . k_j, dO_i . v_j) of key frames j0 .. j0 + kTMax -
+// 1, item j of head_sum's (pairs); without kDp only l (a[2 j + 1] = 0). k_j, v_j from
+// slots (0, j), (1, j).
+template <typename Row, int L, bool kDp>
+__device__ __forceinline__ void any_sums(float (&a)[2 * kTMax], const Row& qi, const Row& gi,
+                                         const TSlots& sl, int j0, int T1, int lane) {
+#pragma unroll
+  for (int j = 0; j < kTMax; ++j) {
+    a[2 * j] = a[2 * j + 1] = 0.f;
+    if (j0 + j < T1) {
+      Row kj;
+      kj.from_shared(sl.at(0, j0 + j, T1));
+#pragma unroll
+      for (int e = 0; e < Row::E; ++e) a[2 * j] = __fadd_rn(a[2 * j], __fmul_rn(qi.at(e), kj.at(e)));
+      if constexpr (kDp) {
+        Row vj;
+        vj.from_shared(sl.at(1, j0 + j, T1));
+#pragma unroll
+        for (int e = 0; e < Row::E; ++e)
+          a[2 * j + 1] = __fadd_rn(a[2 * j + 1], __fmul_rn(gi.at(e), vj.at(e)));
+      }
+    }
+  }
+  head_sum<kTMax, 2, L>(a, lane);
+}
+
+// (iv) The forward at any T1, thread g of B S H L (every lane of the warp calls it, as
+// temporal_attn_lane). Slots: k (subtracted, x = 0) and v (x = 1) of every frame.
+template <typename T, int V, int L, int C>
+__device__ __forceinline__ void temporal_attn_lane_any(const T* qkv, T* out, int T1, int S, int H,
+                                                       int inner, int dh, float scale, long g,
+                                                       bool on, const TSlots& sl) {
+  using Row = TRow<T, V, L, C>;
+  using It = HeadItems<kTMax, L>;
+  constexpr int E = Row::E, R = It::R;
+  const TemporalSite at = TemporalSite::of<L>(g, S, H);
+  const int lane = at.lane;
+  auto staged = [&](int x, int t) {
+    Row r;
+    r.from_shared(sl.at(x, t, T1));
+    return r;
+  };
+  for (int t = 0; t < T1; ++t) {
+    const T* row = qkv + at.row(t, T1, S, 3 * inner, dh);
+    stage_row<Row>(sl.at(0, t, T1), row + inner, qkv, lane, dh, on, sl.shared);
+    stage_row<Row>(sl.at(1, t, T1), row + 2 * inner, qkv, lane, dh, on, sl.shared);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  // self-subtract of k in place, in the activation dtype, descending t
+  for (int t = T1 - 1; t >= 2; --t) Row::sub(staged(0, t), staged(0, t - 1)).to_shared(sl.at(0, t, T1));
+
+  Row qprev;
+  qprev.zero();
+  for (int i = 0; i < T1; ++i) {
+    const Row qi = subtracted_q<Row>(qkv, at, i, T1, S, inner, dh, on, qprev);
+    float m = -INFINITY;
+    for (int j0 = 0; j0 < T1; j0 += kTMax) {
+      float l[kTMax];
+      any_scores<Row, It, L>(l, qi, sl, j0, T1, lane, scale);
+#pragma unroll
+      for (int r = 0; r < R; ++r) m = fmaxf(m, l[r]);
+    }
+    m = head_max<L, It::kSpread>(m);
+    float den = 0.f, acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.f;
+    for (int j0 = 0; j0 < T1; j0 += kTMax) {
+      float l[kTMax];
+      any_scores<Row, It, L>(l, qi, sl, j0, T1, lane, scale);
+#pragma unroll
+      for (int r = 0; r < R; ++r) l[r] = expf(l[r] - m);
+#pragma unroll
+      for (int j = 0; j < kTMax; ++j) {
+        if (j0 + j < T1) {
+          const float w = head_bcast<It, L>(l, j);
+          den = __fadd_rn(den, w);
+          const Row vj = staged(1, j0 + j);
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(w, vj.at(e)));
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = __fdiv_rn(acc[e], den);
+    Row::rounded(acc).store(out + at.row(i, T1, S, inner, dh), lane, dh, on);
+  }
+}
+
+// (i) The backward at any T1, thread g of B S H L (every lane of the warp calls it).
+// Slots: k (subtracted, x = 0) and v (x = 1) of every frame, and the dk (x = 2) and dv
+// (x = 3) sums over the query frames so far.
+template <typename T, int V, int L, int C>
+__device__ __forceinline__ void temporal_attn_bwd_lane_any(const T* qkv, const T* dout, T* dqkv,
+                                                           int T1, int S, int H, int inner,
+                                                           int dh, float scale, long g, bool on,
+                                                           const TSlots& sl) {
+  using Row = TRow<T, V, L, C>;
+  using It = HeadItems<kTMax, L>;
+  constexpr int E = Row::E, R = It::R;
+  const TemporalSite at = TemporalSite::of<L>(g, S, H);
+  const int lane = at.lane;
+  auto staged = [&](int x, int t) {
+    Row r;
+    r.from_shared(sl.at(x, t, T1));
+    return r;
+  };
+  Row zero;
+  zero.zero();
+  for (int t = 0; t < T1; ++t) {
+    const T* row = qkv + at.row(t, T1, S, 3 * inner, dh);
+    stage_row<Row>(sl.at(0, t, T1), row + inner, qkv, lane, dh, on, sl.shared);
+    stage_row<Row>(sl.at(1, t, T1), row + 2 * inner, qkv, lane, dh, on, sl.shared);
+    zero.to_shared(sl.at(2, t, T1));
+    zero.to_shared(sl.at(3, t, T1));
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  for (int t = T1 - 1; t >= 2; --t) Row::sub(staged(0, t), staged(0, t - 1)).to_shared(sl.at(0, t, T1));
+
+  auto out_row = [&](int t) { return dqkv + at.row(t, T1, S, 3 * inner, dh); };
+  Row qprev, dq_last;
+  qprev.zero();
+  dq_last.zero();
+  for (int i = 0; i < T1; ++i) {
+    const Row qi = subtracted_q<Row>(qkv, at, i, T1, S, inner, dh, on, qprev);
+    Row gi;
+    gi.load(dout + at.row(i, T1, S, inner, dh), lane, dh, on);
+    // sweep 1: the max of the scaled scores
+    float m = -INFINITY;
+    for (int j0 = 0; j0 < T1; j0 += kTMax) {
+      float a[2 * kTMax];
+      any_sums<Row, L, false>(a, qi, gi, sl, j0, T1, lane);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (j0 + It::item(lane, r) < T1) m = fmaxf(m, __fmul_rn(a[2 * r], scale));
+    }
+    m = head_max<L, It::kSpread>(m);
+    // sweep 2: den and sum e dp over this lane's items, then over the head
+    float den = 0.f, pdp = 0.f;
+    for (int j0 = 0; j0 < T1; j0 += kTMax) {
+      float a[2 * kTMax];
+      any_sums<Row, L, true>(a, qi, gi, sl, j0, T1, lane);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool in = j0 + It::item(lane, r) < T1;
+        const float es = expf((in ? __fmul_rn(a[2 * r], scale) : -INFINITY) - m);
+        den = __fadd_rn(den, es);
+        pdp = __fadd_rn(pdp, __fmul_rn(es, in ? a[2 * r + 1] : 0.f));
+      }
+    }
+    den = head_total<L, It::kSpread>(den);
+    pdp = __fdiv_rn(head_total<L, It::kSpread>(pdp), den);
+    // sweep 3: p and ds once, on the lane that holds the item; dq, and dk / dv in
+    // their slots
+    float dq[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) dq[e] = 0.f;
+    for (int j0 = 0; j0 < T1; j0 += kTMax) {
+      float a[2 * kTMax];
+      any_sums<Row, L, true>(a, qi, gi, sl, j0, T1, lane);
+      float p[R], ds[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool in = j0 + It::item(lane, r) < T1;
+        const float es = expf((in ? __fmul_rn(a[2 * r], scale) : -INFINITY) - m);
+        p[r] = in ? __fdiv_rn(es, den) : 0.f;
+        ds[r] = __fmul_rn(__fmul_rn(p[r], __fsub_rn(in ? a[2 * r + 1] : 0.f, pdp)), scale);
+      }
+#pragma unroll
+      for (int j = 0; j < kTMax; ++j) {
+        if (j0 + j < T1) {
+          const float pj = head_bcast<It, L>(p, j), dsj = head_bcast<It, L>(ds, j);
+          const Row kj = staged(0, j0 + j);
+          float xk[E], xv[E];
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            dq[e] = __fadd_rn(dq[e], __fmul_rn(dsj, kj.at(e)));
+            xk[e] = __fmul_rn(dsj, qi.at(e));
+            xv[e] = __fmul_rn(pj, gi.at(e));
+          }
+          Row dk = staged(2, j0 + j), dv = staged(3, j0 + j);
+          dk.add_rounded(xk);
+          dv.add_rounded(xv);
+          dk.to_shared(sl.at(2, j0 + j, T1));
+          dv.to_shared(sl.at(3, j0 + j, T1));
+        }
+      }
+    }
+    // dq of frame i rounded once; the transposed self-subtract of frame i - 1
+    const Row dqi = Row::rounded(dq);
+    if (i >= 1) (i >= 2 ? Row::sub(dq_last, dqi) : dq_last).store(out_row(i - 1), lane, dh, on);
+    dq_last = dqi;
+  }
+  dq_last.store(out_row(T1 - 1), lane, dh, on);
+  for (int t = 0; t < T1; ++t) {
+    const Row gk = t >= 1 && t + 1 < T1 ? Row::sub(staged(2, t), staged(2, t + 1)) : staged(2, t);
+    gk.store(out_row(t) + inner, lane, dh, on);
+    staged(3, t).store(out_row(t) + 2 * inner, lane, dh, on);
   }
 }
 

@@ -548,7 +548,7 @@ def st_layer_q8(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss, wos,
     checked on any device. On the card one launch: a persistent kernel that
     walks the layer's phases with its intermediates in a workspace
     allocated in the call (layer_workspace: 889 MB at B=16 in bf16);
-    `stamps`, an int64 CUDA tensor of LAYER_STAMPS elements (dim_head 64
+    `stamps`, an int64 CUDA tensor of LAYER_STAMPS elements (dim_head 64, T1 <= 8
     only), runs the kernel's stamped instantiation instead, outside the
     dispatcher op, which writes there the %globaltimer ns at its start and
     at the end of each phase (tools/kernel_ms.py --layer-phases). CPU
@@ -574,7 +574,7 @@ def _st_layer_q8_cuda(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss,
     inner = i3 // 3
     _lib.check_act(x, "x")
     check_temporal(t1, inner, heads)
-    check_spatial(s_len, inner, heads, dims=(16, 64))
+    check_spatial(inner, heads, dims=(16, 64))
     for wq, ws, d_in, d_out in ((wqt, wst, d, i3), (wot, sot, inner, d),
                                 (wqs, wss, d, i3), (wos, sos, inner, d),
                                 (w1q, w1s, d, hdim), (w2q, w2s, hdim, d)):
@@ -587,9 +587,9 @@ def _st_layer_q8_cuda(x, st, bt, wqt, wst, wot, sot, bot, ss, bs, wqs, wss,
             raise ValueError(f"{name} on {v.device}, x on {x.device}")
     if stamps is not None and (
             not stamps.is_cuda or stamps.dtype != torch.int64 or
-            stamps.numel() < LAYER_STAMPS or inner // heads != 64):
+            stamps.numel() < LAYER_STAMPS or inner // heads != 64 or t1 > 8):
         raise ValueError(f"stamps: an int64 CUDA tensor of {LAYER_STAMPS} "
-                         f"elements, at dim_head 64")
+                         f"elements, at dim_head 64 and T1 <= 8")
     wkqt, wkot, wkqs, wkos, wk1, wk2 = _kmajor_of(wk, wqt, wot, wqs, wos,
                                                   w1q, w2q)
     ptr = {"x": x, "out": torch.empty_like(x), "wqt": wkqt, "wot": wkot,

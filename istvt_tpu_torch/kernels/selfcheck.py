@@ -99,7 +99,26 @@ VARIANTS = ("fused_temporal_attention@n_valid",
             "temporal_attention_packed@b16",
             "temporal_attention_packed/bwd@b16",
             *(f"sepconv_bn@{u}" for u in SLICE["units"] if u != SEPCONV_UNIT))
-CASES = tuple(_lib.LAUNCHES) + VARIANTS
+# the geometries past the paper's that the JAX package runs: longer clips
+# (--seq_len 8, 16, 32: T1 = 9, 17, 33; the temporal cores' general lanes)
+# and larger frames (-is 320: a 20 x 20 grid, S = 408 with 401 valid keys;
+# -is 448: 28 x 28, S = 792 with 785): "@tN" at T1 = N, "@sN" at S = N, "b16"
+# at the B=16 forward's 16 clips, each drawn from a generator of its own
+GEOMETRY_VARIANTS = (
+    "temporal_attention_packed@b16t9", "temporal_attention_packed@b16t17",
+    "temporal_attention_packed@b16t33",
+    "temporal_attention_packed/bwd@b16t9",
+    "temporal_attention_packed/bwd@b16t17",
+    "spatial_attention_packed@b16s408", "spatial_attention_packed@b16s792",
+    "spatial_attention_packed/bwd@b16s408",
+    "spatial_attention_packed/bwd@b16s792",
+    "ln_qkv_q8_temporal_attention@t9",
+    "mm_q8_ln_qkv_q8_spatial_attention@s408", "st_layer_q8@t9s408",
+    "fused_temporal_attention@t9", "fused_temporal_attention_bwd@t9",
+    "fused_frame_attention_mh@s408", "fused_frame_attention_bwd@s408")
+# valid keys of the padded S of a larger frame (h w + 1 tokens)
+GEOMETRY_N_VALID = {408: 401, 792: 785}
+CASES = tuple(_lib.LAUNCHES) + VARIANTS + GEOMETRY_VARIANTS
 INT8_CASES = ("ln_qkv_q8_temporal_attention",
               "mm_q8_ln_qkv_q8_spatial_attention",
               "matmul_q8_res_ln_ff_q8_full", "ln_matmul_q8",
@@ -205,6 +224,27 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
         qkv = torch.randn(B16, t1, s, 3 * inner, generator=g16)
         grads = [torch.randn(B16, t1, s, inner, generator=g16)] if grad else []
         return on(dt, qkv, *grads)
+
+    def drawn(tag, *shapes):
+        """Tensors of these shapes from a generator of the case's own."""
+        gv = torch.Generator().manual_seed(seed + sum(map(ord, tag)))
+        return [torch.randn(*sh, generator=gv) for sh in shapes]
+
+    def padded(x, n):
+        x[:, :, n:] = 0.0
+        return x
+
+    def temporal_at(nb, nt, grad=False):
+        shapes = [(nb, nt, s, 3 * inner)] + ([(nb, nt, s, inner)] if grad
+                                              else [])
+        return lambda dt: [*on(dt, *drawn(f"t{nb}.{nt}.{grad}", *shapes)),
+                           heads]
+
+    def spatial_at(nb, ns, grad=False):
+        shapes = [(nb * t1, ns, 3 * inner)] + ([(nb * t1, ns, inner)] if grad
+                                               else [])
+        return lambda dt: [*on(dt, *drawn(f"s{nb}.{ns}.{grad}", *shapes)),
+                           heads, GEOMETRY_N_VALID[ns]]
 
     def ff_bwd_args(dt):
         xr, s_, b_, w1_, b1_, w2_, b2_ = on(dt, rows, ln_s, ln_b, w1, b1f, w2,
@@ -343,6 +383,55 @@ def slice_cases(device, geometry=SLICE, seed: int = 0):
         **{f"sepconv_bn@{u}": unit_case(u) for u in units
            if u != SEPCONV_UNIT},
     }
+    for nt in (9, 17, 33):
+        cases[f"temporal_attention_packed@b16t{nt}"] = (
+            attention.temporal_attention_packed,
+            attention.temporal_packed_plain, temporal_at(B16, nt))
+        cases[f"temporal_attention_packed/bwd@b16t{nt}"] = (
+            attention.temporal_attention_packed_bwd,
+            attention.temporal_packed_bwd_plain,
+            temporal_at(B16, nt, grad=True))
+    for ns in GEOMETRY_N_VALID:
+        cases[f"spatial_attention_packed@b16s{ns}"] = (
+            attention.spatial_attention_packed,
+            attention.spatial_packed_plain, spatial_at(B16, ns))
+        cases[f"spatial_attention_packed/bwd@b16s{ns}"] = (
+            attention.spatial_attention_packed_bwd,
+            attention.spatial_packed_bwd_plain,
+            spatial_at(B16, ns, grad=True))
+    x9, = drawn("x9", (b, 9, s, d))
+    a408, = drawn("a408", (b * t1, 408, inner))
+    x9s, = drawn("x9s", (b, 9, 408, d))
+    t9 = drawn("t9", *[(b, 9, s, inner)] * 4)
+    m408 = drawn("m408", *[(b * t1, 408, inner)] * 4)
+    cases.update({
+        "ln_qkv_q8_temporal_attention@t9": (
+            *cases["ln_qkv_q8_temporal_attention"][:2],
+            lambda dt: [*on(dt, padded(x9, n_valid), ln_s, ln_b), wqt, wst,
+                        heads]),
+        "mm_q8_ln_qkv_q8_spatial_attention@s408": (
+            *cases["mm_q8_ln_qkv_q8_spatial_attention"][:2],
+            lambda dt: [*on(dt, a408 * 0.5), woq, wos,
+                        *on(dt, bo, ln_s, ln_b), wqs, wss, heads, 401]),
+        "st_layer_q8@t9s408": (
+            *cases["st_layer_q8"][:2],
+            lambda dt: [*on(dt, padded(x9s, 401), ln_s, ln_b), wqt, wst, woq,
+                        wos, *on(dt, bo, ln_s, ln_b), wqs2, wss2, wos2, sos2,
+                        *on(dt, bo, ln_s, ln_b), w1q, w1s, *on(dt, b1), w2q,
+                        w2s, *on(dt, b2), heads, 401]),
+        "fused_temporal_attention@t9": (
+            *cases["fused_temporal_attention"][:2],
+            lambda dt: [*on(dt, *t9[:3]), heads]),
+        "fused_temporal_attention_bwd@t9": (
+            *cases["fused_temporal_attention_bwd"][:2],
+            lambda dt: [*on(dt, *t9), heads]),
+        "fused_frame_attention_mh@s408": (
+            *cases["fused_frame_attention_mh"][:2],
+            lambda dt: [*on(dt, *m408[:3]), heads]),
+        "fused_frame_attention_bwd@s408": (
+            *cases["fused_frame_attention_bwd"][:2],
+            lambda dt: [*on(dt, *m408), heads]),
+    })
     return {c: cases[c] for c in CASES}
 
 
@@ -364,7 +453,7 @@ def f32_tol(case: str) -> float:
 def f32_close(case: str, got, want) -> tuple:
     """(ok, err): err is max|diff| (for a backward case max|diff| /
     max|plain|, the worst output), ok its criterion (f32_tol)."""
-    if case in FREE_RUNNING_CASES:
+    if counter(case) in FREE_RUNNING_CASES:
         ok, _, mx, _ = bf16_close(got, want, rel_l2=F32_TOL_FREE_RUNNING)
         return ok, mx
     tol, ok, err = f32_tol(case), True, 0.0
@@ -947,9 +1036,12 @@ def wgmma_register_rows(report) -> list:
 # attention.temporal_plan can pick is an instantiation (csrc/temporal.cuh
 # with_temporal_plan: the forward's 16-byte wide form on 1-16 lanes in bf16
 # and 1-32 in f32, the backward's 4-element one on 1-32 lanes in both, and
-# the narrow form at 1, 2 and 4 elements a lane), each built with no spill
+# the narrow form at 1, 2 and 4 elements a lane), each built with no spill;
+# their general lanes' kernels (T1 > 8) at the same plans
 TEMPORAL_KERNELS = {"temporal_attn_kernel": 17,
-                    "temporal_attn_bwd_kernel": 18}
+                    "temporal_attn_bwd_kernel": 18,
+                    "temporal_attn_any_kernel": 17,
+                    "temporal_attn_bwd_any_kernel": 18}
 
 
 def spill_rows(report, kernels) -> list:

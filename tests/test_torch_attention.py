@@ -73,13 +73,20 @@ def test_spatial_attention_packed_matches_jax(size, dtype):
 
 
 def test_core_limits_raise_with_a_message():
-    """What the CUDA cores cannot take raises before any launch."""
-    ta.check_spatial(384, 512, 8)
+    """What the CUDA cores cannot take raises before any launch: a dim_head
+    they are not built for, heads that do not divide inner, T1 < 2. Longer
+    clips are taken (T1 = 9, 33), and the spatial check has no S to refuse:
+    the cores stream the keys."""
+    ta.check_spatial(512, 8)
     ta.check_temporal(8, 1024, 8)
-    for s_len, inner, heads in ((392, 512, 8), (368, 384, 8), (368, 512, 3)):
+    for t1 in (9, 33):
+        ta.check_temporal(t1, 512, 8)
+    for inner, heads in ((384, 8), (512, 3)):
         with pytest.raises(NotImplementedError, match="spatial attention"):
-            ta.check_spatial(s_len, inner, heads)
-    for t1, inner, heads in ((9, 512, 8), (7, 2048, 8)):
+            ta.check_spatial(inner, heads)
+    with pytest.raises(NotImplementedError, match="spatial attention"):
+        ta.check_spatial(1024, 8, dims=(16, 32, 64))
+    for t1, inner, heads in ((7, 2048, 8), (7, 512, 3), (1, 512, 8)):
         with pytest.raises(NotImplementedError, match="temporal attention"):
             ta.check_temporal(t1, inner, heads)
 

@@ -81,13 +81,16 @@ def test_kernel_bf16_matches_plain(cases, name):
 
 
 # (S, n_valid, dim_head, frames) of the spatial core's extra cases: the
-# model's S = 368 with 362 valid keys, S = 384 (the limit), S off the
-# 16-row mma tile with masked keys, every dim_head, and the B=16 forward's
-# 112 frames; #13 at the dim_heads it takes (16, 32, 64)
+# model's S = 368 with 362 valid keys, S = 384, S off the 16-row mma tile
+# with masked keys, every dim_head, and the B=16 forward's 112 frames; the
+# larger frames the JAX package runs (-is 320, 352, 380, 448: S = 408, 488,
+# 584, 792 with h w + 1 valid keys); #13 at the dim_heads it takes (16, 32,
+# 64)
 SPATIAL_SHAPES = [(368, 362, 64, 14), (384, 384, 64, 6), (97, 90, 64, 6),
                   (361, 300, 64, 6), (368, 362, 16, 6), (368, 362, 32, 6),
                   (368, 362, 128, 6), (97, 61, 128, 6), (361, 355, 16, 6),
-                  (368, 362, 64, 112)]
+                  (368, 362, 64, 112), (408, 401, 64, 14), (488, 485, 32, 6),
+                  (584, 577, 128, 6), (792, 785, 64, 6), (792, 785, 16, 6)]
 SPATIAL_BWD_SHAPES = [c for c in SPATIAL_SHAPES if c[2] <= 64]
 
 
@@ -159,10 +162,16 @@ def test_spatial_bwd_matches_plain_at_more_shapes(cuda, record_property, s,
 # every dim_head the model geometries use (16, 32, 64, 128), T1 = 2, 3, 7
 # and 8, B S H not a multiple of a block's heads, and dim_heads off the
 # 16-byte vector: 20 and 100 (the narrow form in bf16, the wide in f32, 100
-# on 32 lanes), 7 and 33 (the narrow form in both, 1 and 2 elements a lane)
+# on 32 lanes), 7 and 33 (the narrow form in both, 1 and 2 elements a lane);
+# then the general lanes (T1 > 8: --seq_len 8, 16, 32) at the same kinds of
+# layout, and at T1 = 240, where not one warp's slots fit a block's shared
+# memory and they go to a device scratch
 TEMPORAL_SHAPES = [(2, 7, 368, 8, 64), (1, 2, 37, 3, 16), (2, 3, 45, 4, 32),
                    (1, 8, 29, 2, 128), (2, 7, 61, 5, 20), (1, 7, 33, 3, 100),
-                   (1, 3, 19, 4, 7), (1, 8, 24, 2, 33)]
+                   (1, 3, 19, 4, 7), (1, 8, 24, 2, 33),
+                   (2, 9, 368, 8, 64), (1, 17, 37, 3, 16), (1, 33, 45, 4, 32),
+                   (1, 9, 29, 2, 128), (1, 17, 61, 5, 20), (1, 9, 33, 3, 100),
+                   (1, 33, 19, 4, 7), (1, 17, 24, 2, 33), (1, 240, 5, 2, 64)]
 
 
 def _temporal_qkv(cuda, b, t1, s, heads, dh, seed=0):
@@ -274,6 +283,36 @@ def test_temporal_kernels_build_without_spills(cuda):
             report, selfcheck.TEMPORAL_KERNELS):
         assert len(regs) == selfcheck.TEMPORAL_KERNELS[kernel], (kernel, regs)
         assert not spilled, (kernel, spilled)
+
+
+@pytest.mark.parametrize("t1, dh", [(9, 64), (17, 16), (33, 32), (17, 128),
+                                    (9, 20)])
+def test_unpacked_temporal_matches_plain_at_long_clips(cuda, record_property,
+                                                      t1, dh):
+    """#16 and #17 past T1 = 8 (their general kernels: rows read again each
+    sweep, dk / dv summed in the outputs) against their plain versions: f32
+    at atol = rtol = 1e-5 (#17 per output at 1e-5 of its scale), bf16 by the
+    bf16 criterion, the share equal bit for bit recorded."""
+    g = torch.Generator().manual_seed(t1 * 1000 + dh)
+    t = [torch.randn(2, t1, 29, 3 * dh, generator=g).to(cuda)
+         for _ in range(4)]
+    for dt in (torch.float32, torch.bfloat16):
+        x = [u.to(dt) for u in t]
+        with highest():
+            got = (attention.fused_temporal_attention(*x[:3], 3),
+                   *attention.fused_temporal_attention_bwd(*x, 3))
+            want = (attention.fused_temporal_attention_plain(*x[:3], 3),
+                    *attention.fused_temporal_attention_bwd_plain(*x, 3))
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            assert torch.allclose(got[0], want[0], atol=1e-5, rtol=1e-5)
+            for a, w in zip(got[1:], want[1:]):
+                assert (a - w).abs().max() <= 1e-5 * w.abs().max()
+        else:
+            ok, rel, mx, scale = selfcheck.bf16_close(got, want)
+            record_property("bf16_bit_equal",
+                            selfcheck.bit_equal_share(got, want))
+            assert ok, (rel, mx, scale)
 
 
 @pytest.mark.parametrize("kernel, dtype", [
@@ -619,9 +658,15 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         kern(x.half(), *rest)
     with pytest.raises(ValueError):
         kern(x.transpose(1, 2), *rest)
-    qkv = torch.zeros(2, 392, 3 * 512, device=cuda)      # S > 384
-    with pytest.raises(NotImplementedError, match="S <= 384"):
-        attention.spatial_attention_packed(qkv, 8, 362)
+    # S = 392, past the 384 the cores once took: run, and held to the plain
+    # version
+    qkv = torch.randn(2, 392, 3 * 512, generator=torch.Generator()
+                      .manual_seed(392)).to(cuda)
+    with highest():
+        got = attention.spatial_attention_packed(qkv, 8, 362)
+        want = attention.spatial_packed_plain(qkv, 8, 362)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, atol=1e-5, rtol=1e-5)
     with pytest.raises(NotImplementedError, match="dim_head"):
         attention.spatial_attention_packed(qkv[:, :368].contiguous(), 12,
                                            362)
@@ -874,7 +919,12 @@ _LAYER_GEOMETRIES = {"slice": selfcheck.SLICE,
                      "B=16": {**selfcheck.SLICE, "b": 16},
                      "B=1": {**selfcheck.SLICE, "b": 1},
                      "n_valid=S": {**selfcheck.SLICE, "n_valid": 368},
-                     "small": selfcheck.SMALL}
+                     "small": selfcheck.SMALL,
+                     # --seq_len 8 at -is 320 (phase 3's general lane, the
+                     # spatial phase past 384 keys), and a longer clip
+                     "T1=9,S=408": {**selfcheck.SLICE, "t1": 9, "s": 408,
+                                    "n_valid": 401},
+                     "T1=17,small": {**selfcheck.SMALL, "t1": 17}}
 
 
 @pytest.mark.parametrize("geometry", _LAYER_GEOMETRIES.values(),
@@ -1067,20 +1117,37 @@ def test_kernel_api_wrappers_backward_on_card(cuda):
 
 
 def test_kernel_api_rejects_what_the_kernels_cannot_take(cuda):
-    q = torch.zeros(4, 392, 64, device=cuda)                 # S > 384
-    with pytest.raises(NotImplementedError, match="S <= 384"):
-        attention.fused_frame_attention(q, q, q)
+    # S = 392 and T1 = 9, past what the cores once took: run, and held to
+    # the plain versions in f32 (summation order only; #17 per output
+    # relative to its scale)
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(4, 392, 64, generator=g).to(cuda)
+               for _ in range(3))
+    with highest():
+        got = attention.fused_frame_attention(q, k, v)
+        want = attention.fused_frame_attention_plain(q, k, v)
+    assert torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+    t = [torch.randn(1, 9, 8, 64, generator=g).to(cuda) for _ in range(4)]
+    with highest():
+        got = attention.fused_temporal_attention(*t[:3], 2)
+        want = attention.fused_temporal_attention_plain(*t[:3], 2)
+        assert torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+        got = attention.fused_temporal_attention_bwd(*t, 2)
+        want = attention.fused_temporal_attention_bwd_plain(*t, 2)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert (a - w).abs().max() <= 1e-5 * w.abs().max()
     q = torch.zeros(4, 64, 96, device=cuda)                  # dh 48
     with pytest.raises(NotImplementedError, match="dim_head"):
         attention.fused_frame_attention_mh(q, q, q, 2)
     q = torch.zeros(4, 64, 256, device=cuda)                 # #13: dh 128
     with pytest.raises(NotImplementedError, match="dim_head"):
         attention.fused_frame_attention_bwd(q, q, q, q, 2)
-    t = torch.zeros(1, 9, 8, 64, device=cuda)                # T1 > 8
-    with pytest.raises(NotImplementedError, match="T1 <= 8"):
-        attention.fused_temporal_attention(t, t, t, 2)
-    with pytest.raises(NotImplementedError, match="T1 <= 8"):
-        attention.fused_temporal_attention_bwd(t, t, t, t, 2)
+    t = torch.zeros(1, 7, 8, 3 * 64, device=cuda)            # dh 192
+    with pytest.raises(NotImplementedError, match="dim_head"):
+        attention.fused_temporal_attention(t, t, t, 1)
+    with pytest.raises(NotImplementedError, match="dim_head"):
+        attention.fused_temporal_attention_bwd(t, t, t, t, 1)
     t = torch.zeros(1, 7, 8, 64, device=cuda)
     with pytest.raises(ValueError, match="want"):
         attention.fused_temporal_attention(t, t.cpu(), t, 2)

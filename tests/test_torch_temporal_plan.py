@@ -120,9 +120,10 @@ def test_layer_plan_is_the_forwards(dtype, dh):
 
 def test_instantiation_counts_are_the_dispatchers():
     """selfcheck.TEMPORAL_KERNELS, the instantiations chip_smoke.py's build
-    phase wants of #11 and #12, are those with_temporal_plan makes: the
-    wide form's lanes (32 only for vectors of at most 4 elements) and the
-    narrow form's chunks, per dtype."""
+    phase wants of #11 and #12 and of their general lanes' kernels (T1 >
+    8, launched through the same with_temporal_plan), are those
+    with_temporal_plan makes: the wide form's lanes (32 only for vectors of
+    at most 4 elements) and the narrow form's chunks, per dtype."""
     wide, narrow, guarded = _instantiated()
 
     def count(vec):
@@ -132,13 +133,16 @@ def test_instantiation_counts_are_the_dispatchers():
     fwd = sum(count(attention.TEMPORAL_VEC_BYTES // size) for size in (4, 2))
     bwd = 2 * count(attention.TEMPORAL_BWD_VEC)
     assert selfcheck.TEMPORAL_KERNELS == {"temporal_attn_kernel": fwd,
-                                          "temporal_attn_bwd_kernel": bwd}
+                                          "temporal_attn_bwd_kernel": bwd,
+                                          "temporal_attn_any_kernel": fwd,
+                                          "temporal_attn_bwd_any_kernel": bwd}
 
 
 def test_spill_rows_of_a_canned_report():
     """selfcheck.spill_rows reads each instantiation's registers and
     spills from nvcc's -Xptxas -v report, by the kernel's mangled name
-    (temporal_attn_kernel does not match temporal_attn_bwd_kernel)."""
+    (temporal_attn_kernel does not match temporal_attn_bwd_kernel, nor
+    either of them the general lanes' kernels, which this report lacks)."""
     log = "\n".join([
         "ptxas info    : Compiling entry function "
         "'_ZN5istvt20temporal_attn_kernelIfLi4ELi16ELi1EEEvPKT_PS1_iiiiifl'"
@@ -158,7 +162,10 @@ def test_spill_rows_of_a_canned_report():
         "ptxas info    : Used 128 registers"])
     rows = selfcheck.spill_rows(_lib.ptxas_report(log),
                                 selfcheck.TEMPORAL_KERNELS)
-    (fk, fregs, fspill), (bk, bregs, bspill) = rows
+    (fk, fregs, fspill), (bk, bregs, bspill), *general = rows
+    assert [(k, regs, sp) for k, regs, sp in general] == [
+        ("temporal_attn_any_kernel", {}, []),
+        ("temporal_attn_bwd_any_kernel", {}, [])]
     assert (fk, list(fregs.values()), fspill) == \
         ("temporal_attn_kernel", [123], [])
     assert (bk, list(bregs.values()), len(bspill)) == \

@@ -53,6 +53,12 @@ and the (K, N) weight), with torch._int_mm on the same codes and weight
 as the yardstick, and the share of outputs equal bit for bit to the plain
 version. Run parent, change, change, parent in one call to compare two
 commits on one card.
+
+With --save PATH the cases' outputs (each case and dtype, on the host) are
+written to PATH as well; `--compare A B` reads two such files and prints,
+per case and dtype, whether the outputs are equal bit for bit and their
+largest difference: the cases' outputs of two commits on the same seeded
+inputs.
 """
 from __future__ import annotations
 
@@ -268,7 +274,22 @@ def main():
     ap.add_argument("--dtype", choices=("bf16", "f32"), default=None,
                     help="the inputs' dtype (--gemm: bf16 unless given; "
                          "the cases: both unless given)")
+    ap.add_argument("--save", default=None,
+                    help="with the cases: write their outputs to this file")
+    ap.add_argument("--compare", nargs=2, default=None,
+                    help="two --save files: print per case whether their "
+                         "outputs are equal bit for bit")
     args = ap.parse_args()
+    if args.compare:
+        a, b = (torch.load(f) for f in args.compare)
+        for key in a:
+            pairs = list(zip(a[key], b.get(key, ())))
+            equal = bool(pairs) and all(torch.equal(x, y) for x, y in pairs)
+            diff = max(((x.float() - y.float()).abs().max().item()
+                        for x, y in pairs), default=None)
+            print(json.dumps({"case": key, "bit_equal": equal,
+                              "max_abs_diff": diff}), flush=True)
+        return
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
 
@@ -337,10 +358,14 @@ def main():
     names = CASE_SETS.get(args.cases, args.cases.split(","))
     dtypes = {None: (torch.bfloat16, torch.float32),
               "bf16": (torch.bfloat16,), "f32": (torch.float32,)}[args.dtype]
+    saved = {}
     for name in names:
         kern, _, make = cases[name]
         for dt in dtypes:
             call_args = make(dt)
+            if args.save:
+                saved[f"{name} {str(dt)[6:]}"] = [
+                    t.cpu() for t in selfcheck.outputs(kern(*call_args))]
             ms = min(median_ms(lambda: kern(*call_args)) for _ in range(2))
             dms = device_ms(lambda: kern(*call_args))
             row = {"root": tag, "case": name, "dtype": str(dt)[6:],
@@ -349,6 +374,8 @@ def main():
                 row.update(_yardstick(own_selfcheck(), name, call_args,
                                       kern(*call_args), dt, highest))
             print(json.dumps({**row, "card": card}), flush=True)
+    if args.save:
+        torch.save(saved, args.save)
 
 
 if __name__ == "__main__":
