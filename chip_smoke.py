@@ -84,9 +84,11 @@ raises and exits non-zero:
                 (bound), and for the kernels that a CLI path or the kernel
                 API phase runs in f32 (F32_PATH) the f32 kernel / plain /
                 library-call ms (under highest(), TF32 off) and bound too
-                (the f32 GEMM's and spatial attention's products as three
-                TF32 products, the FMA pipes' time beside it); for #24
-                also the stem's cuDNN composition's ms;
+                (the f32 GEMM's, spatial attention's and #24's pointwise
+                products as three TF32 products, the FMA pipes' time
+                beside it); for #24 also its composition yardstick's ms in
+                both dtypes (selfcheck.sepconv_cudnn: the stem's cuDNN
+                route);
                 then the float GEMM alone (kernels/linear.gemm) at each of
                 its callers' shapes at the slice (selfcheck.gemm_shapes:
                 #18, #20 and its backward, #21 / #6 / #22 fc1 and fc2, #19,
@@ -561,26 +563,6 @@ def _tally(want_nonzero):
 # 3. kernels vs plain
 
 
-def _cudnn_sepconv(args):
-    """The stem's own route for a sepconv_bn case, timed beside it: cuDNN's
-    grouped 3x3 conv and 1x1 conv on channels_last tensors, then the
-    affine (several PyTorch calls, so not a library_ms)."""
-    x, dw, pw, a, b, relu_in = args
-    cin, cout = pw.shape
-    xc = x.permute(0, 3, 1, 2)                   # NHWC memory: channels_last
-    w_dw = dw.t().reshape(cin, 1, 3, 3).to(x.dtype)
-    w_pw = pw.t().reshape(cout, cin, 1, 1).to(x.dtype).contiguous(
-        memory_format=torch.channels_last)
-    a4, b4 = (t.to(x.dtype).reshape(1, cout, 1, 1) for t in (a, b))
-
-    def run():
-        y = F.conv2d(xc.clamp_min(0) if relu_in else xc, w_dw, padding=1,
-                     groups=cin)
-        return F.conv2d(y, w_pw) * a4 + b4
-
-    return run
-
-
 def check_kernels(dev):
     """Every case vs its plain version in f32 and bf16, then bf16 times.
     Returns {case: JSON fields}."""
@@ -610,7 +592,7 @@ def check_kernels(dev):
         lib_ms = None if lib is None else median_ms(lib)
         bound_ms, bound_by = selfcheck.case_bound_ms(counter, args16, out16)
         if counter == "sepconv_bn":
-            extra["cudnn_ms"] = median_ms(_cudnn_sepconv(args16))
+            extra["cudnn_ms"] = median_ms(selfcheck.sepconv_cudnn(args16))
         if counter in F32_PATH:
             # a path runs it in f32: time that too, with its yardstick
             with highest():
@@ -618,11 +600,14 @@ def check_kernels(dev):
                           median_ms(lambda: plain(*args))]
                 lib32 = selfcheck.library_call(counter, args)
                 lib32_ms = None if lib32 is None else median_ms(lib32)
+                cudnn32 = ({"cudnn_ms": median_ms(
+                    selfcheck.sepconv_cudnn(args))}
+                    if counter == "sepconv_bn" else {})
             b32, by32 = selfcheck.case_bound_ms(counter, args, got,
                                                 torch.float32)
             extra["f32"] = {"ms": f32_ms[0], "plain_ms": f32_ms[1],
                             "bound_ms": b32, "bound_by": by32,
-                            "library_ms": lib32_ms}
+                            "library_ms": lib32_ms, **cudnn32}
             fma = ""
             if counter in selfcheck.TF32_CASES:
                 # the same products on the FMA pipes: a reading for the
@@ -632,7 +617,8 @@ def check_kernels(dev):
                 fma = f", FMA pipes {fma_ms:.4f}"
             phase("kernels", f"{name}: f32 median ms kernel {f32_ms[0]:.4f} "
                   f"plain {f32_ms[1]:.4f} library {lib32_ms} bound "
-                  f"{b32:.4f} ({by32}{fma})")
+                  f"{b32:.4f} ({by32}{fma})"
+                  + "".join(f"; {k} {v:.4f}" for k, v in cudnn32.items()))
         crit = ("rel-L2 < " if counter in selfcheck.FREE_RUNNING_CASES
                 else "") + str(selfcheck.f32_tol(name))
         phase("kernels", f"{name}: f32 max|diff| {err32:.3e} "

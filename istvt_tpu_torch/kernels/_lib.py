@@ -136,9 +136,10 @@ _SIGNATURES = {
     # q, k, v, dout, dq, dk, dv, dt, B, T1, S, H, dh, scale, stream
     "istvt_temporal_unpacked_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, ctypes.c_float, _P],
-    # x, dw, pw, a, b, out, dt, N, H, W, Cin, Cout, relu_in, stream
+    # x, dw, pw, a, b, out, dt, N, H, W, Cin, Cout, relu_in, th, tw,
+    # per_split, kc, smem (kernels/conv._sepconv_plan), stream
     "istvt_sepconv_bn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P],
+                         _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

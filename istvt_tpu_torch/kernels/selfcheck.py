@@ -648,16 +648,17 @@ def bound_ms(ops: dict, nbytes) -> tuple:
 # computing the same function.
 
 # the kernels whose float products run on the tensor cores in f32 as three
-# TF32 products a multiply-add: those on the float GEMM and the spatial
-# attention cores (#10, #13, #14, #15, #2's core); the other f32 products
-# (the temporal cores, #24) run on the FMA pipes (#9 runs both kinds)
+# TF32 products a multiply-add: those on the float GEMM, the spatial
+# attention cores (#10, #13, #14, #15, #2's core) and #24's pointwise (its
+# depthwise stays f32 on the FMA pipes); the other f32 products (the
+# temporal cores) run on the FMA pipes (#9 runs both kinds)
 TF32_CASES = ("ln_matmul", "matmul_bias_residual",
               "matmul_bias_residual/no_r", "ln_ff_residual",
               "ln_ff_residual/h1", "ln_ff_residual/bwd", "ln_matmul/bwd",
               "fused_ff", "ln_ff_residual_q8", "spatial_attention_packed",
               "spatial_attention_packed/bwd", "fused_frame_attention",
               "fused_frame_attention_mh", "fused_frame_attention_bwd",
-              "mm_q8_ln_qkv_q8_spatial_attention")
+              "mm_q8_ln_qkv_q8_spatial_attention", "sepconv_bn")
 
 
 def case_ops(name, args):
@@ -812,6 +813,28 @@ def library_call(name, args):
         return lambda: torch.autograd.grad(out, (q, k, v), gout,
                                            retain_graph=True)
     return None
+
+
+def sepconv_cudnn(args):
+    """#24's composition yardstick: the stem's own route for a sepconv_bn
+    case (models/xception.py), cuDNN's grouped 3x3 conv and 1x1 conv on
+    channels_last tensors in the case's dtype, then the affine. Several
+    PyTorch calls, so not a library_call; timed beside the kernel only
+    (the port never calls it), in f32 under highest() (TF32 off)."""
+    x, dw, pw, a, b, relu_in = args
+    cin, cout = pw.shape
+    xc = x.permute(0, 3, 1, 2)                   # NHWC memory: channels_last
+    w_dw = dw.t().reshape(cin, 1, 3, 3).to(x.dtype)
+    w_pw = pw.t().reshape(cout, cin, 1, 1).to(x.dtype).contiguous(
+        memory_format=torch.channels_last)
+    a4, b4 = (t.to(x.dtype).reshape(1, cout, 1, 1) for t in (a, b))
+
+    def run():
+        y = F.conv2d(xc.clamp_min(0) if relu_in else xc, w_dw, padding=1,
+                     groups=cin)
+        return F.conv2d(y, w_pw) * a4 + b4
+
+    return run
 
 
 def gemm_bound_ms(ops) -> tuple:

@@ -1116,6 +1116,103 @@ def test_kernel_api_wrappers_backward_on_card(cuda):
         assert (gx - gr).abs().max() <= 1e-5 * gr.abs().max()
 
 
+# #24 where each edge of its design is hit: (frames, H, W, Cin, Cout,
+# relu_in). H and W off the 8 x 16 / 16 x 8 pixel tile (147, 37, 11, 4;
+# 30 x 8 takes the 16 x 8 tile),
+# Cout off the 64-channel N-tile (728, 72, 40, 36, 7), Cin off the 32-deep
+# k-step and the 64-channel halo chunk (24, 40) and off the 16-byte vector
+# (3, 5; 12 and 20 in bf16: the halo staged element by element; Cout 36 in
+# bf16 and 7: pw and the output likewise), Cin past what A holds whole
+# (728 in f32, 1024 in bf16: A in chunks, recomputed each N-tile), and
+# relu_in both ways
+SEPCONV_EDGES = [(2, 147, 147, 64, 128, False), (3, 37, 37, 256, 728, True),
+                 (2, 11, 11, 24, 72, True), (2, 4, 4, 40, 40, False),
+                 (2, 13, 11, 3, 24, True), (2, 9, 7, 20, 36, False),
+                 (3, 6, 21, 12, 64, True), (1, 7, 5, 5, 7, True),
+                 (2, 30, 8, 32, 64, False), (2, 19, 19, 728, 728, True),
+                 (1, 10, 10, 1024, 160, False)]
+
+
+def _sepconv_args(cuda, frames, h, w, cin, cout, relu_in, dtype, seed=0,
+                  pw_offset=0):
+    """sepconv_bn's arguments drawn as selfcheck draws a unit's (pw, in
+    x's dtype, `pw_offset` elements into its storage on the card)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(frames, h, w, cin, generator=g) * 0.5
+    dw = (torch.rand(9, cin, generator=g) * 2 - 1) / 3
+    pw = (torch.rand(cin, cout, generator=g) * 2 - 1) * cin ** -0.5
+    bn = (torch.rand(cout, generator=g) + 0.5,
+          torch.randn(cout, generator=g) * 0.1,
+          torch.randn(cout, generator=g) * 0.05,
+          torch.rand(cout, generator=g) + 0.5)
+    a, b = conv.fold_bn(*bn)
+    buf = torch.empty(cin * cout + pw_offset, dtype=dtype, device=cuda)
+    buf[pw_offset:] = pw.reshape(-1).to(cuda, dtype)
+    pw = buf[pw_offset:].view(cin, cout)
+    return [x.to(cuda, dtype), dw.to(cuda), pw,
+            *(t.to(cuda) for t in (a, b)), relu_in]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SEPCONV_EDGES,
+                         ids=["x".join(map(str, s[:5])) + ("-relu" if s[5]
+                                                          else "")
+                              for s in SEPCONV_EDGES])
+def test_sepconv_bn_matches_plain_at_its_edges(cuda, record_property, shape,
+                                               dtype):
+    """#24 against sepconv_bn_plain, one launch a call: f32 at atol = rtol
+    = 1e-5 (three TF32 products a multiply-add), bf16 by the bf16
+    criterion."""
+    args = _sepconv_args(cuda, *shape, dtype)
+    before = _lib.LAUNCHES["sepconv_bn"]
+    with highest():
+        got, want = conv.sepconv_bn(*args), conv.sepconv_bn_plain(*args)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["sepconv_bn"] == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        ok, err = selfcheck.f32_close("sepconv_bn", got, want)
+        record_property("max_abs_err", err)
+        assert ok, err
+    else:
+        ok, rel, mx, scale = selfcheck.bf16_close(got, want)
+        assert ok, (rel, mx, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sepconv_bn_takes_pw_off_16_bytes(cuda, dtype):
+    """pw at an address off 16 bytes (a view one element into its storage,
+    which the wrapper passes on as it is): its ring stages are copied
+    element by element, the output is the plain version's."""
+    args = _sepconv_args(cuda, 2, 13, 11, 64, 72, True, dtype, pw_offset=1)
+    assert args[2].data_ptr() % 16 != 0
+    with highest():
+        got, want = conv.sepconv_bn(*args), conv.sepconv_bn_plain(*args)
+    if dtype == torch.float32:
+        assert selfcheck.f32_close("sepconv_bn", got, want)[0]
+    else:
+        assert selfcheck.bf16_close(got, want)[0]
+
+
+def test_sepconv_bn_f32_same_output_with_the_opt_in_twice(cuda):
+    """On an f32 input at block3.0's channels (193 KB of shared memory a
+    block, past the 48 KB a launch gets without the opt-in), two calls in
+    one process, each after the opt-in, give the same output bit for bit,
+    and the plain version's at 1e-5."""
+    args = _sepconv_args(cuda, 2, 37, 37, 256, 728, True, torch.float32)
+    assert conv._sepconv_plan(2, 37, 37, 256, 728,
+                              torch.float32).smem > 48 * 1024
+    with highest():
+        first = conv.sepconv_bn(*args)
+        second = conv.sepconv_bn(*args)
+        want = conv.sepconv_bn_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert selfcheck.f32_close("sepconv_bn", first, want)[0]
+
+
 def test_kernel_api_rejects_what_the_kernels_cannot_take(cuda):
     # S = 392 and T1 = 9, past what the cores once took: run, and held to
     # the plain versions in f32 (summation order only; #17 per output

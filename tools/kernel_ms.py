@@ -13,15 +13,21 @@ unpacked, #14, #15; `gemm`: the kernels that run the float GEMM, #6,
 #18-#23; `temporal`: the temporal core #11, its backward #12 and #1, which
 runs the core after its GEMM) in bf16 and in f32 (or in --dtype alone) on
 the case's seeded inputs, for B clips (default 2, the slice; 16 for the
-B=16 forward's shapes): the smaller of two medians
+B=16 forward's shapes; #24's cases take the stem's 6 B frames): the
+smaller of two medians
 of 20 CUDA-event timings of one call (chip_smoke.py's phase-3 timing), the
 warm-up outside them, and `device_ms`, the device time of one call with the
 host's launch overhead hidden; with --library also the device ms of the
 case's PyTorch yardstick on the same inputs (selfcheck.library_call, in
 f32 under highest(): TF32 off) and its bound (selfcheck.case_bound_ms: in
-f32 the spatial cores' and GEMMs' products as three TF32 products). Prints
+f32 the spatial cores', GEMMs' and #24's pointwise products as three TF32
+products), and for #24 the device ms of its composition yardstick, the
+stem's cuDNN route (selfcheck.sepconv_cudnn, cudnn_ms). Prints
 one JSON line per case and dtype: root, case, dtype, batch, ms, device_ms
-(library_ms, bound_ms, bound_by), and the card's name and power limit.
+(library_ms, cudnn_ms, bound_ms, bound_by), and the card's name and power
+limit. #24 at its four units, parent against change:
+    --root DIR --cases sepconv_bn,sepconv_bn@block1.0,sepconv_bn@block1.1,\
+        sepconv_bn@block3.0 --library [--batch 16]
 
 With --layer-phases it times the 14 phases of the one-launch int8 layer #9
 (kernels/quant.st_layer_q8) at the slice and at B=16, in bf16 and f32: the
@@ -240,17 +246,28 @@ def gemm_rows(sc, device, batch=2, nt=False, dtype=torch.bfloat16):
                sc.gemm_bound_ms(ops), ops, nt_ms)
 
 
+def batch_geometry(geometry, batch):
+    """`geometry` at B clips: b = B, and 6 B frames for #24's units (the
+    stem runs each clip's 6 frames)."""
+    return {**geometry, "b": batch, "frames": 6 * batch}
+
+
 def _yardstick(sc, name, args, out, dtype, highest):
     """{library_ms, bound_ms, bound_by} of a case by this checkout's
     selfcheck `sc`: the device ms of its one-call yardstick (library_call;
     None where it has none; under highest() in f32) and its bound for
-    activations of dtype (case_bound_ms)."""
+    activations of dtype (case_bound_ms); for #24 also cudnn_ms, the
+    device ms of its composition yardstick (sepconv_cudnn)."""
     counter = sc.counter(name)
+    row = {}
     with highest():
         lib = sc.library_call(counter, args)
-        lib_ms = None if lib is None else device_ms(lib)
-    bound, by = sc.case_bound_ms(counter, args, out, dtype)
-    return {"library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+        row["library_ms"] = None if lib is None else device_ms(lib)
+        if counter == "sepconv_bn":
+            row["cudnn_ms"] = device_ms(sc.sepconv_cudnn(args))
+    row["bound_ms"], row["bound_by"] = sc.case_bound_ms(counter, args, out,
+                                                        dtype)
+    return row
 
 
 def main():
@@ -353,8 +370,8 @@ def main():
                     "sum_us": float(us.sum()), "device_ms": dms,
                     "card": card}), flush=True)
         return
-    cases = selfcheck.slice_cases(torch.device("cuda"),
-                                  {**selfcheck.SLICE, "b": args.batch})
+    cases = selfcheck.slice_cases(torch.device("cuda"), batch_geometry(
+        selfcheck.SLICE, args.batch))
     names = CASE_SETS.get(args.cases, args.cases.split(","))
     dtypes = {None: (torch.bfloat16, torch.float32),
               "bf16": (torch.bfloat16,), "f32": (torch.float32,)}[args.dtype]
